@@ -1,0 +1,107 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel is a ``csrc/*.cu`` file with a plain C interface.  At first use
+it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``_build/`` (listed in ``.gitignore``), named by a hash of its source and
+flags, and loaded with ``ctypes``: pointers and the stream pass as
+``c_void_p``.  Nothing is built when a module is imported, so the CPU tests
+import every module on hosts without ``nvcc``.
+
+``launches`` counts kernel launches by kernel name: each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: kernel name -> its source file under csrc/
+SOURCES = {"normalize_frame": "normalize_frame.cu"}
+
+#: kernel name -> launches since the last reset
+launches: "collections.Counter[str]" = collections.Counter()
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    found = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a host with the CUDA toolkit")
+    return found
+
+
+def _library_path(name: str) -> str:
+    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    per source, all started together; returns name -> library path."""
+    paths = {n: _library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return paths
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n, p in todo.items():
+        tmp = f"{p}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT), tmp)
+    errors = []
+    for n, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{SOURCES[n]}:\n{out.decode(errors='replace')}")
+            continue
+        os.replace(tmp, todo[n])   # atomic: a concurrent loader never
+        # sees a half-written library
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built on first call)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(build([name])[name])
+            lib.nns_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.nns_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a C entry point returned a nonzero cudaError_t."""
+    if code:
+        msg = lib.nns_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

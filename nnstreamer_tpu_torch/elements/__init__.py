@@ -1,0 +1,14 @@
+"""Element library of the port.  Importing this package registers every
+element factory the port has (the reference's plugin registerer role,
+gst/nnstreamer/registerer/nnstreamer.c:91-133): the flagship
+image-labeling pipeline's elements, and nothing else yet.
+"""
+
+from .converter import TensorConverter
+from .decoder_elem import TensorDecoder
+from .filter_elem import TensorFilter
+from .sink import FakeSink, TensorSink
+from .src import VideoTestSrc
+
+__all__ = ["FakeSink", "TensorConverter", "TensorDecoder", "TensorFilter",
+           "TensorSink", "VideoTestSrc"]

@@ -1,0 +1,68 @@
+"""Model registry: named models the ``xla`` filter backend serves.
+
+The PyTorch counterpart of ``nnstreamer_tpu/models/registry.py``: a model
+is an ``nn.Module`` whose ``forward`` takes one unbatched frame per input
+and returns a tuple of outputs, built on an explicit device.  The JAX
+package's ``host_init`` and orbax checkpoint restore have no counterpart
+here yet; weights are random from ``custom=seed:N``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..device import DeviceLike
+from ..tensor.info import TensorsInfo
+
+
+@dataclasses.dataclass
+class Model:
+    """A ready-to-serve model.
+
+    ``module(*inputs) -> tuple(outputs)`` operates on *unbatched*
+    numpy-shaped tensors (one stream frame) on ``device``.
+    ``in_info``/``out_info`` use reference dim order (innermost first)."""
+
+    name: str
+    module: nn.Module
+    device: torch.device
+    in_info: TensorsInfo
+    out_info: TensorsInfo
+
+
+#: name -> build(custom_props: dict, device) -> Model
+_MODELS: Dict[str, Callable[..., Model]] = {}
+
+
+def register_model(name: str):
+    def deco(build: Callable[..., Model]):
+        _MODELS[name] = build
+        return build
+    return deco
+
+
+def _ensure_loaded() -> None:
+    from . import mobilenet_v2  # noqa: F401
+
+
+def get_model(name: str, custom_props: Optional[Dict[str, str]] = None,
+              device: DeviceLike = None) -> Model:
+    """Build model ``name`` on ``device`` (``None``: the card)."""
+    _ensure_loaded()
+    if name not in _MODELS:
+        raise KeyError(f"unknown model {name!r}; known: {sorted(_MODELS)}")
+    return _MODELS[name](custom_props or {}, device)
+
+
+def has_model(name: str) -> bool:
+    _ensure_loaded()
+    return name in _MODELS
+
+
+def list_models() -> List[str]:
+    _ensure_loaded()
+    return sorted(_MODELS)

@@ -35,6 +35,9 @@ def pytest_configure(config):
         "markers", "perf: hot-path regression smokes (copy gates via "
                    "tools/hotpath_bench.py --assert; fast, "
                    "counter-based, tier-1 runs them)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the PyTorch "
+                   "port's CUDA kernels); skips without one")
 
 
 @pytest.fixture(scope="session")
