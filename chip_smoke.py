@@ -9,15 +9,26 @@ Phases, each of which must pass:
 1. build every CUDA kernel of the port from ``nnstreamer_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and a few others, and time both, plus the one
-   PyTorch call that computes the same function where there is one;
-3. drive the main path, the flagship image-labeling pipeline of the
-   README at full width (MobileNetV2 1.0, 224x224, 1001 classes, bf16)
-   with ``custom=use_pallas:1``, through the port's ``parse_launch``, with
-   every kernel launch counter set to 0 just before and read just after;
-4. check what came out: every frame has a label, the labels equal those
-   of the same model run with the plain normalization, the logits are
-   finite, and the card's f32 forward agrees with the CPU's.
+   paths' shapes and a few others, and time both, plus the one PyTorch
+   call that computes the same function where there is one;
+3. drive each path through the port's entry points at full width, with
+   every kernel launch counter set to 0 just before it and read just
+   after:
+
+   - ``main_path``: the flagship image-labeling pipeline of the README
+     (MobileNetV2 1.0, 224x224, 1001 classes, bf16, ``use_pallas:1``);
+   - ``vit_path``: the same pipeline on ViT-S/16 (dim 384, depth 12,
+     6 heads x 64, T = 197, bf16): 12 flash-attention launches a frame;
+   - ``lm_filter``: StreamFormer LM full-sequence logits as a stream
+     filter at seq 2048 (vocab 8192, dim 512, 8 heads x 64, 4 layers,
+     2 experts): 4 causal flash launches a frame;
+   - ``llm_serve``: the dense-slot decode engine at that LM's width,
+     8 sessions prefilled through the kernel (``layers`` launches each),
+     then batched and single-lane decode steps;
+4. check what came out: the labels and logits of each path against the
+   same model run with the kernels' plain versions (and MobileNetV2's f32
+   forward against the CPU's), the LM engine's token streams against an
+   engine that prefills with plain attention.
 
 Earlier lines are JSON objects of the phases' numbers, the card's name and
 power limit as ``nvidia-smi`` gives them, and the ``kernels`` line; the
@@ -41,6 +52,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12        # tensor cores, bf16 and f16
 
 LAUNCH = ("videotestsrc num-buffers={frames} pattern=random seed={seed} ! "
           "video/x-raw,format=RGB,width=224,height=224,framerate=30/1 ! "
@@ -49,6 +61,51 @@ LAUNCH = ("videotestsrc num-buffers={frames} pattern=random seed={seed} ! "
           "custom=seed:{seed},use_pallas:1 ! "
           "tensor_decoder mode=image_labeling ! "
           "tensor_sink name=out")
+
+
+#: ViT-S/16 at 224x224, 1000 classes: the registry's defaults
+VIT_SIZE = 224
+VIT_CLASSES = 1000
+VIT_LAUNCH = ("videotestsrc num-buffers={frames} pattern=random seed={seed} ! "
+              f"video/x-raw,format=RGB,width={VIT_SIZE},height={VIT_SIZE},"
+              "framerate=30/1 ! tensor_converter ! "
+              "tensor_filter name=f framework=xla model=vit "
+              "custom=seed:{seed} ! "
+              "tensor_decoder mode=image_labeling ! "
+              "tensor_sink name=out")
+
+#: the LM shape of the JAX package's benchmark (bench.py ``lm``)
+LM_CUSTOM = {"vocab": "8192", "dim": "512", "heads": "8", "head_dim": "64",
+             "mlp": "2048", "layers": "4", "experts": "2"}
+LM_SEQ = 2048
+LM_LAUNCH = ("appsrc name=src caps=other/tensors,format=static,num_tensors=1,"
+             "dimensions={seq},types=int32,framerate=0/1 ! "
+             "tensor_filter name=f framework=xla model=streamformer_lm "
+             "custom={custom} ! tensor_sink name=out")
+#: the engine's prompt lengths: 8 sessions, 8 different prefill shapes
+#: after power-of-two padding
+SERVE_PROMPTS = (7, 19, 33, 64, 100, 150, 230, 300)
+#: decode steps of the f32 engines that hold the token streams
+F32_STEPS = 16
+#: greedy choices are compared only where the reference's top-2 margin
+#: exceeds this (a smaller margin can flip on bf16 rounding)
+MARGIN = 0.1
+#: logits |kernel run - plain run| <= LOGITS_ATOL + LOGITS_RTOL * |plain|
+#: for the bf16 paths: the bound of the JAX package's tests/test_vit.py
+#: for flash vs naive ViT
+LOGITS_ATOL = 5e-2
+LOGITS_RTOL = 5e-2
+#: the same in f32 (TF32 off): kernel and plain attention differ only in
+#: summation order
+F32_LOGITS_ATOL = 1e-3
+#: StreamFormer routes each token to ONE expert by the argmax of two gate
+#: logits.  In bf16, rounding differences of ~1e-3 between two runs flip
+#: the choice for the tokens whose two gate logits nearly tie (about one
+#: decision in 400), and a flipped token's logits move by O(1).  So a bf16
+#: LM run is held to the plain run statistically (at most this share of
+#: rows beyond LOGITS_ATOL, of confident argmaxes differing), and exactly
+#: in f32, where no choice flips.
+BF16_LM_SHARE = 0.02
 
 
 def emit(obj) -> None:
@@ -160,16 +217,127 @@ def check_normalize_frame(reps: int) -> dict:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
 
 
+#: flash attention (K2) rows: (name, tq, tkv, h, d, causal, dtype,
+#: q_offset, k_offset); the first three are the paths' shapes
+FLASH_ROWS = [
+    ("vit", 197, 197, 6, 64, False, "bfloat16", 0, 0),
+    ("lm", 2048, 2048, 8, 64, True, "bfloat16", 0, 0),
+    ("streamformer_default", 64, 64, 8, 16, True, "bfloat16", 0, 0),
+    ("vit_f32", 197, 197, 6, 64, False, "float32", 0, 0),
+    ("vit_f16", 197, 197, 6, 64, False, "float16", 0, 0),
+    # keys start 64 positions after the queries: rows 0..63 see no key
+    ("offset_lse", 256, 256, 8, 64, True, "bfloat16", 0, 64),
+]
+#: |kernel - plain| <= atol + rtol * |plain| on out; lse <= LSE_ATOL
+FLASH_TOL = {"float32": (1e-4, 0.0), "float16": (3e-2, 1e-2),
+             "bfloat16": (3e-2, 1e-2)}
+LSE_ATOL = 1e-3
+
+
+def flash_bound_ms(tq, tkv, h, d, causal, itemsize, q_offset, k_offset):
+    """Least time for one K2 call: each of q, k, v read once, out and lse
+    written once, over HBM; 4*D operations per visible (query, key) pair
+    (this call's mask) over the dtype's peak.  Returns (ms, bound_by)."""
+    nbytes = (2 * tq + 2 * tkv) * h * d * itemsize + h * tq * 4
+    if causal:
+        pairs = sum(min(tkv, max(0, q_offset + i - k_offset + 1))
+                    for i in range(tq))
+    else:
+        pairs = tq * tkv
+    peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * d * h * pairs / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_flash_attention(reps: int) -> dict:
+    """flash_attention against its plain version at FLASH_ROWS, with the
+    tolerances above; rows that see no key must be exactly 0 and -inf."""
+    import torch
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version in f32
+    gen = torch.Generator().manual_seed(1)
+    rows, failures = [], []
+    for (name, tq, tkv, h, d, causal, dt, qo, ko) in FLASH_ROWS:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(t, h, d, generator=gen).to("cuda", dtype)
+                   for t in (tq, tkv, tkv))
+        kw = dict(causal=causal, q_offset=qo, k_offset=ko)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        want, want_lse = flash_attention_reference(q, k, v, return_lse=True,
+                                                   **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs()
+        atol, rtol = FLASH_TOL[dt]
+        dead = torch.isinf(want_lse)
+        lse_err = ((lse - want_lse)[~dead].abs().max().item()
+                   if (~dead).any() else 0.0)
+        ok = (bool((err <= atol + rtol * want.float().abs()).all())
+              and torch.equal(torch.isinf(lse), dead)
+              and lse_err <= LSE_ATOL
+              and bool((out.float().permute(1, 0, 2)[dead] == 0).all()))
+        if not ok:
+            failures.append(name)
+        # the library call: SDPA on (1, H, T, D) views (a 3-D input takes
+        # its slow math path); an explicit mask where the offsets move the
+        # causal diagonal
+        qh, kh, vh = (x.transpose(0, 1)[None] for x in (q, k, v))
+        mask = None
+        if causal and (qo or ko or tq != tkv):
+            mask = ((ko + torch.arange(tkv, device="cuda"))[None, :]
+                    <= (qo + torch.arange(tq, device="cuda"))[:, None])
+        lib = (lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask,
+            is_causal=causal and mask is None))
+        bound, bound_by = flash_bound_ms(tq, tkv, h, d, causal,
+                                         q.element_size(), qo, ko)
+        rows.append({
+            "case": name, "q": [tq, h, d], "kv": [tkv, h, d],
+            "causal": causal, "dtype": dt, "q_offset": qo, "k_offset": ko,
+            "max_abs_err": err.max().item(), "lse_max_abs_err": lse_err,
+            "dead_rows": int(dead.sum()), "ok": ok,
+            "kernel_ms": time_ms(lambda: flash_attention(q, k, v, **kw),
+                                 reps),
+            "kernel_call_ms": time_ms(
+                lambda: flash_attention(q, k, v, **kw), reps,
+                backlog=False),
+            "plain_ms": time_ms(
+                lambda: flash_attention_reference(q, k, v, **kw), reps),
+            "library_ms": time_ms(lib, reps),
+            "bound_ms": bound, "bound_by": bound_by})
+    emit({"phase": "kernel", "kernel": "flash_attention", "rows": rows})
+    if failures:
+        raise AssertionError(f"flash_attention differs from its plain "
+                             f"version beyond tolerance at {failures}")
+    main = rows[0]            # the ViT layer: the first attention path
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "nnstreamer_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "nnstreamer_tpu/ops/flash_attention.py:282",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"]}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def run_main_path(frames: int, seed: int, card: str) -> dict:
+def run_labeling(phase: str, launch: str, frames: int, seed: int,
+                 card: str, kernel: str, per_frame: int) -> dict:
+    """Drive an image-labeling pipeline of ``frames`` frames; ``kernel``
+    must launch ``per_frame`` times a frame (and as often in the filter's
+    warm-up invoke)."""
     from nnstreamer_tpu_torch import _cuda, parse_launch
 
     stamps = []
     _cuda.reset_launches()
-    p = parse_launch(LAUNCH.format(frames=frames, seed=seed))
+    p = parse_launch(launch.format(frames=frames, seed=seed))
     p.get("out").connect("new-data",
                          lambda buf: stamps.append(time.perf_counter()))
     t0 = time.perf_counter()
@@ -184,18 +352,17 @@ def run_main_path(frames: int, seed: int, card: str) -> dict:
     # the next is made, so the gap between sink arrivals is the per-frame
     # latency from source to sink
     gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
-    row = {"phase": "main_path", "frames": frames, "launches": launches,
+    row = {"phase": phase, "frames": frames, "launches": launches,
            "fps": (len(stamps) - 1) / (stamps[-1] - stamps[0]),
            "p50_ms": statistics.median(gaps),
            "p90_ms": gaps[int(0.9 * (len(gaps) - 1))],
            "wall_s_incl_open": wall, "card": card}
     emit(row)
     # the filter's open runs one warm-up invoke; every frame runs one
-    want = frames + 1
-    if launches.get("normalize_frame", 0) != want:
-        raise AssertionError(f"normalize_frame launched "
-                             f"{launches.get('normalize_frame', 0)} times "
-                             f"on the main path, expected {want}")
+    want = per_frame * (frames + 1)
+    if launches.get(kernel, 0) != want:
+        raise AssertionError(f"{kernel} launched {launches.get(kernel, 0)} "
+                             f"times on {phase}, expected {want}")
     return {"labels": labels, "launches": launches}
 
 
@@ -265,58 +432,430 @@ def check_outputs(labels, frames: int, seed: int) -> None:
                              f"{max(diffs)} > 1e-3")
 
 
-def profile_main_path(frames: int, seed: int, out_dir: str) -> None:
-    """Trace a steady window of the main path (it opens before the trace
-    starts): device time by kernel, launches per frame and the device's
-    idle share.  The op table goes to ``out_dir/main_path_ops.txt``."""
+def top2_margin(logits):
+    """Top-1 minus top-2 along the last axis."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def check_vit_outputs(labels, frames: int, seed: int) -> None:
+    """The ViT path's labels and logits against the same model with plain
+    attention (``attn:naive``), frame by frame."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.registry import get_model
+
+    custom = {"seed": str(seed)}
+    kern_model = get_model("vit", custom).module
+    plain_model = get_model("vit", {**custom, "attn": "naive"}).module
+    worst, over, compared, differ = 0.0, 0, 0, []
+    with torch.inference_mode():
+        for i, img in enumerate(source_frames(frames, seed, VIT_SIZE)):
+            x = torch.from_numpy(img).cuda()
+            kern, plain = kern_model(x)[0], plain_model(x)[0]
+            if kern.shape != (VIT_CLASSES,) \
+                    or not torch.isfinite(kern).all():
+                raise AssertionError("ViT logits not finite or not "
+                                     f"({VIT_CLASSES},)")
+            diff = (kern - plain).abs()
+            worst = max(worst, diff.max().item())
+            over += int((diff > LOGITS_ATOL + LOGITS_RTOL * plain.abs())
+                        .sum())
+            if top2_margin(plain).item() > MARGIN:
+                compared += 1
+                if labels[i] != int(plain.argmax()):
+                    differ.append(i)
+    emit({"phase": "vit_outputs", "frames": frames,
+          "logits_max_abs_diff_vs_plain": worst, "atol": LOGITS_ATOL,
+          "rtol": LOGITS_RTOL, "logits_over_tolerance": over,
+          "frames_compared": compared, "margin": MARGIN,
+          "labels_differ": differ, "distinct_labels": len(set(labels))})
+    if over or differ:
+        raise AssertionError(f"ViT kernel run differs from plain attention: "
+                             f"{over} logits beyond tolerance (max "
+                             f"{worst}), labels on {differ}")
+
+
+def lm_f32_diff(custom: dict, tokens) -> float:
+    """Logits max |kernel - plain| of the LM filter's model built in f32,
+    on one frame's tokens."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.registry import get_model
+    from nnstreamer_tpu_torch.models.streamformer_lm import forward_logits
+
+    model = get_model("streamformer_lm", {**custom, "dtype": "float32"}
+                      ).module
+    t = torch.from_numpy(tokens).cuda()
+    with torch.inference_mode():
+        kern = forward_logits(model.params, t, model.cfg, flash=True)
+        plain = forward_logits(model.params, t, model.cfg, flash=False)
+    return (kern - plain).abs().max().item()
+
+
+def run_lm_filter(frames: int, seed: int, card: str) -> dict:
+    """StreamFormer LM logits as a stream filter at seq 2048: ``frames``
+    token frames through appsrc, each answered with (2048, 8192) logits
+    that must match the plain-attention forward of the same model."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.models.registry import get_model
+    from nnstreamer_tpu_torch.models.streamformer_lm import forward_logits
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    custom = {**LM_CUSTOM, "seq": str(LM_SEQ), "seed": str(seed)}
+    vocab = int(LM_CUSTOM["vocab"])
+    rng = np.random.default_rng(seed)
+    toks = [rng.integers(0, vocab, LM_SEQ).astype(np.int32)
+            for _ in range(frames)]
+    stamps, outs = [], []
+
+    def on_data(buf):
+        torch.cuda.synchronize()      # the frame's device work is done
+        stamps.append(time.perf_counter())
+        outs.append(buf.tensors[0])
+
+    _cuda.reset_launches()
+    p = parse_launch(LM_LAUNCH.format(
+        seq=LM_SEQ, custom=",".join(f"{k}:{v}" for k, v in custom.items())))
+    p.get("out").connect("new-data", on_data)
+    p.play()                          # opens the filter: one warm-up invoke
+    try:
+        t0 = time.perf_counter()
+        for t in toks:
+            p.get("src").push_buffer(TensorBuffer(tensors=[t]))
+        p.get("src").end_of_stream()
+        p.wait(timeout=600)
+    finally:
+        p.stop()
+    launches = dict(_cuda.launches)
+    gaps = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    row = {"phase": "lm_filter", "frames": frames, "seq": LM_SEQ,
+           "launches": launches,
+           "prefill_tok_s": frames * LM_SEQ / (stamps[-1] - t0),
+           "frame_ms": gaps, "card": card}
+    want = int(LM_CUSTOM["layers"]) * (frames + 1)  # frames + warm-up
+    if len(outs) != frames or launches.get("flash_attention", 0) != want:
+        emit(row)
+        raise AssertionError(f"lm_filter: {len(outs)} frames of {frames}, "
+                             f"flash_attention launched "
+                             f"{launches.get('flash_attention', 0)} times, "
+                             f"expected {want}")
+
+    model = get_model("streamformer_lm", custom).module
+    worst, compared, agree, rows_over = 0.0, 0, 0, 0
+    with torch.inference_mode():
+        for t, got in zip(toks, outs):
+            got = torch.as_tensor(got).cuda()
+            if got.shape != (LM_SEQ, vocab) \
+                    or not torch.isfinite(got).all():
+                raise AssertionError("LM logits not finite or not "
+                                     f"({LM_SEQ}, {vocab})")
+            plain = forward_logits(model.params, torch.from_numpy(t).cuda(),
+                                   model.cfg, flash=False)
+            diff = (got - plain).abs().amax(-1)
+            worst = max(worst, diff.max().item())
+            rows_over += int((diff > LOGITS_ATOL).sum())
+            sure = top2_margin(plain) > MARGIN
+            compared += int(sure.sum())
+            agree += int((got.argmax(-1) == plain.argmax(-1))[sure].sum())
+        f32_diff = lm_f32_diff(custom, toks[0])
+    row.update({"logits_max_abs_diff_vs_plain": worst, "atol": LOGITS_ATOL,
+                "rows_over_atol": rows_over, "rows": frames * LM_SEQ,
+                "positions_compared": compared, "argmax_equal": agree,
+                "f32_logits_max_abs_diff_vs_plain": f32_diff,
+                "f32_atol": F32_LOGITS_ATOL})
+    emit(row)
+    if (rows_over > BF16_LM_SHARE * frames * LM_SEQ
+            or compared - agree > BF16_LM_SHARE * compared
+            or f32_diff > F32_LOGITS_ATOL):
+        raise AssertionError(f"lm_filter differs from plain attention: "
+                             f"{rows_over} rows beyond {LOGITS_ATOL}, "
+                             f"argmax on {compared - agree} positions, "
+                             f"f32 logits by {f32_diff}")
+    return {"launches": launches}
+
+
+def _serve(params, cfg, prompts, steps: int, mode: str, timed: bool,
+           force=None):
+    """One engine over 8 sessions: prefill, one cold bucket step, then
+    ``steps`` timed bucket steps (and, when ``timed``, a warm single-lane
+    step and ``steps`` timed single-lane steps).  Returns each session's
+    greedy choices, each choice's top-2 margin, each prefill's last
+    logits and the timings.  With ``force`` (another run's choices) each
+    session is fed those tokens instead of its own, so both runs choose
+    on the same history at every position."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.llm import DecodeEngine, KVCachePool
+
+    pool = KVCachePool(cfg, len(prompts))
+    eng = DecodeEngine(params, cfg, pool, capacity=len(prompts),
+                       prefill_mode=mode)
+    sessions = [pool.acquire(i) for i in range(len(prompts))]
+    streams, margins, firsts = [], [], []
+
+    def margin_rows():
+        top = np.sort(eng.last_logits, axis=-1)
+        return top[:, -1] - top[:, -2]
+
+    t0 = time.perf_counter()
+    def feed(s, tok):
+        s.next_token = (force[s.key][len(streams[s.key]) - 1]
+                        if force is not None else tok)
+
+    for s, pr in zip(sessions, prompts):
+        tok = eng.prefill(s, pr)
+        streams.append([tok])
+        feed(s, tok)
+        margins.append([float(margin_rows()[0])])
+        firsts.append(torch.from_numpy(eng.last_logits[0].copy()))
+    out = {"prefill_s": time.perf_counter() - t0}
+
+    def bucket_step():
+        for s, tok, m in zip(sessions, eng.step(sessions), margin_rows()):
+            streams[s.key].append(tok)
+            margins[s.key].append(float(m))
+            feed(s, tok)
+
+    bucket_step()                      # first dispatch of the 8-lane shape
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        bucket_step()
+    out["bucket_s"] = time.perf_counter() - t0
+    if timed:
+        solo = sessions[:1]
+        solo[0].next_token = eng.step(solo)[0]   # first 1-lane dispatch
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            solo[0].next_token = eng.step(solo)[0]
+        out["solo_s"] = time.perf_counter() - t0
+    out.update(streams=streams, margins=margins, firsts=firsts,
+               report=eng.report())
+    return out
+
+
+def _agreement(run: dict, ref: dict):
+    """Greedy choices of two runs made on the same histories (one forced
+    by the other): at the positions where ``ref``'s top-2 margin exceeds
+    MARGIN, how many, how many equal, and the sessions where one
+    differs."""
+    compared, equal, differ = 0, 0, []
+    for i, (a, b, m) in enumerate(zip(run["streams"], ref["streams"],
+                                      ref["margins"])):
+        sure = [j for j, mj in enumerate(m) if mj > MARGIN]
+        same = sum(a[j] == b[j] for j in sure)
+        compared += len(sure)
+        equal += same
+        if same < len(sure):
+            differ.append(i)
+    return compared, equal, differ
+
+
+def _first_logits_diff(kern: dict, plain: dict) -> float:
+    return max((a - b).abs().max().item()
+               for a, b in zip(kern["firsts"], plain["firsts"]))
+
+
+def run_llm_serve(steps: int, seed: int, card: str) -> dict:
+    """The dense-slot decode engine at the LM filter's width, max_seq
+    2048: 8 sessions of different prompt lengths prefilled through the
+    flash kernel, then batched and single-lane decode steps, in bf16.
+    Its greedy choices are held to an engine that prefills with plain
+    attention and is fed the same tokens, wherever that engine's top-2
+    margin exceeds MARGIN: exactly in f32; in bf16, where a near-tied
+    expert choice can flip (BF16_LM_SHARE), the agreement is reported."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.models.streamformer_lm import (
+        config_from_custom, place_params)
+    from nnstreamer_tpu_torch.parallel.train_step import init_params
+
+    cfg = config_from_custom({**LM_CUSTOM, "max_seq": str(LM_SEQ)},
+                             device="cuda")
+    params = place_params(init_params(cfg, seed), cfg, "cuda")
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    _cuda.reset_launches()
+    kern = _serve(params, cfg, prompts, steps, "auto", timed=True)
+    launches = dict(_cuda.launches)
+    plain = _serve(params, cfg, prompts, steps, "naive", timed=False,
+                   force=kern["streams"])
+    bf16_compared, bf16_equal, bf16_differ = _agreement(kern, plain)
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = place_params(init_params(cfg32, seed), cfg32, "cuda")
+    plain32 = _serve(params32, cfg32, prompts, F32_STEPS, "naive",
+                     timed=False)
+    kern32 = _serve(params32, cfg32, prompts, F32_STEPS, "auto",
+                    timed=False, force=plain32["streams"])
+    compared, equal, differ = _agreement(kern32, plain32)
+    first32 = _first_logits_diff(kern32, plain32)
+    n = len(prompts)
+    row = {"phase": "llm_serve", "sessions": n, "steps": steps,
+           "max_seq": cfg.max_seq, "prompt_lens": list(SERVE_PROMPTS),
+           "launches": launches,
+           "prefill_tok_s": sum(SERVE_PROMPTS) / kern["prefill_s"],
+           "decode_tok_s_bucket8": steps * n / kern["bucket_s"],
+           "decode_tok_s_solo": steps / kern["solo_s"],
+           "margin": MARGIN,
+           "bf16_prefill_logits_max_abs_diff_vs_plain":
+               _first_logits_diff(kern, plain),
+           "bf16_tokens_compared": bf16_compared,
+           "bf16_tokens_equal": bf16_equal,
+           "bf16_streams_differ": bf16_differ,
+           "f32_steps": F32_STEPS,
+           "f32_prefill_logits_max_abs_diff_vs_plain": first32,
+           "f32_atol": F32_LOGITS_ATOL, "f32_tokens_compared": compared,
+           "f32_tokens_equal": equal, "f32_streams_differ": differ,
+           "engine": kern["report"], "card": card}
+    emit(row)
+    want = n * cfg.layers
+    if launches.get("flash_attention", 0) != want:
+        raise AssertionError(f"llm_serve: flash_attention launched "
+                             f"{launches.get('flash_attention', 0)} times, "
+                             f"expected {want} ({n} prefills x "
+                             f"{cfg.layers} layers)")
+    if differ or first32 > F32_LOGITS_ATOL:
+        raise AssertionError(f"llm_serve: f32 streams {differ} differ from "
+                             f"the plain-prefill engine; prefill logits by "
+                             f"{first32}")
+    return {"launches": launches}
+
+
+def trace(name: str, out_dir: str, run, units) -> None:
+    """Trace ``run()`` on the card: device time by kernel (the op table
+    goes to ``out_dir/<name>_ops.txt``), and per unit of work (``units``:
+    the profiler's events -> units the window held) the device busy time
+    and the launches; the device's idle share over the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from nnstreamer_tpu_torch import parse_launch
-
     os.makedirs(out_dir, exist_ok=True)
-    p = parse_launch(LAUNCH.format(frames=frames, seed=seed))
-    p.play()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            p.wait(timeout=600)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    finally:
-        p.stop()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     # torch renamed the device-time fields from *_cuda_* to *_device_*
     field = ("self_device_time_total"
              if hasattr(events[0], "self_device_time_total")
              else "self_cuda_time_total")
-    with open(os.path.join(out_dir, "main_path_ops.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_ops.txt"), "w") as f:
         f.write(events.table(sort_by=field, row_limit=60))
-    busy_us = sum(getattr(e, field) for e in events)
-    # the source streams while the profiler starts: count the frames the
-    # window holds by their one normalize_frame launch each
-    in_window = sum(e.count for e in events
-                    if "normalize_frame_kernel" in e.key)
+    # device time from the device's own events (kernels, copies): an
+    # operator recorded on this thread also carries its kernels' time
+    on_card = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(e, field) for e in on_card)
+    n = max(units(events), 1)
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cuLaunchKernelEx"))
-    emit({"phase": "profile", "frames_in_window": in_window,
+    top = sorted(on_card, key=lambda e: -getattr(e, field))[:6]
+    emit({"phase": "profile", "path": name, "units_in_window": n,
           "wall_us": wall_us, "device_busy_us": busy_us,
-          "device_busy_us_per_frame": busy_us / max(in_window, 1),
-          "launches_per_frame": launches / max(in_window, 1),
+          "device_busy_us_per_unit": busy_us / n,
+          "launches_per_unit": launches / n,
           "device_idle_share": 1.0 - busy_us / wall_us,
+          "top_device_share": {e.key[:60]: getattr(e, field) / busy_us
+                               for e in top},
           "out": out_dir})
+
+
+def profile_path(name: str, launch: str, frames: int, seed: int,
+                 out_dir: str, marker: str, per_frame: int) -> None:
+    """Trace a steady window of a labeling path (it opens before the
+    trace starts); a unit is a frame, counted by ``per_frame`` launches
+    of the kernel whose name contains ``marker`` (the source streams
+    while the profiler starts)."""
+    from nnstreamer_tpu_torch import parse_launch
+
+    p = parse_launch(launch.format(frames=frames, seed=seed))
+    p.play()
+    try:
+        trace(name, out_dir, lambda: p.wait(timeout=600),
+              lambda events: sum(e.count for e in events
+                                 if marker in e.key) // per_frame)
+    finally:
+        p.stop()
+
+
+def profile_lm(frames: int, steps: int, seed: int, out_dir: str) -> None:
+    """Trace the LM filter (a unit is a 2048-token frame, pushed after the
+    filter opened) and the decode engine's 8-lane bucket (a unit is a
+    step, after the 8 prefills and one step)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import parse_launch
+    from nnstreamer_tpu_torch.llm import DecodeEngine, KVCachePool
+    from nnstreamer_tpu_torch.models.streamformer_lm import (
+        config_from_custom, place_params)
+    from nnstreamer_tpu_torch.parallel.train_step import init_params
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    custom = {**LM_CUSTOM, "seq": str(LM_SEQ), "seed": str(seed)}
+    rng = np.random.default_rng(seed)
+    p = parse_launch(LM_LAUNCH.format(
+        seq=LM_SEQ, custom=",".join(f"{k}:{v}" for k, v in custom.items())))
+    p.play()
+
+    def push_all():
+        for _ in range(frames):
+            toks = rng.integers(0, int(LM_CUSTOM["vocab"]), LM_SEQ)
+            p.get("src").push_buffer(
+                TensorBuffer(tensors=[toks.astype(np.int32)]))
+        p.get("src").end_of_stream()
+        p.wait(timeout=600)
+
+    try:
+        trace("lm_filter", out_dir, push_all, lambda events: frames)
+    finally:
+        p.stop()
+
+    cfg = config_from_custom({**LM_CUSTOM, "max_seq": str(LM_SEQ)},
+                             device="cuda")
+    params = place_params(init_params(cfg, seed), cfg, "cuda")
+    pool = KVCachePool(cfg, len(SERVE_PROMPTS))
+    eng = DecodeEngine(params, cfg, pool, capacity=len(SERVE_PROMPTS))
+    sessions = [pool.acquire(i) for i in range(len(SERVE_PROMPTS))]
+    for s, n in zip(sessions, SERVE_PROMPTS):
+        s.next_token = eng.prefill(s, rng.integers(0, cfg.vocab, n))
+
+    def bucket_steps(count):
+        for _ in range(count):
+            for s, tok in zip(sessions, eng.step(sessions)):
+                s.next_token = tok
+
+    bucket_steps(1)                   # first dispatch of the 8-lane shape
+    trace("llm_serve", out_dir, lambda: bucket_steps(steps),
+          lambda events: steps)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=64)
+    ap.add_argument("--frames", type=int, default=64,
+                    help="frames of the MobileNetV2 main path")
+    ap.add_argument("--vit-frames", type=int, default=64)
+    ap.add_argument("--lm-frames", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=64,
+                    help="timed decode steps of the LLM engine")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=200,
                     help="timed launches per kernel measurement")
     ap.add_argument("--profile", metavar="DIR",
-                    help="also trace the main path into DIR")
+                    help="also trace every path into DIR")
     args = ap.parse_args(argv)
 
     try:
@@ -341,16 +880,29 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = False
 
     try:
-        kernels = [check_normalize_frame(args.reps)]
-        main_path = run_main_path(args.frames, args.seed, card)
+        kernels = [check_normalize_frame(args.reps),
+                   check_flash_attention(args.reps)]
+        main_path = run_labeling("main_path", LAUNCH, args.frames,
+                                 args.seed, card, "normalize_frame", 1)
+        check_outputs(main_path["labels"], args.frames, args.seed)
+        vit = run_labeling("vit_path", VIT_LAUNCH, args.vit_frames,
+                           args.seed, card, "flash_attention", 12)
+        check_vit_outputs(vit["labels"], args.vit_frames, args.seed)
+        lm = run_lm_filter(args.lm_frames, args.seed, card)
+        serve = run_llm_serve(args.steps, args.seed, card)
         for k in kernels:
-            k["launches"] = main_path["launches"].get(k["name"], 0)
+            # launches summed over every path's own run
+            k["launches"] = sum(path["launches"].get(k["name"], 0)
+                                for path in (main_path, vit, lm, serve))
             if k["launches"] == 0:
                 raise AssertionError(f"{k['name']} never launched on the "
-                                     "main path")
-        check_outputs(main_path["labels"], args.frames, args.seed)
+                                     "paths")
         if args.profile:
-            profile_main_path(args.frames, args.seed, args.profile)
+            profile_path("main_path", LAUNCH, args.frames, args.seed,
+                         args.profile, "normalize_frame_kernel", 1)
+            profile_path("vit_path", VIT_LAUNCH, args.vit_frames,
+                         args.seed, args.profile, "flash_forward_kernel", 12)
+            profile_lm(args.lm_frames, args.steps, args.seed, args.profile)
     except AssertionError as exc:
         return fail(str(exc))
 

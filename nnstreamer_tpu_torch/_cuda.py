@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: kernel name -> its source file under csrc/
-SOURCES = {"normalize_frame": "normalize_frame.cu"}
+SOURCES = {"normalize_frame": "normalize_frame.cu",
+           "flash_attention": "flash_attention.cu"}
 
 #: kernel name -> launches since the last reset
 launches: "collections.Counter[str]" = collections.Counter()

@@ -12,8 +12,10 @@ input gets the same hot-path discipline —
 - :meth:`set_postprocess` composes a decoder-pushed reduction into the
   forward, so only the reduced (small) outputs cross to the host.
 
-Micro-batched invoke (``invoke_batched``/``invoke_stacked``), the mesh
-and the compute-dtype wrapper are not ported yet.
+The :meth:`TorchExecMixin.pad_rows` quantizer is ported (the LLM decode
+engine pads its lanes with it); micro-batched invoke
+(``invoke_batched``/``invoke_stacked``), the mesh and the compute-dtype
+wrapper are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,6 +67,21 @@ class TorchExecMixin:
             return resolve_device(None)
         except RuntimeError as exc:
             raise FilterError(str(exc)) from exc
+
+    @staticmethod
+    def pad_rows(n: int, capacity: int = 0) -> int:
+        """Quantized pad target for an ``n``-row partial bucket: next
+        power of two up to 8, then multiples of 8, capped at
+        ``capacity`` — waste <= 7 rows above 8 and a bounded set of
+        shapes (``4 + capacity/8``) over every fill."""
+        cap = max(int(capacity), n, 1)
+        if n <= 8:
+            bucket = 1
+            while bucket < n:
+                bucket <<= 1
+        else:
+            bucket = (n + 7) & ~7
+        return min(bucket, cap)
 
     # -- hot path ------------------------------------------------------------
     def _to_device(self, x) -> torch.Tensor:

@@ -1,0 +1,228 @@
+"""Session-keyed KV-cache slot pool: bounded, admission-controlled,
+LRU/deadline-evicted.
+
+A token-streaming session's device state is one STATIC-shape cache slot
+(``(layers, max_seq, heads, head_dim)`` per K and V — the
+``models/streamformer_lm.py`` decode contract), so the whole tier's
+cache memory is fixed at construction: ``(slots + 1) × layers ×
+max_seq × heads × head_dim × 2 × itemsize`` bytes, one scratch slot
+included for padding lanes.  There is NO per-session allocation on the
+admission path — a session either gets a pre-allocated slot or an
+explicit shed with a retry-after hint, never unbounded memory (the
+query plane's overload doctrine applied to session state instead of
+queue depth).
+
+Slot admission composes the existing
+:class:`~nnstreamer_tpu_torch.query.overload.AdmissionController`: a
+watermark policy over SLOT occupancy sheds bronze sessions before the
+pool is full (so background traffic cannot take the last slots a gold
+prompt needs), drain mode sheds everything, and "no free slot" is the
+hard watermark underneath.  Eviction is explicit — client disconnect,
+EOS, or a deadline on sessions that stopped making progress — and an
+evicted slot returns to the free list with its device memory untouched
+(the next session's prefill overwrites it; positions beyond the new
+session's ``pos`` are masked by the decode math, so stale bytes can
+never leak into another session's attention).
+
+The PyTorch counterpart of ``nnstreamer_tpu/llm/pool.py``: the pooled
+cache is two preallocated torch tensors on the pool's device (``cuda:0``
+unless the caller asks for the CPU), which the decode engine updates in
+place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ..analysis.sanitizer import make_lock
+from ..device import DeviceLike, resolve_device
+from ..query.overload import AdmissionController, WatermarkShedPolicy
+
+#: slot-occupancy arm watermarks for the default slot shed policy:
+#: bronze sessions shed at 80 % occupancy, silver at 95 %; gold only
+#: sheds on the hard no-free-slot boundary (arm > 1 never arms).
+#: Hysteresis (disarm at half the arm point) rides the policy unchanged.
+SLOT_ARM = {"gold": 2.0, "silver": 0.95, "bronze": 0.80}
+
+
+def slot_admission_controller(retry_after_s: float = 0.25
+                              ) -> AdmissionController:
+    """The default slot-admission controller: the query plane's watermark
+    policy re-pointed at slot occupancy (depth = live sessions, capacity
+    = slots).  Same hysteresis, same drain-mode shed-everything."""
+    return AdmissionController(
+        policy=WatermarkShedPolicy(arm=dict(SLOT_ARM),
+                                   retry_after_s=retry_after_s))
+
+
+@dataclasses.dataclass
+class Session:
+    """One live token stream resident in the pool."""
+
+    key: Any                    # (client_id, wire seq) — or a local id
+    slot: int                   # cache slot id (stable for the life)
+    pos: int = 0                # next cache write position
+    next_token: int = 0         # token the next decode step consumes
+    emitted: int = 0            # tokens answered so far
+    max_new: int = 0            # granted continuation length
+    stop_token: int = -1        # ends the stream when emitted (<0: none)
+    truncated: bool = False     # granted < asked: end with a marker
+    qos: str = "silver"
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    born_s: float = 0.0
+    last_step_s: float = 0.0    # progress stamp (deadline eviction)
+    order: int = 0              # admission order (stable round-robin)
+    #: per-session lifecycle record (llm/tokenobs.SessionRecord) when
+    #: the element's token-level observability is on; None when off —
+    #: every hot-path hook gates on this single attribute test (the
+    #: annotation_active() zero-cost discipline)
+    obs: Any = None
+
+
+class KVCachePool:
+    """Bounded slot pool + the pooled device cache arrays.
+
+    ``k``/``v`` are the ``(slots + 1, layers, max_seq, heads, head_dim)``
+    pooled cache (``models/streamformer_lm.decode_step_pooled``'s
+    operand); index ``slots`` is the SCRATCH slot padding lanes write
+    into, never handed to a session.  The pool owns slot bookkeeping —
+    free list, live sessions by key, LRU order, occupancy — under one
+    small lock; the decode engine reads/writes the arrays themselves
+    from the single decode thread, so array access needs no lock.
+    """
+
+    def __init__(self, cfg, slots: int,
+                 admission: Optional[AdmissionController] = None,
+                 clock=None, device: DeviceLike = None) -> None:
+        import time as _time
+
+        if int(slots) < 1:
+            raise ValueError(f"KVCachePool needs >= 1 slot (got {slots})")
+        self.cfg = cfg
+        self.slots = int(slots)
+        self.scratch = self.slots          # padding lanes' slot id
+        self.admission = (admission if admission is not None
+                          else slot_admission_controller())
+        self._clock = clock if clock is not None else _time.monotonic
+        shape = (self.slots + 1, cfg.layers, cfg.max_seq, cfg.heads,
+                 cfg.head_dim)
+        self.device = resolve_device(device)
+        self.k = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+        self._free: List[int] = list(range(self.slots))
+        self._live: Dict[Any, Session] = {}
+        self._order = 0
+        self._lock = make_lock("llm.pool")
+
+    # -- sizing ----------------------------------------------------------
+    def cache_bytes(self) -> int:
+        """Device bytes the pooled cache occupies — CONSTANT for the
+        pool's life (the bounded-memory evidence the soak gates on)."""
+        return (self.k.numel() * self.k.element_size()
+                + self.v.numel() * self.v.element_size())
+
+    @property
+    def live(self) -> int:
+        with self._lock:
+            return len(self._live)
+
+    @property
+    def occupancy(self) -> float:
+        return self.live / self.slots
+
+    def sessions(self) -> List[Session]:
+        """Live sessions in admission order (the engine's stable
+        round-robin basis)."""
+        with self._lock:
+            return sorted(self._live.values(), key=lambda s: s.order)
+
+    def get(self, key) -> Optional[Session]:
+        with self._lock:
+            return self._live.get(key)
+
+    # -- admission -------------------------------------------------------
+    def admit(self, qos: str, no_slot_retry_s: float = 0.25,
+              prompt=None, max_new: int = 0) -> Optional[float]:
+        """Slot-admission decision BEFORE allocation: ``None`` admits
+        (a free slot exists and the occupancy policy agrees), a float
+        sheds with that retry-after hint.  Policy first (QoS-tiered
+        occupancy watermarks + drain mode), the hard no-free-slot
+        boundary second — its hint is ``no_slot_retry_s``, which the
+        engine sizes from its live step-time EWMA (≈ when the
+        soonest-finishing session should free a slot).  ``prompt`` /
+        ``max_new`` are accepted for pool-interface parity (the paged
+        pool admits on page commitment) and ignored here: a dense slot
+        costs ``max_seq`` regardless of what the session uses."""
+        with self._lock:
+            depth = len(self._live)
+            free = bool(self._free)
+        verdict = self.admission.admit(qos or "silver", depth, self.slots)
+        if verdict is not None:
+            return verdict
+        if not free:
+            return max(float(no_slot_retry_s), 0.01)
+        return None
+
+    def acquire(self, key, qos: str = "silver",
+                extra: Optional[Dict[str, Any]] = None,
+                prompt=None, max_new: int = 0) -> Session:
+        """Allocate a slot for ``key``.  Caller must have gotten a
+        ``None`` from :meth:`admit`; raises when no slot is free (the
+        admit/acquire pair runs on the single decode thread, so the
+        check cannot go stale).  ``prompt`` / ``max_new`` are ignored
+        (pool-interface parity with the paged pool)."""
+        now = self._clock()
+        with self._lock:
+            if key in self._live:
+                raise ValueError(f"session {key!r} already live")
+            if not self._free:
+                raise RuntimeError("no free cache slot")
+            slot = self._free.pop()
+            self._order += 1
+            sess = Session(key=key, slot=slot, qos=qos or "silver",
+                           extra=dict(extra or {}), born_s=now,
+                           last_step_s=now, order=self._order)
+            self._live[key] = sess
+            return sess
+
+    def release(self, key) -> Optional[Session]:
+        """Return ``key``'s slot to the free list (EOS, stop token,
+        disconnect, eviction).  Device memory is untouched — the next
+        occupant's prefill overwrites it."""
+        with self._lock:
+            sess = self._live.pop(key, None)
+            if sess is not None:
+                self._free.append(sess.slot)
+            return sess
+
+    def touch(self, key) -> None:
+        sess = self.get(key)
+        if sess is not None:
+            sess.last_step_s = self._clock()
+
+    # -- eviction --------------------------------------------------------
+    def lru_key(self):
+        """Least-recently-progressed live session's key (None when
+        empty) — the LRU eviction candidate."""
+        with self._lock:
+            if not self._live:
+                return None
+            return min(self._live.values(),
+                       key=lambda s: s.last_step_s).key
+
+    def aged_keys(self, max_age_s: float) -> List[Any]:
+        """Sessions older (since admission) than ``max_age_s`` seconds —
+        deadline-eviction candidates: a slot is a bounded LEASE, and a
+        session that outlives its deadline (wedged egress, a client
+        trickling an enormous continuation) is force-completed so the
+        pool's turnover — and with it every retry-after hint the
+        admission path hands out — stays honest."""
+        if max_age_s <= 0:
+            return []
+        cutoff = self._clock() - max_age_s
+        with self._lock:
+            return [s.key for s in self._live.values()
+                    if s.born_s < cutoff]

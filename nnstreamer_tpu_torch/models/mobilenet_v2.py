@@ -132,10 +132,6 @@ class MobileNetV2(nn.Module):
         last = c(1280) if width > 1.0 else 1280
         self.head = _ConvBN(cin, last, 1)
         self.classifier = nn.Linear(last, num_classes)
-        # the plain path's constants, rounded to the compute dtype as the
-        # JAX package's weakly typed Python scalars are
-        self._scale = float(torch.tensor(1.0 / 127.5, dtype=dtype))
-        self._shift = float(torch.tensor(-1.0, dtype=dtype))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """x: NCHW in [-1, 1] in the model dtype → f32 logits (N, classes)."""
@@ -145,16 +141,11 @@ class MobileNetV2(nn.Module):
 
     def preprocess(self, frame: torch.Tensor) -> torch.Tensor:
         """uint8 (H, W, 3) → (H, W, 3) in [-1, 1], model dtype."""
-        if self.use_pallas:
-            from ..ops.preprocess import normalize_frame
+        from ..ops.preprocess import cast_then_scale, normalize_frame
 
+        if self.use_pallas:
             return normalize_frame(frame, dtype=self.dtype)
-        x = frame.to(self.dtype)
-        if self.dtype == torch.float32:
-            # XLA contracts the f32 multiply-add into one FMA: round once
-            # (exact in float64 for an 8-bit x, as in normalize_frame)
-            return (x.double() * self._scale + self._shift).float()
-        return x * self._scale + self._shift
+        return cast_then_scale(frame, self.dtype)
 
     def forward(self, frame: torch.Tensor) -> Tuple[torch.Tensor]:
         """frame: uint8 (H, W, 3) → ``(logits_f32[num_classes],)``."""

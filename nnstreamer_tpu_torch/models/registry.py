@@ -46,7 +46,7 @@ def register_model(name: str):
 
 
 def _ensure_loaded() -> None:
-    from . import mobilenet_v2  # noqa: F401
+    from . import mobilenet_v2, streamformer_lm, vit  # noqa: F401
 
 
 def get_model(name: str, custom_props: Optional[Dict[str, str]] = None,

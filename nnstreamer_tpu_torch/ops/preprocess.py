@@ -37,6 +37,23 @@ def normalize_frame_reference(frame: torch.Tensor, scale: float = 1.0 / 127.5,
     return y.to(torch.float32).to(dtype)
 
 
+def cast_then_scale(frame: torch.Tensor, dtype: torch.dtype,
+                    scale: float = 1.0 / 127.5,
+                    shift: float = -1.0) -> torch.Tensor:
+    """The JAX models' plain preprocessing, ``frame.astype(dtype) * scale
+    + shift``: cast first, then scale and shift in ``dtype``.  The Python
+    constants round to ``dtype`` first, as JAX's weakly typed scalars do;
+    in f32 XLA contracts the multiply-add into one FMA, so the product
+    and sum round once (exact in float64 for an 8-bit x, as in
+    :func:`normalize_frame_reference`)."""
+    x = frame.to(dtype)
+    scale = float(torch.tensor(scale, dtype=dtype))
+    shift = float(torch.tensor(shift, dtype=dtype))
+    if dtype == torch.float32:
+        return (x.double() * scale + shift).float()
+    return x * scale + shift
+
+
 def _kernel():
     lib = _cuda.library("normalize_frame")
     fn = lib.nns_normalize_frame
