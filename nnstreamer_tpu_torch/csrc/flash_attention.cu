@@ -25,8 +25,11 @@
 // or TMA yet), so its ceiling is the 67 TFLOP/s f32 rate, not the tensor cores.
 // The design keeps the f32 pipes fed:
 //
-// - one block of 256 threads per (64-query tile, head); the key/value tiles of
-//   64 rows go through shared memory, converted to f32 once on load;
+// - one block of 256 threads per (64-query tile, head, batch element): the
+//   batch axis that jax.vmap lifts into the pallas_call grid is the grid's z
+//   axis here, read through its own strides (a call without one has b = 1);
+// - the key/value tiles of 64 rows go through shared memory, converted to f32
+//   once on load;
 // - a tile is read with 16-byte loads, all of a thread's loads issued before
 //   the first is used (one element at a time, each load waited for the last
 //   and tile loads took most of the time);
@@ -43,133 +46,23 @@
 //
 // The head dimension is a runtime value up to 256: the kernel is compiled for
 // padded widths 16, 32, 64, 128 and 256, and columns past D load as zeros.
+// The tile loader and the two tile products are shared with the backward
+// kernels (flash_common.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr int kRows = kBlockQ / 16;   // score rows per thread
-constexpr int kCols = kBlockK / 16;   // score columns per thread
-constexpr int kPStride = kBlockK + 16;  // rows ty and ty+1 land 16 banks apart
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Loads rows [row0, row0 + kBlockQ) of one head of a (T, H, D) tensor into an
-// f32 shared tile of kBlockQ x `stride` floats; rows past `n_rows` and columns
-// past `d` are zero.  With `vec`, each thread issues all its 16-byte loads
-// before it converts and stores any of them, so they are in flight together;
-// the scalar path takes inputs whose rows or head dim are not 16-byte aligned.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const T* __restrict__ src,
-                                          long long row_stride, int row0,
-                                          int n_rows, int d, bool vec) {
-  static_assert(kBlockQ == kBlockK, "one loader serves q, k and v tiles");
-  if (vec) {
-    constexpr int V = 16 / (int)sizeof(T);     // elements per 16-byte load
-    constexpr int kPerRow = DP / V;
-    constexpr int kTotal = kBlockQ * kPerRow;
-    constexpr int kIters = (kTotal + kThreads - 1) / kThreads;
-    uint4 buf[kIters];
-#pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const int idx = threadIdx.x + it * kThreads;
-      const int r = idx / kPerRow;
-      const int c = (idx - r * kPerRow) * V;
-      buf[it] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < kTotal && row0 + r < n_rows && c < d)
-        buf[it] = *reinterpret_cast<const uint4*>(
-            src + (long long)(row0 + r) * row_stride + c);
-    }
-#pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const int idx = threadIdx.x + it * kThreads;
-      if (kIters * kThreads != kTotal && idx >= kTotal) break;
-      const int r = idx / kPerRow;
-      const int c = (idx - r * kPerRow) * V;
-      const T* x = reinterpret_cast<const T*>(&buf[it]);
-#pragma unroll
-      for (int e = 0; e < V; e += 4)
-        *reinterpret_cast<float4*>(dst + r * stride + c + e) =
-            make_float4(to_f32(x[e]), to_f32(x[e + 1]), to_f32(x[e + 2]),
-                        to_f32(x[e + 3]));
-    }
-    return;
-  }
-  constexpr int kChunk = 16;  // loads in flight per thread
-  for (int base = 0; base < kBlockQ * DP; base += kChunk * kThreads) {
-    float x[kChunk];
-#pragma unroll
-    for (int it = 0; it < kChunk; ++it) {
-      const int idx = base + threadIdx.x + it * kThreads;
-      const int r = idx / DP;
-      const int c = idx - r * DP;
-      x[it] = 0.f;
-      if (idx < kBlockQ * DP && row0 + r < n_rows && c < d)
-        x[it] = to_f32(src[(long long)(row0 + r) * row_stride + c]);
-    }
-#pragma unroll
-    for (int it = 0; it < kChunk; ++it) {
-      const int idx = base + threadIdx.x + it * kThreads;
-      if (idx < kBlockQ * DP) dst[(idx / DP) * stride + idx % DP] = x[it];
-    }
-  }
-}
-
-// Width of the vector a thread reads per output column group in the p.v
-// product: 4 contiguous columns when the padded head dim allows it.
-template <int DP>
-struct OutLayout {
-  static constexpr int kVec = DP >= 64 ? 4 : DP / 16;  // 1, 2 or 4
-  static constexpr int kGroups = DP / (16 * kVec);     // groups per thread
-};
-
-template <int W>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  if constexpr (W == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x, out[1] = t.y, out[2] = t.z, out[3] = t.w;
-  } else if constexpr (W == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x, out[1] = t.y;
-  } else {
-    out[0] = p[0];
-  }
-}
+using namespace nns_flash;
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int tq, int tkv, int h, int d,
-                     long long q_st, long long q_sh, long long k_st,
-                     long long k_sh, long long v_st, long long v_sh,
+                     long long q_sb, long long q_st, long long q_sh,
+                     long long k_sb, long long k_st, long long k_sh,
+                     long long v_sb, long long v_st, long long v_sh,
                      int causal, long long q_offset, long long k_offset,
                      float scale, int vec) {
   using L = OutLayout<DP>;
@@ -188,11 +81,17 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qt = causal ? n_qtiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const int q0 = qt * kBlockQ;
   const int head = blockIdx.y;
+  const long long bat = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
   const int tx = tid & 15;
 
-  load_tile<T, DP>(qs, kQStride, q + head * q_sh, q_st, q0, tq, d, vec);
+  q += bat * q_sb + head * q_sh;
+  k += bat * k_sb + head * k_sh;
+  v += bat * v_sb + head * v_sh;
+  out += bat * tq * h * d;
+  lse += (bat * h + head) * tq;
+  load_tile<T, DP>(qs, kQStride, q, q_st, q0, tq, d, vec);
 
   // keys [0, k_end) can be visible to some row of this tile
   long long k_end = tkv;
@@ -203,46 +102,24 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   float m_run[kRows], l_run[kRows];
-  float acc[kRows][L::kGroups * L::kVec];
+  float acc[kRows][L::kWidth];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     m_run[i] = -CUDART_INF_F;
     l_run[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < L::kGroups * L::kVec; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < L::kWidth; ++c) acc[i][c] = 0.f;
   }
 
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile's k, v and p are no longer read
-    load_tile<T, DP>(ks, kKStride, k + head * k_sh, k_st, k0, tkv, d, vec);
-    load_tile<T, DP>(vs, kVStride, v + head * v_sh, v_st, k0, tkv, d, vec);
+    load_tile<T, DP>(ks, kKStride, k, k_st, k0, tkv, d, vec);
+    load_tile<T, DP>(vs, kVStride, v, v_st, k0, tkv, d, vec);
     __syncthreads();
 
     // scores: s[i][j] = q[ty + 16i] . k[tx + 16j]
     float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DP; c += 4) {
-      float4 a[kRows], b[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kQStride + c);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        b[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kKStride + c);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
-    }
+    tile_dots<DP, kQStride, kKStride>(qs, ks, ty, tx, s);
 
     // mask, then the streaming-softmax update of each of this thread's rows
 #pragma unroll
@@ -276,38 +153,13 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m_run[i] = m_new;
       l_run[i] = l_run[i] * corr + psum;
 #pragma unroll
-      for (int c = 0; c < L::kGroups * L::kVec; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < L::kWidth; ++c) acc[i][c] *= corr;
     }
     // the rows this thread reads back were written by its own half-warp
     __syncwarp();
 
     // acc[i][:] += p[ty + 16i][:] . v[:, this thread's columns]
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; j += 4) {
-      float4 p4[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kPStride + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = vs + (j + jj) * kVStride;
-#pragma unroll
-        for (int g = 0; g < L::kGroups; ++g) {
-          float vv[L::kVec];
-          load_vec<L::kVec>(vrow + g * 16 * L::kVec + tx * L::kVec, vv);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const float p = jj == 0 ? p4[i].x
-                          : jj == 1 ? p4[i].y
-                          : jj == 2 ? p4[i].z
-                                    : p4[i].w;
-#pragma unroll
-            for (int e = 0; e < L::kVec; ++e)
-              acc[i][g * L::kVec + e] = fmaf(p, vv[e], acc[i][g * L::kVec + e]);
-          }
-        }
-      }
-    }
+    tile_accumulate<DP, kVStride>(ps, vs, ty, tx, acc);
   }
 
   // out = acc / max(l, 1e-20); lse = m + log(l), -inf where no key was seen
@@ -326,15 +178,15 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (col < d) orow[col] = from_f32<T>(acc[i][g * L::kVec + e] * inv);
       }
     if (tx == 0)
-      lse[(long long)head * tq + row] =
-          l_run[i] > 0.f ? m_run[i] + logf(denom) : -CUDART_INF_F;
+      lse[row] = l_run[i] > 0.f ? m_run[i] + logf(denom) : -CUDART_INF_F;
   }
 }
 
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int tq, int tkv, int h, int d, long long q_st, long long q_sh,
-           long long k_st, long long k_sh, long long v_st, long long v_sh,
+           int b, int tq, int tkv, int h, int d, long long q_sb,
+           long long q_st, long long q_sh, long long k_sb, long long k_st,
+           long long k_sh, long long v_sb, long long v_st, long long v_sh,
            int causal, long long q_offset, long long k_offset, float scale,
            cudaStream_t stream) {
   constexpr int floats = kBlockQ * DP + kBlockK * (DP + 4) + kBlockK * DP +
@@ -347,28 +199,31 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   if (err != cudaSuccess) return (int)err;
   // 16-byte loads need 16-byte aligned rows and a head dim of whole vectors
   constexpr long long V = 16 / sizeof(T);
-  const bool vec = d % V == 0 && q_st % V == 0 && q_sh % V == 0 &&
-                   k_st % V == 0 && k_sh % V == 0 && v_st % V == 0 &&
+  const bool vec = d % V == 0 && q_sb % V == 0 && q_st % V == 0 &&
+                   q_sh % V == 0 && k_sb % V == 0 && k_st % V == 0 &&
+                   k_sh % V == 0 && v_sb % V == 0 && v_st % V == 0 &&
                    v_sh % V == 0 && (uintptr_t)q % 16 == 0 &&
                    (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
-  const dim3 grid((tq + kBlockQ - 1) / kBlockQ, h);
+  const dim3 grid((tq + kBlockQ - 1) / kBlockQ, h, b);
   flash_forward_kernel<T, DP><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, tq, tkv, h, d, q_st,
-      q_sh, k_st, k_sh, v_st, v_sh, causal, q_offset, k_offset, scale,
-      (int)vec);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, tq, tkv, h, d,
+      q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, causal, q_offset,
+      k_offset, scale, (int)vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* out,
-               float* lse, int tq, int tkv, int h, int d, long long q_st,
-               long long q_sh, long long k_st, long long k_sh, long long v_st,
+               float* lse, int b, int tq, int tkv, int h, int d,
+               long long q_sb, long long q_st, long long q_sh, long long k_sb,
+               long long k_st, long long k_sh, long long v_sb, long long v_st,
                long long v_sh, int causal, long long q_offset,
                long long k_offset, float scale, cudaStream_t s) {
-#define NNS_FLASH_LAUNCH(DP)                                                 \
-  return launch<T, DP>(q, k, v, out, lse, tq, tkv, h, d, q_st, q_sh, k_st,   \
-                       k_sh, v_st, v_sh, causal, q_offset, k_offset, scale, s)
+#define NNS_FLASH_LAUNCH(DP)                                                  \
+  return launch<T, DP>(q, k, v, out, lse, b, tq, tkv, h, d, q_sb, q_st, q_sh, \
+                       k_sb, k_st, k_sh, v_sb, v_st, v_sh, causal, q_offset,  \
+                       k_offset, scale, s)
   if (d <= 16) NNS_FLASH_LAUNCH(16);
   if (d <= 32) NNS_FLASH_LAUNCH(32);
   if (d <= 64) NNS_FLASH_LAUNCH(64);
@@ -381,34 +236,36 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// dtype: 0 f32, 1 f16, 2 bf16 (q, k, v and out alike); lse is f32 (h, tq).
-// Strides are in elements; the head dimension must be contiguous.
+// q (b, tq, h, d), k and v (b, tkv, h, d), read through their strides (in
+// elements; the head dimension must be contiguous); a call without a batch
+// axis passes b = 1.  dtype: 0 f32, 1 f16, 2 bf16 (q, k, v and out alike).
+// out is a contiguous (b, tq, h, d) tensor, lse a contiguous f32 (b, h, tq).
 extern "C" int nns_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* out, void* lse, int tq,
-    int tkv, int h, int d, long long q_st, long long q_sh, long long k_st,
-    long long k_sh, long long v_st, long long v_sh, int causal,
+    const void* q, const void* k, const void* v, void* out, void* lse, int b,
+    int tq, int tkv, int h, int d, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh, int causal,
     long long q_offset, long long k_offset, float scale, int dtype,
     void* stream) {
-  if (tq <= 0 || h <= 0) return 0;
-  if (d <= 0 || d > 256) return (int)cudaErrorInvalidValue;
+  if (b <= 0 || tq <= 0 || h <= 0) return 0;
+  if (d <= 0 || d > 256 || b > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+#define NNS_FLASH_DISPATCH(T)                                                 \
+  return dispatch_d<T>(q, k, v, out, l, b, tq, tkv, h, d, q_sb, q_st, q_sh,   \
+                       k_sb, k_st, k_sh, v_sb, v_st, v_sh, causal, q_offset,  \
+                       k_offset, scale, s)
   switch (dtype) {
     case 0:
-      return dispatch_d<float>(q, k, v, out, l, tq, tkv, h, d, q_st, q_sh,
-                               k_st, k_sh, v_st, v_sh, causal, q_offset,
-                               k_offset, scale, s);
+      NNS_FLASH_DISPATCH(float);
     case 1:
-      return dispatch_d<__half>(q, k, v, out, l, tq, tkv, h, d, q_st, q_sh,
-                                k_st, k_sh, v_st, v_sh, causal, q_offset,
-                                k_offset, scale, s);
+      NNS_FLASH_DISPATCH(__half);
     case 2:
-      return dispatch_d<__nv_bfloat16>(q, k, v, out, l, tq, tkv, h, d, q_st,
-                                       q_sh, k_st, k_sh, v_st, v_sh, causal,
-                                       q_offset, k_offset, scale, s);
+      NNS_FLASH_DISPATCH(__nv_bfloat16);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef NNS_FLASH_DISPATCH
 }
 
 extern "C" const char* nns_cuda_error_string(int code) {

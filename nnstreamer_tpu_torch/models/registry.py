@@ -5,12 +5,17 @@ is an ``nn.Module`` whose ``forward`` takes one unbatched frame per input
 and returns a tuple of outputs, built on an explicit device.  The JAX
 package's ``host_init`` and orbax checkpoint restore have no counterpart
 here yet; weights are random from ``custom=seed:N``.
+
+A model whose builder has a training form (f32 parameters with the
+compute dtype applied per call, the JAX package's trained variables) is
+registered with ``trainable=True`` and built with ``get_model(...,
+trainable=True)``; the trainers ask for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Set
 
 import torch
 from torch import nn
@@ -36,11 +41,15 @@ class Model:
 
 #: name -> build(custom_props: dict, device) -> Model
 _MODELS: Dict[str, Callable[..., Model]] = {}
+#: names whose builders take ``trainable=True``
+_TRAINABLE: Set[str] = set()
 
 
-def register_model(name: str):
+def register_model(name: str, trainable: bool = False):
     def deco(build: Callable[..., Model]):
         _MODELS[name] = build
+        if trainable:
+            _TRAINABLE.add(name)
         return build
     return deco
 
@@ -50,12 +59,18 @@ def _ensure_loaded() -> None:
 
 
 def get_model(name: str, custom_props: Optional[Dict[str, str]] = None,
-              device: DeviceLike = None) -> Model:
-    """Build model ``name`` on ``device`` (``None``: the card)."""
+              device: DeviceLike = None, trainable: bool = False) -> Model:
+    """Build model ``name`` on ``device`` (``None``: the card);
+    ``trainable``: its training form."""
     _ensure_loaded()
     if name not in _MODELS:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_MODELS)}")
-    return _MODELS[name](custom_props or {}, device)
+    if not trainable:
+        return _MODELS[name](custom_props or {}, device)
+    if name not in _TRAINABLE:
+        raise ValueError(f"model {name!r} has no training form in the "
+                         f"port yet; trainable: {sorted(_TRAINABLE)}")
+    return _MODELS[name](custom_props or {}, device, trainable=True)
 
 
 def has_model(name: str) -> bool:

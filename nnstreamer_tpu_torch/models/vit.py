@@ -7,7 +7,11 @@ The PyTorch counterpart of ``nnstreamer_tpu/models/vit.py``:
   grammar, including ``attn:flash|naive``;
 - bf16 on the card, f32 on the CPU; ``forward`` keeps the JAX contract, a
   uint8 ``(H, W, 3)`` frame in and ``(logits_f32[num_classes],)`` out,
-  with the preprocessing cast before it scales, as the JAX model does;
+  with the preprocessing cast before it scales, as the JAX model does; a
+  batch ``(B, H, W, 3)`` runs every attention layer as one kernel launch
+  with the batch in its grid (the JAX package's ``jax.vmap``);
+- a training form (``trainable``): f32 parameters with the compute dtype
+  applied per call, as flax's ``Dense(dtype=...)`` does;
 - attention runs the hand-written flash kernel (ops/flash_attention.py)
   for tensors on the card and plain attention off it, unless ``attn``
   says otherwise.  At T = 197 (196 patches + CLS) every frame exercises
@@ -58,20 +62,40 @@ class _LayerNorm(nn.Module):
         return ((xf - mu) * mul + self.bias.float()).to(x.dtype)
 
 
+class _Dense(nn.Linear):
+    """flax ``Dense(dtype=...)``: the kernel and bias are cast to the
+    compute dtype (the input's) at each call, so f32 parameters train
+    through a bf16 product and the gradient flows back through the cast.
+    The serving module's weights are already in that dtype: no cast."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class _Conv(nn.Conv2d):
+    """flax ``Conv(dtype=...)`` with the same per-call cast."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        self.stride)
+
+
 class _Attention(nn.Module):
     def __init__(self, dim: int, heads: int,
                  flash: Optional[bool] = None) -> None:
         super().__init__()
         self.heads = heads
         self.flash = flash
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = _Dense(dim, 3 * dim)
+        self.proj = _Dense(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (T, dim), one frame's tokens."""
-        t, dim = x.shape
-        qkv = self.qkv(x).reshape(t, 3, self.heads, dim // self.heads)
-        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]     # (T, H, D) views
+        """x: ``([B,] T, dim)``, one frame's tokens or a batch's; a batch
+        is one kernel launch with the batch in the grid."""
+        *lead, t, dim = x.shape
+        qkv = self.qkv(x).reshape(*lead, t, 3, self.heads, dim // self.heads)
+        # ([B,] T, H, D) views
+        q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         flash = self.flash
         if flash is None:
             from ..ops.flash_attention import flash_wins
@@ -85,7 +109,7 @@ class _Attention(nn.Module):
             from ..parallel.ring_attention import local_attention
 
             attn = local_attention(q, k, v, causal=False)
-        return self.proj(attn.to(x.dtype).reshape(t, dim))
+        return self.proj(attn.to(x.dtype).reshape(*lead, t, dim))
 
 
 class _Block(nn.Module):
@@ -95,8 +119,8 @@ class _Block(nn.Module):
         self.ln1 = _LayerNorm(dim)
         self.attn = _Attention(dim, heads, flash)
         self.ln2 = _LayerNorm(dim)
-        self.fc1 = nn.Linear(dim, mlp_ratio * dim)
-        self.fc2 = nn.Linear(mlp_ratio * dim, dim)
+        self.fc1 = _Dense(dim, mlp_ratio * dim)
+        self.fc2 = _Dense(mlp_ratio * dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -114,28 +138,35 @@ class ViT(nn.Module):
         super().__init__()
         self.dtype = dtype
         n_tok = (input_size // patch) ** 2
-        self.patch_embed = nn.Conv2d(3, dim, patch, stride=patch)
+        self.patch_embed = _Conv(3, dim, patch, stride=patch)
         self.cls = nn.Parameter(torch.zeros(1, dim))
         self.pos_embed = nn.Parameter(torch.zeros(n_tok + 1, dim))
         self.blocks = nn.ModuleList(
             _Block(dim, heads, flash=flash) for _ in range(depth))
         self.norm = _LayerNorm(dim)
-        self.head = nn.Linear(dim, num_classes)
+        self.head = _Dense(dim, num_classes)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (H, W, 3) in [-1, 1], model dtype → f32 logits."""
+        """x: ``([B,] H, W, 3)`` in [-1, 1], compute dtype → f32 logits
+        ``([B,] num_classes)``."""
+        batched = x.dim() == 4
+        xb = x if batched else x[None]
         # NCHW convolution; flattening (h', w') row-major gives the NHWC
         # model's token order
-        x = self.patch_embed(x.permute(2, 0, 1).unsqueeze(0))
-        x = x.flatten(2).transpose(1, 2)[0]                 # (n_tok, dim)
-        x = torch.cat([self.cls.to(x.dtype), x], dim=0)
+        x = self.patch_embed(xb.permute(0, 3, 1, 2))
+        x = x.flatten(2).transpose(1, 2)          # (B, n_tok, dim)
+        if not batched:
+            x = x[0]                              # one frame: (n_tok, dim)
+        cls = self.cls.to(x.dtype).expand(*x.shape[:-2], 1, x.shape[-1])
+        x = torch.cat([cls, x], dim=-2)
         x = x + self.pos_embed.to(x.dtype)
         for blk in self.blocks:
             x = blk(x)
-        return self.head(self.norm(x)[0]).float()
+        return self.head(self.norm(x)[..., 0, :]).float()
 
     def forward(self, frame: torch.Tensor) -> Tuple[torch.Tensor]:
-        """frame: uint8 (H, W, 3) → ``(logits_f32[num_classes],)``."""
+        """frame: uint8 ``(H, W, 3)`` → ``(logits_f32[num_classes],)``; a
+        batch ``(B, H, W, 3)`` → ``(logits_f32[B, num_classes],)``."""
         from ..ops.preprocess import cast_then_scale
 
         return (self.logits(cast_then_scale(frame, self.dtype)),)
@@ -241,8 +272,13 @@ def load_flax(model: ViT, variables: Mapping) -> ViT:
 # registry builder
 # ---------------------------------------------------------------------------
 
-def build_vit(custom_props: Dict[str, str],
-              device: DeviceLike = None) -> Model:
+def build_vit(custom_props: Dict[str, str], device: DeviceLike = None,
+              trainable: bool = False) -> Model:
+    """The registry model.  Serving (default): every weight but the
+    LayerNorms' cast once to the compute dtype.  ``trainable``: the
+    training form — f32 parameters (flax's) with the compute dtype applied
+    per call, as the JAX package trains them; training the serving form's
+    rounded bf16 weights would drift from it."""
     device = resolve_device(device)
     seed = int(custom_props.get("seed", 0))
     num_classes = int(custom_props.get("num_classes", 1000))
@@ -258,14 +294,17 @@ def build_vit(custom_props: Dict[str, str],
                  heads=int(custom_props.get("heads", 6)),
                  input_size=size, dtype=dtype, flash=flash)
     init_weights(module, torch.Generator().manual_seed(seed))
-    module = module.to(device=device, dtype=dtype).eval()
-    for m in module.modules():
-        if isinstance(m, _LayerNorm):
-            m.float()          # flax applies LayerNorm's params in f32
+    if trainable:
+        module = module.to(device=device)
+    else:
+        module = module.to(device=device, dtype=dtype).eval()
+        for m in module.modules():
+            if isinstance(m, _LayerNorm):
+                m.float()      # flax applies LayerNorm's params in f32
     in_info = TensorsInfo([TensorInfo(TensorType.UINT8, (3, size, size))])
     out_info = TensorsInfo([TensorInfo(TensorType.FLOAT32, (num_classes,))])
     return Model(name="vit", module=module, device=device,
                  in_info=in_info, out_info=out_info)
 
 
-register_model("vit")(build_vit)
+register_model("vit", trainable=True)(build_vit)

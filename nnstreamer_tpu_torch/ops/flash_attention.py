@@ -1,19 +1,30 @@
 """Flash attention: exact local attention with a streaming softmax.
 
 The PyTorch counterpart of ``nnstreamer_tpu/ops/flash_attention.py``, whose
-forward is a Pallas TPU kernel.  Here the forward is a hand-written CUDA
-kernel (``csrc/flash_attention.cu``, built by :mod:`.._cuda`) for tensors on
-the card, and :func:`flash_attention_reference`, its plain version, for
-tensors on the CPU.  Both compute, for ``q (Tq, H, D)`` and ``k, v (Tkv, H,
-D)``:
+forward and two backward kernels are Pallas TPU kernels.  Here each is a
+hand-written CUDA kernel for tensors on the card, built by :mod:`.._cuda`:
+
+- K2, the forward (``csrc/flash_attention.cu``), plain version
+  :func:`flash_attention_reference`;
+- K3 (dq) and K4 (dk, dv), the backward (``csrc/flash_attention_bwd.cu``),
+  plain version :func:`flash_attention_backward_reference`.
+
+For ``q (Tq, H, D)`` and ``k, v (Tkv, H, D)`` — or the same with a leading
+batch axis, ``(B, T, H, D)``, which the kernels take as a grid axis, as
+``jax.vmap`` lifts the batch into the ``pallas_call`` grid — they compute:
 
 - scores ``q·kᵀ / sqrt(D)`` in f32, masked where (``causal``) the key's
   global position ``k_offset + j`` exceeds the query's ``q_offset + i``;
-- ``out`` in q's dtype, and the per-row logsumexp ``lse`` (H, Tq) in f32;
+- ``out`` in q's dtype, and the per-row logsumexp ``lse`` ``([B,] H, Tq)``
+  in f32;
 - a row that sees no key gives ``out`` 0 and ``lse`` −inf (not NaN).
 
-The backward kernels (ROADMAP B3/B4) are not ported yet, so a call that
-needs a gradient raises.
+A call that needs a gradient goes through :class:`_FlashFn`, the
+``jax.custom_vjp`` of the JAX package: the forward saves ``(q, k, v, out,
+lse)``; the backward recomputes each probability tile from ``lse`` with
+``delta = rowsum(dO ∘ out)`` in f32, less the lse cotangent when ``lse`` was
+returned and used.  A CPU tensor takes the plain versions; a CUDA tensor
+launches the kernels or raises.
 
 Kernel or plain attention for ``flash=None`` callers: the JAX package gates
 on TPU measurements (``utils/tuned.py``), which say nothing of this card.
@@ -36,8 +47,13 @@ from .. import _cuda
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
-#: the kernel's widest head dimension
+#: the forward kernel's widest head dimension
 MAX_HEAD_DIM = 256
+#: the backward kernels' widest head dimension (K4's 128-wide tiles fill
+#: most of an SM's shared memory)
+MAX_BWD_HEAD_DIM = 128
+#: the kernels' largest batch (their grid's z extent)
+MAX_BATCH = 65535
 
 
 def flash_is_default(x: torch.Tensor) -> bool:
@@ -74,17 +90,22 @@ def flash_wins(t: int, x: torch.Tensor) -> bool:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("flash_attention: q, k, v must be (T, H, D)")
+    if q.dim() not in (3, 4) or k.dim() != q.dim() or v.dim() != q.dim():
+        raise ValueError("flash_attention: q, k, v must be (T, H, D) or "
+                         "(B, T, H, D)")
     if k.shape != v.shape:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} differ")
-    if q.shape[1:] != k.shape[1:]:
+    if q.shape[-2:] != k.shape[-2:] or q.shape[:-3] != k.shape[:-3]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
-                         f"{tuple(k.shape)} differ in heads or head dim")
-    if q.shape[2] > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {q.shape[2]} > "
+                         f"{tuple(k.shape)} differ in batch, heads or "
+                         f"head dim")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {q.shape[-1]} > "
                          f"{MAX_HEAD_DIM}")
+    if q.dim() == 4 and q.shape[0] > MAX_BATCH:
+        raise ValueError(f"flash_attention: batch {q.shape[0]} > "
+                         f"{MAX_BATCH}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
@@ -93,27 +114,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"{v.dtype}")
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int,
+            k_offset: int):
+    """f32 scaled scores ``([B,] H, Tq, Tkv)`` and the mask of the
+    visible (query, key) pairs (None when every pair is visible)."""
+    s = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(q.shape[-1]))
+    if not causal:
+        return s, None
+    qpos = q_offset + torch.arange(q.shape[-3], device=q.device)
+    kpos = k_offset + torch.arange(k.shape[-3], device=q.device)
+    return s, kpos[None, :] <= qpos[:, None]
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = False,
                               q_offset: int = 0, k_offset: int = 0,
                               return_lse: bool = False):
-    """Plain version of the kernel: the whole score matrix at once, with
-    the kernel's row semantics — ``out = Σ exp(s − m)·v / max(l, 1e-20)``
-    and ``lse = m + log l``, so a row with no visible key gives 0 and −inf
+    """Plain version of K2: the whole score matrix at once, with the
+    kernel's row semantics — ``out = Σ exp(s − m)·v / max(l, 1e-20)`` and
+    ``lse = m + log l``, so a row with no visible key gives 0 and −inf
     where a plain softmax would give NaN."""
-    s = torch.einsum("qhd,khd->hqk", q.float(), k.float()) \
-        * (1.0 / math.sqrt(q.shape[2]))
-    if causal:
-        qpos = q_offset + torch.arange(q.shape[0], device=q.device)
-        kpos = k_offset + torch.arange(k.shape[0], device=q.device)
-        s = s.masked_fill(kpos[None, None, :] > qpos[None, :, None],
-                          float("-inf"))
+    s, visible = _scores(q, k, causal, q_offset, k_offset)
+    if visible is not None:
+        s = s.masked_fill(~visible, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)                       # exp(−inf) = 0 where masked
-    l = p.sum(dim=-1)                          # (H, Tq)
-    out = torch.einsum("hqk,khd->qhd", p, v.float()) \
-        / l.clamp_min(1e-20).t()[:, :, None]
+    l = p.sum(dim=-1)                          # ([B,] H, Tq)
+    out = torch.einsum("...hqk,...khd->...qhd", p, v.float()) \
+        / l.clamp_min(1e-20).transpose(-1, -2)[..., None]
     out = out.to(q.dtype)
     if not return_lse:
         return out
@@ -122,65 +152,216 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-def _kernel():
-    lib = _cuda.library("flash_attention")
-    fn = lib.nns_flash_attention_fwd
+def flash_attention_backward_reference(q, k, v, dout, lse, delta,
+                                       causal: bool = False,
+                                       q_offset: int = 0, k_offset: int = 0):
+    """Plain version of K3 and K4 together: ``(dq, dk, dv)`` in the
+    inputs' dtypes from the saved ``lse`` and ``delta ([B,] H, Tq)``.
+
+    ``p = exp(s − lse)`` with ``_recompute_p``'s semantics — masked pairs
+    and rows with ``lse = −inf`` give exactly 0 — then ``ds = p·(dO·vᵀ −
+    delta)/sqrt(D)``, ``dq = ds·k``, ``dk = dsᵀ·q`` and ``dv = pᵀ·dO``, all
+    in f32."""
+    s, visible = _scores(q, k, causal, q_offset, k_offset)
+    live = torch.isfinite(lse)[..., None]
+    if visible is not None:
+        live = live & visible
+    p = torch.where(live, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dof = dout.float()
+    dp = torch.einsum("...qhd,...khd->...hqk", dof, v.float())
+    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+    dq = torch.einsum("...hqk,...khd->...qhd", ds, k.float())
+    dk = torch.einsum("...hqk,...qhd->...khd", ds, q.float())
+    dv = torch.einsum("...hqk,...qhd->...khd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _fn(lib_name: str, symbol: str, argtypes):
+    lib = _cuda.library(lib_name)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, i,
-                       ll, ll, ctypes.c_float, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def _batched(x: torch.Tensor) -> torch.Tensor:
+    """A (T, H, D) view as (1, T, H, D); a batched tensor as it is."""
+    return x if x.dim() == 4 else x.unsqueeze(0)
+
+
+def _strides(x: torch.Tensor):
+    """(batch, row, head) strides of a (B, T, H, D) tensor in elements."""
+    return x.stride(0), x.stride(1), x.stride(2)
+
+
+def _require_card(what: str, *xs: torch.Tensor) -> None:
+    if not xs[0].is_cuda:
+        raise ValueError(f"{what}: unsupported device {xs[0].device}")
+    if any(x.stride(-1) != 1 for x in xs):
+        raise ValueError(f"{what}: the head dim of q, k and v must be "
+                         f"contiguous")
+
+
+def _kernel_forward(q, k, v, causal, q_offset, k_offset):
+    """K2: (out, lse) on the current stream (no sync)."""
+    _require_card("flash_attention", q, k, v)
+    q4, k4, v4 = _batched(q), _batched(k), _batched(v)
+    b, tq, h, d = q4.shape
+    tkv = k4.shape[1]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:-3] + (h, tq), dtype=torch.float32,
+                      device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    lib, fn = _fn("flash_attention", "nns_flash_attention_fwd",
+                  [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_I, _LL, _LL,
+                                                    ctypes.c_float, _I, _P])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), b, tq, tkv, h, d, *_strides(q4),
+                  *_strides(k4), *_strides(v4), int(bool(causal)),
+                  int(q_offset), int(k_offset), 1.0 / math.sqrt(d),
+                  _DTYPES[q.dtype], stream)
+    _cuda.check(lib, code, "flash_attention")
+    _cuda.launches["flash_attention"] += 1
+    return out, lse
+
+
+#: argument types after the pointers: b, tq, tkv, h, d, the 12 strides,
+#: causal, q_offset, k_offset, scale, dtype, stream
+_BWD_TAIL = [_I] * 5 + [_LL] * 12 + [_I, _LL, _LL, ctypes.c_float, _I, _P]
+
+
+def _bwd_launch(which: str, q, k, v, dout, lse, delta, causal, q_offset,
+                k_offset):
+    """One backward kernel on the current stream (no sync): ``which`` is
+    ``"dq"`` (K3, returns dq) or ``"dkv"`` (K4, returns (dk, dv))."""
+    _require_card("flash_attention backward", q, k, v, dout)
+    q4, k4, v4, o4 = _batched(q), _batched(k), _batched(v), _batched(dout)
+    b, tq, h, d = q4.shape
+    tkv = k4.shape[1]
+    outs = ((q,) if which == "dq" else (k, v))
+    if tq == 0 or tkv == 0:         # nothing is visible: all gradients 0
+        grads = tuple(torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+                      for x in outs)
+        return grads[0] if which == "dq" else grads
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    grads = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                  for x in outs)
+    lib, fn = _fn("flash_attention_bwd", f"nns_flash_attention_bwd_{which}",
+                  [_P] * (6 + len(grads)) + _BWD_TAIL)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(),
+                  *(g.data_ptr() for g in grads), b, tq, tkv, h, d,
+                  *_strides(q4), *_strides(k4), *_strides(v4),
+                  *_strides(o4), int(bool(causal)), int(q_offset),
+                  int(k_offset), 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+                  stream)
+    _cuda.check(lib, code, f"flash_attention backward ({which})")
+    _cuda.launches[f"flash_attention_bwd_{which}"] += 1
+    return grads[0] if which == "dq" else grads
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
+                           q_offset=0, k_offset=0) -> torch.Tensor:
+    """K3 alone: dq from the saved ``lse`` and ``delta`` (CUDA tensors)."""
+    return _bwd_launch("dq", q, k, v, dout, lse, delta, causal, q_offset,
+                       k_offset)
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
+                            q_offset=0, k_offset=0):
+    """K4 alone: (dk, dv) from the saved ``lse`` and ``delta`` (CUDA
+    tensors)."""
+    return _bwd_launch("dkv", q, k, v, dout, lse, delta, causal, q_offset,
+                       k_offset)
+
+
+def _forward(q, k, v, causal, q_offset, k_offset):
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, q_offset, k_offset,
+                                         return_lse=True)
+    return _kernel_forward(q, k, v, causal, q_offset, k_offset)
+
+
+def _backward(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, dout, lse, delta,
+                                                  causal, q_offset, k_offset)
+    args = (q, k, v, dout, lse, delta, causal, q_offset, k_offset)
+    return (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
+
+
+class _FlashFn(torch.autograd.Function):
+    """The JAX package's ``_flash``/``_flash_lse`` custom VJP in one:
+    ``(out, lse)`` forward; the backward folds the lse cotangent (zero
+    when ``lse`` went unused) into ``delta``, as ``_flash_lse_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, k_offset):
+        out, lse = _forward(q, k, v, causal, q_offset, k_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, k_offset)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        # D_i = dO_i · O_i from the returned (rounded) out, in f32
+        delta = (dout.float() * out.float()).sum(-1).transpose(-1, -2)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        dq, dk, dv = _backward(q, k, v, dout, lse, delta, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, block_q: Optional[int] = None,
                     block_k: Optional[int] = None, q_offset: int = 0,
                     k_offset: int = 0, return_lse: bool = False):
-    """Exact attention over ``q (Tq, H, D)``, ``k, v (Tkv, H, D)``.
+    """Exact attention over ``q ([B,] Tq, H, D)``, ``k, v ([B,] Tkv, H,
+    D)``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream (no sync) or raises.  Inputs are read in
-    place through their strides (the head dim must be contiguous): the
+    A CPU tensor takes the plain versions; a CUDA tensor launches the
+    kernels on the current stream (no sync) or raises.  Inputs are read
+    in place through their strides (the head dim must be contiguous): the
     q/k/v views of a fused QKV projection cost no copy.
 
     ``causal`` masks ``k_offset + j > q_offset + i`` (global positions, so
     blockwise callers keep global causality).  ``block_q``/``block_k`` are
     kept for signature parity with the JAX package and never change the
-    result: the kernel's tiles are its own.  ``return_lse`` also returns
-    the per-row logsumexp (H, Tq) f32.  Float32, float16 and bfloat16;
-    head dim up to 256.  Forward only: a call that needs a gradient raises
-    :class:`NotImplementedError`."""
+    result: the kernels' tiles are their own.  ``return_lse`` also returns
+    the per-row logsumexp ``([B,] H, Tq)`` f32; both outputs are
+    differentiable.  Float32, float16 and bfloat16; head dim up to 256
+    forward, up to 128 when a gradient is needed."""
     del block_q, block_k
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention: the backward kernels are not ported yet "
-            "(ROADMAP B3/B4); call it under torch.no_grad() or "
-            "torch.inference_mode()")
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, q_offset,
-                                         k_offset, return_lse)
-    if not q.is_cuda:
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.stride(2) != 1 or k.stride(2) != 1 or v.stride(2) != 1:
-        raise ValueError("flash_attention: the head dim of q, k and v must "
-                         "be contiguous")
-    tq, h, d = q.shape
-    tkv = k.shape[0]
-    out = torch.empty((tq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((h, tq), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return (out, lse) if return_lse else out
-    lib, fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  lse.data_ptr(), tq, tkv, h, d, q.stride(0), q.stride(1),
-                  k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                  int(bool(causal)), int(q_offset), int(k_offset),
-                  1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
-    _cuda.check(lib, code, "flash_attention")
-    _cuda.launches["flash_attention"] += 1
+        if q.shape[-1] > MAX_BWD_HEAD_DIM:
+            raise ValueError(f"flash_attention: head dim {q.shape[-1]} > "
+                             f"{MAX_BWD_HEAD_DIM}, the backward kernels' "
+                             f"widest")
+        out, lse = _FlashFn.apply(q, k, v, bool(causal), int(q_offset),
+                                  int(k_offset))
+    else:
+        out, lse = _forward(q, k, v, causal, q_offset, k_offset)
     return (out, lse) if return_lse else out

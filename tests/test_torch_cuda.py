@@ -12,7 +12,8 @@ import torch
 
 from nnstreamer_tpu_torch import _cuda
 from nnstreamer_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_reference)
+    flash_attention, flash_attention_backward_reference,
+    flash_attention_reference)
 from nnstreamer_tpu_torch.ops.preprocess import (normalize_frame,
                                                  normalize_frame_reference)
 
@@ -106,7 +107,7 @@ def _check_flash(q, k, v, **kw):
     torch.testing.assert_close(lse[~dead], want_lse[~dead], atol=LSE_ATOL,
                                rtol=0.0)
     # rows that see no key: exactly 0 and -inf
-    assert torch.all(out.float().permute(1, 0, 2)[dead] == 0)
+    assert torch.all(out.float().transpose(-3, -2)[dead] == 0)
     return out, lse
 
 
@@ -177,3 +178,179 @@ def test_flash_attention_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros(8, 2, 16, device=card).transpose(0, 2)
         flash_attention(t, t, t)
+
+
+def test_flash_attention_batch_axis(card):
+    """(B, T, H, D): one launch with the batch in the grid, equal to the
+    plain version and to each item's own unbatched launch."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, 77, 4, 64))
+                                .astype(np.float32)).to(card, torch.bfloat16)
+               for _ in range(3))
+    out, lse = _check_flash(q, k, v, causal=True)
+    assert lse.shape == (3, 4, 77)
+    for i in range(3):
+        o_i, l_i = flash_attention(q[i], k[i], v[i], causal=True,
+                                   return_lse=True)
+        assert torch.equal(out[i], o_i) and torch.equal(lse[i], l_i)
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward (K3 dq, K4 dk/dv) against the plain backward
+# ---------------------------------------------------------------------------
+
+#: gradient tolerance by dtype, |got - want| <= atol + rtol * |want|: f32
+#: differs only in summation order; bf16/f16 round each gradient once from
+#: differently ordered f32 sums (scaled by the gradients' size below)
+GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.float16: (2e-2, 2e-2),
+            torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _check_backward(q, k, v, causal=False, q_offset=0, k_offset=0,
+                    lse_cot=False, seed=0):
+    """K3/K4 through the autograd Function against the plain backward on
+    the same saved (out, lse), one launch of each per backward."""
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    ts = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out, lse = flash_attention(*ts, return_lse=True, **kw)
+    g = torch.randn(out.shape, generator=gen, device=q.device).to(q.dtype)
+    g_lse = (torch.randn(lse.shape, generator=gen, device=q.device)
+             if lse_cot else None)
+    outs, cots = ([out, lse], [g, g_lse]) if lse_cot else ([out], [g])
+    before = dict(_cuda.launches)
+    got = torch.autograd.grad(outs, ts, cots)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert _cuda.launches[name] == before.get(name, 0) + 1
+    delta = (g.float() * out.detach().float()).sum(-1).transpose(-1, -2)
+    if lse_cot:
+        delta = delta - g_lse
+    want = flash_attention_backward_reference(q, k, v, g, lse.detach(),
+                                              delta, **kw)
+    atol, rtol = GRAD_TOL[q.dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == q.dtype and a.shape == b.shape, name
+        scale = max(b.float().abs().max().item(), 1.0)
+        torch.testing.assert_close(a.float(), b.float(), atol=atol * scale,
+                                   rtol=rtol, msg=name)
+    return got, lse
+
+
+BWD_CASES = [
+    # (shape of q, tkv, causal, dtype): the paths' shapes first
+    ((32, 197, 6, 64), None, False, torch.bfloat16),   # ViT-S/16, batch 32
+    ((4, 2048, 8, 64), None, True, torch.bfloat16),    # the LM layer, batch 4
+    ((197, 6, 64), None, False, torch.float32),
+    ((197, 6, 64), None, False, torch.float16),
+    ((5, 2, 16), 37, False, torch.float32),            # Tq != Tkv, ragged
+    ((37, 2, 16), 5, True, torch.float32),
+    ((130, 2, 8), None, True, torch.float32),
+    ((70, 2, 4), None, False, torch.float32),          # D of one f32 vector
+    ((50, 3, 6), None, True, torch.bfloat16),          # D of no whole vector
+    ((100, 2, 128), None, True, torch.bfloat16),       # widest backward D
+    ((2, 65, 2, 40), None, False, torch.float32),      # D between widths
+]
+
+
+@pytest.mark.parametrize("shape,tkv,causal,dtype", BWD_CASES, ids=str)
+def test_flash_backward_matches_plain(card, shape, tkv, causal, dtype):
+    rng = np.random.default_rng(1)
+    kshape = shape[:-3] + ((tkv or shape[-3]),) + shape[-2:]
+    mk = lambda s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card, dtype)
+    _check_backward(mk(shape), mk(kshape), mk(kshape), causal=causal)
+
+
+@pytest.mark.parametrize("q_offset,k_offset", [(0, 40), (64, 0), (10, 75)])
+def test_flash_backward_offsets_and_lse_cotangent(card, q_offset, k_offset):
+    """Offsets, ragged lengths, rows that see no key (their dq exactly 0)
+    and a nonzero lse cotangent."""
+    q, k, v = _qkv(card, 100, 3, 64, torch.float32, tkv=150, seed=4)
+    (dq, _, _), lse = _check_backward(q, k, v, causal=True,
+                                      q_offset=q_offset, k_offset=k_offset,
+                                      lse_cot=True)
+    dead = torch.isinf(lse).all(0)
+    assert int(dead.sum()) == max(0, k_offset - q_offset)
+    assert torch.all(dq[dead] == 0)
+
+
+def test_flash_backward_strided_views(card):
+    """q/k/v as views of one fused (B, T, 3, H, D) projection."""
+    qkv = torch.randn(2, 197, 3, 6, 64, device=card, dtype=torch.bfloat16)
+    _check_backward(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+
+
+def test_flash_backward_refuses_wide_head_dim(card):
+    w = torch.zeros(8, 2, 136, device=card, requires_grad=True)
+    with pytest.raises(ValueError, match="backward"):
+        flash_attention(w, w, w)
+
+
+# ---------------------------------------------------------------------------
+# one training step with the kernels against the same step with plain
+# attention (f32, TF32 off: they differ in summation order only)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32(card):
+    matmul, conv = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield card
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = conv
+
+
+def _assert_grads_close(got, want):
+    """Loss within 1e-5 rel; every gradient within 1e-4 relative L2."""
+    for name, w in want.items():
+        gap = (got[name] - w).norm() / w.norm().clamp_min(1e-30)
+        assert gap.item() <= 1e-4, name
+
+
+def test_lm_train_step_kernels_match_plain(no_tf32):
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.train_step import (
+        StreamFormerConfig, make_train_step, value_and_grad)
+
+    cfg = StreamFormerConfig(vocab=256, dim=128, heads=4, head_dim=32,
+                             mlp=256, layers=2, experts=2, max_seq=256,
+                             dtype=torch.float32)
+    _, params, _, _ = make_train_step(make_mesh(devices=[no_tf32]), cfg)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 200))).to(no_tf32)
+    labs = toks.roll(-1, dims=1)
+    before = dict(_cuda.launches)
+    loss_k, g_k = value_and_grad(params, toks, labs, cfg, flash=True)
+    torch.cuda.synchronize()
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert _cuda.launches[name] == before.get(name, 0) + cfg.layers
+    loss_p, g_p = value_and_grad(params, toks, labs, cfg, flash=False)
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
+    _assert_grads_close(g_k, g_p)
+
+
+def test_vit_train_step_kernels_match_plain(no_tf32):
+    from nnstreamer_tpu_torch.models.registry import get_model
+    from nnstreamer_tpu_torch.parallel.vision_train import _nll
+
+    props = {"input_size": "64", "depth": "2", "num_classes": "10",
+             "dtype": "float32"}
+    rng = np.random.default_rng(1)
+    frames = torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3),
+                                           dtype=np.uint8)).to(no_tf32)
+    labels = torch.from_numpy(rng.integers(0, 10, 4)).to(no_tf32)
+    out = {}
+    for attn in ("flash", "naive"):
+        module = get_model("vit", {**props, "attn": attn}, device=no_tf32,
+                           trainable=True).module
+        params = dict(module.named_parameters())
+        loss = _nll(module(frames)[0], labels)
+        out[attn] = (loss.item(), dict(zip(params, torch.autograd.grad(
+            loss, list(params.values())))))
+    (loss_k, g_k), (loss_p, g_p) = out["flash"], out["naive"]
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    _assert_grads_close(g_k, g_p)

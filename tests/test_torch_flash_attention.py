@@ -140,11 +140,17 @@ def test_local_attention_matches_jax(causal):
 
 
 def test_needing_a_gradient_raises():
+    """The backward is ported: a call that needs a gradient raises only
+    past the backward kernels' widest head dim (128), which the forward
+    alone takes."""
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(5, 2, 16))
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        flash_attention(q, k, v)
+    out = flash_attention(q, k, v)
+    assert out.requires_grad and out.shape == (5, 2, 16)
+    wide = torch.zeros(5, 2, 136, requires_grad=True)
+    with pytest.raises(ValueError, match="backward"):
+        flash_attention(wide, wide, wide)
     with torch.no_grad():
-        assert flash_attention(q, k, v).shape == (5, 2, 16)
+        assert flash_attention(wide, wide, wide).shape == (5, 2, 136)
 
 
 def test_refuses_what_it_does_not_take():

@@ -24,10 +24,10 @@ PORT = os.path.dirname(nnstreamer_tpu_torch.__file__)
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "nnstreamer_tpu"}
 
 #: the flagship pipeline's elements, plus appsrc (the pipeline module's
-#: programmatic source) and fakesink
+#: programmatic source), fakesink and the training slice's tensor_trainer
 SLICE_ELEMENTS = ["appsrc", "capsfilter", "fakesink", "tensor_converter",
                   "tensor_decoder", "tensor_filter", "tensor_sink",
-                  "videotestsrc"]
+                  "tensor_trainer", "videotestsrc"]
 
 LAUNCH = ("videotestsrc num-buffers=2 ! "
           "video/x-raw,format=RGB,width=32,height=32,framerate=30/1 ! "
