@@ -7,7 +7,10 @@
 Phases, each of which must pass:
 
 1. build every CUDA kernel of the port from ``nnstreamer_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together) and report each kernel
+   function's registers, shared memory, spill bytes and ptxas notes from
+   ``-Xptxas -v``; a tensor-core K3/K4 (f16, bf16) that spills at a padded
+   head dim of 16, 32 or 64 fails;
 2. hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and a few others, and time both, plus the one PyTorch
    call that computes the same function where there is one;
@@ -51,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -132,6 +136,48 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+#: the tensor-core K3/K4 specialisations, by mangled name: (kernel, type, DP)
+TC_KERNEL = re.compile(r"(flash_bwd_d(?:q|kv)_tc_kernel)I\d+"
+                       r"(__nv_bfloat16|__half)Li(\d+)EE")
+#: padded head dims at which a tensor-core K3/K4 must not spill
+NO_SPILL_WIDTHS = (16, 32, 64)
+
+
+def demangle(names):
+    """Readable kernel names (``c++filt`` where the host has it), without
+    the argument list."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return list(names)
+    if len(out) != len(names):
+        return list(names)
+    return [o.replace("void ", "", 1).replace("(anonymous namespace)::", "")
+            .split("(")[0] for o in out]
+
+
+def build_report():
+    """Registers, static shared memory and spill bytes of every kernel
+    function from the build's ``-Xptxas -v`` report, and the tensor-core
+    K3/K4 specialisations at a width of NO_SPILL_WIDTHS that spill."""
+    from nnstreamer_tpu_torch import _cuda
+
+    rows, spills = [], []
+    for lib, funcs in _cuda.ptxas_report().items():
+        labels = demangle([f["function"] for f in funcs])
+        for f, label in zip(funcs, labels):
+            rows.append({"library": lib, "kernel": label,
+                         **{k: v for k, v in f.items() if k != "function"}})
+            m = TC_KERNEL.search(f["function"])
+            spilled = f.get("spill_store_bytes", 0) + f.get(
+                "spill_load_bytes", 0)
+            if m and int(m.group(3)) in NO_SPILL_WIDTHS and spilled:
+                spills.append(f"{label} spills {spilled} bytes")
+    return rows, spills
 
 
 def time_ms(fn, reps: int = 200, warmup: int = 10, backlog: bool = True
@@ -1273,9 +1319,13 @@ def main(argv=None) -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     _cuda.build()
+    build_s = time.perf_counter() - t0
+    ptxas, spills = build_report()
     emit({"phase": "build", "torch": torch.__version__,
-          "cuda": torch.version.cuda, "card": card,
-          "build_s": time.perf_counter() - t0})
+          "cuda": torch.version.cuda, "card": card, "build_s": build_s,
+          "ptxas": ptxas})
+    if spills:
+        return fail("; ".join(spills))
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
 

@@ -9,6 +9,10 @@ import every module on hosts without ``nvcc``.
 
 ``launches`` counts kernel launches by kernel name: each wrapper adds one
 where it launches its kernel and nowhere else.
+
+``nvcc`` runs with ``-Xptxas -v``: its report (registers, shared memory and
+spill bytes of every kernel function) is kept beside each library as
+``<library>.log`` and parsed by :func:`ptxas_report`.
 """
 
 from __future__ import annotations
@@ -17,17 +21,18 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> its source file under csrc/
 SOURCES = {"normalize_frame": "normalize_frame.cu",
@@ -86,11 +91,68 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
         if proc.returncode != 0:
             errors.append(f"{SOURCES[n]}:\n{out.decode(errors='replace')}")
             continue
+        with open(f"{tmp}.log", "wb") as f:
+            f.write(out)
+        os.replace(f"{tmp}.log", f"{todo[n]}.log")
         os.replace(tmp, todo[n])   # atomic: a concurrent loader never
         # sees a half-written library
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return paths
+
+
+_FUNCTION = re.compile(r"Compiling entry function '([^']+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+
+
+def parse_ptxas(text: str) -> List[dict]:
+    """One entry per kernel function of an ``nvcc -Xptxas -v`` report:
+    its (mangled) name, registers a thread, static shared memory, stack
+    frame and spill bytes, and ptxas's performance notes on it (such as
+    wgmma products it had to serialise)."""
+    funcs: List[dict] = []
+    notes: Dict[str, List[str]] = collections.defaultdict(list)
+    for line in text.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            funcs.append({"function": m.group(1)})
+            continue
+        if "Performance" in line or "serialized" in line:
+            named = re.search(r"'(_Z\w+)'", line)
+            key = named.group(1) if named else (
+                funcs[-1]["function"] if funcs else "")
+            notes[key].append(line.split(":", 1)[-1].strip())
+            continue
+        if not funcs:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            funcs[-1].update(stack_bytes=int(m.group(1)),
+                             spill_store_bytes=int(m.group(2)),
+                             spill_load_bytes=int(m.group(3)))
+            continue
+        m = _USED.search(line)
+        if m:
+            smem = _SMEM.search(line)
+            funcs[-1].update(registers=int(m.group(1)),
+                             static_smem_bytes=int(smem.group(1)) if smem
+                             else 0)
+    for f in funcs:
+        f["notes"] = notes.get(f["function"], [])
+    return funcs
+
+
+def ptxas_report() -> Dict[str, list]:
+    """name -> :func:`parse_ptxas` of the kept build log of each kernel
+    library (built first where missing)."""
+    report = {}
+    for n, p in build().items():
+        with open(f"{p}.log", encoding="utf-8", errors="replace") as f:
+            report[n] = parse_ptxas(f.read())
+    return report
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -20,10 +20,11 @@
 // On the TPU each kernel walks its inner axis as a sequential grid dimension
 // with VMEM scratch.  Here blocks run in parallel and in no order, so:
 //
-// - K3 has one block of 256 threads per (64-query tile, head, batch element)
-//   and loops over key tiles; K4 one per (64-key tile, head, batch element),
-//   looping over query tiles.  Each block owns its output rows outright: no
-//   atomics, so the result does not depend on the order blocks run in;
+// - K3 has one block (256 threads in f32, 128 in f16 and bf16) per (64-query
+//   tile, head, batch element) and loops over key tiles; K4 one per (64-key
+//   tile, head, batch element), looping over query tiles.  Each block owns
+//   its output rows outright: no atomics, so the result does not depend on
+//   the order blocks run in;
 // - under `causal`, K3 never loads key tiles wholly in the future of its query
 //   tile and issues the longest query tiles first; K4 skips query tiles wholly
 //   in the past of its key tile (the first key tiles, which see the most
@@ -34,22 +35,61 @@
 // What bounds it: per visible (query, key) pair K3 does 6 D operations
 // (q.k, dO.v, ds.k) and K4 8 D (q.k, dO.v, p.dO, ds.q), so at the LM's
 // 2048-token causal layer both are bound by operations, and at ViT's
-// 197-token layers by bytes.  Like the forward, this first version multiplies
-// on the CUDA cores in f32 (no mma.sync, wgmma or TMA yet): its ceiling is the
-// 67 TFLOP/s f32 rate.  Each thread keeps a 4 x 4 tile of scores and its
-// output rows' accumulators in registers; ds and p pass through shared memory
-// only to be read back, by the half-warp that wrote them, as the rows of the
-// next product.
+// 197-token layers by bytes.  There are two routes, by dtype:
+//
+// f16 and bf16: the tensor cores (flash_wgmma.cuh).  One warpgroup of 128
+// threads per block owns 64 output rows, the M of one wgmma.  All five tile
+// products are wgmma m64nNk16 with f32 accumulators in registers: s and dp
+// (N = 64) read both operands from shared memory; dq += ds k (K3) and
+// dv += p^T dO, dk += ds^T q (K4) take p and ds from the registers that
+// hold them, rounded to the inputs' type (as FlashAttention-2 does; the CPU
+// test test_tensor_core_rounding_stays_inside_card_tolerance holds that
+// rounding to the card's tolerance), and read k, dO and q as transposed
+// (MN-major) operands of the same shared tiles that fed s and dp.  Tiles
+// stay 16-bit in shared memory, in wgmma's swizzled layout, free of bank
+// conflicts for the products' reads and the 16-byte copies alike.  The
+// streamed tiles (k and v in K3; q, dO and their lse and delta slices in K4)
+// go through a ring of two stages filled by 16-byte cp.async copies: the
+// next tile's copy is in flight while this one computes.  Inputs whose rows or head dim are not 16-byte aligned
+// (D = 6, say) cannot be copied 16 bytes at a time: a scalar loader fills the
+// same layout, synchronously.  Masks cost a compare per score only in tiles the
+// mask cuts (the causal diagonal, ragged ends); rows or columns with
+// lse = -inf take lse = +inf, so exp2 gives them p = 0 exactly.
+//
+// Registers (ptxas, sm_90a): K3 129 / 134 / 158 / 202 and K4 136 / 152 /
+// 191 / 254 a thread at padded widths 16 / 32 / 64 / 128, no spills; K4 at
+// D = 64 holds dk and dv (64), s and dp (64) and the packed p and ds (32).
+// Shared memory is 6 tiles (48 KB at D = 64, 96 KB at 128), so 3 K3 blocks
+// and 2 K4 blocks share an SM at D = 64, 2 of each at D = 128.  What bounds
+// them: within a block the exp and ds work on the CUDA cores does not
+// overlap the block's own products (one warpgroup, no producer warp), so
+// the SM's 2-3 blocks must overlap each other; at the LM layer they reach
+// ~22 % of the bf16 tensor rate.
+//
+// Tile height: 64 rows is wgmma's M.  ViT's T = 197 = 3 * 64 + 5 pads the
+// owned axis to 256 rows, 23 % of the work; a last streamed tile of 16 rows
+// would cut that to ~4 %, at the cost of narrower s/dp variants.  Not done:
+// at ViT's layer a block runs only 4 tile iterations, so its prologue, its
+// store and the partial second wave of 768 blocks weigh as much.
+//
+// f32: the CUDA cores, as first written.  A tensor-core f32 product is TF32,
+// and the f32 kernels are held to the plain backward to summation order.
+// Each thread keeps a 4 x 4 tile of scores and its output rows' accumulators
+// in registers; ds and p pass through shared memory only to be read back, by
+// the half-warp that wrote them, as the rows of the next product.  Its
+// ceiling is the 67 TFLOP/s f32 rate.
 //
 // The head dimension is a runtime value up to 128: the kernels are compiled
-// for padded widths 16, 32, 64 and 128 (K4's 128-wide tiles take 174 KB of
-// shared memory), and columns past D load as zeros.
+// for padded widths 16, 32, 64 and 128 (the f32 K4's 128-wide tiles take
+// 174 KB of shared memory), and columns past D load as zeros.
 
 #include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace nns_flash;
+namespace tc = nns_flash::tc;
 
 constexpr int kMaxHeadDim = 128;
 
@@ -64,8 +104,8 @@ constexpr int min_blocks() {
   return DP <= 64 ? 2 : 1;
 }
 
-// K3: dq.  Shared tiles: q and dO (the rows of the two score products), k and
-// v (their columns, padded rows), ds.
+// K3 in f32: dq.  Shared tiles: q and dO (the rows of the two score
+// products), k and v (their columns, padded rows), ds.
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, min_blocks<DP>())
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -160,7 +200,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, DP>(dq, acc, q0, tq, h, head, d, ty, tx);
 }
 
-// K4: dk and dv.  A thread's score rows are keys and its columns queries.
+// K4 in f32: dk and dv.  A thread's score rows are keys and its columns
+// queries.
 // Shared tiles: k and v (the rows of the two transposed score products), q and
 // dO (their columns, padded rows; also the rows of the dk and dv products),
 // p^T and ds^T.
@@ -275,6 +316,352 @@ constexpr int dkv_smem_bytes() {
          (int)sizeof(float);
 }
 
+// ---------------------------------------------------------------------------
+// f16 and bf16: the tensor-core kernels
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The last key (local index) that query row r sees: tkv - 1, or less under
+// `causal`; -1 when it sees none.
+__device__ __forceinline__ int last_visible_key(int r, int tkv, int causal,
+                                                long long q_offset,
+                                                long long k_offset) {
+  long long last = tkv - 1;
+  if (causal) last = min(last, q_offset + r - k_offset);
+  return (int)max(last, -1LL);
+}
+
+// The first query (local index) that sees key kl: 0, or more under
+// `causal`; tq when none does, as for keys past the end of k.
+__device__ __forceinline__ int first_visible_query(int kl, int tq, int tkv,
+                                                   int causal,
+                                                   long long q_offset,
+                                                   long long k_offset) {
+  if (kl >= tkv) return tq;
+  long long first = causal ? k_offset + kl - q_offset : 0;
+  return (int)min(max(first, 0LL), (long long)tq);
+}
+
+// K3 on the tensor cores.  Shared memory: the q and dO tiles, then two stages
+// of (k, v) tiles; the copy of the next stage is in flight while this one
+// computes.
+template <typename T, int DP>
+__global__ void __launch_bounds__(tc::kThreads, min_blocks<DP>())
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dq,
+                       int tq, int tkv, int h, int d, Strides st, int causal,
+                       long long q_offset, long long k_offset, float scale,
+                       int vec) {
+  constexpr int TB = tc::tile_bytes<DP>();
+  extern __shared__ __align__(1024) char smem_tc[];
+  char* qs = tc::align_atoms(smem_tc);
+  char* dos = qs + TB;
+  char* kvs = dos + TB;  // stage s: k at kvs + 2 s TB, v TB after it
+
+  const int n_qtiles = (tq + tc::kTile - 1) / tc::kTile;
+  const int qt = causal ? n_qtiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int q0 = qt * tc::kTile;
+  const int head = blockIdx.y;
+  const long long bat = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * (threadIdx.x >> 5) + (lane >> 2);  // and row + 8
+  const int col = 2 * (lane & 3);  // and col + 1, of each 8-column block
+
+  q += bat * st.q_sb + head * st.q_sh;
+  k += bat * st.k_sb + head * st.k_sh;
+  v += bat * st.v_sb + head * st.v_sh;
+  dout += bat * st.o_sb + head * st.o_sh;
+  lse += (bat * h + head) * tq;
+  delta += (bat * h + head) * tq;
+  dq += bat * tq * h * d;
+
+  tc::load_tile<T, DP>(qs, q, st.q_st, q0, tq, d, vec);
+  tc::load_tile<T, DP>(dos, dout, st.o_st, q0, tq, d, vec);
+  tc::cp_async_commit();
+
+  // this thread's two rows: lse in base 2, made +inf where it is -inf or
+  // past the end of q (exp2 of -inf gives those rows p = 0 exactly); delta;
+  // the last key each row sees
+  float lse2[2], dlt[2];
+  int last_key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + row + 8 * i;
+    const float l = r < tq ? lse[r] : -CUDART_INF_F;
+    lse2[i] = l == -CUDART_INF_F ? CUDART_INF_F : l * kLog2e;
+    dlt[i] = r < tq ? delta[r] : 0.f;
+    last_key[i] = last_visible_key(r, tkv, causal, q_offset, k_offset);
+  }
+  // keys past this are masked in some row of the tile
+  const int tile_last = last_visible_key(q0, tkv, causal, q_offset, k_offset);
+  const float scale2 = scale * kLog2e;
+
+  long long k_end = tkv;
+  if (causal) {
+    const long long last_q = q_offset + min(q0 + tc::kTile, tq) - 1;
+    const long long visible = last_q - k_offset + 1;
+    k_end = visible < 0 ? 0 : (visible < tkv ? visible : tkv);
+  }
+  const int n_k = (int)((k_end + tc::kTile - 1) / tc::kTile);
+
+  auto load_kv = [&](int stage, int k0) {
+    char* ks = kvs + stage * 2 * TB;
+    tc::load_tile<T, DP>(ks, k, st.k_st, k0, tkv, d, vec);
+    tc::load_tile<T, DP>(ks + TB, v, st.v_st, k0, tkv, d, vec);
+  };
+  if (n_k > 0) load_kv(0, 0);
+  tc::cp_async_commit();
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  const uint32_t qa = tc::smem_u32(qs), doa = tc::smem_u32(dos);
+
+  for (int it = 0; it < n_k; ++it) {
+    const int k0 = it * tc::kTile;
+    const uint32_t ka = tc::smem_u32(kvs + (it & 1) * 2 * TB);
+    const uint32_t va = ka + TB;
+    if (it + 1 < n_k) load_kv((it + 1) & 1, k0 + tc::kTile);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // q, dO and this stage have landed
+    tc::fence_async_shared();
+    __syncthreads();
+
+    // s = q k^T and dp = dO v^T, 64 x 64 each
+    float s[32], dp[32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      tc::mma_ss_n64<T>(s, tc::desc_k_major<DP>(qa, kk),
+                        tc::desc_k_major<DP>(ka, kk), kk);
+    tc::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      tc::mma_ss_n64<T>(dp, tc::desc_k_major<DP>(doa, kk),
+                        tc::desc_k_major<DP>(va, kk), kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();  // s is done; dp may still run
+    tc::fence_acc(s);
+    if (k0 + tc::kTile - 1 > tile_last) {  // a tile the mask cuts
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = k0 + 8 * j + col + (e & 1);
+          s[4 * j + e] = kl > last_key[e >> 1]
+                             ? 0.f
+                             : exp2f(s[4 * j + e] * scale2 - lse2[e >> 1]);
+        }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        s[e] = exp2f(s[e] * scale2 - lse2[(e >> 1) & 1]);
+    }
+    tc::wgmma_wait<0>();
+    tc::fence_acc(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      dp[e] = s[e] * (dp[e] - dlt[(e >> 1) & 1]) * scale;  // ds
+
+    // dq += ds k: ds rounded to T, k as the MN-major B
+    uint32_t a[4][4];
+    tc::pack_a<T>(dp, a);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::mma_rs<T, DP>(acc, a[kk], tc::desc_mn_major<DP>(ka, kk), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(acc);
+    __syncthreads();  // this stage is free for the copy after next
+  }
+  tc::cp_async_wait<0>();
+
+  tc::store_acc<T, DP>(dq, acc, q0, tq, h, head, d);
+}
+
+// K4 on the tensor cores: the block's 64 keys are the rows of every product
+// (s^T = k q^T, dp^T = v dO^T, dv += p^T dO, dk += ds^T q).  Shared memory:
+// the k and v tiles, then two stages of (q tile, dO tile, the query tile's
+// 64 lse and 64 delta values).
+template <typename T, int DP>
+__global__ void __launch_bounds__(tc::kThreads, min_blocks<DP>())
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, int tq, int tkv, int h, int d,
+                        Strides st, int causal, long long q_offset,
+                        long long k_offset, float scale, int vec) {
+  constexpr int TB = tc::tile_bytes<DP>();
+  constexpr int kSlices = 2 * tc::kTile * (int)sizeof(float);
+  static_assert(tc::kThreads == 2 * tc::kTile, "one lse or delta per thread");
+  extern __shared__ __align__(1024) char smem_tc[];
+  char* ks = tc::align_atoms(smem_tc);
+  char* vs = ks + TB;
+  char* stages = vs + TB;  // stage s: q at stages + 2 s TB, dO TB after it
+  char* slices = stages + 4 * TB;  // stage s: lse, delta at + s kSlices
+
+  const int k0 = blockIdx.x * tc::kTile;
+  const int head = blockIdx.y;
+  const long long bat = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * (threadIdx.x >> 5) + (lane >> 2);  // and row + 8
+  const int col = 2 * (lane & 3);  // and col + 1, of each 8-column block
+
+  q += bat * st.q_sb + head * st.q_sh;
+  k += bat * st.k_sb + head * st.k_sh;
+  v += bat * st.v_sb + head * st.v_sh;
+  dout += bat * st.o_sb + head * st.o_sh;
+  lse += (bat * h + head) * tq;
+  delta += (bat * h + head) * tq;
+  dk += bat * tkv * h * d;
+  dv += bat * tkv * h * d;
+
+  tc::load_tile<T, DP>(ks, k, st.k_st, k0, tkv, d, vec);
+  tc::load_tile<T, DP>(vs, v, st.v_st, k0, tkv, d, vec);
+  tc::cp_async_commit();
+
+  // causal: query tiles whose last row lies before this key tile's first key
+  // see none of it
+  int q_start = 0;
+  if (causal) {
+    const long long first = k_offset + k0 - q_offset;
+    q_start = first <= 0 ? 0
+            : first >= tq ? tq
+                          : (int)(first / tc::kTile) * tc::kTile;
+  }
+  const int n_q = (tq - q_start + tc::kTile - 1) / tc::kTile;
+
+  auto load_q = [&](int stage, int q0) {
+    char* base = stages + stage * 2 * TB;
+    tc::load_tile<T, DP>(base, q, st.q_st, q0, tq, d, vec);
+    tc::load_tile<T, DP>(base + TB, dout, st.o_st, q0, tq, d, vec);
+    // thread t copies lse[q0 + t] (t < 64) or delta[q0 + t - 64]; zeros past
+    // the end of q, whose columns the mask drops
+    const int t = threadIdx.x & (tc::kTile - 1);
+    const float* src = threadIdx.x < tc::kTile ? lse : delta;
+    const bool ok = q0 + t < tq;
+    tc::cp_async_4(tc::smem_u32(slices + stage * kSlices) + 4 * threadIdx.x,
+                   ok ? src + q0 + t : src, ok ? 4 : 0);
+  };
+  if (n_q > 0) load_q(0, q_start);
+  tc::cp_async_commit();
+
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  // the first query each of this thread's two keys is seen by (tq for keys
+  // past the end of k), and the last such over the tile
+  int first_q[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    first_q[i] = first_visible_query(k0 + row + 8 * i, tq, tkv, causal,
+                                     q_offset, k_offset);
+  const int tile_first = first_visible_query(
+      min(k0 + tc::kTile, tkv) - 1, tq, tkv, causal, q_offset, k_offset);
+  const bool keys_cut = k0 + tc::kTile > tkv;
+  const float scale2 = scale * kLog2e;
+  const uint32_t ka = tc::smem_u32(ks), va = tc::smem_u32(vs);
+
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = q_start + it * tc::kTile;
+    char* base = stages + (it & 1) * 2 * TB;
+    if (it + 1 < n_q) load_q((it + 1) & 1, q0 + tc::kTile);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // k, v and this stage have landed
+    tc::fence_async_shared();
+    __syncthreads();
+    const uint32_t qa = tc::smem_u32(base), doa = qa + TB;
+    const float* lse_s =
+        reinterpret_cast<const float*>(slices + (it & 1) * kSlices);
+    const float* delta_s = lse_s + tc::kTile;
+
+    // s^T = k q^T and dp^T = v dO^T: rows are keys, columns queries
+    float s[32], dp[32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      tc::mma_ss_n64<T>(s, tc::desc_k_major<DP>(ka, kk),
+                        tc::desc_k_major<DP>(qa, kk), kk);
+    tc::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      tc::mma_ss_n64<T>(dp, tc::desc_k_major<DP>(va, kk),
+                        tc::desc_k_major<DP>(doa, kk), kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();  // s^T is done; dp^T may still run
+    tc::fence_acc(s);
+    // a tile the mask cuts: keys or queries past the end, or the diagonal
+    const bool cut = keys_cut || q0 + tc::kTile > tq || tile_first > q0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + col);
+      // lse in base 2, +inf where it is -inf (queries that saw no key)
+      const float l2[2] = {l.x == -CUDART_INF_F ? CUDART_INF_F : l.x * kLog2e,
+                           l.y == -CUDART_INF_F ? CUDART_INF_F : l.y * kLog2e};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[4 * j + e] * scale2 - l2[e & 1]);
+        if (cut) {
+          const int ql = q0 + 8 * j + col + (e & 1);
+          s[4 * j + e] = ql < first_q[e >> 1] || ql >= tq ? 0.f : p;
+        } else {
+          s[4 * j + e] = p;
+        }
+      }
+    }
+    tc::wgmma_wait<0>();
+    tc::fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(delta_s + 8 * j + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = s[4 * j + e] *
+                        (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+    }
+
+    // dv += p^T dO and dk += ds^T q: p^T and ds^T rounded to T, dO and q as
+    // MN-major Bs
+    uint32_t pa[4][4], da[4][4];
+    tc::pack_a<T>(s, pa);
+    tc::pack_a<T>(dp, da);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::mma_rs<T, DP>(dv_acc, pa[kk], tc::desc_mn_major<DP>(doa, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::mma_rs<T, DP>(dk_acc, da[kk], tc::desc_mn_major<DP>(qa, kk), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(dv_acc);
+    tc::fence_acc(dk_acc);
+    __syncthreads();  // this stage is free for the copy after next
+  }
+  tc::cp_async_wait<0>();
+
+  tc::store_acc<T, DP>(dk, dk_acc, k0, tkv, h, head, d);
+  tc::store_acc<T, DP>(dv, dv_acc, k0, tkv, h, head, d);
+}
+
+// Six tiles, the lse and delta slices (K4), and room to align the tiles.
+template <int DP>
+constexpr int dq_tc_smem_bytes() {
+  return 6 * tc::tile_bytes<DP>() + tc::kAtomAlign;
+}
+
+template <int DP>
+constexpr int dkv_tc_smem_bytes() {
+  return 6 * tc::tile_bytes<DP>() + 4 * tc::kTile * (int)sizeof(float) +
+         tc::kAtomAlign;
+}
+
 // 16-byte loads need 16-byte aligned rows and a head dim of whole vectors.
 template <typename T>
 bool vector_ok(const void* q, const void* k, const void* v, const void* dout,
@@ -288,43 +675,57 @@ bool vector_ok(const void* q, const void* k, const void* v, const void* dout,
          (uintptr_t)v % 16 == 0 && (uintptr_t)dout % 16 == 0;
 }
 
-// One launcher for both kernels: which = 0 launches K3 (out0 = dq), 1 launches
-// K4 (out0 = dk, out1 = dv).
+// Sets the kernel's dynamic shared memory and launches it on one 64-row tile
+// per block.
+template <typename... Params, typename... Args>
+int launch_kernel(void (*kernel)(Params...), int bytes, int rows, int h,
+                  int b, int threads, cudaStream_t stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((rows + kBlockQ - 1) / kBlockQ, h, b);
+  kernel<<<grid, threads, bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// One launcher for both kernels: which = 0 launches K3 (out0 = dq), 1
+// launches K4 (out0 = dk, out1 = dv); f32 on the CUDA cores, f16 and bf16 on
+// the tensor cores.
 template <typename T, int DP>
 int launch(int which, const void* q, const void* k, const void* v,
            const void* dout, const float* lse, const float* delta, void* out0,
            void* out1, int b, int tq, int tkv, int h, int d,
            const Strides& st, int causal, long long q_offset,
            long long k_offset, float scale, cudaStream_t stream) {
+  static_assert(kBlockQ == tc::kTile && kBlockK == tc::kTile, "tile rows");
   const int vec = vector_ok<T>(q, k, v, dout, d, st);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* ot = static_cast<const T*>(dout);
-  cudaError_t err;
-  if (which == 0) {
-    constexpr int bytes = dq_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((tq + kBlockQ - 1) / kBlockQ, h, b);
-    flash_bwd_dq_kernel<T, DP><<<grid, kThreads, bytes, stream>>>(
-        qt, kt, vt, ot, lse, delta, static_cast<T*>(out0), tq, tkv, h, d, st,
-        causal, q_offset, k_offset, scale, vec);
+  T* o0 = static_cast<T*>(out0);
+  T* o1 = static_cast<T*>(out1);
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == 0)
+      return launch_kernel(flash_bwd_dq_kernel<T, DP>, dq_smem_bytes<DP>(),
+                           tq, h, b, kThreads, stream, qt, kt, vt, ot, lse,
+                           delta, o0, tq, tkv, h, d, st, causal, q_offset,
+                           k_offset, scale, vec);
+    return launch_kernel(flash_bwd_dkv_kernel<T, DP>, dkv_smem_bytes<DP>(),
+                         tkv, h, b, kThreads, stream, qt, kt, vt, ot, lse,
+                         delta, o0, o1, tq, tkv, h, d, st, causal, q_offset,
+                         k_offset, scale, vec);
   } else {
-    constexpr int bytes = dkv_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((tkv + kBlockK - 1) / kBlockK, h, b);
-    flash_bwd_dkv_kernel<T, DP><<<grid, kThreads, bytes, stream>>>(
-        qt, kt, vt, ot, lse, delta, static_cast<T*>(out0),
-        static_cast<T*>(out1), tq, tkv, h, d, st, causal, q_offset, k_offset,
-        scale, vec);
+    if (which == 0)
+      return launch_kernel(flash_bwd_dq_tc_kernel<T, DP>,
+                           dq_tc_smem_bytes<DP>(), tq, h, b, tc::kThreads,
+                           stream, qt, kt, vt, ot, lse, delta, o0, tq, tkv, h,
+                           d, st, causal, q_offset, k_offset, scale, vec);
+    return launch_kernel(flash_bwd_dkv_tc_kernel<T, DP>,
+                         dkv_tc_smem_bytes<DP>(), tkv, h, b, tc::kThreads,
+                         stream, qt, kt, vt, ot, lse, delta, o0, o1, tq, tkv,
+                         h, d, st, causal, q_offset, k_offset, scale, vec);
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>

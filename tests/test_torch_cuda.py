@@ -250,6 +250,10 @@ BWD_CASES = [
     ((50, 3, 6), None, True, torch.bfloat16),          # D of no whole vector
     ((100, 2, 128), None, True, torch.bfloat16),       # widest backward D
     ((2, 65, 2, 40), None, False, torch.float32),      # D between widths
+    ((2, 256, 8, 16), None, True, torch.bfloat16),     # StreamFormer's D 16
+    ((100, 3, 32), None, False, torch.bfloat16),       # D 32
+    ((4, 2048, 8, 64), None, True, torch.float16),     # the LM layer in f16
+    ((3, 130, 2, 64), 77, False, torch.bfloat16),      # ragged Tq and Tkv
 ]
 
 

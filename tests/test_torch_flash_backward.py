@@ -213,6 +213,58 @@ def test_backward_head_dim_limit():
         assert flash_attention(w, w, w).shape == w.shape
 
 
+#: test_torch_cuda.py's bf16 GRAD_TOL, which holds the card's K3/K4 to the
+#: plain backward: |got - want| <= ATOL * max(max |want|, 1) + RTOL * |want|
+CARD_BF16_ATOL = CARD_BF16_RTOL = 2e-2
+
+
+def _tensor_core_rounding_backward(q, k, v, dout, lse, delta, causal=False):
+    """The plain backward's arithmetic with the rounding of the bf16/f16
+    tensor-core kernels (csrc/flash_attention_bwd.cu): bf16 inputs; s and
+    dp in f32; p and ds rounded to bf16 before they enter the three
+    accumulating products (dq = ds k, dk = ds^T q, dv = p^T dO), whose sums
+    are f32; each gradient rounded once."""
+    qf, kf, vf, of = (x.float() for x in (q, k, v, dout))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = torch.einsum("...qhd,...khd->...hqk", qf, kf) * scale
+    live = torch.isfinite(lse)[..., None]
+    if causal:
+        t = torch.arange(q.shape[-3])
+        live = live & (t[None, :] <= t[:, None])
+    p = torch.where(live, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("...qhd,...khd->...hqk", of, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    p16, ds16 = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dq = torch.einsum("...hqk,...khd->...qhd", ds16, kf)
+    dk = torch.einsum("...hqk,...qhd->...khd", ds16, qf)
+    dv = torch.einsum("...hqk,...qhd->...khd", p16, of)
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("batch,t,h,causal", [((), 2048, 2, True),
+                                              ((2,), 197, 6, False)],
+                         ids=["lm-layer-heads", "vit-layer"])
+def test_tensor_core_rounding_stays_inside_card_tolerance(batch, t, h,
+                                                          causal):
+    """Rounding p and ds to bf16 before the products, as the card's
+    tensor-core kernels do, keeps dq, dk and dv inside the tolerance that
+    holds them to the plain backward, at the LM layer's per-head shape
+    (T = 2048, causal, D = 64) and ViT's (T = 197, 6 heads, batch 2)."""
+    q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16)
+                  for x in _case(t, h, 64, seed=15, batch=batch))
+    out, lse = flash_attention_reference(q, k, v, causal=causal,
+                                         return_lse=True)
+    delta = (g.float() * out.float()).sum(-1).transpose(-1, -2)
+    args = (q, k, v, g, lse, delta)
+    got = _tensor_core_rounding_backward(*args, causal=causal)
+    want = flash_attention_backward_reference(*args, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = max(b.float().abs().max().item(), 1.0)
+        torch.testing.assert_close(a.float(), b.float(),
+                                   atol=CARD_BF16_ATOL * scale,
+                                   rtol=CARD_BF16_RTOL, msg=name)
+
+
 def test_backward_kernels_are_registered_for_the_build(tmp_path,
                                                        monkeypatch):
     """K3/K4's source is one the build compiles, and a library's name
@@ -230,3 +282,52 @@ def test_backward_kernels_are_registered_for_the_build(tmp_path,
     (tmp_path / "flash_common.cuh").write_text("// edited")
     for n, path in before.items():
         assert _cuda._library_path(n) != path
+
+
+#: an ``nvcc -Xptxas -v`` report in the form the card's build writes it
+#: (mangled names shortened): one tensor-core K4 without spills, one f32
+#: K3 that spills, a note ptxas attaches to a function by name
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_bwd_dkv_tc_kernelI13__nv_bfloat16Li64EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_bwd_dkv_tc_kernelI13__nv_bfloat16Li64EEEvPKT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 191 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEvPKT_' for 'sm_90a'
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized in the function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEvPKT_'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEvPKT_
+    288 bytes stack frame, 288 bytes spill stores, 320 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_gives_registers_spills_and_notes():
+    """The build keeps nvcc's -Xptxas -v report; the parser gives each
+    kernel function's registers, shared memory, spills and notes, and
+    chip_smoke.py picks the tensor-core K3/K4 specialisations (type and
+    padded width) out of the mangled names for its no-spill check."""
+    import importlib.util
+    import os
+
+    from nnstreamer_tpu_torch import _cuda
+
+    assert ("-Xptxas", "-v") == _cuda.NVCC_FLAGS[-2:]
+    tc, f32 = _cuda.parse_ptxas(PTXAS_REPORT)
+    assert (tc["registers"], tc["static_smem_bytes"], tc["spill_store_bytes"],
+            tc["spill_load_bytes"], tc["notes"]) == (191, 0, 0, 0, [])
+    assert (f32["registers"], f32["static_smem_bytes"], f32["stack_bytes"],
+            f32["spill_store_bytes"], f32["spill_load_bytes"]) == (
+                128, 16384, 288, 288, 320)
+    assert len(f32["notes"]) == 1 and "serialized" in f32["notes"][0]
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_module", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    m = smoke.TC_KERNEL.search(tc["function"])
+    assert m and m.groups() == ("flash_bwd_dkv_tc_kernel", "__nv_bfloat16",
+                                "64")
+    assert smoke.TC_KERNEL.search(f32["function"]) is None
+    assert 64 in smoke.NO_SPILL_WIDTHS
+
