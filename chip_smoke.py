@@ -9,11 +9,13 @@ Phases, each of which must pass:
 1. build every CUDA kernel of the port from ``nnstreamer_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) and report each kernel
    function's registers, shared memory, spill bytes and ptxas notes from
-   ``-Xptxas -v``; a tensor-core K3/K4 (f16, bf16) that spills at a padded
-   head dim of 16, 32 or 64 fails;
+   ``-Xptxas -v``; a tensor-core K2/K3/K4 (f16, bf16) that spills at a
+   padded head dim of 16, 32 or 64 fails;
 2. hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and a few others, and time both, plus the one PyTorch
-   call that computes the same function where there is one;
+   call that computes the same function where there is one; K2's
+   tensor-core versions are checked and timed against each other in
+   turns at the four attention paths' shapes;
 3. drive each path through the port's entry points at full width, with
    every kernel launch counter set to 0 just before it and read just
    after:
@@ -138,11 +140,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-#: the tensor-core K3/K4 specialisations, by mangled name: (kernel, type, DP)
-TC_KERNEL = re.compile(r"(flash_bwd_d(?:q|kv)_tc_kernel)I\d+"
-                       r"(__nv_bfloat16|__half)Li(\d+)EE")
-#: padded head dims at which a tensor-core K3/K4 must not spill
+#: the tensor-core K2/K3/K4 specialisations, by mangled name: (kernel,
+#: type, DP); K2's f32 and 256-wide kernel (flash_forward_kernel) is not one
+TC_KERNEL = re.compile(r"(flash_(?:forward|bwd_d(?:q|kv))_tc_kernel)I\d+"
+                       r"(__nv_bfloat16|__half)Li(\d+)E")
+#: padded head dims at which a tensor-core K2/K3/K4 must not spill
 NO_SPILL_WIDTHS = (16, 32, 64)
+#: a name every K2 specialisation carries (the profile counts frames by it)
+K2_MARKER = "flash_forward"
 
 
 def demangle(names):
@@ -163,7 +168,7 @@ def demangle(names):
 def build_report():
     """Registers, static shared memory and spill bytes of every kernel
     function from the build's ``-Xptxas -v`` report, and the tensor-core
-    K3/K4 specialisations at a width of NO_SPILL_WIDTHS that spill."""
+    K2/K3/K4 specialisations at a width of NO_SPILL_WIDTHS that spill."""
     from nnstreamer_tpu_torch import _cuda
 
     rows, spills = [], []
@@ -407,6 +412,58 @@ def check_flash_attention(reps: int) -> dict:
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"]}
+
+
+#: FLASH_ROWS whose shapes the paths give K2
+K2_PATH_ROWS = ("vit", "lm", "vit_train", "lm_train")
+
+
+def time_flash_versions(reps: int) -> None:
+    """K2's tensor-core versions (``FORWARD_VERSIONS``) at the four path
+    shapes: each held to the plain version as in check_flash_attention,
+    then all timed in turns with SDPA, in one order and back."""
+    import torch
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops.flash_attention import (
+        FORWARD_VERSIONS, flash_attention_reference, flash_attention_version)
+
+    gen = torch.Generator().manual_seed(3)
+    rows, failures = [], []
+    order = sorted(FORWARD_VERSIONS)
+    for (name, b, tq, tkv, h, d, causal, dt, qo, ko) in FLASH_ROWS:
+        if name not in K2_PATH_ROWS:
+            continue
+        lead = () if b is None else (b,)
+        q, k, v = (torch.randn(*lead, t, h, d, generator=gen)
+                   .to("cuda", getattr(torch, dt)) for t in (tq, tkv, tkv))
+        want = flash_attention_reference(q, k, v, causal=causal)
+        atol, rtol = FLASH_TOL[dt]
+        errs = {}
+        for ver in order:
+            out, _ = flash_attention_version(q, k, v, ver, causal=causal)
+            err = (out.float() - want.float()).abs()
+            errs[ver] = err.max().item()
+            if not bool((err <= atol + rtol * want.float().abs()).all()):
+                failures.append(f"{name} v{ver}")
+        qh, kh, vh = (x.transpose(-3, -2) if b else x.transpose(0, 1)[None]
+                      for x in (q, k, v))
+        times = {ver: [] for ver in order + ["sdpa"]}
+        for turn in (order + ["sdpa"], ["sdpa"] + order[::-1]):
+            for ver in turn:
+                fn = ((lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=causal)) if ver == "sdpa" else
+                      (lambda ver=ver: flash_attention_version(
+                          q, k, v, ver, causal=causal)))
+                times[ver].append(time_ms(fn, reps))
+        rows.append({"case": name, "q": [*lead, tq, h, d], "causal": causal,
+                     "dtype": dt, "max_abs_err": errs,
+                     "ms": {str(ver): t for ver, t in times.items()}})
+    emit({"phase": "kernel", "kernel": "flash_attention_versions",
+          "versions": FORWARD_VERSIONS, "rows": rows})
+    if failures:
+        raise AssertionError(f"K2 versions differ from the plain version "
+                             f"beyond tolerance at {failures}")
 
 
 #: flash backward (K3 dq, K4 dk/dv) rows: (name, batch, tq, tkv, h, d,
@@ -1333,6 +1390,7 @@ def main(argv=None) -> int:
         kernels = [check_normalize_frame(args.reps),
                    check_flash_attention(args.reps),
                    *check_flash_backward(args.reps)]
+        time_flash_versions(args.reps)
         main_path = run_labeling("main_path", LAUNCH, args.frames,
                                  args.seed, card, "normalize_frame", 1)
         check_outputs(main_path["labels"], args.frames, args.seed)
@@ -1362,7 +1420,7 @@ def main(argv=None) -> int:
             profile_path("main_path", LAUNCH, args.frames, args.seed,
                          args.profile, "normalize_frame_kernel", 1)
             profile_path("vit_path", VIT_LAUNCH, args.vit_frames,
-                         args.seed, args.profile, "flash_forward_kernel", 12)
+                         args.seed, args.profile, K2_MARKER, 12)
             profile_lm(args.lm_frames, args.steps, args.seed, args.profile)
             profile_train("vit_train", vit_launch, vit_samples, args.profile)
             profile_train("lm_train", lm_launch, lm_samples, args.profile)

@@ -320,18 +320,6 @@ constexpr int dkv_smem_bytes() {
 // f16 and bf16: the tensor-core kernels
 // ---------------------------------------------------------------------------
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-// The last key (local index) that query row r sees: tkv - 1, or less under
-// `causal`; -1 when it sees none.
-__device__ __forceinline__ int last_visible_key(int r, int tkv, int causal,
-                                                long long q_offset,
-                                                long long k_offset) {
-  long long last = tkv - 1;
-  if (causal) last = min(last, q_offset + r - k_offset);
-  return (int)max(last, -1LL);
-}
-
 // The first query (local index) that sees key kl: 0, or more under
 // `causal`; tq when none does, as for keys past the end of k.
 __device__ __forceinline__ int first_visible_query(int kl, int tq, int tkv,
@@ -391,13 +379,14 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int r = q0 + row + 8 * i;
     const float l = r < tq ? lse[r] : -CUDART_INF_F;
-    lse2[i] = l == -CUDART_INF_F ? CUDART_INF_F : l * kLog2e;
+    lse2[i] = l == -CUDART_INF_F ? CUDART_INF_F : l * tc::kLog2e;
     dlt[i] = r < tq ? delta[r] : 0.f;
-    last_key[i] = last_visible_key(r, tkv, causal, q_offset, k_offset);
+    last_key[i] = tc::last_visible_key(r, tkv, causal, q_offset, k_offset);
   }
   // keys past this are masked in some row of the tile
-  const int tile_last = last_visible_key(q0, tkv, causal, q_offset, k_offset);
-  const float scale2 = scale * kLog2e;
+  const int tile_last =
+      tc::last_visible_key(q0, tkv, causal, q_offset, k_offset);
+  const float scale2 = scale * tc::kLog2e;
 
   long long k_end = tkv;
   if (causal) {
@@ -564,7 +553,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tile_first = first_visible_query(
       min(k0 + tc::kTile, tkv) - 1, tq, tkv, causal, q_offset, k_offset);
   const bool keys_cut = k0 + tc::kTile > tkv;
-  const float scale2 = scale * kLog2e;
+  const float scale2 = scale * tc::kLog2e;
   const uint32_t ka = tc::smem_u32(ks), va = tc::smem_u32(vs);
 
   for (int it = 0; it < n_q; ++it) {
@@ -601,8 +590,9 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 8; ++j) {
       const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + col);
       // lse in base 2, +inf where it is -inf (queries that saw no key)
-      const float l2[2] = {l.x == -CUDART_INF_F ? CUDART_INF_F : l.x * kLog2e,
-                           l.y == -CUDART_INF_F ? CUDART_INF_F : l.y * kLog2e};
+      const float l2[2] = {
+          l.x == -CUDART_INF_F ? CUDART_INF_F : l.x * tc::kLog2e,
+          l.y == -CUDART_INF_F ? CUDART_INF_F : l.y * tc::kLog2e};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(s[4 * j + e] * scale2 - l2[e & 1]);

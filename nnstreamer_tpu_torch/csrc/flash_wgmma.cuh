@@ -1,7 +1,8 @@
-// Tensor-core pieces of the flash-attention backward kernels (K3 and K4 in
-// flash_attention_bwd.cu) for 16-bit inputs on Hopper (sm_90a): the shared-
-// memory tile layout, its asynchronous and scalar loaders, and the warpgroup
-// matrix products (wgmma) that read it.
+// Tensor-core pieces of the flash-attention kernels for 16-bit inputs on
+// Hopper (sm_90a): the forward (K2, flash_attention.cu) and the two backward
+// kernels (K3 and K4, flash_attention_bwd.cu).  The shared-memory tile
+// layout, its asynchronous and scalar loaders, the warpgroup matrix products
+// (wgmma) that read it, and the mask helpers all three share.
 //
 // Tile layout.  A tile is 64 rows (tokens) x DP columns (the padded head
 // dim) of a 16-bit type, stored row after row in rows of W = min(2 DP, 128)
@@ -114,36 +115,71 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// 16-byte cp.async copies of 64-row tiles of one head of a (T, H, D)
+// tensor into the swizzled layout, with each thread's part of the addresses
+// worked out once (per copy they are one add and one compare): thread t of
+// a warpgroup
+// copies chunk column t % (DP / 8) of rows r0 + R i (r0 = t / (DP / 8),
+// R = 128 / (DP / 8)), which land R W bytes apart, since R is a multiple of
+// the swizzle's period in rows.
+template <typename T, int DP>
+struct TileCopy {
+  static constexpr int kPerRow = DP / 8;
+  static constexpr int kRowStep = kThreads / kPerRow;  // R
+  static constexpr int kCopies = kTile / kRowStep;
+  static_assert(kThreads % kPerRow == 0 && kTile % kRowStep == 0,
+                "whole rows of copies per pass");
+  const T* head;  // the source of zero-filled copies
+  const T* src;
+  long long row_stride;
+  int r0, soff;
+  bool col_ok;
+
+  __device__ __forceinline__ TileCopy(const T* base, long long stride,
+                                      int d) {
+    const int t = threadIdx.x % kThreads;
+    const int cb = t % kPerRow;
+    r0 = t / kPerRow;
+    soff = chunk_offset<DP>(r0, cb);
+    col_ok = cb * 8 < d;
+    row_stride = stride;
+    head = base;
+    src = base + r0 * stride + cb * 8;
+  }
+
+  // Rows [row0, row0 + 64) into `tile`; rows past n_rows and columns past d
+  // are zero-filled.  In flight on return.
+  __device__ __forceinline__ void load(char* tile, int row0,
+                                       int n_rows) const {
+    const uint32_t dst = smem_u32(tile) + soff;
+    const T* g = src + row0 * row_stride;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const bool ok = col_ok && row0 + r0 + i * kRowStep < n_rows;
+      cp_async_16(dst + i * kRowStep * Swizzle<DP>::kRowBytes,
+                  ok ? g + i * kRowStep * row_stride : head, ok ? 16 : 0);
+    }
+  }
+};
+
 // Rows [row0, row0 + 64) of one head of a (T, H, D) tensor into the tile at
 // `tile`; rows past n_rows and columns past d are zeros.  With `vec` (rows
-// and d 16-byte aligned) as 16-byte cp.async copies, in flight on return:
-// thread t copies chunks t, t + 128, ... in row-major order.  Without, as
-// scalar loads and stores, done on return (a shape rule: inputs whose rows
-// or head dim are not 16-byte aligned cannot be copied 16 bytes at a time).
-// `tile` must be 1024-byte aligned, as the swizzle atoms are.
+// and d 16-byte aligned) as 16-byte cp.async copies (TileCopy), in flight
+// on return.  Without, as scalar loads and stores, done on return (a shape
+// rule: inputs whose rows or head dim are not 16-byte aligned cannot be
+// copied 16 bytes at a time).  `tile` must be 1024-byte aligned, as the
+// swizzle atoms are.  The 128 threads of one warpgroup make the copy (in a
+// block of several, each warpgroup may load a tile of its own).
 template <typename T, int DP>
 __device__ __forceinline__ void load_tile(char* tile,
                                           const T* __restrict__ src,
                                           long long row_stride, int row0,
                                           int n_rows, int d, bool vec) {
-  constexpr int kPerRow = DP / 8;  // 16-byte chunks in a row
-  constexpr int kChunks = kTile * kPerRow;
-  static_assert(kChunks % kThreads == 0, "whole copies per thread");
   if (vec) {
-    const uint32_t base = smem_u32(tile);
-#pragma unroll
-    for (int it = 0; it < kChunks / kThreads; ++it) {
-      const int i = threadIdx.x + it * kThreads;
-      const int r = i / kPerRow;
-      const int cb = i - r * kPerRow;
-      const bool ok = row0 + r < n_rows && cb * 8 < d;
-      const T* g =
-          ok ? src + (long long)(row0 + r) * row_stride + cb * 8 : src;
-      cp_async_16(base + chunk_offset<DP>(r, cb), g, ok ? 16 : 0);
-    }
+    TileCopy<T, DP>(src, row_stride, d).load(tile, row0, n_rows);
     return;
   }
-  for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
+  for (int i = threadIdx.x % kThreads; i < kTile * DP; i += kThreads) {
     const int r = i / DP;
     const int c = i - r * DP;
     T x = from_f32<T>(0.f);
@@ -151,6 +187,20 @@ __device__ __forceinline__ void load_tile(char* tile,
       x = src[(long long)(row0 + r) * row_stride + c];
     *reinterpret_cast<T*>(tile + tile_offset<DP>(r, c)) = x;
   }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The last key (local index) that query row r sees: tkv - 1, or less under
+// `causal`; -1 when it sees none.  A key tile [k0, k0 + 64) needs no mask in
+// a query tile whose first row sees key k0 + 63.
+__device__ __forceinline__ int last_visible_key(int r, int tkv, int causal,
+                                                long long q_offset,
+                                                long long k_offset) {
+  long long last = tkv - 1;
+  if (causal) last = min(last, q_offset + r - k_offset);
+  return (int)max(last, -1LL);
 }
 
 // A wgmma descriptor of a swizzled tile in shared memory: `lbo` and `sbo`
@@ -176,6 +226,24 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk) {
   using S = Swizzle<DP>;
   return make_desc<DP>(tile + kk * 16 * S::kRowBytes, S::kBlockBytes,
                        8 * S::kRowBytes);
+}
+
+// The byte offsets that take a tile's k-step-0 descriptor to k step kk, as
+// a K-major operand and as an MN-major B: a descriptor holds its address in
+// 16-byte units in its low bits, so desc + bytes / 16 is the descriptor of
+// the same layout `bytes` further on (shared addresses stay below 2^18).
+template <int DP>
+__host__ __device__ constexpr uint32_t k_step_bytes(int kk) {
+  return (32 * kk / Swizzle<DP>::kRowBytes) * Swizzle<DP>::kBlockBytes +
+         32 * kk % Swizzle<DP>::kRowBytes;
+}
+template <int DP>
+__host__ __device__ constexpr uint32_t mn_step_bytes(int kk) {
+  return kk * 16 * Swizzle<DP>::kRowBytes;
+}
+__device__ __forceinline__ uint64_t desc_shift(uint64_t desc,
+                                               uint32_t bytes) {
+  return desc + (bytes >> 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

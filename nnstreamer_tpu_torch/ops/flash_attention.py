@@ -5,7 +5,10 @@ forward and two backward kernels are Pallas TPU kernels.  Here each is a
 hand-written CUDA kernel for tensors on the card, built by :mod:`.._cuda`:
 
 - K2, the forward (``csrc/flash_attention.cu``), plain version
-  :func:`flash_attention_reference`;
+  :func:`flash_attention_reference`: f16 and bf16 on the tensor cores,
+  rounding p to the inputs' type before ``p·v`` (so within a tolerance of
+  the plain version, not bit-equal), f32 and head dims past 128 on the
+  CUDA cores;
 - K3 (dq) and K4 (dk, dv), the backward (``csrc/flash_attention_bwd.cu``),
   plain version :func:`flash_attention_backward_reference`.
 
@@ -211,8 +214,30 @@ def _require_card(what: str, *xs: torch.Tensor) -> None:
                          f"contiguous")
 
 
+#: K2's tensor-core versions (f16/bf16), which ``flash_attention_version``
+#: launches and chip_smoke.py times against each other;
+#: ``flash_attention`` launches 1 where blocks of 128 query rows fill every
+#: SM twice over, else 2
+FORWARD_VERSIONS = {1: "two warpgroups a block, 64 keys a stage",
+                    2: "one warpgroup a block, 128 keys a stage"}
+
+
 def _kernel_forward(q, k, v, causal, q_offset, k_offset):
     """K2: (out, lse) on the current stream (no sync)."""
+    return _launch_forward(q, k, v, causal, q_offset, k_offset, 0)
+
+
+def flash_attention_version(q, k, v, version: int, causal: bool = False,
+                            q_offset: int = 0, k_offset: int = 0):
+    """K2 in tensor-core version ``version`` (:data:`FORWARD_VERSIONS`;
+    CUDA tensors): (out, lse).  The same function as
+    :func:`flash_attention`, for timing the versions against each
+    other."""
+    _check(q, k, v)
+    return _launch_forward(q, k, v, causal, q_offset, k_offset, version)
+
+
+def _launch_forward(q, k, v, causal, q_offset, k_offset, version):
     _require_card("flash_attention", q, k, v)
     q4, k4, v4 = _batched(q), _batched(k), _batched(v)
     b, tq, h, d = q4.shape
@@ -222,16 +247,19 @@ def _kernel_forward(q, k, v, causal, q_offset, k_offset):
                       device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib, fn = _fn("flash_attention", "nns_flash_attention_fwd",
-                  [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_I, _LL, _LL,
-                                                    ctypes.c_float, _I, _P])
+    args = [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_I, _LL, _LL, ctypes.c_float,
+                                              _I, _P]
+    lib, fn = (_fn("flash_attention", "nns_flash_attention_fwd", args)
+               if not version else
+               _fn("flash_attention", "nns_flash_attention_fwd_version",
+                   args + [_I]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), b, tq, tkv, h, d, *_strides(q4),
                   *_strides(k4), *_strides(v4), int(bool(causal)),
                   int(q_offset), int(k_offset), 1.0 / math.sqrt(d),
-                  _DTYPES[q.dtype], stream)
+                  _DTYPES[q.dtype], stream, *([version] if version else []))
     _cuda.check(lib, code, "flash_attention")
     _cuda.launches["flash_attention"] += 1
     return out, lse

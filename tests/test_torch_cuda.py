@@ -12,8 +12,8 @@ import torch
 
 from nnstreamer_tpu_torch import _cuda
 from nnstreamer_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_backward_reference,
-    flash_attention_reference)
+    FORWARD_VERSIONS, flash_attention, flash_attention_backward_reference,
+    flash_attention_reference, flash_attention_version)
 from nnstreamer_tpu_torch.ops.preprocess import (normalize_frame,
                                                  normalize_frame_reference)
 
@@ -193,6 +193,114 @@ def test_flash_attention_batch_axis(card):
         o_i, l_i = flash_attention(q[i], k[i], v[i], causal=True,
                                    return_lse=True)
         assert torch.equal(out[i], o_i) and torch.equal(lse[i], l_i)
+
+
+#: the f16/bf16 tensor-core route (D <= 128) at its edges: blocks of 128
+#: query rows (two warpgroups) with ragged ends and idle warpgroups, padded
+#: widths 16/32/64/128 and D between them, the batch axis
+TC_FLASH_CASES = [
+    # (shape of q, tkv, causal)
+    ((5, 2, 64), 37, False),          # Tq < Tkv: one warpgroup has no rows
+    ((37, 2, 64), 5, True),           # Tq > Tkv
+    ((200, 3, 64), 77, False),        # ragged Tq across blocks
+    ((77, 3, 64), 200, True),         # ragged Tkv, causal
+    ((130, 2, 8), None, True),        # D = 8, below every width
+    ((70, 2, 40), None, False),       # D = 40, between widths
+    ((300, 2, 16), None, True),       # D = 16
+    ((150, 4, 32), 97, False),        # D = 32
+    ((260, 2, 128), None, True),      # D = 128
+    ((3, 77, 4, 64), None, True),     # the batch axis
+    ((2, 129, 3, 128), 65, False),    # batched, D = 128, ragged
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bfloat16", "float16"])
+@pytest.mark.parametrize("shape,tkv,causal", TC_FLASH_CASES, ids=str)
+def test_flash_attention_tensor_core_route(card, shape, tkv, causal, dtype):
+    rng = np.random.default_rng(7)
+    kshape = shape[:-3] + ((tkv or shape[-3]),) + shape[-2:]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(card, dtype) for s in (shape, kshape, kshape))
+    _check_flash(q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bfloat16", "float16"])
+@pytest.mark.parametrize("q_offset,k_offset", [(0, 100), (64, 0), (10, 140),
+                                               (0, 130)])
+def test_flash_attention_tensor_core_offsets(card, q_offset, k_offset,
+                                             dtype):
+    """Keys after the queries leave whole rows with no key (0 and -inf),
+    whole warpgroups' and blocks' worth of them at (0, 130)."""
+    q, k, v = _qkv(card, 200, 3, 64, dtype, tkv=150, seed=8)
+    _, lse = _check_flash(q, k, v, causal=True, q_offset=q_offset,
+                          k_offset=k_offset)
+    dead = max(0, k_offset - q_offset)
+    assert torch.isinf(lse[:, :dead]).all()
+    assert torch.isfinite(lse[:, dead:]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bfloat16", "float16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_attention_tensor_core_fused_qkv(card, causal, dtype):
+    """Batched q/k/v as views of one fused (B, T, 3, H, D) projection."""
+    qkv = torch.randn(2, 197, 3, 6, 64, device=card, dtype=dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    _check_flash(q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bfloat16", "float16"])
+def test_flash_attention_tensor_core_unaligned_rows(card, dtype):
+    """16-bit rows that do not start on 16 bytes take the scalar loader
+    into the same swizzled tiles."""
+    buf = torch.randn(1 + 3 * 130 * 2 * 64, device=card).to(dtype)
+    q, k, v = buf[1:].reshape(3, 130, 2, 64).unbind(0)
+    assert q.data_ptr() % 16
+    _check_flash(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("version", sorted(FORWARD_VERSIONS))
+@pytest.mark.parametrize("shape,causal", [((200, 3, 64), True),
+                                          ((2, 197, 6, 64), False),
+                                          ((130, 2, 32), True),
+                                          ((2, 77, 2, 128), False)],
+                         ids=str)
+def test_flash_attention_versions_match_plain(card, version, shape, causal):
+    """Every tensor-core version chip_smoke.py times computes the same
+    function, within the same tolerance."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, torch.bfloat16) for _ in range(3))
+    out, lse = flash_attention_version(q, k, v, version, causal=causal)
+    want, want_lse = flash_attention_reference(q, k, v, causal=causal,
+                                               return_lse=True)
+    torch.cuda.synchronize()
+    atol, rtol = OUT_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL, rtol=0.0)
+
+
+def test_flash_attention_picks_its_version_by_grid(card):
+    """flash_attention launches version 1 (two warpgroups a block) where
+    blocks of 128 query rows fill every SM twice over, and version 2 (one
+    warpgroup, 128 keys a stage) where they do not: its output is the
+    chosen version's, bit for bit."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    rng = np.random.default_rng(10)
+    for b, version in ((2 * sms, 1), (1, 2)):   # b blocks of 128 rows
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, 128, 1, 64)).astype(np.float32)).to(card, torch.bfloat16)
+            for _ in range(3))
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        want, want_lse = flash_attention_version(q, k, v, version,
+                                                 causal=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(lse, want_lse)
 
 
 # ---------------------------------------------------------------------------

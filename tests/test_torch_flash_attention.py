@@ -9,6 +9,8 @@ in different orders, nothing else differs.  Rows that see no key must be
 exactly 0 and -inf in both.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -201,3 +203,137 @@ def test_kernel_is_registered_for_the_build():
 
     assert _cuda.SOURCES["flash_attention"] == "flash_attention.cu"
     assert fa.MAX_HEAD_DIM == 256
+
+
+# ---------------------------------------------------------------------------
+# the bf16/f16 tensor-core route (csrc/flash_attention.cu) on the CPU
+# ---------------------------------------------------------------------------
+
+#: test_torch_cuda.py's bf16 OUT_TOL, which holds the card's K2 to its plain
+#: version: |got - want| <= ATOL + RTOL * |want|
+CARD_BF16_ATOL, CARD_BF16_RTOL = 3e-2, 1e-2
+
+
+def _tensor_core_rounding_forward(q, k, v, causal=False):
+    """The arithmetic of the bf16/f16 tensor-core K2: f32 scores; per
+    64-key tile the running row max m2 in base 2, ``p = exp2(s·scale·log2e
+    − m2)`` in f32, the row sum ``l`` adding the unrounded p, and ``o =
+    o·exp2(m2_old − m2) + bf16(p)·v`` summed in f32; ``out = o / max(l,
+    1e-20)`` rounded once to bf16."""
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    scale2 = math.log2(math.e) / math.sqrt(q.shape[-1])
+    s_all = torch.einsum("...qhd,...khd->...hqk", qf, kf)
+    if causal:
+        t = torch.arange(q.shape[-3])
+        s_all = s_all.masked_fill(t[None, :] > t[:, None], float("-inf"))
+    m2 = torch.full(s_all.shape[:-1], float("-inf"))
+    lsum = torch.zeros(s_all.shape[:-1])
+    o = torch.zeros(s_all.shape[:-1] + (q.shape[-1],))
+    for k0 in range(0, k.shape[-3], 64):
+        s = s_all[..., k0:k0 + 64]
+        m_new = torch.maximum(m2, s.amax(-1) * scale2)
+        m_use = torch.where(torch.isfinite(m_new), m_new,
+                            torch.zeros_like(m_new))
+        corr = torch.exp2(m2 - m_use)
+        p = torch.exp2(s * scale2 - m_use[..., None])
+        lsum = lsum * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum(
+            "...hqk,...khd->...hqd", p.to(torch.bfloat16).float(),
+            vf[..., k0:k0 + 64, :, :])
+        m2 = m_new
+    out = o / lsum.clamp_min(1e-20)[..., None]
+    return out.transpose(-3, -2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("batch,t,h,causal", [((), 2048, 2, True),
+                                              ((2,), 197, 6, False)],
+                         ids=["lm-layer-heads", "vit-layer"])
+def test_tensor_core_rounding_stays_inside_card_tolerance(batch, t, h, causal,
+                                                          record_property):
+    """Rounding p to bf16 before p·v, with l summed from the f32 p, as the
+    card's tensor-core K2 does, keeps out inside the tolerance that holds
+    it to the plain version, at the LM layer's per-head shape (T = 2048,
+    causal, D = 64) and ViT's (T = 197, 6 heads, batch 2).  The share of
+    the tolerance used goes into the report as ``tolerance_share``."""
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.standard_normal(batch + (t, h, 64))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    got = _tensor_core_rounding_forward(q, k, v, causal=causal).float()
+    want = flash_attention_reference(q, k, v, causal=causal).float()
+    share = ((got - want).abs()
+             / (CARD_BF16_ATOL + CARD_BF16_RTOL * want.abs())).max().item()
+    record_property("tolerance_share", share)
+    assert share <= 1.0, f"uses {share:.3f} of the card's bf16 tolerance"
+
+
+def _smoke_module():
+    """chip_smoke.py as a module (it imports no torch at the top)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_module", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+#: an ``nvcc -Xptxas -v`` report in the form the card's build writes it
+#: (argument lists shortened): K2's tensor-core kernel in bf16 at a padded
+#: width of 64 that spills, in f16 at 128 that spills, and the CUDA-core
+#: kernel in f32 and in bf16 at 256, spilling too
+FWD_PTXAS_REPORT = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_forward_tc_kernelI13__nv_bfloat16Li64ELi2ELi1EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_forward_tc_kernelI13__nv_bfloat16Li64ELi2ELi1EEEvPKT_
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_forward_tc_kernelI6__halfLi128ELi1ELi2EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_forward_tc_kernelI6__halfLi128ELi1ELi2EEEvPKT_
+    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_forward_kernelIfLi64EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_forward_kernelIfLi64EEEvPKT_
+    256 bytes stack frame, 256 bytes spill stores, 256 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_forward_kernelI13__nv_bfloat16Li256EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_forward_kernelI13__nv_bfloat16Li256EEEvPKT_
+    64 bytes stack frame, 64 bytes spill stores, 64 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_no_spill_check_picks_the_tensor_core_forward(monkeypatch):
+    """chip_smoke.py's build check picks K2's tensor-core specialisations
+    out of the mangled names by type and padded width, and fails the
+    build on one at a width of NO_SPILL_WIDTHS that spills; the CUDA-core
+    kernel (f32, and bf16 at 256) and the 128-wide one are not held to
+    it."""
+    from nnstreamer_tpu_torch import _cuda
+
+    smoke = _smoke_module()
+    funcs = _cuda.parse_ptxas(FWD_PTXAS_REPORT)
+    groups = [m and m.groups() for m in
+              (smoke.TC_KERNEL.search(f["function"]) for f in funcs)]
+    assert groups == [("flash_forward_tc_kernel", "__nv_bfloat16", "64"),
+                      ("flash_forward_tc_kernel", "__half", "128"),
+                      None, None]
+    monkeypatch.setattr(_cuda, "ptxas_report",
+                        lambda: {"flash_attention": funcs})
+    rows, spills = smoke.build_report()
+    assert len(rows) == 4
+    assert len(spills) == 1 and "16 bytes" in spills[0]
+    # the profile counts ViT frames by a name every K2 kernel carries
+    assert all(smoke.K2_MARKER in f["function"] for f in funcs)
+
+
+def test_versions_are_named_and_need_the_card():
+    """The tensor-core versions chip_smoke.py times; a CPU tensor has no
+    kernel to launch."""
+    assert sorted(fa.FORWARD_VERSIONS) == list(
+        range(1, len(fa.FORWARD_VERSIONS) + 1))
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(8, 2, 64))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_version(q, k, v, 1)
