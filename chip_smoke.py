@@ -18,7 +18,15 @@ Phases, each of which must pass:
    turns at the four attention paths' shapes;
 3. drive each path through the port's entry points at full width, with
    every kernel launch counter set to 0 just before it and read just
-   after:
+   after.  The four serving paths run as CUDA graphs (the filter
+   captures its forward at open and, fused with the decoder's pushdown,
+   before the first frame; the engine captures its step and prefill sets
+   in ``warmup()``), so a launch counts as captured launches x replays,
+   plus the eager run before each capture; each stream must capture
+   nothing, and each path prints its compile-ledger snapshot.  Each
+   serving path runs again eagerly in the same call, and the graph run's
+   labels, logits and greedy tokens must equal the eager run's bit for
+   bit:
 
    - ``main_path``: the flagship image-labeling pipeline of the README
      (MobileNetV2 1.0, 224x224, 1001 classes, bf16, ``use_pallas:1``);
@@ -44,6 +52,11 @@ Phases, each of which must pass:
    each model with the kernels against the same step with plain attention
    (loss and every gradient, in f32 and bf16).
 
+With ``--profile DIR`` the four serving paths are traced in graph and
+eager mode in turns (graph, eager, eager, graph): device busy time,
+device kernels and host launch calls a unit, the idle share and the
+rates, one ``profile_modes`` line a path with both modes side by side.
+
 Earlier lines are JSON objects of the phases' numbers, the card's name and
 power limit as ``nvidia-smi`` gives them, and the ``kernels`` line; the
 last line is ``{"ok": true, "device": {...}}`` and is printed only when
@@ -54,6 +67,7 @@ package is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -63,6 +77,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+#: graph captures of a labeling pipeline: the forward at open, and the
+#: forward fused with the decoder's pushdown before the first frame
+PUSHDOWN_CAPTURES = 2
+#: frames whose filter outputs (logits) are held graph against eager
+GRAPH_LOGITS_FRAMES = 8
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -586,22 +606,54 @@ def check_flash_backward(reps: int) -> list:
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def run_labeling(phase: str, launch: str, frames: int, seed: int,
-                 card: str, kernel: str, per_frame: int) -> dict:
-    """Drive an image-labeling pipeline of ``frames`` frames; ``kernel``
-    must launch ``per_frame`` times a frame (and as often in the filter's
-    warm-up invoke)."""
-    from nnstreamer_tpu_torch import _cuda, parse_launch
+@contextlib.contextmanager
+def eager_filters(on: bool):
+    """While ``on``, every ``tensor_filter`` backend runs its forward
+    eagerly on the card, without graphs: the reference run (a private
+    attribute of the backend, not a launch property)."""
+    from nnstreamer_tpu_torch.filter.backends._torchexec import \
+        TorchExecMixin
 
-    stamps = []
+    was = TorchExecMixin._eager
+    TorchExecMixin._eager = on
+    try:
+        yield
+    finally:
+        TorchExecMixin._eager = was
+
+
+def graph_counts(eager: bool, captures: int, replays: int):
+    """What ``_cuda.graphs`` must read after a run of one mode."""
+    return {} if eager else {"captures": captures, "replays": replays}
+
+
+def run_labeling(phase: str, launch: str, frames: int, seed: int,
+                 card: str, kernel: str, per_frame: int,
+                 eager: bool = False) -> dict:
+    """Drive an image-labeling pipeline of ``frames`` frames.  In graph
+    mode the filter captures its forward at open and again, fused with
+    the decoder's pushdown, before the first frame; every frame is a
+    replay.  ``kernel`` must launch ``per_frame`` times a frame and as
+    often in each eager run of the forward: the one before each capture
+    (graph mode) or the open's warm-up invoke (``eager``)."""
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.analysis import compileledger
+
+    stamps, captures_at = [], []
+
+    def on_data(buf):
+        stamps.append(time.perf_counter())
+        captures_at.append(_cuda.graphs["captures"])
+
     _cuda.reset_launches()
+    compileledger.reset()
     p = parse_launch(launch.format(frames=frames, seed=seed))
-    p.get("out").connect("new-data",
-                         lambda buf: stamps.append(time.perf_counter()))
+    p.get("out").connect("new-data", on_data)
     t0 = time.perf_counter()
-    p.run(timeout=600)
+    with eager_filters(eager):
+        p.run(timeout=600)
     wall = time.perf_counter() - t0
-    launches = dict(_cuda.launches)
+    launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
     results = p.get("out").results
     labels = [b.extra.get("index") for b in results]
     if len(results) != frames or any(i is None for i in labels):
@@ -610,18 +662,73 @@ def run_labeling(phase: str, launch: str, frames: int, seed: int,
     # the next is made, so the gap between sink arrivals is the per-frame
     # latency from source to sink
     gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
-    row = {"phase": phase, "frames": frames, "launches": launches,
+    row = {"phase": phase, "mode": "eager" if eager else "graph",
+           "frames": frames, "launches": launches, "graphs": graphs,
+           "compile_ledger": compileledger.snapshot(),
            "fps": (len(stamps) - 1) / (stamps[-1] - stamps[0]),
            "p50_ms": statistics.median(gaps),
            "p90_ms": gaps[int(0.9 * (len(gaps) - 1))],
            "wall_s_incl_open": wall, "card": card}
     emit(row)
-    # the filter's open runs one warm-up invoke; every frame runs one
-    want = per_frame * (frames + 1)
+    # graph mode: one eager run before each of the two captures (open,
+    # pushdown), then a replay a frame; eager: the open's warm-up invoke
+    # and one run a frame
+    warm_runs = 1 if eager else PUSHDOWN_CAPTURES
+    want = per_frame * (frames + warm_runs)
     if launches.get(kernel, 0) != want:
         raise AssertionError(f"{kernel} launched {launches.get(kernel, 0)} "
                              f"times on {phase}, expected {want}")
-    return {"labels": labels, "launches": launches}
+    if graphs != graph_counts(eager, PUSHDOWN_CAPTURES, frames):
+        raise AssertionError(f"{phase}: graphs {graphs}, expected "
+                             f"{PUSHDOWN_CAPTURES} captures before the "
+                             f"stream and a replay a frame")
+    if captures_at and captures_at[0] != graphs.get("captures", 0):
+        raise AssertionError(f"{phase}: captures inside the stream")
+    if row["compile_ledger"] != {"filter.jitexec.invoke": 2}:
+        raise AssertionError(f"{phase}: compile ledger "
+                             f"{row['compile_ledger']}, expected the open "
+                             f"and the pushdown signatures")
+    return {"labels": labels, "launches": launches, "fps": row["fps"]}
+
+
+def labels_equal_eager(phase: str, graph: dict, eager: dict) -> None:
+    """The graph run's labels against the eager run's, frame by frame."""
+    differ = [i for i, (a, b) in enumerate(zip(graph["labels"],
+                                               eager["labels"])) if a != b]
+    emit({"phase": "graph_vs_eager", "path": phase,
+          "frames": len(graph["labels"]),
+          "labels_equal": len(graph["labels"]) - len(differ),
+          "fps": {"graph": graph["fps"], "eager": eager["fps"]}})
+    if differ or len(graph["labels"]) != len(eager["labels"]):
+        raise AssertionError(f"{phase}: graph labels differ from eager on "
+                             f"frames {differ}")
+
+
+def check_graph_logits(phase: str, model: str, custom: dict, frames: int,
+                       seed: int) -> None:
+    """The filter's outputs in graph mode against its eager outputs, bit
+    for bit, frame by frame; every graph output is held until all are
+    compared (a replay must not overwrite an earlier frame's)."""
+    import torch
+
+    from nnstreamer_tpu_torch.filter import FilterSingle
+
+    custom = ",".join(f"{k}:{v}" for k, v in custom.items())
+    imgs = source_frames(frames, seed)
+    outs = {}
+    for eager in (False, True):
+        with eager_filters(eager):
+            with FilterSingle(framework="xla", model=model,
+                              custom=custom) as single:
+                outs[eager] = [single.fw.invoke([img]) for img in imgs]
+                torch.cuda.synchronize()
+    differ = [i for i, (g, e) in enumerate(zip(outs[False], outs[True]))
+              if not all(torch.equal(a, b) for a, b in zip(g, e))]
+    emit({"phase": "graph_vs_eager", "path": phase, "model": model,
+          "frames": frames, "outputs_bit_equal": frames - len(differ)})
+    if differ:
+        raise AssertionError(f"{phase}: graph outputs differ from eager "
+                             f"on frames {differ}")
 
 
 def source_frames(frames: int, seed: int, size: int = 224):
@@ -751,16 +858,15 @@ def lm_f32_diff(custom: dict, tokens) -> float:
     return (kern - plain).abs().max().item()
 
 
-def run_lm_filter(frames: int, seed: int, card: str) -> dict:
-    """StreamFormer LM logits as a stream filter at seq 2048: ``frames``
-    token frames through appsrc, each answered with (2048, 8192) logits
-    that must match the plain-attention forward of the same model."""
+def stream_lm_filter(frames: int, seed: int, card: str, eager: bool):
+    """Push ``frames`` token frames of seq 2048 through the LM filter in
+    one mode; returns the row, the tokens and each frame's logits (device
+    tensors, all held to the end)."""
     import numpy as np
     import torch
 
     from nnstreamer_tpu_torch import _cuda, parse_launch
-    from nnstreamer_tpu_torch.models.registry import get_model
-    from nnstreamer_tpu_torch.models.streamformer_lm import forward_logits
+    from nnstreamer_tpu_torch.analysis import compileledger
     from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 
     custom = {**LM_CUSTOM, "seq": str(LM_SEQ), "seed": str(seed)}
@@ -776,31 +882,67 @@ def run_lm_filter(frames: int, seed: int, card: str) -> dict:
         outs.append(buf.tensors[0])
 
     _cuda.reset_launches()
+    compileledger.reset()
     p = parse_launch(LM_LAUNCH.format(
         seq=LM_SEQ, custom=",".join(f"{k}:{v}" for k, v in custom.items())))
     p.get("out").connect("new-data", on_data)
-    p.play()                          # opens the filter: one warm-up invoke
-    try:
-        t0 = time.perf_counter()
-        for t in toks:
-            p.get("src").push_buffer(TensorBuffer(tensors=[t]))
-        p.get("src").end_of_stream()
-        p.wait(timeout=600)
-    finally:
-        p.stop()
-    launches = dict(_cuda.launches)
+    with eager_filters(eager):
+        p.play()                      # opens the filter: one warm-up invoke
+        try:
+            t0 = time.perf_counter()
+            for t in toks:
+                p.get("src").push_buffer(TensorBuffer(tensors=[t]))
+            p.get("src").end_of_stream()
+            p.wait(timeout=600)
+        finally:
+            p.stop()
+    launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
     gaps = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
-    row = {"phase": "lm_filter", "frames": frames, "seq": LM_SEQ,
-           "launches": launches,
+    row = {"phase": "lm_filter", "mode": "eager" if eager else "graph",
+           "frames": frames, "seq": LM_SEQ, "launches": launches,
+           "graphs": graphs, "compile_ledger": compileledger.snapshot(),
            "prefill_tok_s": frames * LM_SEQ / (stamps[-1] - t0),
            "frame_ms": gaps, "card": card}
-    want = int(LM_CUSTOM["layers"]) * (frames + 1)  # frames + warm-up
-    if len(outs) != frames or launches.get("flash_attention", 0) != want:
+    # the open's eager run (before its capture, or its warm-up invoke),
+    # then one a frame; no pushdown, so one capture
+    want = int(LM_CUSTOM["layers"]) * (frames + 1)
+    if (len(outs) != frames or launches.get("flash_attention", 0) != want
+            or graphs != graph_counts(eager, 1, frames)
+            or row["compile_ledger"] != {"filter.jitexec.invoke": 1}):
         emit(row)
-        raise AssertionError(f"lm_filter: {len(outs)} frames of {frames}, "
-                             f"flash_attention launched "
+        raise AssertionError(f"lm_filter ({row['mode']}): {len(outs)} "
+                             f"frames of {frames}, flash_attention launched "
                              f"{launches.get('flash_attention', 0)} times, "
-                             f"expected {want}")
+                             f"expected {want}; graphs {graphs}; ledger "
+                             f"{row['compile_ledger']}")
+    return row, toks, outs
+
+
+def run_lm_filter(frames: int, seed: int, card: str) -> dict:
+    """StreamFormer LM logits as a stream filter at seq 2048: ``frames``
+    token frames through appsrc, each answered with (2048, 8192) logits,
+    as graph replays that must equal an eager run bit for bit and the
+    plain-attention forward of the same model within the bf16 bounds."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.registry import get_model
+    from nnstreamer_tpu_torch.models.streamformer_lm import forward_logits
+
+    custom = {**LM_CUSTOM, "seq": str(LM_SEQ), "seed": str(seed)}
+    vocab = int(LM_CUSTOM["vocab"])
+    row, toks, outs = stream_lm_filter(frames, seed, card, eager=False)
+    eager_row, _, eager_outs = stream_lm_filter(frames, seed, card,
+                                                eager=True)
+    differ = [i for i, (a, b) in enumerate(zip(outs, eager_outs))
+              if not torch.equal(a, b)]
+    emit(eager_row)
+    row["graph_vs_eager_frames_bit_equal"] = frames - len(differ)
+    row["eager_prefill_tok_s"] = eager_row["prefill_tok_s"]
+    if differ:
+        emit(row)
+        raise AssertionError(f"lm_filter: graph logits differ from eager "
+                             f"on frames {differ}")
+    launches = row["launches"]
 
     model = get_model("streamformer_lm", custom).module
     worst, compared, agree, rows_over = 0.0, 0, 0, 0
@@ -837,41 +979,56 @@ def run_lm_filter(frames: int, seed: int, card: str) -> dict:
 
 
 def _serve(params, cfg, prompts, steps: int, mode: str, timed: bool,
-           force=None):
-    """One engine over 8 sessions: prefill, one cold bucket step, then
-    ``steps`` timed bucket steps (and, when ``timed``, a warm single-lane
-    step and ``steps`` timed single-lane steps).  Returns each session's
-    greedy choices, each choice's top-2 margin, each prefill's last
-    logits and the timings.  With ``force`` (another run's choices) each
+           force=None, eager: bool = False):
+    """One engine over 8 sessions: warmup() (capturing the whole graph
+    set, unless ``eager``), then, with the launch and graph counts set to
+    0, prefill, one bucket step, ``steps`` timed bucket steps and (when
+    ``timed``) a single-lane step and ``steps`` timed single-lane steps.
+    Returns each session's greedy choices, each choice's top-2 margin,
+    each prefill's last logits, every dispatch's logits, the window's
+    counts and the timings.  With ``force`` (another run's choices) each
     session is fed those tokens instead of its own, so both runs choose
     on the same history at every position."""
     import numpy as np
     import torch
 
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.analysis import compileledger
     from nnstreamer_tpu_torch.llm import DecodeEngine, KVCachePool
 
     pool = KVCachePool(cfg, len(prompts))
     eng = DecodeEngine(params, cfg, pool, capacity=len(prompts),
                        prefill_mode=mode)
+    eng._eager = eager
+    compileledger.reset()
+    t0 = time.perf_counter()
+    eng.warmup()
+    out = {"warmup_s": time.perf_counter() - t0,
+           "warm_set": {"step": sorted(eng._step_fns),
+                        "prefill": sorted(eng._prefill_fns)},
+           "compile_ledger": compileledger.snapshot()}
+    _cuda.reset_launches()
+    compileledger.reset()
     sessions = [pool.acquire(i) for i in range(len(prompts))]
-    streams, margins, firsts = [], [], []
+    streams, margins, firsts, logits = [], [], [], []
 
     def margin_rows():
+        logits.append(eng.last_logits.copy())
         top = np.sort(eng.last_logits, axis=-1)
         return top[:, -1] - top[:, -2]
 
-    t0 = time.perf_counter()
     def feed(s, tok):
         s.next_token = (force[s.key][len(streams[s.key]) - 1]
                         if force is not None else tok)
 
+    t0 = time.perf_counter()
     for s, pr in zip(sessions, prompts):
         tok = eng.prefill(s, pr)
         streams.append([tok])
         feed(s, tok)
         margins.append([float(margin_rows()[0])])
         firsts.append(torch.from_numpy(eng.last_logits[0].copy()))
-    out = {"prefill_s": time.perf_counter() - t0}
+    out["prefill_s"] = time.perf_counter() - t0
 
     def bucket_step():
         for s, tok, m in zip(sessions, eng.step(sessions), margin_rows()):
@@ -879,20 +1036,27 @@ def _serve(params, cfg, prompts, steps: int, mode: str, timed: bool,
             margins[s.key].append(float(m))
             feed(s, tok)
 
-    bucket_step()                      # first dispatch of the 8-lane shape
+    bucket_step()
     t0 = time.perf_counter()
     for _ in range(steps):
         bucket_step()
     out["bucket_s"] = time.perf_counter() - t0
     if timed:
         solo = sessions[:1]
-        solo[0].next_token = eng.step(solo)[0]   # first 1-lane dispatch
+
+        def solo_step():
+            solo[0].next_token = eng.step(solo)[0]
+            logits.append(eng.last_logits.copy())
+
+        solo_step()
         t0 = time.perf_counter()
         for _ in range(steps):
-            solo[0].next_token = eng.step(solo)[0]
+            solo_step()
         out["solo_s"] = time.perf_counter() - t0
     out.update(streams=streams, margins=margins, firsts=firsts,
-               report=eng.report())
+               logits=logits, launches=dict(_cuda.launches),
+               graphs=dict(_cuda.graphs),
+               window_ledger=compileledger.snapshot(), report=eng.report())
     return out
 
 
@@ -943,9 +1107,10 @@ def run_llm_serve(steps: int, seed: int, card: str) -> dict:
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in SERVE_PROMPTS]
 
-    _cuda.reset_launches()
     kern = _serve(params, cfg, prompts, steps, "auto", timed=True)
-    launches = dict(_cuda.launches)
+    eager = _serve(params, cfg, prompts, steps, "auto", timed=True,
+                   eager=True)
+    launches = kern["launches"]
     plain = _serve(params, cfg, prompts, steps, "naive", timed=False,
                    force=kern["streams"])
     bf16_compared, bf16_equal, bf16_differ = _agreement(kern, plain)
@@ -959,12 +1124,28 @@ def run_llm_serve(steps: int, seed: int, card: str) -> dict:
     compared, equal, differ = _agreement(kern32, plain32)
     first32 = _first_logits_diff(kern32, plain32)
     n = len(prompts)
+    # a dispatch a prefill, 1 + steps bucket steps and 1 + steps solo
+    dispatches = n + 2 * (1 + steps)
+    logits_differ = sum(not np.array_equal(a, b)
+                        for a, b in zip(kern["logits"], eager["logits"]))
     row = {"phase": "llm_serve", "sessions": n, "steps": steps,
            "max_seq": cfg.max_seq, "prompt_lens": list(SERVE_PROMPTS),
-           "launches": launches,
+           "launches": launches, "graphs": kern["graphs"],
+           "warm_set": kern["warm_set"], "warmup_s": kern["warmup_s"],
+           "compile_ledger": kern["compile_ledger"],
+           "window_ledger": kern["window_ledger"],
            "prefill_tok_s": sum(SERVE_PROMPTS) / kern["prefill_s"],
            "decode_tok_s_bucket8": steps * n / kern["bucket_s"],
            "decode_tok_s_solo": steps / kern["solo_s"],
+           "eager": {"launches": eager["launches"],
+                     "prefill_tok_s": sum(SERVE_PROMPTS)
+                     / eager["prefill_s"],
+                     "decode_tok_s_bucket8": steps * n / eager["bucket_s"],
+                     "decode_tok_s_solo": steps / eager["solo_s"]},
+           "graph_vs_eager_tokens_equal": kern["streams"] == eager["streams"],
+           "graph_vs_eager_dispatches_bit_equal":
+               len(kern["logits"]) - logits_differ,
+           "dispatches": dispatches,
            "margin": MARGIN,
            "bf16_prefill_logits_max_abs_diff_vs_plain":
                _first_logits_diff(kern, plain),
@@ -978,11 +1159,26 @@ def run_llm_serve(steps: int, seed: int, card: str) -> dict:
            "engine": kern["report"], "card": card}
     emit(row)
     want = n * cfg.layers
-    if launches.get("flash_attention", 0) != want:
-        raise AssertionError(f"llm_serve: flash_attention launched "
-                             f"{launches.get('flash_attention', 0)} times, "
-                             f"expected {want} ({n} prefills x "
-                             f"{cfg.layers} layers)")
+    for run in (kern, eager):
+        if run["launches"].get("flash_attention", 0) != want:
+            raise AssertionError(
+                f"llm_serve: flash_attention launched "
+                f"{run['launches'].get('flash_attention', 0)} times, "
+                f"expected {want} ({n} prefills x {cfg.layers} layers)")
+    if (kern["graphs"] != {"replays": dispatches} or eager["graphs"]
+            or kern["window_ledger"] or eager["window_ledger"]):
+        raise AssertionError(f"llm_serve: the serving window captured or "
+                             f"compiled: graphs {kern['graphs']} (want "
+                             f"{dispatches} replays), ledger "
+                             f"{kern['window_ledger']}")
+    if (len(kern["warm_set"]["step"]) > 16
+            or len(kern["warm_set"]["prefill"]) > 32):
+        raise AssertionError(f"llm_serve: warm set {kern['warm_set']} "
+                             f"beyond the budgets 16 and 32")
+    if kern["streams"] != eager["streams"] or logits_differ:
+        raise AssertionError(f"llm_serve: graph run differs from eager: "
+                             f"tokens equal {row['graph_vs_eager_tokens_equal']}"
+                             f", {logits_differ} dispatches' logits differ")
     if differ or first32 > F32_LOGITS_ATOL:
         raise AssertionError(f"llm_serve: f32 streams {differ} differ from "
                              f"the plain-prefill engine; prefill logits by "
@@ -1205,11 +1401,27 @@ def check_train_outputs(seed: int) -> None:
                              f"plain attention at {failures}")
 
 
-def trace(name: str, out_dir: str, run, units) -> None:
+#: host calls that put work on the card: kernel launches (eager), graph
+#: launches (a replay) and asynchronous copies
+KERNEL_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel",
+                      "cuLaunchKernelEx", "cudaLaunchKernelExC")
+HOST_LAUNCH_KEYS = KERNEL_LAUNCH_KEYS + ("cudaGraphLaunch",
+                                         "cudaMemcpyAsync")
+#: the serving paths --profile traces in both modes, in turns
+MODE_TURNS = (False, True, True, False)       # eager?
+
+
+def trace(name: str, out_dir: str, run, units, marker=None,
+          per_unit: int = 1) -> dict:
     """Trace ``run()`` on the card: device time by kernel (the op table
-    goes to ``out_dir/<name>_ops.txt``), and per unit of work (``units``:
-    the profiler's events -> units the window held) the device busy time
-    and the launches; the device's idle share over the window."""
+    goes to ``out_dir/<name>_ops.txt``), and per unit of work (``units(t0,
+    t1)``: the units the window, in ``time.perf_counter`` seconds, held)
+    the device busy time, the device kernels and the host calls that
+    launch work (kernels, graphs, copies); the device's idle share over
+    the window.  ``marker``: a part of a kernel's name; its device events
+    divided by ``per_unit`` count the units a second way (which shows
+    whether graph-launched kernels reach the trace), and its device time
+    a call is reported.  Returns the row."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1219,7 +1431,8 @@ def trace(name: str, out_dir: str, run, units) -> None:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        t1 = time.perf_counter()
+    wall_us = (t1 - t0) * 1e6
     events = prof.key_averages()
     # torch renamed the device-time fields from *_cuda_* to *_device_*
     field = ("self_device_time_total"
@@ -1235,57 +1448,92 @@ def trace(name: str, out_dir: str, run, units) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(getattr(e, field) for e in on_card)
-    n = max(units(events), 1)
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cuLaunchKernelEx"))
+    kernels = sum(e.count for e in on_card
+                  if not e.key.startswith(("Memcpy", "Memset")))
+    n = max(units(t0, t1), 1)
+    host = {k: sum(e.count for e in events if e.key == k)
+            for k in HOST_LAUNCH_KEYS}
     top = sorted(on_card, key=lambda e: -getattr(e, field))[:6]
-    emit({"phase": "profile", "path": name, "units_in_window": n,
-          "wall_us": wall_us, "device_busy_us": busy_us,
-          "device_busy_us_per_unit": busy_us / n,
-          "launches_per_unit": launches / n,
-          "device_idle_share": 1.0 - busy_us / wall_us,
-          "top_device_share": {e.key[:60]: getattr(e, field) / busy_us
-                               for e in top},
-          "out": out_dir})
+    row = {"phase": "profile", "path": name, "units_in_window": n,
+           "wall_us": wall_us, "device_busy_us": busy_us,
+           "device_busy_us_per_unit": busy_us / n,
+           "device_kernels_per_unit": kernels / n,
+           "launches_per_unit": sum(host[k] for k in KERNEL_LAUNCH_KEYS) / n,
+           "host_launch_calls_per_unit": sum(host.values()) / n,
+           "host_calls_per_unit": {k: v / n for k, v in host.items() if v},
+           "device_idle_share": 1.0 - busy_us / wall_us,
+           "top_device_share": {e.key[:60]: getattr(e, field) / busy_us
+                                for e in top},
+           "out": out_dir}
+    if marker:
+        marked = [e for e in on_card if marker in e.key]
+        calls = sum(e.count for e in marked)
+        row["marker_units"] = calls // per_unit
+        row["marker_device_us_per_call"] = (
+            sum(getattr(e, field) for e in marked) / max(calls, 1))
+    return row
+
+
+def _latency(stamps, t0, t1) -> dict:
+    """fps and p50/p90 of the gaps between sink arrivals inside [t0, t1]."""
+    inside = [t for t in stamps if t0 <= t <= t1]
+    gaps = sorted((b - a) * 1e3 for a, b in zip(inside, inside[1:]))
+    if not gaps:
+        return {}
+    return {"fps": len(gaps) / (inside[-1] - inside[0]),
+            "p50_ms": statistics.median(gaps),
+            "p90_ms": gaps[int(0.9 * (len(gaps) - 1))]}
 
 
 def profile_path(name: str, launch: str, frames: int, seed: int,
-                 out_dir: str, marker: str, per_frame: int) -> None:
-    """Trace a steady window of a labeling path (it opens before the
-    trace starts); a unit is a frame, counted by ``per_frame`` launches
-    of the kernel whose name contains ``marker`` (the source streams
-    while the profiler starts)."""
+                 out_dir: str, marker: str, per_frame: int, eager: bool,
+                 turn: int) -> dict:
+    """Trace a steady window of a labeling path in one mode: the trace
+    starts after the first frame reached the sink (the filter has opened
+    and captured its graphs by then); a unit is a frame that reached the
+    sink inside the window."""
     from nnstreamer_tpu_torch import parse_launch
 
+    stamps = []
     p = parse_launch(launch.format(frames=frames, seed=seed))
-    p.play()
-    try:
-        trace(name, out_dir, lambda: p.wait(timeout=600),
-              lambda events: sum(e.count for e in events
-                                 if marker in e.key) // per_frame)
-    finally:
-        p.stop()
+    p.get("out").connect("new-data",
+                         lambda buf: stamps.append(time.perf_counter()))
+    mode = "eager" if eager else "graph"
+    with eager_filters(eager):
+        p.play()
+        try:
+            while not stamps:
+                time.sleep(0.001)
+            window = {}
+
+            def units(t0, t1):
+                window.update(_latency(stamps, t0, t1))
+                return sum(t0 <= t <= t1 for t in stamps)
+
+            row = trace(f"{name}_{mode}{turn}", out_dir,
+                        lambda: p.wait(timeout=600), units, marker,
+                        per_frame)
+        finally:
+            p.stop()
+    row.update(window, path=name, mode=mode, turn=turn)
+    emit(row)
+    return row
 
 
-def profile_lm(frames: int, steps: int, seed: int, out_dir: str) -> None:
-    """Trace the LM filter (a unit is a 2048-token frame, pushed after the
-    filter opened) and the decode engine's 8-lane bucket (a unit is a
-    step, after the 8 prefills and one step)."""
+def profile_lm_filter(frames: int, seed: int, out_dir: str, eager: bool,
+                      turn: int) -> dict:
+    """Trace the LM filter in one mode: a unit is a 2048-token frame,
+    pushed after the filter opened (and captured its graph)."""
     import numpy as np
 
     from nnstreamer_tpu_torch import parse_launch
-    from nnstreamer_tpu_torch.llm import DecodeEngine, KVCachePool
-    from nnstreamer_tpu_torch.models.streamformer_lm import (
-        config_from_custom, place_params)
-    from nnstreamer_tpu_torch.parallel.train_step import init_params
     from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 
     custom = {**LM_CUSTOM, "seq": str(LM_SEQ), "seed": str(seed)}
     rng = np.random.default_rng(seed)
     p = parse_launch(LM_LAUNCH.format(
         seq=LM_SEQ, custom=",".join(f"{k}:{v}" for k, v in custom.items())))
-    p.play()
+    mode = "eager" if eager else "graph"
 
     def push_all():
         for _ in range(frames):
@@ -1295,28 +1543,95 @@ def profile_lm(frames: int, steps: int, seed: int, out_dir: str) -> None:
         p.get("src").end_of_stream()
         p.wait(timeout=600)
 
-    try:
-        trace("lm_filter", out_dir, push_all, lambda events: frames)
-    finally:
-        p.stop()
+    with eager_filters(eager):
+        p.play()
+        try:
+            row = trace(f"lm_filter_{mode}{turn}", out_dir, push_all,
+                        lambda t0, t1: frames, K2_MARKER,
+                        int(LM_CUSTOM["layers"]))
+        finally:
+            p.stop()
+    row.update(path="lm_filter", mode=mode, turn=turn,
+               prefill_tok_s=frames * LM_SEQ / (row["wall_us"] / 1e6))
+    emit(row)
+    return row
 
+
+def profile_llm_serve(steps: int, seed: int, out_dir: str, eager: bool,
+                      turn: int) -> dict:
+    """Trace the decode engine's 8-lane bucket in one mode: the engine is
+    warmed (its graph set captured), the 8 sessions prefilled and stepped
+    once before the trace; a unit is a step."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.llm import DecodeEngine, KVCachePool
+    from nnstreamer_tpu_torch.models.streamformer_lm import (
+        config_from_custom, place_params)
+    from nnstreamer_tpu_torch.parallel.train_step import init_params
+
+    rng = np.random.default_rng(seed)
     cfg = config_from_custom({**LM_CUSTOM, "max_seq": str(LM_SEQ)},
                              device="cuda")
     params = place_params(init_params(cfg, seed), cfg, "cuda")
     pool = KVCachePool(cfg, len(SERVE_PROMPTS))
     eng = DecodeEngine(params, cfg, pool, capacity=len(SERVE_PROMPTS))
+    eng._eager = eager
+    eng.warmup()
     sessions = [pool.acquire(i) for i in range(len(SERVE_PROMPTS))]
     for s, n in zip(sessions, SERVE_PROMPTS):
         s.next_token = eng.prefill(s, rng.integers(0, cfg.vocab, n))
+    step_ms = []
 
     def bucket_steps(count):
         for _ in range(count):
+            t0 = time.perf_counter()
             for s, tok in zip(sessions, eng.step(sessions)):
                 s.next_token = tok
+            step_ms.append((time.perf_counter() - t0) * 1e3)
 
-    bucket_steps(1)                   # first dispatch of the 8-lane shape
-    trace("llm_serve", out_dir, lambda: bucket_steps(steps),
-          lambda events: steps)
+    bucket_steps(1)
+    step_ms.clear()
+    mode = "eager" if eager else "graph"
+    row = trace(f"llm_serve_{mode}{turn}", out_dir,
+                lambda: bucket_steps(steps), lambda t0, t1: steps)
+    step_ms.sort()
+    row.update(path="llm_serve", mode=mode, turn=turn,
+               decode_tok_s_bucket8=steps * len(sessions)
+               / (row["wall_us"] / 1e6),
+               step_ms_p50=statistics.median(step_ms),
+               step_ms_p90=step_ms[int(0.9 * (len(step_ms) - 1))])
+    emit(row)
+    return row
+
+
+def profile_serving(args) -> None:
+    """The four serving paths in graph and eager mode, in turns (graph,
+    eager, eager, graph), then one line a path with both modes side by
+    side: each metric's values in turn order."""
+    paths = {
+        "main_path": lambda eager, turn: profile_path(
+            "main_path", LAUNCH, args.frames, args.seed, args.profile,
+            "normalize_frame_kernel", 1, eager, turn),
+        "vit_path": lambda eager, turn: profile_path(
+            "vit_path", VIT_LAUNCH, args.vit_frames, args.seed,
+            args.profile, K2_MARKER, 12, eager, turn),
+        "lm_filter": lambda eager, turn: profile_lm_filter(
+            args.lm_frames, args.seed, args.profile, eager, turn),
+        "llm_serve": lambda eager, turn: profile_llm_serve(
+            args.steps, args.seed, args.profile, eager, turn),
+    }
+    keys = ("fps", "p50_ms", "p90_ms", "prefill_tok_s",
+            "decode_tok_s_bucket8", "step_ms_p50", "step_ms_p90",
+            "device_busy_us_per_unit", "device_idle_share",
+            "device_kernels_per_unit", "host_launch_calls_per_unit",
+            "launches_per_unit", "units_in_window", "marker_units",
+            "marker_device_us_per_call")
+    for name, run in paths.items():
+        rows = [run(eager, turn) for turn, eager in enumerate(MODE_TURNS)]
+        emit({"phase": "profile_modes", "path": name, **{
+            mode: {k: [r[k] for r in rows if r["mode"] == mode]
+                   for k in keys if k in rows[0]}
+            for mode in ("graph", "eager")}})
 
 
 def profile_train(name: str, launch: str, samples, out_dir: str) -> None:
@@ -1339,7 +1654,7 @@ def profile_train(name: str, launch: str, samples, out_dir: str) -> None:
     pinned = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = False      # as drive_trainer
     try:
-        trace(name, out_dir, steps, lambda events: len(samples))
+        emit(trace(name, out_dir, steps, lambda t0, t1: len(samples)))
     finally:
         torch.backends.cudnn.deterministic = pinned
 
@@ -1360,6 +1675,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also trace every path into DIR")
     args = ap.parse_args(argv)
+    if args.profile:
+        # CUPTI torn down after a trace and set up again crashes a process
+        # that has replayed CUDA graphs (the workaround torch.profiler
+        # applies for its own graphs): keep it up between the traces
+        os.environ["TEARDOWN_CUPTI"] = "0"
 
     try:
         import torch
@@ -1371,6 +1691,9 @@ def main(argv=None) -> int:
         return fail("nnstreamer_tpu_torch is not beside this script")
     sys.path.insert(0, HERE)
     from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.analysis import compileledger
+
+    compileledger.configure(True)       # each path prints its ledger
 
     card = card_line()
     print(card, flush=True)
@@ -1393,9 +1716,20 @@ def main(argv=None) -> int:
         time_flash_versions(args.reps)
         main_path = run_labeling("main_path", LAUNCH, args.frames,
                                  args.seed, card, "normalize_frame", 1)
+        labels_equal_eager("main_path", main_path, run_labeling(
+            "main_path", LAUNCH, args.frames, args.seed, card,
+            "normalize_frame", 1, eager=True))
+        check_graph_logits("main_path", "mobilenet_v2",
+                           {"seed": args.seed, "use_pallas": 1},
+                           GRAPH_LOGITS_FRAMES, args.seed)
         check_outputs(main_path["labels"], args.frames, args.seed)
         vit = run_labeling("vit_path", VIT_LAUNCH, args.vit_frames,
                            args.seed, card, "flash_attention", 12)
+        labels_equal_eager("vit_path", vit, run_labeling(
+            "vit_path", VIT_LAUNCH, args.vit_frames, args.seed, card,
+            "flash_attention", 12, eager=True))
+        check_graph_logits("vit_path", "vit", {"seed": args.seed},
+                           GRAPH_LOGITS_FRAMES, args.seed)
         check_vit_outputs(vit["labels"], args.vit_frames, args.seed)
         lm = run_lm_filter(args.lm_frames, args.seed, card)
         serve = run_llm_serve(args.steps, args.seed, card)
@@ -1417,11 +1751,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{k['name']} never launched on the "
                                      "paths")
         if args.profile:
-            profile_path("main_path", LAUNCH, args.frames, args.seed,
-                         args.profile, "normalize_frame_kernel", 1)
-            profile_path("vit_path", VIT_LAUNCH, args.vit_frames,
-                         args.seed, args.profile, K2_MARKER, 12)
-            profile_lm(args.lm_frames, args.steps, args.seed, args.profile)
+            profile_serving(args)
             profile_train("vit_train", vit_launch, vit_samples, args.profile)
             profile_train("lm_train", lm_launch, lm_samples, args.profile)
     except AssertionError as exc:

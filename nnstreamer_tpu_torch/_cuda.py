@@ -8,7 +8,11 @@ flags, and loaded with ``ctypes``: pointers and the stream pass as
 import every module on hosts without ``nvcc``.
 
 ``launches`` counts kernel launches by kernel name: each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else.  A CUDA graph
+(:class:`CapturedGraph`) calls no wrapper when it replays, so its capture
+records the launches the wrappers counted while it was captured (they
+launched nothing: capture only records) and each replay adds them again;
+``graphs`` counts the captures and replays.
 
 ``nvcc`` runs with ``-Xptxas -v``: its report (registers, shared memory and
 spill bytes of every kernel function) is kept beside each library as
@@ -25,7 +29,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Any, Callable, Dict, Iterable, List, Sequence
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -41,6 +45,8 @@ SOURCES = {"normalize_frame": "normalize_frame.cu",
 
 #: kernel name -> launches since the last reset
 launches: "collections.Counter[str]" = collections.Counter()
+#: "captures" and "replays" of CUDA graphs since the last reset
+graphs: "collections.Counter[str]" = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -48,6 +54,66 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     launches.clear()
+    graphs.clear()
+
+
+def graph_memory(device) -> tuple:
+    """A (memory pool, side stream) pair for one owner's graphs: they
+    capture on the stream, into the pool, and share its memory."""
+    import torch
+
+    return torch.cuda.graph_pool_handle(), torch.cuda.Stream(device)
+
+
+class CapturedGraph:
+    """``fn(*inputs)`` captured as one ``torch.cuda.CUDAGraph``.
+
+    ``inputs`` are static device tensors that already hold the first
+    call's values.  ``memory`` is the owner's :func:`graph_memory`.  The
+    constructor runs ``fn`` once eagerly on its side stream (the warm-up
+    loads every lazily loaded kernel module, the ctypes kernels included,
+    and sets up the libraries' per-stream state), keeps that run's
+    outputs as :attr:`first`, then captures ``fn`` on the same stream
+    into its memory pool.  :meth:`replay` re-runs the captured kernels on
+    the current stream and returns :attr:`outputs`, the graph's static
+    outputs, which the next replay overwrites.
+
+    The caller runs it under ``torch.inference_mode()``.  A capture that
+    fails (a host sync inside ``fn``, an operation CUDA cannot capture)
+    raises; nothing falls back to eager execution."""
+
+    def __init__(self, fn: Callable[..., Any], inputs: Sequence[Any],
+                 memory) -> None:
+        import torch
+
+        pool, stream = memory
+        current = torch.cuda.current_stream(inputs[0].device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self.first = fn(*inputs)
+        current.wait_stream(stream)
+        before = launches.copy()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.outputs = fn(*inputs)
+        except BaseException:
+            # a capture that fails to end leaves the capture stream current
+            torch.cuda.set_stream(current)
+            raise
+        finally:
+            # the wrappers counted the kernels they recorded; none ran
+            self.launched = launches - before
+            launches.clear()
+            launches.update(before)
+        self.inputs = list(inputs)
+        graphs["captures"] += 1
+
+    def replay(self) -> Any:
+        self.graph.replay()
+        launches.update(self.launched)
+        graphs["replays"] += 1
+        return self.outputs
 
 
 def _nvcc() -> str:

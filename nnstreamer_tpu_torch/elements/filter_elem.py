@@ -275,7 +275,7 @@ class TensorFilter(Element):
                 # view cannot be fused onto the raw outputs
                 return False
             fn = event.data["fn"]
-            if not self.fw.set_postprocess(fn):
+            if not self._fuse(fn):
                 return False
             # remember the fusion: a model reload rebuilds the backend
             # (close+open), which would silently drop the device-fused
@@ -308,6 +308,17 @@ class TensorFilter(Element):
             return  # consumed, like the reference custom-event sink
         super().on_event(pad, event)
 
+    def _fuse(self, fn) -> bool:
+        """Compose a decoder's reduction into the backend's forward and
+        compile the fused forward now (on the card: capture its graph),
+        so that the next frame, the stream's first, finds it warm."""
+        if not self.fw.set_postprocess(fn):
+            return False
+        warmup = getattr(self.fw, "warmup", None)
+        if warmup is not None:
+            warmup()
+        return True
+
     def _reapply_pushdown(self) -> None:
         """Restore a device-fused decoder reduction after a model reload:
         a close+open swap rebuilt the backend WITHOUT the fused tail.  The
@@ -322,7 +333,7 @@ class TensorFilter(Element):
             # the backend kept its fusion: re-fusing would compose the
             # reduction over the already-reduced outputs
             return
-        if self.fw.set_postprocess(self._pushdown):
+        if self._fuse(self._pushdown):
             return
         from ..utils.log import ml_logw
 

@@ -80,10 +80,11 @@ def _device(props: Dict[str, Any]) -> torch.device:
 
 
 def mlp_params_from_jax(tree: Dict[str, Any],
-                        device: Any = "cpu") -> Dict[str, torch.Tensor]:
+                        device: Any = None) -> Dict[str, torch.Tensor]:
     """The JAX package's MLP trainer tree (``w1 (in, hidden)``, ``b1``,
     ``w2 (hidden, out)``, ``b2``; numpy or jax arrays) as the port's: the
-    same names and layouts, f32 on ``device``."""
+    same names and layouts, f32 on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     return {k: torch.tensor(np.asarray(tree[k], dtype=np.float32),
                             device=device)
             for k in ("w1", "b1", "w2", "b2")}

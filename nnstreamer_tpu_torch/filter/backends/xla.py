@@ -53,12 +53,13 @@ class XLAFilter(TorchExecMixin, FilterFramework):
         self._model = get_model(model_name, custom, device)
         zeros = [np.zeros(i.np_shape, i.np_dtype)
                  for i in self._model.in_info]
+        # the warm-up invoke captures the open signature's graph
         self._setup_exec(self._model.module, device, warmup_inputs=zeros)
         super().open(props)
 
     def close(self) -> None:
         self._model = None
-        self._teardown_exec()
+        self._teardown_exec()         # frees the graphs
         super().close()
 
     # -- model meta ----------------------------------------------------------

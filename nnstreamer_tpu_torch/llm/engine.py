@@ -20,10 +20,19 @@ pool only:
   exactly one of ``idle`` / ``admit`` / ``prefill`` / ``decode`` /
   ``egress`` / ``compile``.
 
-Eager PyTorch compiles nothing: ``jax.jit`` becomes a per-padded-shape memo
-of plain callables, and ``compiles`` counts that memo's entries (the
-first dispatch of a shape still charges the ``compile`` phase).  The
-compile ledger is not ported (ROADMAP A10), nor the paged pool (A8).
+``jax.jit`` becomes a bounded set of executables under the JAX package's
+budgets: one step per ``pad_rows`` lane bucket (site ``llm.engine.step``,
+16) and one prefill per :func:`quantize_prompt` length (site
+``llm.engine.prefill``, 32), each a miss recorded in the compile ledger
+(:mod:`~nnstreamer_tpu_torch.analysis.compileledger`).  On the card an
+executable is a ``torch.cuda.CUDAGraph`` over one static int64 buffer
+that the host fills before each replay (tokens, positions and slots; the
+prefill's slot and last position ride in it as device indices, so one
+graph serves every slot and real length under its bucket); its first
+dispatch runs eagerly on a side stream and then captures.  On the CPU
+the executable runs eagerly.  :meth:`DecodeEngine.warmup` builds the
+whole set, after which a serving stream compiles nothing.  The paged
+pool is not ported (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -34,6 +43,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import _cuda
+from ..analysis import compileledger
+from ..analysis.compileledger import compile_budget
 from ..filter.backends._torchexec import TorchExecMixin
 from .pool import KVCachePool, Session
 
@@ -94,6 +106,33 @@ class PhaseClock:
         }
 
 
+class _Executable:
+    """One warm-set entry: ``fn(buf)`` over an int64 device buffer filled
+    from the host.  On the card (unless the engine runs ``_eager``) the
+    first call runs ``fn`` eagerly and captures it; later calls copy the
+    host values into the static buffer and replay.  Elsewhere it runs
+    ``fn`` eagerly on each call."""
+
+    def __init__(self, engine: "DecodeEngine", fn: Callable) -> None:
+        self.engine = engine
+        self.fn = fn
+        self.graph = None
+
+    def __call__(self, values: np.ndarray) -> torch.Tensor:
+        eng = self.engine
+        host = torch.from_numpy(np.ascontiguousarray(values, np.int64))
+        if self.graph is not None:
+            self.graph.inputs[0].copy_(host)
+            return self.graph.replay()
+        buf = host.to(eng.pool.device)
+        if eng.pool.device.type != "cuda" or eng._eager:
+            return self.fn(buf)
+        if eng._graph_memory is None:
+            eng._graph_memory = _cuda.graph_memory(buf.device)
+        self.graph = _cuda.CapturedGraph(self.fn, [buf], eng._graph_memory)
+        return self.graph.first
+
+
 def quantize_prompt(t: int, max_seq: int) -> int:
     """Padded prompt length for one prefill shape: next power of two from
     8, capped at ``max_seq``."""
@@ -108,6 +147,12 @@ class DecodeEngine:
     """The device half of the ``tensor_llm`` element: prefill and pooled
     decode over a :class:`KVCachePool`, plus the live accounting (tokens,
     step EWMA, phase attribution) the observability tier reads.
+
+    The step and prefill graphs share one memory pool: a graph's capture
+    may reuse the memory of another graph's intermediates, so a replay
+    can overwrite another graph's static outputs.  That is safe only
+    because every dispatch reads its logits to the host before the next
+    replay (:meth:`prefill`, :meth:`_dispatch`); keep it so.
 
     Single-threaded by contract: exactly one decode thread calls
     :meth:`prefill` / :meth:`step`, so the pool tensors mutate without
@@ -143,6 +188,11 @@ class DecodeEngine:
         self.last_fill = 0
         self.ewma_step_s = 0.0
         self.compiles = 0
+        #: private: run the executables eagerly on the card as well, for
+        #: a reference run to hold the graphs to (set by tests and
+        #: chip_smoke.py before the first dispatch)
+        self._eager = False
+        self._graph_memory = None
         #: host logits (f32) of the last prefill or step, one row per
         #: real lane — what the greedy choice was made from
         self.last_logits: Optional[np.ndarray] = None
@@ -150,42 +200,60 @@ class DecodeEngine:
         #: that dispatch charges the ``compile`` phase
         self._cold_exec = False
 
-    # -- step and prefill callables ---------------------------------------
+    # -- step and prefill executables ------------------------------------
+    @compile_budget(16, site="llm.engine.step")
     def _step_fn(self, padded: int) -> Callable:
+        """The step executable for ``padded`` lanes: a ``(3, padded)``
+        buffer of tokens, positions and slots → logits ``(padded,
+        vocab)``."""
         fn = self._step_fns.get(padded)
         if fn is None:
+            compileledger.record("llm.engine.step", (("padded", padded),))
             from ..models.streamformer_lm import decode_step_pooled
 
             params, cfg, pool = self.params, self.cfg, self.pool
 
-            def fn(tokens, pos, slots):
+            def step(lanes):
                 logits, _, _ = decode_step_pooled(
-                    params, pool.k, pool.v, tokens, pos, slots, cfg)
+                    params, pool.k, pool.v, lanes[0], lanes[1], lanes[2],
+                    cfg)
                 return logits
 
+            fn = _Executable(self, step)
             self._step_fns[padded] = fn
             self.compiles += 1
             self._cold_exec = True
         return fn
 
+    @compile_budget(32, site="llm.engine.prefill")
     def _prefill_fn(self, padded_t: int) -> Callable:
+        """The prefill executable for prompts padded to ``padded_t``: a
+        ``(padded_t + 2,)`` buffer of the tokens, the slot and the last
+        real position → that position's logits ``(vocab,)``."""
         fn = self._prefill_fns.get(padded_t)
         if fn is None:
+            compileledger.record("llm.engine.prefill",
+                                 (("padded_t", padded_t),))
             from ..models.streamformer_lm import prefill_kv
 
             params, cfg, pool = self.params, self.cfg, self.pool
             flash = {"auto": None, "flash": True,
                      "naive": False}[self.prefill_mode]
 
-            def fn(tokens, slot: int, true_len: int):
+            def prefill(buf):
+                tokens = buf[:padded_t]
+                slot, last = buf[padded_t:padded_t + 1], buf[padded_t + 1:]
                 logits, ks, vs = prefill_kv(params, tokens, cfg,
                                             flash=flash)
                 # install the whole padded K/V run into the slot: rows
-                # past true_len are garbage the decode mask never reads
-                pool.k[slot, :, :padded_t].copy_(ks)
-                pool.v[slot, :, :padded_t].copy_(vs)
-                return logits[true_len - 1]
+                # past the real length are garbage the decode mask never
+                # reads.  The slot and the last position are device
+                # indices, so one graph serves every slot and length.
+                pool.k[:, :, :padded_t][slot] = ks[None]
+                pool.v[:, :, :padded_t][slot] = vs[None]
+                return logits.index_select(0, last)[0]
 
+            fn = _Executable(self, prefill)
             self._prefill_fns[padded_t] = fn
             self.compiles += 1
             self._cold_exec = True
@@ -205,30 +273,27 @@ class DecodeEngine:
             if cold is not None:
                 self.phases.enter(cold)
 
-    def _ints(self, values) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(values, np.int64)).to(
-            self.pool.device, non_blocking=True)
-
     def warmup(self) -> None:
-        """Run every shape live serving can dispatch once, on the scratch
-        slot: the padded decode-lane counts and (unless ``step``) the
-        power-of-two prefill lengths.  Charged to the ``compile`` phase;
-        after it no dispatch is cold."""
+        """Build every executable live serving can dispatch, on the
+        scratch slot: the padded decode-lane counts and (unless ``step``)
+        the power-of-two prefill lengths; on the card that captures the
+        whole graph set.  Charged to the ``compile`` phase; after it no
+        dispatch is cold."""
         cprev = self.phases.enter("compile")
         try:
             shapes = sorted({TorchExecMixin.pad_rows(n, self.capacity)
                              for n in range(1, self.capacity + 1)})
             for rows in shapes:
-                zeros = self._ints(np.zeros(rows))
-                slots = self._ints(np.full(rows, self.pool.scratch))
+                lanes = np.zeros((3, rows), np.int64)
+                lanes[2] = self.pool.scratch
                 with torch.inference_mode():
-                    self._step_fn(rows)(zeros, zeros, slots)
+                    self._step_fn(rows)(lanes)
             if self.prefill_mode != "step":
                 for padded in sorted(self._prefill_lengths()):
+                    buf = np.zeros((padded + 2,), np.int64)
+                    buf[padded] = self.pool.scratch
                     with torch.inference_mode():
-                        self._prefill_fn(padded)(
-                            self._ints(np.zeros(padded)), self.pool.scratch,
-                            1)
+                        self._prefill_fn(padded)(buf)
             if self.pool.device.type == "cuda":
                 torch.cuda.synchronize(self.pool.device)
         finally:
@@ -257,10 +322,10 @@ class DecodeEngine:
                 logits = self._dispatch([(sess.slot, i, int(prompt[i]))])[0]
         else:
             padded = quantize_prompt(t, self.cfg.max_seq)
-            buf = np.zeros((padded,), np.int64)
+            buf = np.zeros((padded + 2,), np.int64)
             buf[:t] = prompt
-            last = self._call(self._prefill_fn(padded), self._ints(buf),
-                              sess.slot, t)
+            buf[padded], buf[padded + 1] = sess.slot, t - 1
+            last = self._call(self._prefill_fn(padded), buf)
             logits = last.float().cpu().numpy()
             self.last_logits = logits[None]
         sess.pos = t
@@ -277,13 +342,11 @@ class DecodeEngine:
         scratch slot, position 0: their writes land in scratch."""
         n = len(lanes)
         padded = TorchExecMixin.pad_rows(n, self.capacity)
-        slots = np.full((padded,), self.pool.scratch, np.int64)
-        pos = np.zeros((padded,), np.int64)
-        toks = np.zeros((padded,), np.int64)
+        buf = np.zeros((3, padded), np.int64)      # tokens, pos, slots
+        buf[2] = self.pool.scratch
         for i, (slot, p, tok) in enumerate(lanes):
-            slots[i], pos[i], toks[i] = slot, p, tok
-        logits = self._call(self._step_fn(padded), self._ints(toks),
-                            self._ints(pos), self._ints(slots))
+            buf[0, i], buf[1, i], buf[2, i] = tok, p, slot
+        logits = self._call(self._step_fn(padded), buf)
         self.last_logits = logits[:n].float().cpu().numpy()
         return self.last_logits
 

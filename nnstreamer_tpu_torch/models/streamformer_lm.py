@@ -44,11 +44,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def place_params(params: Mapping[str, Any], cfg: StreamFormerConfig,
-                 device: DeviceLike = "cpu") -> Dict[str, Any]:
-    """The tree on ``device``: the matmul weights in ``cfg.dtype`` (cast
-    once here instead of at every use, the same values), the embeddings,
-    norms, router and head in f32."""
-    device = torch.device(device)
+                 device: DeviceLike = None) -> Dict[str, Any]:
+    """The tree on ``device`` (``None``: the card): the matmul weights in
+    ``cfg.dtype`` (cast once here instead of at every use, the same
+    values), the embeddings, norms, router and head in f32."""
+    device = resolve_device(device)
 
     def put(x, dtype=torch.float32):
         if not isinstance(x, torch.Tensor):
@@ -240,11 +240,12 @@ def config_from_custom(custom: Mapping[str, Any], default_seq: int = 64,
     return cfg
 
 
-def init_cache(cfg: StreamFormerConfig, device: DeviceLike = "cpu"
+def init_cache(cfg: StreamFormerConfig, device: DeviceLike = None
                ) -> Dict[str, torch.Tensor]:
-    """Static-shape KV cache: (layers, max_seq, heads, head_dim)."""
+    """Static-shape KV cache: (layers, max_seq, heads, head_dim), on
+    ``device`` (``None``: the card)."""
     shape = (cfg.layers, cfg.max_seq, cfg.heads, cfg.head_dim)
-    device = torch.device(device)
+    device = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "pos": torch.zeros((), dtype=torch.long, device=device)}

@@ -466,3 +466,155 @@ def test_vit_train_step_kernels_match_plain(no_tf32):
     (loss_k, g_k), (loss_p, g_p) = out["flash"], out["naive"]
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     _assert_grads_close(g_k, g_p)
+
+
+# ---------------------------------------------------------------------------
+# the serving paths as CUDA graphs: replays against eager runs of the same
+# kernels in the same order, so bit for bit
+# ---------------------------------------------------------------------------
+
+#: (model, custom, input shape, input dtype, input high) of each serving
+#: path's filter, cut in depth or width where the full size adds nothing
+GRAPH_FILTERS = [
+    ("mobilenet_v2", "seed:0,use_pallas:1", (224, 224, 3), np.uint8, 256),
+    ("vit", "seed:0,depth:2", (224, 224, 3), np.uint8, 256),
+    ("streamformer_lm", "seq:256,vocab:512,dim:128,heads:4,head_dim:32,"
+     "mlp:256,layers:2,experts:2,seed:0", (256,), np.int32, 512),
+]
+
+
+def _frames(shape, dtype, high, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, high, shape).astype(dtype) for _ in range(n)]
+
+
+def _open_filter(monkeypatch, model, custom, eager):
+    """A started FilterSingle on the card; ``eager`` runs its forward
+    without graphs (the reference)."""
+    from nnstreamer_tpu_torch.filter import FilterSingle
+    from nnstreamer_tpu_torch.filter.backends._torchexec import \
+        TorchExecMixin
+
+    single = FilterSingle(framework="xla", model=model, custom=custom)
+    with monkeypatch.context() as m:
+        m.setattr(TorchExecMixin, "_eager", eager)
+        single.start()
+    single.fw._eager = eager
+    return single
+
+
+@pytest.mark.parametrize("model,custom,shape,dtype,high", GRAPH_FILTERS,
+                         ids=[g[0] for g in GRAPH_FILTERS])
+def test_filter_graph_replays_equal_eager(card, monkeypatch, model, custom,
+                                          shape, dtype, high):
+    """Outputs of successive replays, all held, each equal the eager
+    forward of its own frame; the stream after open captures nothing."""
+    frames = _frames(shape, dtype, high, 3)
+    graph = _open_filter(monkeypatch, model, custom, eager=False)
+    eager = _open_filter(monkeypatch, model, custom, eager=True)
+    try:
+        captures = _cuda.graphs["captures"]
+        held = [graph.fw.invoke([f]) for f in frames]
+        assert _cuda.graphs["captures"] == captures
+        want = [eager.fw.invoke([f]) for f in frames]
+        torch.cuda.synchronize()
+        for got, ref in zip(held, want):
+            for g, r in zip(got, ref):
+                assert g.is_cuda and torch.equal(g, r)
+    finally:
+        graph.stop()
+        eager.stop()
+
+
+def test_filter_graph_launches_are_captured_times_replays(card,
+                                                          monkeypatch):
+    """K2 counts 2 launches a ViT frame at depth 2: one eager run before
+    the open's capture, then 2 a replay; the capture itself counts
+    none."""
+    _cuda.reset_launches()
+    single = _open_filter(monkeypatch, "vit", "seed:0,depth:2,input_size:64",
+                          eager=False)
+    try:
+        assert _cuda.launches["flash_attention"] == 2
+        assert dict(_cuda.graphs) == {"captures": 1}
+        (graph,) = single.fw._execs.values()
+        assert graph.launched == {"flash_attention": 2}
+        for f in _frames((64, 64, 3), np.uint8, 256, 3):
+            single.fw.invoke([f])
+        torch.cuda.synchronize()
+        assert _cuda.launches["flash_attention"] == 2 * (1 + 3)
+        assert dict(_cuda.graphs) == {"captures": 1, "replays": 3}
+    finally:
+        single.stop()
+
+
+def test_filter_capture_failure_raises_without_fallback(card):
+    """A forward that syncs with the host cannot be captured: the invoke
+    raises FilterError, records no executable and never runs eagerly
+    instead; the card stays usable."""
+    from nnstreamer_tpu_torch.filter import FilterError
+    from nnstreamer_tpu_torch.filter.backends._torchexec import \
+        TorchExecMixin
+
+    class Syncing(TorchExecMixin):
+        NAME = "syncing"
+
+    def forward(x):
+        return (x * x.sum().item(),)
+
+    fw = Syncing()
+    fw._setup_exec(forward, card)
+    x = torch.ones(8, device=card)
+    for _ in range(2):
+        with pytest.raises(FilterError, match="capture"):
+            fw.invoke([x])
+        assert fw._execs == {}
+    assert torch.cuda.current_stream(card) == torch.cuda.default_stream(card)
+    torch.cuda.synchronize()
+    assert (x + 1).sum().item() == 16.0
+
+
+def test_engine_graphs_equal_eager(card):
+    """The decode engine's captured warm set against the same engine run
+    eagerly: greedy tokens and every dispatch's logits bit for bit; the
+    serving stream after warmup() captures nothing, and the set stays
+    within the JAX package's budgets."""
+    from nnstreamer_tpu_torch.llm import DecodeEngine, KVCachePool
+    from nnstreamer_tpu_torch.models.streamformer_lm import place_params
+    from nnstreamer_tpu_torch.parallel.train_step import (
+        StreamFormerConfig, init_params)
+
+    cfg = StreamFormerConfig(vocab=512, dim=128, heads=4, head_dim=32,
+                             mlp=256, layers=2, experts=2, max_seq=128,
+                             dtype=torch.bfloat16)
+    params = place_params(init_params(cfg, 0), cfg, card)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (5, 17, 40, 9)]
+
+    def serve(eager):
+        pool = KVCachePool(cfg, 4, device=card)
+        eng = DecodeEngine(params, cfg, pool, capacity=4)
+        eng._eager = eager
+        eng.warmup()
+        captures = _cuda.graphs["captures"]
+        sessions = [pool.acquire(i) for i in range(4)]
+        logits, tokens = [], []
+        for s, pr in zip(sessions, prompts):
+            s.next_token = eng.prefill(s, pr)
+            logits.append(eng.last_logits.copy())
+            tokens.append(s.next_token)
+        for fill in (4, 3, 4, 1, 2, 4):
+            for s, tok in zip(sessions[:fill], eng.step(sessions[:fill])):
+                s.next_token = tok
+                tokens.append(tok)
+            logits.append(eng.last_logits.copy())
+        assert _cuda.graphs["captures"] == captures
+        assert len(eng._step_fns) <= 16 and len(eng._prefill_fns) <= 32
+        return tokens, logits
+
+    tokens, logits = serve(eager=False)
+    want_tokens, want_logits = serve(eager=True)
+    assert tokens == want_tokens
+    for got, want in zip(logits, want_logits):
+        assert np.array_equal(got, want)

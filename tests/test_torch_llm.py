@@ -53,7 +53,8 @@ def model():
     jc = JT.StreamFormerConfig(**SIZES, dtype=jnp.float32)
     tc = TT.StreamFormerConfig(**SIZES, dtype=torch.float32)
     jp = JT.init_params(jc, 0)
-    tp = T.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tc)
+    tp = T.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tc,
+                          device="cpu")
     return jc, jp, tc, tp
 
 

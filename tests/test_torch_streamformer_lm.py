@@ -49,7 +49,8 @@ def _pair(seed=0, **kw):
     jc = JT.StreamFormerConfig(**sizes, dtype=jnp.float32)
     tc = TT.StreamFormerConfig(**sizes, dtype=torch.float32)
     jp = JT.init_params(jc, seed)
-    tp = T.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tc)
+    tp = T.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tc,
+                          device="cpu")
     return jc, jp, tc, tp
 
 
@@ -125,7 +126,7 @@ def test_decode_step_matches_jax_and_full_forward():
     jc, jp, tc, tp = _pair(seed=7)
     toks = _toks(9, seed=8)
     full = T.forward_logits(tp, torch.from_numpy(toks), tc, flash=False)
-    jcache, tcache = J.init_cache(jc), T.init_cache(tc)
+    jcache, tcache = J.init_cache(jc), T.init_cache(tc, device="cpu")
     jax_step = jax.jit(lambda p, c, t: J.decode_step(p, c, t, jc))
     for i, tok in enumerate(toks):
         wl, jcache = jax_step(jp, jcache, jnp.int32(tok))
@@ -173,7 +174,7 @@ def test_init_params_tree_matches_jax():
 
 def test_params_keep_f32_where_jax_computes_in_f32():
     tc = TT.StreamFormerConfig(**SIZES, dtype=torch.bfloat16)
-    p = T.place_params(TT.init_params(tc, 0), tc)
+    p = T.place_params(TT.init_params(tc, 0), tc, device="cpu")
     assert p["head"].dtype == p["embed"].dtype == torch.float32
     assert p["layers"][0]["gate"].dtype == torch.float32
     assert p["layers"][0]["wqkv"].dtype == torch.bfloat16

@@ -202,7 +202,7 @@ def test_mlp_trainer_matches_jax():
 def test_mlp_tree_carries_over():
     tree = {"w1": np.ones((3, 5)), "b1": np.zeros(5), "w2": np.ones((5, 2)),
             "b2": np.zeros(2)}
-    got = mlp_params_from_jax(tree)
+    got = mlp_params_from_jax(tree, device="cpu")
     assert {k: tuple(v.shape) for k, v in got.items()} == {
         "w1": (3, 5), "b1": (5,), "w2": (5, 2), "b2": (2,)}
     assert all(v.dtype == torch.float32 for v in got.values())
