@@ -15,7 +15,9 @@ Phases, each of which must pass:
    paths' shapes and a few others, and time both, plus the one PyTorch
    call that computes the same function where there is one; K2's
    tensor-core versions are checked and timed against each other in
-   turns at the four attention paths' shapes;
+   turns at the four attention paths' shapes; K1's floor is traced inside
+   CUDA graph replays: an empty kernel (the card's per-kernel floor), K1
+   on a 1-element frame and K1 on the main path's;
 3. drive each path through the port's entry points at full width, with
    every kernel launch counter set to 0 just before it and read just
    after.  The four serving paths run as CUDA graphs (the filter
@@ -45,6 +47,18 @@ Phases, each of which must pass:
      step, the batch in their grid;
    - ``lm_train``: ``tensor_trainer framework=mesh`` on that LM, (4, 2048)
      tokens, 6 steps: 4 launches each of K2, K3 and K4 a step;
+   - ``mlp_train``: ``tensor_trainer framework=jax``, the MLP trainer at
+     the JAX package's example size (8 features, 4 classes, batches of
+     8), 16 steps;
+
+   Each training path runs as CUDA graphs (step 1 is the capture's eager
+   warm-up, every later step a replay of the one graph: launches count as
+   captured x replays, one capture a path) and then eagerly, in the same
+   call; then in graph mode and twice eagerly under deterministic
+   algorithms, where every step's loss and the final parameters and Adam
+   moments must equal the eager run's bit for bit; a training batch's
+   copy into its static buffers is timed two ways in turns (through
+   pinned staging, and as one pageable copy);
 4. check what came out: the labels and logits of each path against the
    same model run with the kernels' plain versions (and MobileNetV2's f32
    forward against the CPU's), the LM engine's token streams against an
@@ -52,10 +66,11 @@ Phases, each of which must pass:
    each model with the kernels against the same step with plain attention
    (loss and every gradient, in f32 and bf16).
 
-With ``--profile DIR`` the four serving paths are traced in graph and
-eager mode in turns (graph, eager, eager, graph): device busy time,
-device kernels and host launch calls a unit, the idle share and the
-rates, one ``profile_modes`` line a path with both modes side by side.
+With ``--profile DIR`` the four serving paths and the three training
+paths are traced in graph and eager mode in turns (graph, eager, eager,
+graph): device busy time, device kernels and host launch calls a unit,
+the idle share and the rates, one ``profile_modes`` line a path with both
+modes side by side.
 
 Earlier lines are JSON objects of the phases' numbers, the card's name and
 power limit as ``nvidia-smi`` gives them, and the ``kernels`` line; the
@@ -67,7 +82,9 @@ package is not beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import functools
 import json
 import os
 import re
@@ -295,6 +312,141 @@ def check_normalize_frame(reps: int) -> dict:
             "max_abs_err": worst, "ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+
+
+#: K1's floor: kernels inside a CUDA graph's replay, traced — an empty
+#: kernel (what any launch costs the card, independent of K1), K1 on one
+#: element and K1 on the main path's frame; each graph holds
+#: K1_FLOOR_CALLS launches, replayed K1_FLOOR_REPLAYS times in the trace
+K1_FLOOR_SHAPES = [(1,), MAIN_PATH_SHAPE]
+K1_FLOOR_CALLS = 50
+K1_FLOOR_REPLAYS = 20
+#: the empty kernel (a probe of the card, not a kernel of the port)
+EMPTY_KERNEL_SRC = r"""
+#include <cuda_runtime.h>
+extern "C" __global__ void nns_empty_kernel() {}
+extern "C" int nns_empty_launch(void *stream) {
+  nns_empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_kernel_launcher():
+    """Build the empty kernel beside the port's libraries and return a
+    function that launches it once on the current stream."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from nnstreamer_tpu_torch import _cuda
+
+    digest = hashlib.sha256(EMPTY_KERNEL_SRC.encode()
+                            + " ".join(_cuda.NVCC_FLAGS).encode())
+    lib_path = os.path.join(_cuda.BUILD_DIR,
+                            f"empty_kernel-{digest.hexdigest()[:16]}.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(_cuda.BUILD_DIR, exist_ok=True)
+        src = f"{lib_path}.{os.getpid()}.cu"
+        with open(src, "w") as f:
+            f.write(EMPTY_KERNEL_SRC)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        try:
+            subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", tmp, src],
+                           check=True, capture_output=True)
+        finally:
+            os.remove(src)
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(lib_path)
+    lib.nns_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.nns_empty_launch.restype = ctypes.c_int
+
+    def launch():
+        code = lib.nns_empty_launch(torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"empty kernel: CUDA error {code}")
+
+    return launch
+
+
+def k1_floor(card: str) -> dict:
+    """Device time a call inside a replay, traced, of an empty kernel and
+    of K1 at each of K1_FLOOR_SHAPES (bf16 out, as on the main path): no
+    launch or event pair is paid there, so the empty kernel's time is the
+    least any kernel costs the card, and K1's bound is the larger of its
+    bytes over HBM and that floor.  K1's 1-element time stands beside it
+    (K1's own fixed cost).  One trace holds every graph's replays, one
+    graph after the other."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.ops.preprocess import normalize_frame
+
+    empty = empty_kernel_launcher()
+
+    def empties(_):
+        for _ in range(K1_FLOOR_CALLS):
+            empty()
+        return []
+
+    def calls(frame):
+        return [normalize_frame(frame, 1.0 / 127.5, -1.0, torch.bfloat16)
+                for _ in range(K1_FLOOR_CALLS)]
+
+    names = ["nns_empty_kernel"] + ["normalize_frame"] * len(K1_FLOOR_SHAPES)
+    with torch.inference_mode():
+        graphs = []
+        for fn, shape in [(empties, (1,))] + [(calls, s)
+                                              for s in K1_FLOOR_SHAPES]:
+            x = torch.randint(0, 256, shape, dtype=torch.uint8,
+                              device="cuda")
+            graphs.append(_cuda.CapturedGraph(fn, [x],
+                                              _cuda.graph_memory(x.device)))
+            graphs[-1].replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for graph in graphs:
+                for _ in range(K1_FLOOR_REPLAYS):
+                    graph.replay()
+                torch.cuda.synchronize()
+    per_graph = K1_FLOOR_CALLS * K1_FLOOR_REPLAYS
+    events = {}
+    for name in set(names):
+        events[name] = sorted(
+            (e for e in prof.events() if name in e.name
+             and e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)
+        want = per_graph * names.count(name)
+        if len(events[name]) != want:
+            raise AssertionError(f"K1 floor: the trace holds "
+                                 f"{len(events[name])} {name} events, "
+                                 f"expected {want}")
+    rows, seen = [], collections.Counter()
+    for name, shape in zip(names, [(1,), *K1_FLOOR_SHAPES]):
+        i = seen[name]
+        seen[name] += 1
+        mine = events[name][i * per_graph:(i + 1) * per_graph]
+        rows.append({"kernel": name, "shape": list(shape),
+                     "events": len(mine),
+                     "in_graph_us": sum(e.time_range.elapsed_us()
+                                        for e in mine) / len(mine)})
+    n = 1
+    for d in MAIN_PATH_SHAPE:
+        n *= d
+    bytes_ms = 3 * n / HBM_BYTES_PER_S * 1e3    # uint8 in, bf16 out
+    floor_ms, k1_one_ms, main_ms = (r["in_graph_us"] / 1e3 for r in rows)
+    bound = max(bytes_ms, floor_ms)
+    row = {"phase": "kernel_floor", "kernel": "normalize_frame",
+           "rows": rows, "bytes_bound_ms": bytes_ms,
+           "empty_kernel_ms": floor_ms, "k1_one_element_ms": k1_one_ms,
+           "bound_ms": bound, "main_path_ms": main_ms,
+           "share_of_bound": bound / main_ms,
+           "reaches_half_of_bound": main_ms <= 2 * bound, "card": card}
+    emit(row)
+    return row
 
 
 #: flash attention (K2) rows: (name, batch, tq, tkv, h, d, causal, dtype,
@@ -1207,8 +1359,20 @@ LM_TRAIN_LAUNCH = (
     "dimensions={seq}:{b}.{seq}:{b},types=int32.int32,framerate=0/1 ! "
     "tensor_trainer name=tr framework=mesh "
     "custom=dp:1,sp:1,tp:1,ep:1,{custom} ! tensor_sink name=out")
-#: flash launches per training step: ViT's 12 layers, the LM's 4
-TRAIN_PER_STEP = {"vit_train": 12, "lm_train": 4}
+#: the MLP trainer (framework=jax) at the size of the JAX package's
+#: examples/train_from_datarepo.py: 8 float features, 4 one-hot classes
+#: (linearly separable), batches of 8, lr 0.01, the trainer's default
+#: hidden width (128); 64 samples, 2 epochs: 16 steps
+MLP_FEATURES, MLP_CLASSES, MLP_BATCH, MLP_EPOCHS = 8, 4, 8, 2
+MLP_TRAIN_LAUNCH = (
+    "appsrc name=src caps=other/tensors,format=static,num_tensors=2,"
+    f"dimensions={MLP_FEATURES}.{MLP_CLASSES},types=float32.float32,"
+    "framerate=0/1 ! tensor_trainer name=tr framework=jax num-inputs=1 "
+    f"num-labels=1 batch-size={MLP_BATCH} num-epochs={MLP_EPOCHS} "
+    "lr=0.01 ! tensor_sink name=out")
+#: flash launches per training step: ViT's 12 layers, the LM's 4, the
+#: MLP's none
+TRAIN_PER_STEP = {"vit_train": 12, "lm_train": 4, "mlp_train": 0}
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 #: one step with the kernels against the same step with plain attention:
@@ -1242,6 +1406,19 @@ def lm_train_samples(steps: int, seed: int):
     return out
 
 
+def mlp_train_samples(n: int, seed: int):
+    """(features, one-hot class) frames, the class the argmax of a fixed
+    random linear map of the features, as the JAX package's example
+    makes its dataset."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((MLP_FEATURES, MLP_CLASSES)).astype(np.float32)
+    x = rng.standard_normal((n, MLP_FEATURES)).astype(np.float32)
+    y = np.eye(MLP_CLASSES, dtype=np.float32)[(x @ w).argmax(axis=1)]
+    return list(zip(x, y))
+
+
 def lm_train_launch(seed: int) -> str:
     custom = {**LM_CUSTOM, "max_seq": str(LM_SEQ), "seed": str(seed)}
     return LM_TRAIN_LAUNCH.format(
@@ -1249,19 +1426,36 @@ def lm_train_launch(seed: int) -> str:
         custom=",".join(f"{k}:{v}" for k, v in custom.items()))
 
 
-def drive_trainer(launch: str, samples):
+@contextlib.contextmanager
+def eager_steps(on: bool):
+    """While ``on``, every training step runs eagerly on the card, without
+    graphs: the reference run (a private attribute of GraphedStep, not a
+    launch property)."""
+    from nnstreamer_tpu_torch._cuda import GraphedStep
+
+    was = GraphedStep._eager
+    GraphedStep._eager = on
+    try:
+        yield
+    finally:
+        GraphedStep._eager = was
+
+
+def drive_trainer(launch: str, samples, defaults: bool = True):
     """Push ``samples`` through an ``appsrc ! tensor_trainer ! tensor_sink``
     pipeline; the trainer trains at EOS.  Returns the trainer framework.
 
     The serving checks pin cuDNN to deterministic algorithms; a trainer's
-    user gets PyTorch's defaults, so the training paths run with those."""
+    user gets PyTorch's defaults, so with ``defaults`` the training runs
+    with those (the timed runs), else with the settings in force."""
     import torch
 
     from nnstreamer_tpu_torch import parse_launch
     from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 
     pinned = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = False
+    if defaults:
+        torch.backends.cudnn.deterministic = False
     p = parse_launch(launch)
     p.play()
     try:
@@ -1276,41 +1470,225 @@ def drive_trainer(launch: str, samples):
     return p.get("tr").trainer
 
 
+def train_steps(phase: str, samples) -> int:
+    """The steps a path must take for the samples pushed: one a sample
+    for vit-train and lm-train (each sample a batch), full batches x
+    epochs for the MLP trainer."""
+    if phase == "mlp_train":
+        return len(samples) // MLP_BATCH * MLP_EPOCHS
+    return len(samples)
+
+
 def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
-              card: str) -> dict:
-    """Drive a training path: one step a sample, each launching K2, K3
-    and K4 ``per_step`` times; step times from the trainer (host clock,
-    batch copy to the loss read that ends the step)."""
+              card: str, eager: bool = False) -> dict:
+    """Drive a training path in one mode: ``train_steps`` steps, each
+    launching K2, K3 and K4 ``per_step`` times; step times from the
+    trainer (host clock, batch copy to the loss read that ends the step).
+    In graph mode step 1 is the capture's eager warm-up and every later
+    step a replay of the one graph: a launch counts as captured launches
+    x replays."""
     import math
 
     from nnstreamer_tpu_torch import _cuda
 
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    trainer = drive_trainer(launch, samples)
+    with eager_steps(eager):
+        trainer = drive_trainer(launch, samples)
     wall = time.perf_counter() - t0
-    launches = dict(_cuda.launches)
+    launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
     steps = len(trainer.losses)
     step_ms = [t * 1e3 for t in trainer.step_s]
     p50 = statistics.median(step_ms)
-    units = samples[0][0].shape[0] * (samples[0][0].shape[1]
-                                      if unit == "tokens" else 1)
-    row = {"phase": phase, "steps": steps, "launches": launches,
+    batch = trainer._batches()[0][0]
+    units = batch.shape[0] * (batch.shape[1] if unit == "tokens" else 1)
+    captured = {k: dict(g.launched)
+                for k, g in trainer.graphed.graphs.items()}
+    row = {"phase": phase, "mode": "eager" if eager else "graph",
+           "steps": steps, "launches": launches, "graphs": graphs,
+           "captured_launches": list(captured.values()),
            "launches_per_step": {k: launches.get(k, 0) / max(steps, 1)
                                  for k in TRAIN_KERNELS},
            "step_ms": step_ms, "step_ms_p50": p50,
            f"{unit}_per_s": units / (p50 / 1e3), "losses": trainer.losses,
            "wall_s_incl_build": wall, "card": card}
     emit(row)
-    if steps != len(samples) or not all(map(math.isfinite, trainer.losses)):
-        raise AssertionError(f"{phase}: {steps} steps of {len(samples)}, "
+    want_steps = train_steps(phase, samples)
+    if steps != want_steps or not all(map(math.isfinite, trainer.losses)):
+        raise AssertionError(f"{phase}: {steps} steps of {want_steps}, "
                              f"losses {trainer.losses}")
     for k in TRAIN_KERNELS:
         if launches.get(k, 0) != per_step * steps:
             raise AssertionError(f"{phase}: {k} launched "
                                  f"{launches.get(k, 0)} times, expected "
                                  f"{per_step} a step")
-    return {"launches": launches}
+    if graphs != graph_counts(eager, 1, steps - 1):
+        raise AssertionError(f"{phase}: graphs {graphs}, expected one "
+                             f"capture (step 1) and a replay a later step")
+    if not eager and list(captured.values()) != [
+            {k: per_step for k in TRAIN_KERNELS if per_step}]:
+        raise AssertionError(f"{phase}: the capture recorded {captured}, "
+                             f"expected {per_step} launches of each kernel")
+    return {"launches": launches, "step_ms_p50": p50,
+            "losses": trainer.losses}
+
+
+def check_mlp_learns(losses, epochs: int) -> None:
+    """The MLP trainer's loss falls on its separable task: the last
+    epoch's mean loss below the first's (the JAX package's trainer tests
+    ask the same of a falling loss)."""
+    per_epoch = len(losses) // epochs
+    first = statistics.mean(losses[:per_epoch])
+    last = statistics.mean(losses[-per_epoch:])
+    emit({"phase": "mlp_outputs", "loss_first_epoch": first,
+          "loss_last_epoch": last, "epochs": epochs})
+    if not last < first:
+        raise AssertionError(f"mlp_train: loss did not fall ({first} -> "
+                             f"{last})")
+
+
+#: copies of each training batch a way and a turn in ``time_batch_copies``
+BATCH_COPY_REPS = 30
+
+
+def time_batch_copies(seed: int, card: str) -> dict:
+    """What copying one training batch into its static buffers costs a
+    step, two ways, in turns (pinned, pageable, pageable, pinned), on the
+    host's clock from the copy's start to the data on the card (a step's
+    replay waits for it either way): ``pinned`` copies the batch into
+    pinned host staging and then to the card without blocking;
+    ``pageable`` is one blocking copy from the batch's own memory.
+    Medians of BATCH_COPY_REPS copies a turn, microseconds."""
+    import torch
+
+    batches = {"vit_train": vit_train_samples(1, seed)[0],
+               "lm_train": lm_train_samples(1, seed)[0]}
+    rows = {}
+    for path, batch in batches.items():
+        host = [torch.from_numpy(x) for x in batch]
+        statics = [torch.empty_like(x, device="cuda") for x in host]
+        staging = [torch.empty_like(x).pin_memory() for x in host]
+
+        def pinned():
+            for x, stage, static in zip(host, staging, statics):
+                stage.copy_(x)
+                static.copy_(stage, non_blocking=True)
+
+        def pageable():
+            for x, static in zip(host, statics):
+                static.copy_(x)
+
+        ways = {"pinned": pinned, "pageable": pageable}
+        us = {w: [] for w in ways}
+        for way in ("pinned", "pageable", "pageable", "pinned"):
+            times = []
+            for _ in range(BATCH_COPY_REPS + 2):
+                t0 = time.perf_counter()
+                ways[way]()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e6)
+            us[way].append(statistics.median(times[2:]))
+            if not all(torch.equal(s.cpu(), x)
+                       for s, x in zip(statics, host)):
+                raise AssertionError(f"batch copy ({path}, {way}) differs")
+        rows[path] = us
+        emit({"phase": "batch_copy", "path": path,
+              "bytes": sum(x.numel() * x.element_size() for x in host),
+              "us_p50": us, "card": card})
+    return rows
+
+
+def compare_train_modes(phase: str, graph: dict, eager: dict) -> None:
+    """The step-time ratio graph / eager of one path, from one call."""
+    emit({"phase": "train_modes", "path": phase,
+          "step_ms_p50": {"graph": graph["step_ms_p50"],
+                          "eager": eager["step_ms_p50"]},
+          "graph_over_eager": graph["step_ms_p50"] / eager["step_ms_p50"]})
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode,
+    warning (not raising) where an operation has none; yields the
+    warnings recorded meanwhile."""
+    import warnings
+
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         on, warn_only, cublas) = saved
+        torch.use_deterministic_algorithms(on, warn_only=warn_only)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+
+
+def _train_gap(a, b) -> dict:
+    """Largest |a - b| over the two runs' losses and over their state
+    tensors, and the tensors that differ."""
+    losses = max(abs(x - y) for x, y in zip(a[0], b[0]))
+    differ = sorted(n for n in b[1] if not a[1][n].equal(b[1][n]))
+    tensors = max(((a[1][n].double() - b[1][n].double()).abs().max().item()
+                   for n in differ), default=0.0)
+    return {"loss": losses, "state": tensors, "tensors_differ": differ}
+
+
+def check_train_graph_vs_eager(phase: str, launch: str, samples) -> None:
+    """A training path in graph mode, then eagerly twice, from the same
+    seed under deterministic algorithms: each step's loss, and every
+    parameter and Adam moment after the last step, must equal the eager
+    run's bit for bit.  Where an operation warns that it has no
+    deterministic implementation and the two eager runs differ, the graph
+    run is held to the gap between them, and the operations are named."""
+    import torch
+
+    runs = {}
+    with deterministic_algorithms() as caught:
+        for mode in ("graph", "eager", "eager_again"):
+            with eager_steps(mode != "graph"):
+                trainer = drive_trainer(launch, samples, defaults=False)
+            runs[mode] = (list(trainer.losses),
+                          {n: x.detach().clone()
+                           for n, x in trainer.state_tensors().items()})
+            del trainer
+            torch.cuda.empty_cache()
+    want = train_steps(phase, samples)
+    counts = {mode: len(run[0]) for mode, run in runs.items()}
+    if set(counts.values()) != {want}:
+        raise AssertionError(f"{phase}: steps {counts}, expected {want}")
+    warned = sorted({str(w.message).splitlines()[0][:200] for w in caught})
+    graph_gap = _train_gap(runs["graph"], runs["eager"])
+    eager_gap = _train_gap(runs["eager_again"], runs["eager"])
+    bit_equal = (graph_gap["loss"] == 0 and not graph_gap["tensors_differ"]
+                 and len(runs["graph"][0]) == len(runs["eager"][0]))
+    emit({"phase": "train_graph_vs_eager", "path": phase,
+          "steps": len(runs["graph"][0]),
+          "state_tensors": len(runs["graph"][1]), "bit_equal": bit_equal,
+          "graph_vs_eager": graph_gap, "eager_vs_eager": eager_gap,
+          "nondeterministic_warnings": warned})
+    if bit_equal:
+        return
+    if not (warned and eager_gap["tensors_differ"]
+            and graph_gap["loss"] <= eager_gap["loss"]
+            and graph_gap["state"] <= eager_gap["state"]):
+        raise AssertionError(f"{phase}: graph steps differ from eager "
+                             f"steps: {graph_gap} (eager vs eager: "
+                             f"{eager_gap}; warnings {warned})")
 
 
 def _grad_gap(got: dict, want: dict):
@@ -1604,11 +1982,30 @@ def profile_llm_serve(steps: int, seed: int, out_dir: str, eager: bool,
     return row
 
 
+#: the metrics a profile_modes line puts side by side
+MODE_KEYS = ("fps", "p50_ms", "p90_ms", "prefill_tok_s",
+             "decode_tok_s_bucket8", "step_ms_p50", "step_ms_p90",
+             "device_busy_us_per_unit", "device_idle_share",
+             "device_kernels_per_unit", "host_launch_calls_per_unit",
+             "launches_per_unit", "units_in_window", "marker_units",
+             "marker_device_us_per_call")
+
+
+def profile_modes(paths: dict) -> None:
+    """Each path in graph and eager mode, in turns (graph, eager, eager,
+    graph), then one line a path with both modes side by side: each
+    metric's values in turn order."""
+    for name, run in paths.items():
+        rows = [run(eager, turn) for turn, eager in enumerate(MODE_TURNS)]
+        emit({"phase": "profile_modes", "path": name, **{
+            mode: {k: [r[k] for r in rows if r["mode"] == mode]
+                   for k in MODE_KEYS if k in rows[0]}
+            for mode in ("graph", "eager")}})
+
+
 def profile_serving(args) -> None:
-    """The four serving paths in graph and eager mode, in turns (graph,
-    eager, eager, graph), then one line a path with both modes side by
-    side: each metric's values in turn order."""
-    paths = {
+    """The four serving paths in both modes, in turns."""
+    profile_modes({
         "main_path": lambda eager, turn: profile_path(
             "main_path", LAUNCH, args.frames, args.seed, args.profile,
             "normalize_frame_kernel", 1, eager, turn),
@@ -1619,44 +2016,43 @@ def profile_serving(args) -> None:
             args.lm_frames, args.seed, args.profile, eager, turn),
         "llm_serve": lambda eager, turn: profile_llm_serve(
             args.steps, args.seed, args.profile, eager, turn),
-    }
-    keys = ("fps", "p50_ms", "p90_ms", "prefill_tok_s",
-            "decode_tok_s_bucket8", "step_ms_p50", "step_ms_p90",
-            "device_busy_us_per_unit", "device_idle_share",
-            "device_kernels_per_unit", "host_launch_calls_per_unit",
-            "launches_per_unit", "units_in_window", "marker_units",
-            "marker_device_us_per_call")
-    for name, run in paths.items():
-        rows = [run(eager, turn) for turn, eager in enumerate(MODE_TURNS)]
-        emit({"phase": "profile_modes", "path": name, **{
-            mode: {k: [r[k] for r in rows if r["mode"] == mode]
-                   for k in keys if k in rows[0]}
-            for mode in ("graph", "eager")}})
+    })
 
 
-def profile_train(name: str, launch: str, samples, out_dir: str) -> None:
-    """Trace a training path's steps: the path runs once through its
-    pipeline (building and warming the trainer), then its trainer's step
-    runs again over the same samples inside the trace, as its finish loop
-    does.  A unit is a step."""
+def profile_train(name: str, launch: str, samples, out_dir: str,
+                  per_step: int, eager: bool, turn: int) -> dict:
+    """Trace a training path's steps in one mode: the path runs once
+    through its pipeline (building the trainer; in graph mode capturing
+    its step), then the trainer's steps run again over one epoch of its
+    batches inside the trace, as its finish loop runs them (copy into the
+    static buffers, replay or eager step, loss read).  A unit is a
+    step."""
     import torch
 
-    trainer = drive_trainer(launch, samples)
-    batches = [tuple(torch.from_numpy(x) for x in s) for s in samples]
-
-    def steps():
-        for ins, labs in batches:
-            trainer._params, trainer._opt, loss = trainer._step(
-                trainer._params, trainer._opt, ins.to(trainer._sharding),
-                labs.to(trainer._sharding))
-            float(loss)
-
+    mode = "eager" if eager else "graph"
     pinned = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = False      # as drive_trainer
-    try:
-        emit(trace(name, out_dir, steps, lambda t0, t1: len(samples)))
-    finally:
-        torch.backends.cudnn.deterministic = pinned
+    with eager_steps(eager):
+        trainer = drive_trainer(launch, samples)
+        batches = trainer._batches()
+        done = len(trainer.step_s)
+
+        def steps():
+            for batch in batches:
+                trainer._run_step(*batch)
+
+        torch.backends.cudnn.deterministic = False      # as drive_trainer
+        try:
+            row = trace(f"{name}_{mode}{turn}", out_dir, steps,
+                        lambda t0, t1: len(batches),
+                        K2_MARKER if per_step else None, per_step)
+        finally:
+            torch.backends.cudnn.deterministic = pinned
+    step_ms = sorted(t * 1e3 for t in trainer.step_s[done:])
+    row.update(path=name, mode=mode, turn=turn,
+               step_ms_p50=statistics.median(step_ms),
+               step_ms_p90=step_ms[int(0.9 * (len(step_ms) - 1))])
+    emit(row)
+    return row
 
 
 def main(argv=None) -> int:
@@ -1669,17 +2065,20 @@ def main(argv=None) -> int:
                     help="timed decode steps of the LLM engine")
     ap.add_argument("--vit-train-steps", type=int, default=8)
     ap.add_argument("--lm-train-steps", type=int, default=6)
+    ap.add_argument("--mlp-train-samples", type=int, default=64,
+                    help="samples of the MLP trainer (2 epochs of batches "
+                         "of 8)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=200,
                     help="timed launches per kernel measurement")
     ap.add_argument("--profile", metavar="DIR",
                     help="also trace every path into DIR")
     args = ap.parse_args(argv)
-    if args.profile:
-        # CUPTI torn down after a trace and set up again crashes a process
-        # that has replayed CUDA graphs (the workaround torch.profiler
-        # applies for its own graphs): keep it up between the traces
-        os.environ["TEARDOWN_CUPTI"] = "0"
+    # CUPTI torn down after a trace and set up again crashes a process that
+    # has replayed CUDA graphs: keep it up between the traces, and set it
+    # up eagerly (the workaround torch.profiler applies for its own graphs)
+    os.environ["TEARDOWN_CUPTI"] = "0"
+    os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
 
     try:
         import torch
@@ -1710,8 +2109,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = False
 
     try:
-        kernels = [check_normalize_frame(args.reps),
-                   check_flash_attention(args.reps),
+        kernels = [check_normalize_frame(args.reps)]
+        k1_floor(card)
+        kernels += [check_flash_attention(args.reps),
                    *check_flash_backward(args.reps)]
         time_flash_versions(args.reps)
         main_path = run_labeling("main_path", LAUNCH, args.frames,
@@ -1733,27 +2133,44 @@ def main(argv=None) -> int:
         check_vit_outputs(vit["labels"], args.vit_frames, args.seed)
         lm = run_lm_filter(args.lm_frames, args.seed, card)
         serve = run_llm_serve(args.steps, args.seed, card)
-        vit_samples = vit_train_samples(args.vit_train_steps, args.seed)
-        vit_launch = VIT_TRAIN_LAUNCH.format(seed=args.seed)
-        vit_train = run_train("vit_train", vit_launch, vit_samples,
-                              "images", TRAIN_PER_STEP["vit_train"], card)
-        lm_samples = lm_train_samples(args.lm_train_steps, args.seed)
-        lm_launch = lm_train_launch(args.seed)
-        lm_train = run_train("lm_train", lm_launch, lm_samples, "tokens",
-                             TRAIN_PER_STEP["lm_train"], card)
+        # name -> (launch, samples, unit of the rate)
+        trains = {
+            "vit_train": (VIT_TRAIN_LAUNCH.format(seed=args.seed),
+                          vit_train_samples(args.vit_train_steps, args.seed),
+                          "images"),
+            "lm_train": (lm_train_launch(args.seed),
+                         lm_train_samples(args.lm_train_steps, args.seed),
+                         "tokens"),
+            "mlp_train": (MLP_TRAIN_LAUNCH,
+                          mlp_train_samples(args.mlp_train_samples,
+                                            args.seed), "samples"),
+        }
+        train_rows = {}
+        for name, (launch, samples, unit) in trains.items():
+            graph, eager = (run_train(name, launch, samples, unit,
+                                      TRAIN_PER_STEP[name], card, eager=e)
+                            for e in (False, True))
+            compare_train_modes(name, graph, eager)
+            check_train_graph_vs_eager(name, launch, samples)
+            train_rows[name] = graph
+        check_mlp_learns(train_rows["mlp_train"]["losses"], MLP_EPOCHS)
+        time_batch_copies(args.seed, card)
         check_train_outputs(args.seed)
         for k in kernels:
-            # launches summed over every path's own run
+            # launches summed over every path's own run (graph mode)
             k["launches"] = sum(path["launches"].get(k["name"], 0)
                                 for path in (main_path, vit, lm, serve,
-                                             vit_train, lm_train))
+                                             *train_rows.values()))
             if k["launches"] == 0:
                 raise AssertionError(f"{k['name']} never launched on the "
                                      "paths")
         if args.profile:
             profile_serving(args)
-            profile_train("vit_train", vit_launch, vit_samples, args.profile)
-            profile_train("lm_train", lm_launch, lm_samples, args.profile)
+            profile_modes({
+                name: functools.partial(profile_train, name, launch,
+                                        samples, args.profile,
+                                        TRAIN_PER_STEP[name])
+                for name, (launch, samples, _) in trains.items()})
     except AssertionError as exc:
         return fail(str(exc))
 

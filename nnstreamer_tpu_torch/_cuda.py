@@ -12,7 +12,8 @@ where it launches its kernel and nowhere else.  A CUDA graph
 (:class:`CapturedGraph`) calls no wrapper when it replays, so its capture
 records the launches the wrappers counted while it was captured (they
 launched nothing: capture only records) and each replay adds them again;
-``graphs`` counts the captures and replays.
+``graphs`` counts the captures and replays.  :class:`GraphedStep` runs a
+training step as one such graph per batch signature.
 
 ``nvcc`` runs with ``-Xptxas -v``: its report (registers, shared memory and
 spill bytes of every kernel function) is kept beside each library as
@@ -78,7 +79,13 @@ class CapturedGraph:
     the current stream and returns :attr:`outputs`, the graph's static
     outputs, which the next replay overwrites.
 
-    The caller runs it under ``torch.inference_mode()``.  A capture that
+    A serving caller runs it under ``torch.inference_mode()``.  A training
+    step (:class:`GraphedStep`) runs it with autograd: there the warm-up
+    is the step's first run (it updates the parameters and optimizer
+    state once, and :attr:`first` is that step's loss), and the capture
+    records the same step without running it.  The backward's kernels are
+    launched from autograd's device thread while ``fn`` waits for it, so
+    their counts land inside the capture window too.  A capture that
     fails (a host sync inside ``fn``, an operation CUDA cannot capture)
     raises; nothing falls back to eager execution."""
 
@@ -114,6 +121,116 @@ class CapturedGraph:
         launches.update(self.launched)
         graphs["replays"] += 1
         return self.outputs
+
+
+def host_tensor(x):
+    """``x`` as a tensor: a tensor as it is, anything else through numpy
+    (copied where it is read-only, which ``torch.from_numpy`` refuses)."""
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr)
+
+
+class GraphedStep:
+    """A training step ``fn(*batch) -> loss`` that updates its parameters
+    and optimizer state in place, run as one CUDA graph per batch
+    signature: the counterpart of the JAX package's jitted step with
+    donated parameters and optimizer state.
+
+    Each signature (the shape and dtype of each batch tensor) gets static
+    batch buffers on the step's device; a call copies its batch into them
+    (from host memory through pinned staging, without blocking) and runs
+    ``fn`` on them.  On the card the first call of a signature is a
+    :class:`CapturedGraph`: its eager warm-up is that call's step, and
+    every later call of the signature replays the graph.  The loss it
+    returns is then the graph's static output, which the next call
+    overwrites: read it (``float(loss)``, the step's one sync) before the
+    next call.  All of a step's graphs share one memory pool and side
+    stream.  On the CPU, and on the card while :attr:`_eager` is set, the
+    step runs eagerly on the same static buffers.
+
+    A capture that fails raises ``RuntimeError`` (after the warm-up's step
+    has run); nothing falls back to eager execution."""
+
+    #: private: run the step eagerly on the card as well, for a reference
+    #: run to hold the graphs to (set on the class or an instance by tests
+    #: and chip_smoke.py; not a launch property)
+    _eager = False
+
+    def __init__(self, fn: Callable[..., Any], device) -> None:
+        import torch
+
+        self.fn = fn
+        self.device = torch.device(device)
+        #: signature -> the static batch buffers on the step's device
+        self.statics: Dict[tuple, list] = {}
+        #: signature -> its CapturedGraph
+        self.graphs: Dict[tuple, CapturedGraph] = {}
+        self._staging: Dict[tuple, list] = {}
+        self._copied: Dict[tuple, Any] = {}
+        self._memory = None
+
+    def _graphed(self) -> bool:
+        return self.device.type == "cuda" and not self._eager
+
+    def _copy_in(self, key: tuple, batch: list) -> list:
+        import torch
+
+        statics = self.statics.get(key)
+        if statics is None:
+            statics = self.statics[key] = [
+                torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                for x in batch]
+        staging = self._staging.setdefault(key, [None] * len(batch))
+        copied = self._copied.pop(key, None)
+        if copied is not None:
+            # the last copy out of the staging buffers must end before
+            # they are written again
+            copied.synchronize()
+        staged = False
+        for i, (x, static) in enumerate(zip(batch, statics)):
+            if self.device.type == "cuda" and x.device.type == "cpu":
+                if staging[i] is None:
+                    staging[i] = torch.empty(x.shape, dtype=x.dtype,
+                                             pin_memory=True)
+                staging[i].copy_(x)
+                x, staged = staging[i], True
+            if x is not static:
+                static.copy_(x, non_blocking=True)
+        if staged:
+            self._copied[key] = torch.cuda.Event()
+            self._copied[key].record()
+        return statics
+
+    def __call__(self, *batch) -> Any:
+        import torch
+
+        if torch.is_inference_mode_enabled():
+            raise RuntimeError("a training step needs autograd: it cannot "
+                               "run under torch.inference_mode()")
+        batch = [host_tensor(x) for x in batch]
+        key = tuple((tuple(x.shape), x.dtype) for x in batch)
+        statics = self._copy_in(key, batch)
+        if not self._graphed():
+            return self.fn(*statics)
+        graph = self.graphs.get(key)
+        if graph is not None:
+            return graph.replay()
+        if self._memory is None:
+            self._memory = graph_memory(self.device)
+        try:
+            graph = CapturedGraph(self.fn, statics, self._memory)
+        except RuntimeError as exc:
+            raise RuntimeError(f"CUDA graph capture of the training step "
+                               f"for {key} failed: {exc}") from exc
+        self.graphs[key] = graph
+        return graph.first
 
 
 def _nvcc() -> str:

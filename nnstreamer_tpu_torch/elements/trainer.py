@@ -17,7 +17,12 @@ Frameworks, by the JAX package's names:
   (frames, labels) frame.
 
 Trainers run on ``cuda:0``; ``custom=device:cpu`` asks for the CPU (the
-tests' way), and without a card and without that request they raise.
+tests' way), and without a card and without that request they raise.  On
+the card every framework's step — forward, backward and Adam update —
+replays one CUDA graph per batch signature (:class:`~.._cuda.GraphedStep`,
+the JAX package's jitted step with donated state); each batch is copied
+into the graph's static buffers through pinned staging, and the loss read
+that ends a step is its one sync.
 Training is on one card: a mesh axis above 1 raises "multi-card training
 is not yet ported".  ``model-save-path`` (an orbax checkpoint in the JAX
 package) is not yet ported either: setting it raises at start, before any
@@ -33,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from .._cuda import GraphedStep
 from ..device import resolve_device
 from ..parallel.train_step import adam_update
 from ..pipeline.element import Element, EOSEvent
@@ -57,6 +63,31 @@ class TrainerFramework:
 
     def finish(self) -> Dict[str, Any]:
         """Complete training; return summary stats (epochs, final loss)."""
+        raise NotImplementedError
+
+
+class _GraphedTrainer(TrainerFramework):
+    """A trainer whose step is :attr:`graphed`, a :class:`~.._cuda.
+    GraphedStep` ``(*batch) -> loss`` set up by ``_build``: it keeps the
+    losses and the host seconds of each step."""
+
+    graphed: GraphedStep
+
+    def _init_stats(self) -> None:
+        self.losses: List[float] = []
+        #: host seconds of each step, batch copy to loss read (the sync)
+        self.step_s: List[float] = []
+
+    def _run_step(self, *batch) -> None:
+        """One step on a host batch: the copy into the static buffers, the
+        step (a replay on the card) and the loss read."""
+        t0 = time.perf_counter()
+        self.losses.append(float(self.graphed(*batch)))
+        self.step_s.append(time.perf_counter() - t0)
+
+    def state_tensors(self) -> Dict[str, torch.Tensor]:
+        """Every parameter and optimizer tensor, by name (the live
+        tensors, which the next step updates in place)."""
         raise NotImplementedError
 
 
@@ -91,13 +122,15 @@ def mlp_params_from_jax(tree: Dict[str, Any],
 
 
 @register_trainer
-class JaxTrainer(TrainerFramework):
+class JaxTrainer(_GraphedTrainer):
     """Built-in trainer: an MLP on float samples with Adam.
 
     props: num-epochs, batch-size, lr, ``hidden`` (128), ``device``.
     Samples accumulate into batches; each full batch is one step on the
-    trainer's device.  The JAX package draws its initial weights from
-    ``jax.random``; :meth:`load_params` starts from its tree instead."""
+    trainer's device, with Adam's step count on the device as the JAX
+    package's ``opt["t"]``.  The JAX package draws its initial weights
+    from ``jax.random``; :meth:`load_params` starts from its tree
+    instead."""
 
     NAME = "jax"
 
@@ -108,7 +141,7 @@ class JaxTrainer(TrainerFramework):
         self.lr = float(props.get("lr", 1e-3))
         self.device = _device(props)
         self._samples: List[Tuple[List[np.ndarray], List[np.ndarray]]] = []
-        self.losses: List[float] = []
+        self._init_stats()
         self._state = None
         self._carry: Optional[Dict[str, Any]] = None
 
@@ -159,43 +192,55 @@ class JaxTrainer(TrainerFramework):
             params = {k: v.to(self.device) for k, v in params.items()}
         opt = {"m": {k: torch.zeros_like(v) for k, v in params.items()},
                "v": {k: torch.zeros_like(v) for k, v in params.items()},
-               "t": 0}
+               "t": torch.zeros((), dtype=torch.int32, device=self.device)}
         self._state = (params, opt)
+        self.graphed = GraphedStep(self._step_fn(params, opt), self.device)
 
-    def _step(self, params, opt, x, y) -> torch.Tensor:
-        for p in params.values():
-            p.requires_grad_(True)
-        try:
-            with torch.enable_grad():
-                loss = self._loss(params, x, y)
-                grads = dict(zip(params, torch.autograd.grad(
-                    loss, list(params.values()))))
-        finally:
+    def state_tensors(self) -> Dict[str, torch.Tensor]:
+        params, opt = self._state
+        return {"t": opt["t"], **{f"{tree}.{k}": x for tree, t in
+                                  (("params", params), ("m", opt["m"]),
+                                   ("v", opt["v"])) for k, x in t.items()}}
+
+    def _step_fn(self, params, opt):
+        """The step on one (x, y) batch, updating ``params`` and ``opt``
+        in place; returns the loss."""
+        def step(x, y):
             for p in params.values():
-                p.requires_grad_(False)
-        opt["t"] += 1
-        adam_update(list(params.values()), list(opt["m"].values()),
-                    list(opt["v"].values()), [grads[k] for k in params],
-                    opt["t"], self.lr)
-        return loss.detach()
+                p.requires_grad_(True)
+            try:
+                with torch.enable_grad():
+                    loss = self._loss(params, x, y)
+                    grads = torch.autograd.grad(loss,
+                                                list(params.values()))
+            finally:
+                for p in params.values():
+                    p.requires_grad_(False)
+            opt["t"].add_(1)
+            adam_update(list(params.values()), list(opt["m"].values()),
+                        list(opt["v"].values()), list(grads), opt["t"],
+                        self.lr)
+            return loss.detach()
+
+        return step
+
+    def _batches(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """One epoch's full batches of the stacked samples, in order."""
+        xs, ys = self._stack(self._samples)
+        bs = min(self.batch_size, len(xs))
+        return [(xs[i:i + bs], ys[i:i + bs])
+                for i in range(0, len(xs) - bs + 1, bs)]
 
     def finish(self) -> Dict[str, Any]:
         if not self._samples:
             return {"epochs": 0, "samples": 0, "final_loss": None}
-        xs, ys = self._stack(self._samples)
+        batches = self._batches()
         if self._state is None:
-            self._build(xs.shape[1], ys.shape[1])
-        params, opt = self._state
-        xs_t = torch.from_numpy(xs).to(self.device)
-        ys_t = torch.from_numpy(ys).to(self.device)
-        n = len(xs)
-        bs = min(self.batch_size, n)
+            self._build(batches[0][0].shape[1], batches[0][1].shape[1])
         for _ in range(self.epochs):
-            for i in range(0, n - bs + 1, bs):
-                loss = self._step(params, opt, xs_t[i:i + bs],
-                                  ys_t[i:i + bs])
-                self.losses.append(float(loss))
-        return {"epochs": self.epochs, "samples": n,
+            for x, y in batches:
+                self._run_step(x, y)
+        return {"epochs": self.epochs, "samples": len(self._samples),
                 "final_loss": self.losses[-1] if self.losses else None}
 
     def evaluate(self, val_data) -> float:
@@ -213,16 +258,16 @@ class JaxTrainer(TrainerFramework):
                                     torch.from_numpy(ys).to(self.device)))
 
 
-class _MeshStreamTrainer(TrainerFramework):
+class _MeshStreamTrainer(_GraphedTrainer):
     """Shared skeleton of the mesh trainers: accumulate (inputs, labels)
     samples, build the step at the first finish, run the epoch loop (the
-    host arrays are converted once; each step copies its batch to the
-    device — bounded device memory for a trainer fed by an arbitrarily
-    long stream).
+    host arrays are converted once; each step copies its batch into the
+    step's static device buffers — bounded device memory for a trainer
+    fed by an arbitrarily long stream).
 
-    Subclasses provide ``_build()`` (set ``self._mesh``, ``self._step``,
-    ``self._params``, ``self._opt``, ``self._sharding``),
-    ``_host_convert(inputs, labels)`` and optionally ``_summary_extra``.
+    Subclasses provide ``_build()`` (set ``self._mesh``, ``self.graphed``,
+    ``self._params``, ``self._opt``), ``_host_convert(inputs, labels)``,
+    ``state_tensors()`` and optionally ``_summary_extra``.
     """
 
     def create(self, props: Dict[str, Any]) -> None:
@@ -236,9 +281,7 @@ class _MeshStreamTrainer(TrainerFramework):
                 f"{self.NAME}: multi-card training is not yet ported "
                 f"({wide}); every mesh axis must be 1")
         self._samples: List[Tuple[List[np.ndarray], List[np.ndarray]]] = []
-        self.losses: List[float] = []
-        #: host seconds of each step, batch copy to loss read (the sync)
-        self.step_s: List[float] = []
+        self._init_stats()
         self._built = False
 
     def push_data(self, inputs, labels) -> None:
@@ -253,6 +296,10 @@ class _MeshStreamTrainer(TrainerFramework):
     def _summary_extra(self) -> Dict[str, Any]:
         return {}
 
+    def _batches(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """One epoch's (inputs, labels) host batches, one a sample."""
+        return [self._host_convert(i, l) for i, l in self._samples]
+
     def finish(self) -> Dict[str, Any]:
         from ..parallel import mesh_info
 
@@ -260,18 +307,10 @@ class _MeshStreamTrainer(TrainerFramework):
             return {"epochs": 0, "samples": 0, "final_loss": None}
         if not self._built:
             self._build()
-        host = [self._host_convert(i, l) for i, l in self._samples]
-
-        def put(x):
-            return torch.from_numpy(x).to(self._sharding)
-
+        batches = self._batches()
         for _ in range(self.epochs):
-            for ins, labs in host:
-                t0 = time.perf_counter()
-                self._params, self._opt, loss = self._step(
-                    self._params, self._opt, put(ins), put(labs))
-                self.losses.append(float(loss))
-                self.step_s.append(time.perf_counter() - t0)
+            for ins, labs in batches:
+                self._run_step(ins, labs)
         return {"epochs": self.epochs, "samples": len(self._samples),
                 "final_loss": self.losses[-1] if self.losses else None,
                 "mesh": mesh_info(self._mesh), **self._summary_extra()}
@@ -296,7 +335,7 @@ class MeshTrainer(_MeshStreamTrainer):
 
     def _build(self) -> None:
         from ..device import parse_dtype
-        from ..parallel import make_data_sharding, make_mesh
+        from ..parallel import make_mesh
         from ..parallel.train_step import (StreamFormerConfig,
                                            make_train_step)
 
@@ -315,10 +354,18 @@ class MeshTrainer(_MeshStreamTrainer):
             cfg_kw["seq_parallel"] = str(p["seq_parallel"])
         cfg_kw["dtype"] = parse_dtype(p.get("dtype"), self.device)
         cfg = StreamFormerConfig(**cfg_kw)
-        self._step, self._params, self._opt, _ = make_train_step(
+        step, self._params, self._opt, _ = make_train_step(
             self._mesh, cfg, seed=int(p.get("seed", 0)))
-        self._sharding = make_data_sharding(self._mesh)
+        self.graphed = step.graphed
         self._built = True
+
+    def state_tensors(self) -> Dict[str, torch.Tensor]:
+        from ..parallel.train_step import leaves
+
+        return {"step": self._opt["step"], **{
+            f"{tree}.{n}": x for tree, t in
+            (("params", self._params), ("m", self._opt["m"]),
+             ("v", self._opt["v"])) for n, x in leaves(t)}}
 
     def _host_convert(self, inputs, labels):
         return (np.asarray(inputs[0], np.int32),
@@ -358,11 +405,20 @@ class MeshVisionTrainer(_MeshStreamTrainer):
         model_props = {k: str(p[k]) for k in self._MODEL_KEYS if k in p}
         self._model = get_model(str(p.get("model", "vit")), model_props,
                                 device=self.device, trainable=True)
-        (self._step, self._params, self._opt,
-         self._sharding) = make_vision_train_step(
+        step, self._params, self._opt, _ = make_vision_train_step(
             self._mesh, self._model, lr=float(p.get("lr", 1e-3)))
+        self.graphed = step.graphed
         self._dp = dp
         self._built = True
+
+    def state_tensors(self) -> Dict[str, torch.Tensor]:
+        out = {}
+        for name, p in self._params.named_parameters():
+            out[f"params.{name}"] = p.detach()
+            # torch.optim.Adam's state: exp_avg, exp_avg_sq, step
+            out.update({f"{k}.{name}": x
+                        for k, x in self._opt.state[p].items()})
+        return out
 
     def _host_convert(self, inputs, labels):
         from ..parallel.vision_train import pad_to_multiple

@@ -128,18 +128,11 @@ class TorchExecMixin:
         return min(bucket, cap)
 
     # -- hot path ------------------------------------------------------------
-    @staticmethod
-    def _host_tensor(x) -> torch.Tensor:
-        arr = np.asarray(x)
-        if not arr.flags.writeable:
-            arr = arr.copy()          # torch.from_numpy needs a writable array
-        return torch.from_numpy(arr)
-
     def _to_device(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x if x.device == self._device else \
                 x.to(self._device, non_blocking=True)
-        return self._host_tensor(x).to(self._device, non_blocking=True)
+        return _cuda.host_tensor(x).to(self._device, non_blocking=True)
 
     def _graphed(self) -> bool:
         return self._device.type == "cuda" and not self._eager
@@ -182,9 +175,7 @@ class TorchExecMixin:
     def _replay(self, graph, inputs: List[Any]):
         try:
             for static, x in zip(graph.inputs, inputs):
-                if not isinstance(x, torch.Tensor):
-                    x = self._host_tensor(x)
-                static.copy_(x, non_blocking=True)
+                static.copy_(_cuda.host_tensor(x), non_blocking=True)
             outs = graph.replay()
         except RuntimeError as exc:
             raise FilterError(f"{self.NAME}: CUDA graph replay failed: "

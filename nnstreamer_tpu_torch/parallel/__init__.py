@@ -3,7 +3,8 @@
 The JAX package's exports, on one card: the mesh is bookkeeping whose
 axes must all have size 1 to train, ``ring_attention`` is a ring of one
 member (plain scan or the flash kernels with the lse merge), and the
-StreamFormer and vision train steps run eagerly on the mesh's device.
+StreamFormer and vision train steps run on the mesh's device, on the card
+as one CUDA graph per batch signature.
 ``ulysses_attention``, ``pipeline_parallel`` and ``multihost`` wait for
 multi-card training over ``torch.distributed`` (ROADMAP).
 """

@@ -7,9 +7,10 @@ LayerNorm :func:`_ln`, the Switch MoE :func:`_moe_switch`, the training
 forward and loss, and :func:`make_train_step`.
 
 The JAX package shard_maps one jitted step over a dp/sp/tp/ep mesh.  The
-port runs the step eagerly on the mesh's one device (every axis of size 1,
-:func:`~.mesh.require_single_card`); the collectives over axes of size one
-are identities and are left out.  What it keeps:
+port runs the step on the mesh's one device (every axis of size 1,
+:func:`~.mesh.require_single_card`), on the card as one CUDA graph per
+batch signature (:class:`~.._cuda.GraphedStep`); the collectives over axes
+of size one are identities and are left out.  What it keeps:
 
 - f32 parameters with ``cfg.dtype`` compute: each matmul weight is cast at
   its use, so the gradient flows back through the cast;
@@ -17,7 +18,10 @@ are identities and are left out.  What it keeps:
   kernels K2/K3/K4 on the card, with the batch in their grid);
 - the hand-written Adam of the JAX package, which adds ``eps`` to the
   *uncorrected* ``sqrt(v)`` — ``p − lr·corr·m/(sqrt(v) + eps)`` with
-  ``corr = sqrt(1 − β₂ᵗ)/(1 − β₁ᵗ)`` — unlike ``torch.optim.Adam``.
+  ``corr = sqrt(1 − β₂ᵗ)/(1 − β₁ᵗ)`` — unlike ``torch.optim.Adam``; its
+  step count ``t`` is a 0-d int32 tensor on the device, as in the JAX
+  package's optimizer state, so a replayed step corrects with its own
+  ``t``.
 
 The step updates the parameter and optimizer tensors in place (the JAX
 package donates them into its executable) and returns the same trees.
@@ -251,12 +255,16 @@ def make_train_step(mesh: Mesh, cfg: Optional[StreamFormerConfig] = None,
     """Build ``(step, params, opt, specs)`` on the mesh's one device.
 
     ``step(params, opt, tokens, labels) -> (params, opt, loss)``: one Adam
-    step on (B, T) int tokens/labels, updating ``params`` and ``opt`` in
-    place; ``loss`` is a 0-d f32 tensor on the device (reading it is the
-    step's one sync).  ``params``: a tree to start from (the JAX package's,
+    step on (B, T) int tokens/labels (host or device), updating ``params``
+    and ``opt`` in place; the step is bound to the trees it returns and
+    refuses others.  ``loss`` is a 0-d f32 tensor on the device, on the
+    card the graph's static output: read it (the step's one sync) before
+    the next step.  ``params``: a tree to start from (the JAX package's,
     as numpy or jax arrays, or the port's) instead of ``init_params(cfg,
     seed)``.  ``flash``: attention through the flash kernels (default: on
     the card) or plain attention."""
+    from .._cuda import GraphedStep
+
     cfg = cfg or StreamFormerConfig()
     axis_sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     if cfg.experts % axis_sizes.get("ep", 1):
@@ -272,33 +280,41 @@ def make_train_step(mesh: Mesh, cfg: Optional[StreamFormerConfig] = None,
 
     params = _map_tree(put, start)
     opt = {"m": _map_tree(torch.zeros_like, params),
-           "v": _map_tree(torch.zeros_like, params), "step": 0}
+           "v": _map_tree(torch.zeros_like, params),
+           "step": torch.zeros((), dtype=torch.int32, device=device)}
+    named = list(leaves(params))
 
-    def step(params, opt, tokens, labels):
-        tokens = torch.as_tensor(tokens, device=device)
-        labels = torch.as_tensor(labels, device=device)
+    def body(tokens, labels):
         loss, grads = value_and_grad(params, tokens, labels, cfg, flash)
-        opt["step"] += 1
-        named = list(leaves(params))
+        opt["step"].add_(1)
         adam_update([p for _, p in named], [m for _, m in leaves(opt["m"])],
                     [v for _, v in leaves(opt["v"])],
                     [grads[n] for n, _ in named], opt["step"], cfg.lr)
-        return params, opt, loss
+        return loss
 
+    graphed = GraphedStep(body, device)
+
+    def step(params_, opt_, tokens, labels):
+        if params_ is not params or opt_ is not opt:
+            raise ValueError("this step updates the trees make_train_step "
+                             "returned, in place; it takes no others")
+        return params, opt, graphed(tokens, labels)
+
+    step.graphed = graphed
     return step, params, opt, specs
 
 
 def adam_update(params: List[torch.Tensor], ms: List[torch.Tensor],
                 vs: List[torch.Tensor], grads: List[torch.Tensor],
-                t: int, lr: float) -> None:
-    """The JAX package's hand-written Adam step ``t`` (1-based), in place:
-    ``eps`` on the *uncorrected* ``sqrt(v)``, ``corr = sqrt(1 − β₂ᵗ)/(1 −
-    β₁ᵗ)`` in f32 — not ``torch.optim.Adam``'s formula."""
+                t: torch.Tensor, lr: float) -> None:
+    """The JAX package's hand-written Adam step ``t`` (1-based; a 0-d
+    integer tensor on the parameters' device), in place: ``eps`` on the
+    *uncorrected* ``sqrt(v)``, ``corr = sqrt(1 − β₂ᵗ)/(1 − β₁ᵗ)`` in f32
+    — not ``torch.optim.Adam``'s formula."""
     b1, b2, eps = 0.9, 0.999, 1e-8
-    one = torch.ones((), device=params[0].device)
-    t_f = torch.full_like(one, float(t))
-    corr = (torch.sqrt(one - torch.full_like(one, b2) ** t_f)
-            / (one - torch.full_like(one, b1) ** t_f))
+    t_f = t.to(torch.float32)
+    corr = (torch.sqrt(1 - torch.full_like(t_f, b2) ** t_f)
+            / (1 - torch.full_like(t_f, b1) ** t_f))
     lr_corr = lr * corr
     with torch.no_grad():
         for p, m, v, g in zip(params, ms, vs, grads):

@@ -6,12 +6,16 @@ batch, vmaps the model's per-frame forward and lets XLA insert the
 gradient psum.  The port trains on the mesh's one device
 (:func:`~.mesh.require_single_card`) and runs the model's batched forward:
 for ViT every attention layer is one launch of the flash kernels with the
-batch in their grid, forward and backward.
+batch in their grid, forward and backward.  On the card the whole step —
+forward, backward and the Adam update — is one CUDA graph per batch
+signature (:class:`~.._cuda.GraphedStep`).
 
 Kept from the JAX package:
 
 - Adam with ``optax.adam``'s formula (``eps`` after bias correction), which
-  ``torch.optim.Adam`` computes;
+  ``torch.optim.Adam`` computes; on the card with ``capturable=True`` in
+  graph and eager runs alike (its step count and bias correction live on
+  the device), so both run the same optimizer arithmetic;
 - the loss, the mean NLL of the f32 logits;
 - frozen ``batch_stats``: BatchNorm statistics are buffers here, never
   optimized, and the module stays in eval mode so they are only read;
@@ -59,10 +63,14 @@ def make_vision_train_step(mesh: Mesh, model, lr: float = 1e-3
 
     ``step(module, opt, frames, labels) -> (module, opt, loss)`` where
     ``frames`` is a uint8 ``(B, H, W, 3)`` batch and ``labels`` int
-    ``(B,)`` class ids; the module's parameters and the optimizer state
-    update in place (the JAX package donates them), ``loss`` is a 0-d f32
-    tensor on the device.  ``model``: a registry model in its training
-    form, on the mesh's device."""
+    ``(B,)`` class ids (host or device); the module's parameters and the
+    optimizer state update in place (the JAX package donates them), and
+    the step is bound to the module and optimizer it returns.  ``loss`` is
+    a 0-d f32 tensor on the device, on the card the graph's static output:
+    read it before the next step.  ``model``: a registry model in its
+    training form, on the mesh's device."""
+    from .._cuda import GraphedStep
+
     device = require_single_card(mesh)
     module = model.module
     params = list(module.parameters())
@@ -73,18 +81,29 @@ def make_vision_train_step(mesh: Mesh, model, lr: float = 1e-3
     if any(p.device != device for p in params):
         raise ValueError(f"{model.name}: parameters are not on {device}")
     module.eval()                   # BatchNorm statistics stay frozen
-    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                           capturable=device.type == "cuda")
 
-    def step(module, opt, frames, labels):
-        frames = torch.as_tensor(frames, device=device)
-        labels = torch.as_tensor(labels, device=device)
+    def body(frames, labels):
+        # before the backward: it then stores each gradient anew (in the
+        # graph's memory pool under capture) instead of adding to one
         opt.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss = _nll(module(frames)[0], labels)
             loss.backward()
         opt.step()
-        return module, opt, loss.detach()
+        return loss.detach()
 
+    graphed = GraphedStep(body, device)
+
+    def step(module_, opt_, frames, labels):
+        if module_ is not module or opt_ is not opt:
+            raise ValueError("this step updates the module and optimizer "
+                             "make_vision_train_step returned, in place; "
+                             "it takes no others")
+        return module, opt, graphed(frames, labels)
+
+    step.graphed = graphed
     return step, module, opt, device
 
 

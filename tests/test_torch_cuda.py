@@ -618,3 +618,193 @@ def test_engine_graphs_equal_eager(card):
     assert tokens == want_tokens
     for got, want in zip(logits, want_logits):
         assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the training steps as CUDA graphs: the warm-up is step 1, every later
+# step of a signature a replay; under deterministic algorithms each step's
+# loss and the final parameters and Adam moments equal an eager run's
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+@pytest.fixture
+def deterministic(card):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (warning, not raising, where an operation has none)."""
+    import os
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield card
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     on, warn_only, cublas) = saved
+    torch.use_deterministic_algorithms(on, warn_only=warn_only)
+    if cublas is None:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    else:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+
+
+def _lm_cfg(dtype=torch.bfloat16):
+    from nnstreamer_tpu_torch.parallel.train_step import StreamFormerConfig
+
+    return StreamFormerConfig(vocab=512, dim=128, heads=4, head_dim=32,
+                              mlp=256, layers=2, experts=2, max_seq=256,
+                              dtype=dtype)
+
+
+def _lm_batches(n, t=256, b=2, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, 512, (b, t)).astype(np.int32)
+        out.append((toks, np.roll(toks, -1, axis=1)))
+    return out
+
+
+def _train_lm(card, batches):
+    """Steps of the LM through make_train_step; (losses, state tensors,
+    the step)."""
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.train_step import (leaves,
+                                                          make_train_step)
+
+    step, params, opt, _ = make_train_step(make_mesh(devices=[card]),
+                                           _lm_cfg(), seed=0)
+    losses = [float(step(params, opt, *b)[2]) for b in batches]
+    state = {f"{tree}.{n}": x.clone() for tree, t in
+             (("p", params), ("m", opt["m"]), ("v", opt["v"]))
+             for n, x in leaves(t)}
+    return losses, {**state, "step": opt["step"].clone()}, step
+
+
+def _train_vit(card, batches):
+    from nnstreamer_tpu_torch.models.registry import get_model
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.vision_train import \
+        make_vision_train_step
+
+    model = get_model("vit", {"seed": "0", "depth": "2", "input_size": "64",
+                              "num_classes": "10"}, device=card,
+                      trainable=True)
+    step, module, opt, _ = make_vision_train_step(
+        make_mesh(devices=[card]), model)
+    losses = [float(step(module, opt, *b)[2]) for b in batches]
+    state = {}
+    for n, p in module.named_parameters():
+        state[f"p.{n}"] = p.detach().clone()
+        for k, x in opt.state[p].items():
+            state[f"{k}.{n}"] = x.clone()
+    return losses, state, step
+
+
+def _train_mlp(card, batches):
+    from nnstreamer_tpu_torch.elements.trainer import JaxTrainer
+
+    trainer = JaxTrainer()
+    trainer.create({"device": str(card), "lr": 1e-3})
+    trainer._build(64, 10)
+    for b in batches:
+        trainer._run_step(*b)
+    state = {k: x.clone() for k, x in trainer.state_tensors().items()}
+    return trainer.losses, state, trainer.graphed
+
+
+def _vit_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+             rng.integers(0, 10, 4).astype(np.int32)) for _ in range(n)]
+
+
+def _mlp_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((32, 64)).astype(np.float32),
+             np.eye(10, dtype=np.float32)[rng.integers(0, 10, 32)])
+            for _ in range(n)]
+
+
+TRAIN_FORMS = {"lm": (_train_lm, _lm_batches),
+               "vit": (_train_vit, _vit_batches),
+               "mlp": (_train_mlp, _mlp_batches)}
+
+
+@pytest.mark.parametrize("form", list(TRAIN_FORMS))
+def test_train_step_graph_equals_eager(deterministic, monkeypatch, form):
+    """Four steps captured once and replayed against four eager steps
+    from the same start: every loss, parameter and Adam moment bit for
+    bit; one capture, a replay a later step."""
+    from nnstreamer_tpu_torch._cuda import GraphedStep
+
+    train, batches = TRAIN_FORMS[form]
+    batches = batches(4)
+    _cuda.reset_launches()
+    losses, state, step = train(deterministic, batches)
+    assert dict(_cuda.graphs) == {"captures": 1, "replays": 3}
+    graphed = getattr(step, "graphed", step)
+    assert len(graphed.graphs) == 1
+    monkeypatch.setattr(GraphedStep, "_eager", True)
+    want_losses, want_state, _ = train(deterministic, batches)
+    assert losses == want_losses
+    assert sorted(state) == sorted(want_state)
+    for name, want in want_state.items():
+        assert torch.equal(state[name], want), name
+
+
+def test_train_graph_launches_are_captured_times_replays(card):
+    """K2, K3 and K4 count a launch a layer a step: the warm-up (step 1)
+    counts its own, the capture records its launches (K3 and K4 from
+    autograd's backward among them) and runs none, each replay adds
+    them."""
+    _cuda.reset_launches()
+    _, _, step = _train_lm(card, _lm_batches(5))
+    torch.cuda.synchronize()
+    layers = _lm_cfg().layers
+    (graph,) = step.graphed.graphs.values()
+    assert graph.launched == {k: layers for k in TRAIN_KERNELS}
+    assert {k: _cuda.launches[k] for k in TRAIN_KERNELS} == {
+        k: 5 * layers for k in TRAIN_KERNELS}
+    assert dict(_cuda.graphs) == {"captures": 1, "replays": 4}
+
+
+def test_train_step_captures_once_per_signature(card):
+    """Two sequence lengths in turns: one capture each, on its first
+    step; every later step replays."""
+    long, short = _lm_batches(3, t=256), _lm_batches(3, t=128, seed=1)
+    batches = [b for pair in zip(long, short) for b in pair]
+    _cuda.reset_launches()
+    losses, _, step = _train_lm(card, batches)
+    assert len(step.graphed.graphs) == 2
+    assert dict(_cuda.graphs) == {"captures": 2, "replays": 4}
+    assert all(np.isfinite(losses))
+
+
+def test_train_capture_failure_raises_without_fallback(card):
+    """A step that syncs with the host cannot be captured: the call
+    raises after its warm-up step, records no graph and never runs
+    eagerly instead; the card stays usable."""
+    from nnstreamer_tpu_torch._cuda import GraphedStep
+
+    w = torch.zeros(4, device=card)
+
+    def body(x):
+        w.add_(x * x.sum().item())
+        return w.sum()
+
+    step = GraphedStep(body, card)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture"):
+            step(np.ones(4, np.float32))
+        assert step.graphs == {}
+    assert torch.cuda.current_stream(card) == torch.cuda.default_stream(card)
+    torch.cuda.synchronize()
+    assert w.sum().item() == 32.0

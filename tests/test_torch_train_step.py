@@ -161,7 +161,7 @@ def test_adam_steps_match_jax():
         jparams, jopt, jloss = jstep(jparams, jopt, toks, labs)
         params, opt, loss = step(params, opt, toks, labs)
         assert math.isclose(float(loss), float(jloss), rel_tol=LOSS_RTOL)
-    assert opt["step"] == int(jopt["step"]) == 3
+    assert int(opt["step"]) == int(jopt["step"]) == 3
     _assert_tree_close(params, _np_tree(jparams), PARAM_ATOL)
 
 
