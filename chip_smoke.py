@@ -50,6 +50,24 @@ Phases, each of which must pass:
    - ``mlp_train``: ``tensor_trainer framework=jax``, the MLP trainer at
      the JAX package's example size (8 features, 4 classes, batches of
      8), 16 steps;
+   - ``batched_path``: the JAX package's benchmark string
+     (``bench.py:208-229``: ``videotestsrc cache-frames=64 ! ... !
+     tensor_filter batch=32 inflight=1 ! queue ! tensor_decoder !
+     tensor_sink``) on MobileNetV2 (``flagship_batched``, one K1 launch a
+     32-frame bucket), its ``device-cache=64 inflight=8`` form
+     (``resident_batched``) and ViT-S/16 (``vit_batched``, 12 K2
+     launches a bucket), each in graph mode (4 captures before the first
+     frame reaches the sink, a replay a bucket) and eagerly, with the
+     batched graph's logits held to eager bit for bit, and the same
+     strings at batch=1 as the reference: labels equal where the
+     per-frame top-2 margin exceeds MARGIN, f32 logits (TF32 off) within
+     1e-4 relative; inflight=8's logits equal inflight=1's bit for bit;
+     ``cascade``: MobileNetV2 (``output-device=true``) into an MLP at
+     batch 32 equals the same cascade through the host bit for bit, and
+     the hand-over (one device copy a bucket) is timed;
+   - ``xbatch_bucket``: ``invoke_stacked`` at capacity 32 over fills
+     1..32 on the MLP and MobileNetV2: 7 pad shapes captured by
+     ``warmup_stacked``, a replay a fill, each fill bit-equal to eager;
 
    Each training path runs as CUDA graphs (step 1 is the capture's eager
    warm-up, every later step a replay of the one graph: launches count as
@@ -66,11 +84,12 @@ Phases, each of which must pass:
    each model with the kernels against the same step with plain attention
    (loss and every gradient, in f32 and bf16).
 
-With ``--profile DIR`` the four serving paths and the three training
-paths are traced in graph and eager mode in turns (graph, eager, eager,
-graph): device busy time, device kernels and host launch calls a unit,
-the idle share and the rates, one ``profile_modes`` line a path with both
-modes side by side.
+With ``--profile DIR`` the seven serving paths and the three training
+paths are traced first, each in a process of its own, in graph and
+eager mode in turns (graph, eager, eager, graph): device busy time,
+device kernels and host launch calls a unit (and a bucket, on the
+batched paths), the idle share and the rates, one ``profile_modes`` line
+a path with both modes side by side.
 
 Earlier lines are JSON objects of the phases' numbers, the card's name and
 power limit as ``nvidia-smi`` gives them, and the ``kernels`` line; the
@@ -257,7 +276,8 @@ def time_ms(fn, reps: int = 200, warmup: int = 10, backlog: bool = True
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-NORMALIZE_SHAPES = [(224, 224, 3), (1,), (7, 13, 3), (1080, 1920, 3)]
+NORMALIZE_SHAPES = [(224, 224, 3), (1,), (7, 13, 3), (1080, 1920, 3),
+                    (32, 224, 224, 3)]
 MAIN_PATH_SHAPE = (224, 224, 3)
 
 
@@ -463,7 +483,11 @@ FLASH_ROWS = [
     ("offset_lse", None, 256, 256, 8, 64, True, "bfloat16", 0, 64),
     ("vit_train", 32, 197, 197, 6, 64, False, "bfloat16", 0, 0),
     ("lm_train", 4, 2048, 2048, 8, 64, True, "bfloat16", 0, 0),
+    # a vit-batched bucket: the training layer's shape, served without lse
+    ("vit_batched", 32, 197, 197, 6, 64, False, "bfloat16", 0, 0),
 ]
+#: FLASH_ROWS whose call returns no lse (its bytes leave the bound)
+FLASH_NO_LSE = ("vit_batched",)
 #: |kernel - plain| <= atol + rtol * |plain| on out; lse <= LSE_ATOL
 FLASH_TOL = {"float32": (1e-4, 0.0), "float16": (3e-2, 1e-2),
              "bfloat16": (3e-2, 1e-2)}
@@ -490,11 +514,13 @@ def bound_ms(nbytes, ops, itemsize):
 
 
 def flash_bound_ms(tq, tkv, h, d, causal, itemsize, q_offset, k_offset,
-                   batch=1):
-    """Least time for one K2 call: each of q, k, v read once, out and lse
-    written once, over HBM; 4*D operations per visible (query, key) pair
-    (this call's mask) over the dtype's peak.  Returns (ms, bound_by)."""
-    nbytes = batch * ((2 * tq + 2 * tkv) * h * d * itemsize + h * tq * 4)
+                   batch=1, lse=True):
+    """Least time for one K2 call: each of q, k, v read once, out (and
+    lse, where the call returns it) written once, over HBM; 4*D
+    operations per visible (query, key) pair (this call's mask) over the
+    dtype's peak.  Returns (ms, bound_by)."""
+    nbytes = batch * ((2 * tq + 2 * tkv) * h * d * itemsize
+                      + (h * tq * 4 if lse else 0))
     pairs = batch * h * visible_pairs(tq, tkv, causal, q_offset, k_offset)
     return bound_ms(nbytes, 4.0 * d * pairs, itemsize)
 
@@ -557,7 +583,8 @@ def check_flash_attention(reps: int) -> dict:
             qh, kh, vh, attn_mask=mask,
             is_causal=causal and mask is None))
         bound, bound_by = flash_bound_ms(tq, tkv, h, d, causal,
-                                         q.element_size(), qo, ko, b or 1)
+                                         q.element_size(), qo, ko, b or 1,
+                                         lse=name not in FLASH_NO_LSE)
         rows.append({
             "case": name, "q": [*lead, tq, h, d], "kv": [*lead, tkv, h, d],
             "causal": causal, "dtype": dt, "q_offset": qo, "k_offset": ko,
@@ -991,6 +1018,422 @@ def check_vit_outputs(labels, frames: int, seed: int) -> None:
         raise AssertionError(f"ViT kernel run differs from plain attention: "
                              f"{over} logits beyond tolerance (max "
                              f"{worst}), labels on {differ}")
+
+
+# ---------------------------------------------------------------------------
+# micro-batched serving: the JAX package's benchmark strings
+# ---------------------------------------------------------------------------
+
+#: frames a micro-batch carries (bench.py:60 STREAM_BATCH)
+BATCH = 32
+#: distinct frames the sources cycle (cache-frames=64, device-cache=64)
+CACHED = 64
+#: the JAX package's headline serving string (bench.py:208-229): frames
+#: cycled from a cache, 32-frame micro-batches, a queue before the
+#: decoder sized (1 + inflight) x batch; videotestsrc's default seed
+BATCHED_SIZE = 224
+BATCHED_LAUNCH = (
+    "videotestsrc num-buffers={frames} pattern=random {cache}=64 ! "
+    "video/x-raw,format=RGB,width={size},height={size},framerate=120/1 ! "
+    "tensor_converter ! tensor_filter framework=xla model={model} "
+    "custom={custom} batch={batch} inflight={inflight} name=f ! "
+    "queue max-size-buffers={depth} ! {tail}")
+DECODE_TAIL = "tensor_decoder mode=image_labeling ! tensor_sink name=out"
+SOURCE_SEED = 42          # videotestsrc's default
+#: path -> (model, custom, source cache, inflight, kernel, its launches
+#: a replay of the batched graph); bench.py's configs mobilenet,
+#: resident (bench.py:88, :926-935) and vit
+BATCHED_PATHS = {
+    "flagship_batched": ("mobilenet_v2", "seed:0,use_pallas:1",
+                         "cache-frames", 1, "normalize_frame", 1),
+    "resident_batched": ("mobilenet_v2", "seed:0,use_pallas:1",
+                         "device-cache", 8, "normalize_frame", 1),
+    "vit_batched": ("vit", "seed:0", "cache-frames", 1,
+                    "flash_attention", 12),
+}
+#: graph captures of a batched labeling stream, all before its first
+#: frame reaches the sink: the per-frame forward at open, the batched
+#: one at start, and both again fused with the decoder's pushdown
+BATCHED_CAPTURES = 4
+#: f32 batched logits against per-frame ones, TF32 off: max |diff| <=
+#: this x max |per-frame logit| (summation order only)
+F32_BATCH_REL = 1e-4
+
+
+def batched_launch(path: str, frames: int, batch: int = BATCH,
+                   tail: str = DECODE_TAIL) -> str:
+    model, custom, cache, inflight, _, _ = BATCHED_PATHS[path]
+    return BATCHED_LAUNCH.format(
+        frames=frames, cache=cache, size=BATCHED_SIZE, model=model,
+        custom=custom, batch=batch, inflight=inflight,
+        depth=max(8, (1 + inflight) * batch), tail=tail)
+
+
+def run_batched(path: str, frames: int, card: str, batch: int = BATCH,
+                eager: bool = False) -> dict:
+    """Drive one batched labeling path (``batch=1``: the same string per
+    frame, the reference) in one mode.  Checks: every frame labelled;
+    in graph mode every capture made before the first frame reached the
+    sink, none after; ``kernel`` launched as often as the captures' eager
+    runs plus the replays each launch (its count a replay); the compile
+    ledger's events."""
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.analysis import compileledger
+
+    # a replay of the batched graph launches the kernel as often as one
+    # frame's forward does
+    *_, kernel, per_replay = BATCHED_PATHS[path]
+    stamps, captures_at = [], []
+
+    def on_data(buf):
+        stamps.append(time.perf_counter())
+        captures_at.append(_cuda.graphs["captures"])
+
+    _cuda.reset_launches()
+    compileledger.reset()
+    p = parse_launch(batched_launch(path, frames, batch))
+    p.get("out").connect("new-data", on_data)
+    t0 = time.perf_counter()
+    with eager_filters(eager):
+        p.run(timeout=600)
+    wall = time.perf_counter() - t0
+    launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
+    results = p.get("out").results
+    labels = [b.extra.get("index") for b in results]
+    if len(results) != frames or any(i is None for i in labels):
+        raise AssertionError(f"{path}: {len(results)} labelled frames of "
+                             f"{frames}")
+    gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+    buckets = -(-frames // batch)
+    row = {"phase": "batched_path", "path": path, "batch": batch,
+           "mode": "eager" if eager else "graph", "frames": frames,
+           "launches": launches, "graphs": graphs,
+           "compile_ledger": compileledger.snapshot(),
+           "fps": (len(stamps) - 1) / (stamps[-1] - stamps[0]),
+           "p50_gap_ms": statistics.median(gaps),
+           "p90_gap_ms": gaps[int(0.9 * (len(gaps) - 1))],
+           "wall_s_incl_open": wall, "card": card}
+    runs = graphs.get("captures", 0) + graphs.get("replays", 0)
+    if batch > 1:
+        want_ledger = {"filter.jitexec.invoke": 2, "filter.jitexec.vmap": 2}
+        want_graphs = graph_counts(eager, BATCHED_CAPTURES, buckets)
+        # eager: the open's warm-up invoke, then one forward a bucket
+        want = per_replay * (runs if not eager else 1 + buckets)
+        row["launches_per_replay"] = (launches.get(kernel, 0) / runs
+                                      if runs else None)
+    else:
+        want_ledger = {"filter.jitexec.invoke": 2}
+        want_graphs = graph_counts(eager, PUSHDOWN_CAPTURES, frames)
+        want = per_replay * (runs if not eager else 1 + frames)
+    emit(row)
+    if launches.get(kernel, 0) != want:
+        raise AssertionError(f"{path} (batch {batch}, {row['mode']}): "
+                             f"{kernel} launched {launches.get(kernel, 0)} "
+                             f"times, expected {want}")
+    if graphs != want_graphs:
+        raise AssertionError(f"{path} (batch {batch}): graphs {graphs}, "
+                             f"expected {want_graphs}")
+    if captures_at and captures_at[0] != graphs.get("captures", 0):
+        raise AssertionError(f"{path} (batch {batch}): captures inside "
+                             "the stream")
+    if row["compile_ledger"] != want_ledger:
+        raise AssertionError(f"{path} (batch {batch}): compile ledger "
+                             f"{row['compile_ledger']}, expected "
+                             f"{want_ledger}")
+    return {"labels": labels, "launches": launches, "fps": row["fps"]}
+
+
+def check_batched_outputs(path: str, labels_batched, labels_b1) -> None:
+    """The cached frames through the path's model directly: the batched
+    forward's labels must equal the stream's batched labels and the
+    per-frame forward's the batch=1 stream's (the streams are graphs of
+    the same forwards); batched logits are held to per-frame ones as
+    check_vit_outputs holds kernel to plain (LOGITS_ATOL/RTOL, labels
+    compared where the per-frame top-2 margin exceeds MARGIN); then in
+    f32 with TF32 off, within F32_BATCH_REL."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.filter.framework import FilterProperties
+    from nnstreamer_tpu_torch.models.registry import get_model
+
+    model_name, custom, *_ = BATCHED_PATHS[path]
+    custom = FilterProperties.parse_custom(custom)
+    imgs = torch.from_numpy(np.stack(
+        source_frames(CACHED, SOURCE_SEED, BATCHED_SIZE))).cuda()
+
+    def both(model):
+        with torch.inference_mode():
+            batched = torch.cat([model.batched(imgs[i:i + BATCH])[0]
+                                 for i in range(0, CACHED, BATCH)])
+            per_frame = torch.stack([model.module(x)[0] for x in imgs])
+        return batched.float(), per_frame.float()
+
+    batched, per_frame = both(get_model(model_name, custom))
+    if not torch.isfinite(batched).all() or batched.shape[0] != CACHED:
+        raise AssertionError(f"{path}: batched logits not finite")
+    diff = (batched - per_frame).abs()
+    over = int((diff > LOGITS_ATOL + LOGITS_RTOL * per_frame.abs()).sum())
+    sure = top2_margin(per_frame) > MARGIN
+    b_top, p_top = batched.argmax(-1), per_frame.argmax(-1)
+    differ = [i for i in range(CACHED) if sure[i] and b_top[i] != p_top[i]]
+    stream_b = [labels_batched[i] for i in range(CACHED)]
+    stream_1 = [labels_b1[i] for i in range(CACHED)]
+    stream_equal = (stream_b == b_top.tolist()
+                    and stream_1 == p_top.tolist()
+                    and all(labels_batched[i] == labels_batched[i % CACHED]
+                            for i in range(len(labels_batched))))
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        f32_b, f32_p = both(get_model(model_name,
+                                      {**custom, "dtype": "float32"}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    f32_rel = ((f32_b - f32_p).abs().max() / f32_p.abs().max()).item()
+    emit({"phase": "batched_outputs", "path": path, "frames": CACHED,
+          "logits_max_abs_diff_vs_per_frame": diff.max().item(),
+          "atol": LOGITS_ATOL, "rtol": LOGITS_RTOL,
+          "logits_over_tolerance": over, "margin": MARGIN,
+          "frames_compared": int(sure.sum()),
+          "labels_differ_compared": differ,
+          "labels_differ_all": int((b_top != p_top).sum()),
+          "stream_labels_equal_model": stream_equal,
+          "f32_max_rel_diff": f32_rel, "f32_rel_tol": F32_BATCH_REL,
+          "distinct_labels": len(set(stream_b))})
+    if over or differ or not stream_equal or f32_rel > F32_BATCH_REL:
+        raise AssertionError(f"{path}: batched outputs differ from per "
+                             f"frame: {over} logits beyond tolerance, "
+                             f"labels on {differ}, stream labels equal "
+                             f"{stream_equal}, f32 by {f32_rel}")
+
+
+def check_batched_graph_logits(path: str) -> None:
+    """A bucket of the cached frames (and a padded 20-frame one) through
+    the batched graph and eagerly: logits bit for bit."""
+    from nnstreamer_tpu_torch.filter import FilterSingle
+
+    model_name, custom, *_ = BATCHED_PATHS[path]
+    imgs = [[f] for f in source_frames(CACHED, SOURCE_SEED, BATCHED_SIZE)]
+    outs = {}
+    for eager in (False, True):
+        with eager_filters(eager):
+            with FilterSingle(framework="xla", model=model_name,
+                              custom=custom) as single:
+                single.fw.warmup_batched(BATCH)
+                handles = [single.fw.invoke_batched(imgs[:BATCH], BATCH),
+                           single.fw.invoke_batched(imgs[BATCH:BATCH + 20],
+                                                    BATCH)]
+                outs[eager] = [row[0] for h in handles for row in h.wait()]
+    differ = [i for i, (g, e) in enumerate(zip(outs[False], outs[True]))
+              if not (g == e).all()]
+    emit({"phase": "graph_vs_eager", "path": path, "frames": len(outs[True]),
+          "outputs_bit_equal": len(outs[True]) - len(differ)})
+    if differ or len(outs[False]) != BATCH + 20:
+        raise AssertionError(f"{path}: batched graph outputs differ from "
+                             f"eager on frames {differ}")
+
+
+def check_inflight_bits(frames: int) -> None:
+    """resident-batched without the decoder (raw logits), at inflight=8
+    and inflight=1: every frame's logits bit for bit — eight batches'
+    outputs live on the card at once, each copied to the host from its
+    own clone."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import parse_launch
+
+    model, custom, cache, _, _, _ = BATCHED_PATHS["resident_batched"]
+    logits = {}
+    for inflight in (8, 1):
+        p = parse_launch(BATCHED_LAUNCH.format(
+            frames=frames, cache=cache, size=BATCHED_SIZE, model=model,
+            custom=custom, batch=BATCH, inflight=inflight,
+            depth=(1 + inflight) * BATCH, tail="tensor_sink name=out"))
+        p.run(timeout=600)
+        logits[inflight] = [b.np(0) for b in p.get("out").results]
+    differ = [i for i, (a, b) in enumerate(zip(logits[8], logits[1]))
+              if not np.array_equal(a, b)]
+    emit({"phase": "inflight_bits", "path": "resident_batched",
+          "frames": frames, "inflight": [8, 1],
+          "logits_bit_equal": frames - len(differ)})
+    if differ or len(logits[8]) != frames or len(logits[1]) != frames:
+        raise AssertionError(f"inflight=8 logits differ from inflight=1 "
+                             f"on frames {differ}")
+
+
+#: an A -> B cascade at equal batch: MobileNetV2's (1001,) logits into
+#: an MLP that takes them, A's outputs handed on as BatchView rows
+#: (``output-device=true``) or through the host
+CASCADE_LAUNCH = (
+    "videotestsrc num-buffers={frames} pattern=random device-cache=64 ! "
+    "video/x-raw,format=RGB,width={size},height={size},framerate=120/1 ! "
+    "tensor_converter ! tensor_filter framework=xla model=mobilenet_v2 "
+    "custom=seed:0,use_pallas:1 batch=32 {device} name=a ! "
+    "tensor_filter framework=xla model=mlp custom=in_dim:1001,seed:0 "
+    "batch=32 name=b ! tensor_sink name=out")
+
+
+def check_cascade(frames: int, reps: int) -> None:
+    """The cascade with A's outputs kept on the card against the same
+    cascade through the host: B's outputs bit for bit.  On the card the
+    hand-over is one device copy a bucket, A's batch into B's static
+    input; it is timed here at that shape ((32, 1001) f32)."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch import parse_launch
+    from nnstreamer_tpu_torch.tensor.buffer import BatchView
+
+    outs, handed = {}, {}
+    for device in ("output-device=true", ""):
+        p = parse_launch(CASCADE_LAUNCH.format(frames=frames,
+                                               size=BATCHED_SIZE,
+                                               device=device))
+        seen = []
+        b = p.get("b")
+
+        def counting(pad, buf, chain=b.chain, seen=seen):
+            seen.append(isinstance(buf.tensors[0], BatchView))
+            return chain(pad, buf)
+
+        b.chain = counting
+        p.run(timeout=600)
+        outs[device] = [b.np(0) for b in p.get("out").results]
+        handed[device] = sum(seen)
+    differ = [i for i, (a, b) in enumerate(zip(outs["output-device=true"],
+                                               outs[""]))
+              if not np.array_equal(a, b)]
+    src = torch.randn(BATCH, 1001, device="cuda")
+    static = torch.empty_like(src)
+    nbytes = 2 * src.numel() * src.element_size()
+    emit({"phase": "cascade", "frames": frames,
+          "batchview_rows_into_b": handed["output-device=true"],
+          "host_rows_into_b": frames - handed[""],
+          "outputs_bit_equal": frames - len(differ),
+          "handover_copy_ms": time_ms(lambda: static.copy_(src), reps),
+          "handover_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+          "handover_bytes": nbytes // 2})
+    if (differ or handed["output-device=true"] != frames or handed[""]
+            or any(len(o) != frames for o in outs.values())):
+        raise AssertionError(f"cascade: device hand-over differs from the "
+                             f"host's on frames {differ}")
+
+
+#: the cross-stream bucket's models: (model, custom, maker of n rows of
+#: input, the port kernel it reaches or None); the MLP at the JAX
+#: package's defaults (64 -> 4 x 1024 -> 16)
+XBATCH_MODELS = {
+    "mlp": ("mlp", "seed:0", lambda rng, n: rng.standard_normal(
+        (n, 64)).astype("float32"), None),
+    "mobilenet_v2": ("mobilenet_v2", "seed:0,use_pallas:1",
+                     lambda rng, n: rng.integers(0, 256, (n, 224, 224, 3),
+                                                 dtype="uint8"),
+                     "normalize_frame"),
+}
+XBATCH_CAPACITY = 32
+
+
+def run_xbatch_bucket(card: str) -> dict:
+    """invoke_stacked at capacity 32 over fills 1..32: warmup_stacked
+    captures each pad shape once (7 shapes), no fill captures after it,
+    a replay a fill; every fill's padded outputs equal an eager backend's
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.analysis import compileledger
+    from nnstreamer_tpu_torch.filter import FilterSingle
+    from nnstreamer_tpu_torch.filter.backends._torchexec import \
+        TorchExecMixin
+
+    fills = range(1, XBATCH_CAPACITY + 1)
+    shapes = len({TorchExecMixin.pad_rows(n, XBATCH_CAPACITY)
+                  for n in fills})
+    all_launches = collections.Counter()
+    for name, (model, custom, make, kernel) in XBATCH_MODELS.items():
+        rng = np.random.default_rng(0)
+        batches = [make(rng, n) for n in fills]
+        outs, rows = {}, {}
+        for eager in (False, True):
+            with eager_filters(eager):
+                with FilterSingle(framework="xla", model=model,
+                                  custom=custom) as single:
+                    fw = single.fw
+                    _cuda.reset_launches()
+                    compileledger.reset()
+                    fw.warmup_stacked(XBATCH_CAPACITY)
+                    warm = dict(_cuda.graphs)
+                    t0 = time.perf_counter()
+                    outs[eager] = [fw.invoke_stacked([b], n, XBATCH_CAPACITY)
+                                   [0] for n, b in zip(fills, batches)]
+                    torch.cuda.synchronize()
+                    fill_s = time.perf_counter() - t0
+                    graphs, launches = dict(_cuda.graphs), dict(
+                        _cuda.launches)
+                    rows[eager] = {
+                        "phase": "xbatch_bucket", "model": name,
+                        "mode": "eager" if eager else "graph",
+                        "capacity": XBATCH_CAPACITY, "fills": len(fills),
+                        "pad_shapes": shapes, "graphs_after_warmup": warm,
+                        "graphs": graphs, "launches": launches,
+                        "compile_ledger": compileledger.snapshot(),
+                        "fills_ms": fill_s * 1e3, "card": card}
+        graph_row = rows[False]
+        differ = [n for n, a, b in zip(fills, outs[False], outs[True])
+                  if a.shape[0] != TorchExecMixin.pad_rows(
+                      n, XBATCH_CAPACITY) or not torch.equal(a, b)]
+        graph_row["fills_bit_equal_eager"] = len(fills) - len(differ)
+        emit(rows[True])
+        emit(graph_row)
+        want_graphs = {"captures": shapes, "replays": len(fills)}
+        if (graph_row["graphs"] != want_graphs
+                or graph_row["graphs_after_warmup"] != {"captures": shapes}
+                or graph_row["compile_ledger"] != {
+                    "filter.jitexec.vmap": shapes}
+                or rows[True]["compile_ledger"] != {
+                    "filter.jitexec.vmap": shapes}):
+            raise AssertionError(f"xbatch_bucket ({name}): graphs "
+                                 f"{graph_row['graphs']}, expected "
+                                 f"{want_graphs}; ledger "
+                                 f"{graph_row['compile_ledger']}")
+        if kernel is not None:
+            want = shapes + len(fills)       # a capture's eager run, replays
+            if graph_row["launches"].get(kernel, 0) != want:
+                raise AssertionError(f"xbatch_bucket ({name}): {kernel} "
+                                     f"launched {graph_row['launches']}, "
+                                     f"expected {want}")
+            all_launches.update(graph_row["launches"])
+        if differ:
+            raise AssertionError(f"xbatch_bucket ({name}): replays differ "
+                                 f"from eager at fills {differ}")
+    return {"launches": dict(all_launches)}
+
+
+def run_batched_paths(args, card: str) -> dict:
+    """Every batched path in graph mode, eagerly and (flagship, vit) at
+    batch=1 as the reference, in one call; then their output checks.
+    Returns path -> the graph run's row."""
+    rows = {}
+    for path in BATCHED_PATHS:
+        graph = run_batched(path, args.batched_frames, card)
+        eager = run_batched(path, args.batched_frames, card, eager=True)
+        labels_equal_eager(path, graph, eager)
+        check_batched_graph_logits(path)
+        rows[path] = graph
+    for path in ("flagship_batched", "vit_batched"):
+        b1 = run_batched(path, args.batched_frames, card, batch=1)
+        emit({"phase": "batched_vs_b1", "path": path,
+              "fps": {"batch32": rows[path]["fps"], "batch1": b1["fps"]}})
+        check_batched_outputs(path, rows[path]["labels"], b1["labels"])
+    if rows["resident_batched"]["labels"] != rows["flagship_batched"][
+            "labels"]:
+        raise AssertionError("resident_batched labels differ from "
+                             "flagship_batched on the same frames")
+    check_inflight_bits(args.batched_frames)
+    check_cascade(args.batched_frames, args.reps)
+    rows["xbatch_bucket"] = run_xbatch_bucket(card)
+    return rows
 
 
 def lm_f32_diff(custom: dict, tokens) -> float:
@@ -1846,7 +2289,7 @@ def trace(name: str, out_dir: str, run, units, marker=None,
     if marker:
         marked = [e for e in on_card if marker in e.key]
         calls = sum(e.count for e in marked)
-        row["marker_units"] = calls // per_unit
+        row["marker_units"] = round(calls / per_unit)
         row["marker_device_us_per_call"] = (
             sum(getattr(e, field) for e in marked) / max(calls, 1))
     return row
@@ -1864,12 +2307,14 @@ def _latency(stamps, t0, t1) -> dict:
 
 
 def profile_path(name: str, launch: str, frames: int, seed: int,
-                 out_dir: str, marker: str, per_frame: int, eager: bool,
-                 turn: int) -> dict:
+                 out_dir: str, marker: str, per_frame: float, eager: bool,
+                 turn: int, batch: int = 1) -> dict:
     """Trace a steady window of a labeling path in one mode: the trace
     starts after the first frame reached the sink (the filter has opened
     and captured its graphs by then); a unit is a frame that reached the
-    sink inside the window."""
+    sink inside the window (``per_frame`` marker events each: a fraction
+    for a batched path), and a batched path's row also gives busy time
+    and host launch calls a ``batch``-frame bucket."""
     from nnstreamer_tpu_torch import parse_launch
 
     stamps = []
@@ -1894,6 +2339,11 @@ def profile_path(name: str, launch: str, frames: int, seed: int,
         finally:
             p.stop()
     row.update(window, path=name, mode=mode, turn=turn)
+    if batch > 1:
+        row.update(device_busy_us_per_bucket=row["device_busy_us_per_unit"]
+                   * batch,
+                   host_launch_calls_per_bucket=row[
+                       "host_launch_calls_per_unit"] * batch)
     emit(row)
     return row
 
@@ -1984,6 +2434,7 @@ def profile_llm_serve(steps: int, seed: int, out_dir: str, eager: bool,
 
 #: the metrics a profile_modes line puts side by side
 MODE_KEYS = ("fps", "p50_ms", "p90_ms", "prefill_tok_s",
+             "device_busy_us_per_bucket", "host_launch_calls_per_bucket",
              "decode_tok_s_bucket8", "step_ms_p50", "step_ms_p90",
              "device_busy_us_per_unit", "device_idle_share",
              "device_kernels_per_unit", "host_launch_calls_per_unit",
@@ -2003,20 +2454,77 @@ def profile_modes(paths: dict) -> None:
             for mode in ("graph", "eager")}})
 
 
-def profile_serving(args) -> None:
-    """The four serving paths in both modes, in turns."""
-    profile_modes({
-        "main_path": lambda eager, turn: profile_path(
-            "main_path", LAUNCH, args.frames, args.seed, args.profile,
-            "normalize_frame_kernel", 1, eager, turn),
-        "vit_path": lambda eager, turn: profile_path(
-            "vit_path", VIT_LAUNCH, args.vit_frames, args.seed,
-            args.profile, K2_MARKER, 12, eager, turn),
-        "lm_filter": lambda eager, turn: profile_lm_filter(
-            args.lm_frames, args.seed, args.profile, eager, turn),
-        "llm_serve": lambda eager, turn: profile_llm_serve(
-            args.steps, args.seed, args.profile, eager, turn),
-    })
+def train_runs(args) -> dict:
+    """name -> (launch, samples, unit of the rate) of each training
+    path."""
+    return {
+        "vit_train": (VIT_TRAIN_LAUNCH.format(seed=args.seed),
+                      vit_train_samples(args.vit_train_steps, args.seed),
+                      "images"),
+        "lm_train": (lm_train_launch(args.seed),
+                     lm_train_samples(args.lm_train_steps, args.seed),
+                     "tokens"),
+        "mlp_train": (MLP_TRAIN_LAUNCH,
+                      mlp_train_samples(args.mlp_train_samples, args.seed),
+                      "samples"),
+    }
+
+
+def profiled_paths(args) -> dict:
+    """name -> ``run(eager, turn)`` tracing that path in one mode: the
+    seven serving paths, then the three training paths."""
+    paths = {
+        "main_path": functools.partial(
+            profile_path, "main_path", LAUNCH, args.frames, args.seed,
+            args.profile, "normalize_frame_kernel", 1),
+        "vit_path": functools.partial(
+            profile_path, "vit_path", VIT_LAUNCH, args.vit_frames,
+            args.seed, args.profile, K2_MARKER, 12),
+        "lm_filter": functools.partial(
+            profile_lm_filter, args.lm_frames, args.seed, args.profile),
+        "llm_serve": functools.partial(
+            profile_llm_serve, args.steps, args.seed, args.profile),
+    }
+    for path, (*_, kernel, per_replay) in BATCHED_PATHS.items():
+        paths[path] = functools.partial(
+            profile_path, path, batched_launch(path, args.batched_frames),
+            args.batched_frames, SOURCE_SEED, args.profile,
+            "normalize_frame_kernel" if kernel == "normalize_frame"
+            else K2_MARKER, per_replay / BATCH, batch=BATCH)
+    for name, (launch, samples, _) in train_runs(args).items():
+        paths[name] = functools.partial(
+            profile_train, name, launch, samples, args.profile,
+            TRAIN_PER_STEP[name])
+    return paths
+
+
+#: tries of a path's traces.  A profiler session now and then crashed the
+#: process in a native thread (a segfault, or glibc's "double free"),
+#: more often the more sessions and CUDA graphs the process had held, so
+#: each path is traced in a process of its own
+PROFILE_TRIES = 2
+
+
+def profile_all(args, argv) -> None:
+    """Trace every path in a child process of its own (this script with
+    ``--profile-path``), in both modes in turns; its profile lines are
+    printed here.  A child that crashes is run once more."""
+    for name in profiled_paths(args):
+        for _ in range(PROFILE_TRIES):
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), *argv,
+                 "--profile-path", name], capture_output=True, text=True,
+                timeout=1800)
+            if out.returncode == 0:
+                break
+            emit({"phase": "profile_crash", "path": name,
+                  "rc": out.returncode, "stderr": out.stderr[-800:]})
+        else:
+            raise AssertionError(f"the profile of {name} failed "
+                                 f"{PROFILE_TRIES} times")
+        for line in out.stdout.splitlines():
+            if line.startswith('{"phase": "profile'):
+                print(line, flush=True)
 
 
 def profile_train(name: str, launch: str, samples, out_dir: str,
@@ -2060,6 +2568,9 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=64,
                     help="frames of the MobileNetV2 main path")
     ap.add_argument("--vit-frames", type=int, default=64)
+    ap.add_argument("--batched-frames", type=int, default=16 * BATCH,
+                    help="frames of each batched path (a multiple of "
+                         f"{BATCH})")
     ap.add_argument("--lm-frames", type=int, default=4)
     ap.add_argument("--steps", type=int, default=64,
                     help="timed decode steps of the LLM engine")
@@ -2073,7 +2584,12 @@ def main(argv=None) -> int:
                     help="timed launches per kernel measurement")
     ap.add_argument("--profile", metavar="DIR",
                     help="also trace every path into DIR")
+    # one path's traces in this process (profile_all runs each path so)
+    ap.add_argument("--profile-path", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.batched_frames % BATCH or args.batched_frames < 2 * CACHED:
+        ap.error(f"--batched-frames must be a multiple of {BATCH} and at "
+                 f"least {2 * CACHED}")
     # CUPTI torn down after a trace and set up again crashes a process that
     # has replayed CUDA graphs: keep it up between the traces, and set it
     # up eagerly (the workaround torch.profiler applies for its own graphs)
@@ -2093,6 +2609,21 @@ def main(argv=None) -> int:
     from nnstreamer_tpu_torch.analysis import compileledger
 
     compileledger.configure(True)       # each path prints its ledger
+    if args.profile_path:
+        from torch.profiler import ProfilerActivity, profile
+
+        # CUPTI set up for the first time after the process has captured
+        # CUDA graphs crashed it or lost the graphs' events: set it up
+        # before any graph exists
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        profile_modes({args.profile_path:
+                       profiled_paths(args)[args.profile_path]})
+        return 0
 
     card = card_line()
     print(card, flush=True)
@@ -2109,6 +2640,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = False
 
     try:
+        if args.profile:
+            # before this process makes a CUDA context: a profiled child
+            # beside another process's context on the card crashed
+            profile_all(args, sys.argv[1:] if argv is None else argv)
         kernels = [check_normalize_frame(args.reps)]
         k1_floor(card)
         kernels += [check_flash_attention(args.reps),
@@ -2131,20 +2666,10 @@ def main(argv=None) -> int:
         check_graph_logits("vit_path", "vit", {"seed": args.seed},
                            GRAPH_LOGITS_FRAMES, args.seed)
         check_vit_outputs(vit["labels"], args.vit_frames, args.seed)
+        batched = run_batched_paths(args, card)
         lm = run_lm_filter(args.lm_frames, args.seed, card)
         serve = run_llm_serve(args.steps, args.seed, card)
-        # name -> (launch, samples, unit of the rate)
-        trains = {
-            "vit_train": (VIT_TRAIN_LAUNCH.format(seed=args.seed),
-                          vit_train_samples(args.vit_train_steps, args.seed),
-                          "images"),
-            "lm_train": (lm_train_launch(args.seed),
-                         lm_train_samples(args.lm_train_steps, args.seed),
-                         "tokens"),
-            "mlp_train": (MLP_TRAIN_LAUNCH,
-                          mlp_train_samples(args.mlp_train_samples,
-                                            args.seed), "samples"),
-        }
+        trains = train_runs(args)
         train_rows = {}
         for name, (launch, samples, unit) in trains.items():
             graph, eager = (run_train(name, launch, samples, unit,
@@ -2160,17 +2685,11 @@ def main(argv=None) -> int:
             # launches summed over every path's own run (graph mode)
             k["launches"] = sum(path["launches"].get(k["name"], 0)
                                 for path in (main_path, vit, lm, serve,
+                                             *batched.values(),
                                              *train_rows.values()))
             if k["launches"] == 0:
                 raise AssertionError(f"{k['name']} never launched on the "
                                      "paths")
-        if args.profile:
-            profile_serving(args)
-            profile_modes({
-                name: functools.partial(profile_train, name, launch,
-                                        samples, args.profile,
-                                        TRAIN_PER_STEP[name])
-                for name, (launch, samples, _) in trains.items()})
     except AssertionError as exc:
         return fail(str(exc))
 

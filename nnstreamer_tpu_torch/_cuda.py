@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import gc
 import hashlib
 import os
 import re
@@ -77,7 +78,9 @@ class CapturedGraph:
     outputs as :attr:`first`, then captures ``fn`` on the same stream
     into its memory pool.  :meth:`replay` re-runs the captured kernels on
     the current stream and returns :attr:`outputs`, the graph's static
-    outputs, which the next replay overwrites.
+    outputs, which the next replay overwrites.  ``error_mode`` is
+    ``torch.cuda.graph``'s ``capture_error_mode``: ``"thread_local"``
+    lets other threads call CUDA while this one captures.
 
     A serving caller runs it under ``torch.inference_mode()``.  A training
     step (:class:`GraphedStep`) runs it with autograd: there the warm-up
@@ -87,10 +90,16 @@ class CapturedGraph:
     launched from autograd's device thread while ``fn`` waits for it, so
     their counts land inside the capture window too.  A capture that
     fails (a host sync inside ``fn``, an operation CUDA cannot capture)
-    raises; nothing falls back to eager execution."""
+    raises; nothing falls back to eager execution.
+
+    The garbage collector is held off while the graph captures: a dead
+    reference cycle that owns another graph (an engine or a pipeline
+    dropped earlier), collected inside the capture window, would destroy
+    that graph there, which CUDA forbids while a stream captures (the
+    capture fails with ``cudaErrorStreamCaptureInvalidated``)."""
 
     def __init__(self, fn: Callable[..., Any], inputs: Sequence[Any],
-                 memory) -> None:
+                 memory, error_mode: str = "global") -> None:
         import torch
 
         pool, stream = memory
@@ -101,14 +110,19 @@ class CapturedGraph:
         current.wait_stream(stream)
         before = launches.copy()
         self.graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                  capture_error_mode=error_mode):
                 self.outputs = fn(*inputs)
         except BaseException:
             # a capture that fails to end leaves the capture stream current
             torch.cuda.set_stream(current)
             raise
         finally:
+            if collecting:
+                gc.enable()
             # the wrappers counted the kernels they recorded; none ran
             self.launched = launches - before
             launches.clear()

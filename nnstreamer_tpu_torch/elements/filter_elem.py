@@ -17,30 +17,130 @@ property/lifecycle logic of tensor_filter_common.c):
 - model-update custom event (``tensor_filter_update_model``) triggers
   backend reload (reference :1413-1446)
 
-The port runs one frame per invoke.  The JAX package's micro-batching
-(``batch>1``, ``batch-timeout-ms``, ``inflight``), its cross-stream
-batcher, the ``workers`` invoke pool and ``output-device`` cascades are
-not ported yet: ``batch>1`` raises a :class:`FilterError` at start.
+- micro-batching (``batch``, ``batch-timeout-ms``, ``inflight``): frames
+  coalesce into one device dispatch of the backend's batched forward (one
+  CUDA graph per pad shape on the card), double-buffered, with a deadline
+  thread for partial buckets; ``output-device`` cascades hand
+  :class:`~nnstreamer_tpu_torch.tensor.buffer.BatchView` rows on;
+  cross-stream buckets (``buf.extra["nns_xbatch"]``) dispatch as one
+  padded invoke (:class:`CrossStreamBatcher` is the shared bucket core);
+- the ``workers`` invoke pool, reassembling results in stream order.
+
+The JAX package's fused-dispatch hooks (``plan_step``, ``lower_step``),
+its metrics gauges and its trace spans are not ported: the port's
+pipeline has the interpret tier only and no observability plane yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import queue
+import threading
+import time
+from collections import deque
 from typing import List, Optional
 
+import numpy as np
+
+from ..analysis.sanitizer import make_condition, make_lock
 from ..filter.framework import (Accelerator, FilterError, FilterProperties,
                                 close_backend, open_backend)
-from ..pipeline.element import CustomEvent, Element, FlowReturn, QoSEvent
+from ..pipeline.element import (CustomEvent, Element, EOSEvent, FlowReturn,
+                                QoSEvent)
 from ..pipeline.registry import register_element
-from ..tensor.buffer import TensorBuffer
+from ..tensor.buffer import TensorBuffer, to_host
 from ..tensor.caps_util import (caps_from_config, config_from_caps,
                                 static_tensors_caps)
 from ..tensor.info import TensorsConfig, TensorsInfo
+from ..utils.log import ml_logw
 
 
 def _parse_combination(s) -> Optional[List[int]]:
     if s in (None, ""):
         return None
     return [int(x) for x in str(s).split(",")]
+
+
+class CrossStreamBatcher:
+    """Bucket/dispatch core of the ``batch-timeout-ms`` coalescer (the JAX
+    package's, for the cross-stream serving plane to share).
+
+    A collecting bucket of opaque items dispatches when it FILLS (``add``
+    returns True) or when the earliest resident deadline expires.
+    Deadlines are PER ITEM — each ``add`` may carry its own residency
+    budget (the QoS lever: ``query/overload.py bucket_budget`` gives gold
+    a quarter of the configured timeout, so a gold frame landing in a
+    bucket that bronze traffic opened pulls the dispatch deadline in) —
+    and the bucket's effective deadline is the minimum over residents.
+
+    Threadless by design: the owner supplies the waiting and the
+    dispatch.  ``tensor_filter`` pairs it with its deadline-watcher
+    thread.  Not itself thread-safe — callers serialize ``add``/``take``
+    under their own coalesce lock where producers and watchers race.
+    """
+
+    __slots__ = ("capacity", "timeout_s", "items", "_t0", "_deadline",
+                 "_clock")
+
+    def __init__(self, capacity: int, timeout_s: float = 0.0,
+                 clock=None) -> None:
+        self.capacity = max(1, int(capacity))
+        self.timeout_s = max(0.0, float(timeout_s))
+        self._clock = clock if clock is not None else time.monotonic
+        self.items: list = []
+        self._t0: Optional[float] = None       # arrival of oldest item
+        self._deadline: Optional[float] = None  # min(arrival + budget)
+
+    @property
+    def fill(self) -> int:
+        return len(self.items)
+
+    def full(self) -> bool:
+        return len(self.items) >= self.capacity
+
+    def opened_at(self) -> Optional[float]:
+        """Arrival time of the oldest resident item (None when empty)."""
+        return self._t0
+
+    def deadline(self) -> Optional[float]:
+        """Absolute dispatch deadline (None when empty)."""
+        return self._deadline if self.items else None
+
+    def add(self, item, budget_s: Optional[float] = None) -> bool:
+        """Append one item; returns True when the bucket is now full
+        (caller must dispatch).  ``budget_s`` overrides the bucket-wide
+        ``timeout_s`` for this item's residency deadline."""
+        now = self._clock()
+        if not self.items:
+            self._t0 = now
+        budget = self.timeout_s if budget_s is None else max(0.0, budget_s)
+        deadline = now + budget
+        if self._deadline is None or deadline < self._deadline:
+            self._deadline = deadline
+        self.items.append(item)
+        return len(self.items) >= self.capacity
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        """True when a resident item's budget has run out (caller must
+        dispatch the partial bucket)."""
+        if not self.items or self._deadline is None:
+            return False
+        return (self._clock() if now is None else now) >= self._deadline
+
+    def remaining(self, now: Optional[float] = None) -> float:
+        """Seconds until the earliest resident deadline (0 when expired,
+        +inf when empty)."""
+        if not self.items or self._deadline is None:
+            return float("inf")
+        return max(0.0, self._deadline
+                   - (self._clock() if now is None else now))
+
+    def take(self) -> list:
+        """Pop every resident item (bucket order) and reset."""
+        items, self.items = self.items, []
+        self._t0 = None
+        self._deadline = None
+        return items
 
 
 @register_element
@@ -77,7 +177,36 @@ class TensorFilter(Element):
         "shared-tensor-filter-key": (None, "share backend across instances"),
         "is-updatable": (False, "allow model-update events"),
         "latency-report": (False, "report invoke latency"),
-        "batch": (1, "frames per device invoke; only 1 is ported"),
+        "batch": (1, "micro-batch N frames into one device invoke "
+                     "(latency/throughput trade; backend-gated)"),
+        "batch-timeout-ms": (0.0, "adaptive micro-batch deadline: with "
+                                  "batch>1, dispatch the collecting "
+                                  "bucket when it FILLS or when the "
+                                  "oldest queued frame has waited this "
+                                  "long, and flush in-flight results "
+                                  "whose frames' budget expired.  0 = "
+                                  "fixed batching (wait for a full "
+                                  "bucket / EOS)"),
+        "inflight": (1, "dispatched micro-batches kept in flight before "
+                        "the oldest is awaited (pipeline depth).  1 = "
+                        "double-buffered (one collecting, one "
+                        "dispatched); costs K batches of output memory "
+                        "and latency"),
+        "workers": (1, "parallel invoke workers: N>1 spawns a pool that "
+                       "consumes frames concurrently (per-worker backend "
+                       "instance unless the backend declares "
+                       "THREADSAFE_INVOKE) and reassembles results in "
+                       "sequence order before pushing downstream.  With "
+                       "batch>1 the micro-batch+inflight machinery "
+                       "already overlaps dispatch, so workers is forced "
+                       "to 1 there"),
+        "output-device": (False, "emit device-resident outputs (BatchView "
+                                 "payloads with batch>1, CUDA tensors "
+                                 "otherwise): a downstream batched filter "
+                                 "consumes them without a host round "
+                                 "trip.  Host consumers still work: they "
+                                 "copy one batch to the host on first "
+                                 "touch"),
     }
 
     #: the reference's own property names for the same settings
@@ -118,11 +247,6 @@ class TensorFilter(Element):
 
     # -- lifecycle -----------------------------------------------------------
     def start(self):
-        batch = int(self.batch or 1)
-        if batch > 1:
-            raise FilterError(
-                f"{self.name}: batch={batch}: micro-batching is not yet "
-                "ported to the PyTorch package (run batch=1)")
         in_info = out_info = None
         if self.input_dim and self.input_type:
             in_info = TensorsInfo.from_strings(str(self.input_dim),
@@ -157,14 +281,87 @@ class TensorFilter(Element):
             ins, _, outs = str(self.output_combination).partition("/")
             self._out_comb = (_parse_combination(ins) or [],
                               _parse_combination(outs) or [])
+        # micro-batching state (double-buffered: one batch collecting, one
+        # dispatched-in-flight — see FilterFramework.invoke_batched);
+        # batch=0 and unset both mean no micro-batching
+        self._batch = max(1, int(self.batch or 1))
+        if self._batch > 1 and not getattr(self.fw, "SUPPORTS_BATCHING",
+                                           False):
+            self._batch = 1
+        self._emit_device = bool(self.output_device)
+        # cross-stream batch accounting: invokes/frames served through
+        # pre-batched buffers
+        self._xb_invokes = 0
+        self._xb_frames = 0
+        self._xb_warm = 0      # capacity whose pad shapes are captured
+        # FIFO of dispatched (bufs, handle, t0) batches; stream order is
+        # the queue order
+        self._inflight: deque = deque()
+        self._inflight_depth = max(1, int(self.inflight or 1))
+        if self._inflight_depth > 1 and self._batch <= 1:
+            ml_logw("%s: inflight=%d needs micro-batching (batch>1); "
+                    "running per-frame", self.name, self._inflight_depth)
+            self._inflight_depth = 1
+        self._rewarm = False            # capture owed after a pushdown
         self._pushdown = None           # fn of a fused device reduction
+        # adaptive micro-batching: with batch-timeout-ms set, the watcher
+        # thread dispatches a partial bucket (and flushes expired
+        # in-flight results) once the OLDEST queued frame's latency
+        # budget runs out
+        self._batch_deadline = max(0.0,
+                                   float(self.batch_timeout_ms or 0)) / 1e3
+        if self._batch_deadline > 0 and self._batch <= 1:
+            ml_logw("%s: batch-timeout-ms needs micro-batching (batch>1);"
+                    " ignored", self.name)
+            self._batch_deadline = 0.0
+        # collecting bucket of (tensors, buf) pairs
+        self._bucket = CrossStreamBatcher(self._batch, self._batch_deadline)
+        self._coalesce_lock = make_lock("filter.coalesce")
+        self._deadline_stop = threading.Event()
+        self._deadline_thread = None
+        # parallel invoke workers: a pool of N invoke threads fed from
+        # chain(), with a pusher reassembling results in strict sequence
+        # order; batch>1 already overlaps dispatch, so workers is 1 there
+        self._workers_n = max(1, int(self.workers or 1))
+        if self._workers_n > 1 and self._batch > 1:
+            ml_logw("%s: workers=%d with batch>1: micro-batching already "
+                    "overlaps dispatch (use inflight=); running workers=1",
+                    self.name, self._workers_n)
+            self._workers_n = 1
+        thread_safe = bool(getattr(type(self.fw), "THREADSAFE_INVOKE",
+                                   False))
+        if self._workers_n > 1 and props.shared_key and not thread_safe:
+            ml_logw("%s: workers=%d needs per-worker backend instances, "
+                    "which shared-tensor-filter-key forbids (backend not "
+                    "THREADSAFE_INVOKE); running workers=1",
+                    self.name, self._workers_n)
+            self._workers_n = 1
+        if self._workers_n > 1:
+            self._start_workers(thread_safe)
+        if self._batch > 1:
+            # every graph of the stream is captured here, before it: a
+            # capture inside it would stall a batch and race the threads
+            # a queue or the deadline watcher add
+            self.fw.warmup_batched(self._batch)
+        if self._batch_deadline > 0:
+            self._deadline_thread = threading.Thread(
+                target=self._deadline_loop, daemon=True,
+                name=f"batch-deadline:{self.name}")
+            self._deadline_thread.start()
 
     def stop(self):
+        self._deadline_stop.set()
+        if self._deadline_thread is not None:
+            self._deadline_thread.join(timeout=10)
+            self._deadline_thread = None
+        self._stop_workers()
         close_backend(getattr(self, "fw", None), self._props)
         self.fw = None
 
     # -- negotiation ---------------------------------------------------------
     def set_caps(self, pad, caps):
+        self._drain_batches()   # renegotiation must not reorder frames
+        self._drain_workers()
         in_cfg = config_from_caps(caps)
         model_in, model_out = self.fw.get_model_info()
         if self._in_comb is not None:
@@ -181,6 +378,11 @@ class TensorFilter(Element):
                 raise ValueError(
                     f"{self.name}: incoming {in_cfg.info} != model "
                     f"input {model_in}") from None
+            # per-worker backend instances serve the same stream: they
+            # renegotiate too
+            for wfw in getattr(self, "_wk_backends", []):
+                if wfw is not self.fw:
+                    wfw.set_input_info(in_cfg.info)
         self._in_config = in_cfg
         out_infos = model_out
         if self._out_comb is not None:
@@ -220,11 +422,64 @@ class TensorFilter(Element):
         fw = self.fw
         if fw is None or not fw.opened:
             raise RuntimeError(f"{self.name}: not started")
+        xb = buf.extra.get("nns_xbatch")
+        if xb is not None:
+            # cross-stream batch: the frames arrive pre-coalesced, stacked
+            # along a leading axis — one shared device invoke serves them
+            # all.  Pre-batched traffic supersedes local micro-batching
+            # and the worker pool (it IS the batching).
+            return self.push(self._invoke_xbatch(buf, xb))
         tensors = self._preprocess(buf)
         if tensors.__class__ is FlowReturn:
             return tensors
-        outs = fw.invoke(list(tensors))
-        return self.push(self._compose_output(buf, list(outs)))
+        if self._batch > 1:
+            if self._batch_deadline > 0:
+                # the deadline watcher dispatches/flushes concurrently, so
+                # collection and dispatch serialize on the coalesce lock
+                # (stream order is the lock order)
+                with self._coalesce_lock:
+                    return self._collect_frame(tensors, buf)
+            return self._collect_frame(tensors, buf)
+        if self._workers_n > 1:
+            return self._submit_frame(tensors, buf)
+        return self._push_result(buf, fw.invoke(list(tensors)))
+
+    def _invoke_xbatch(self, buf: TensorBuffer, xb) -> TensorBuffer:
+        """One shared device invoke for a cross-stream batch buffer
+        (``buf.extra["nns_xbatch"]``): tensors are pre-stacked ``(n,
+        *frame_shape)`` rows from up to ``xb.capacity`` client streams.  A
+        batching backend dispatches them through its padded-bucket graphs
+        (``invoke_stacked``: one warm shape per pad bucket whatever the
+        fill); others fall back to a row-wise invoke loop (correct, not
+        faster).
+
+        No QoS throttle-drop here: every row is an ADMITTED client
+        request, and dropping one would strand its client's reply."""
+        in_info = self._in_config.info
+        if buf.num_tensors != in_info.num_tensors:
+            raise ValueError(
+                f"{self.name}: batch buffer has {buf.num_tensors} "
+                f"tensors, negotiated {in_info.num_tensors}")
+        tensors = buf.tensors
+        if self._in_comb is not None:
+            tensors = [tensors[i] for i in self._in_comb]
+        fw = self.fw
+        n = xb.n
+        if getattr(fw, "SUPPORTS_BATCHING", False):
+            if self._xb_warm != xb.capacity:
+                # first bucket (or a capacity change): capture every pad
+                # shape NOW, not one capture stall per shape spread
+                # across the serving steady state
+                fw.warmup_stacked(xb.capacity)
+                self._xb_warm = xb.capacity
+            outs = fw.invoke_stacked(list(tensors), n, capacity=xb.capacity)
+        else:
+            rows = [fw.invoke([t[i] for t in tensors]) for i in range(n)]
+            outs = [np.stack([to_host(r[k]) for r in rows])
+                    for k in range(len(rows[0]))]
+        self._xb_invokes += 1
+        self._xb_frames += n
+        return self._compose_output(buf, list(outs))
 
     def _compose_output(self, buf: TensorBuffer, outs) -> TensorBuffer:
         out_tensors = outs
@@ -233,6 +488,263 @@ class TensorFilter(Element):
             out_tensors = [buf.tensors[i] for i in ins] + \
                           [outs[i] for i in sel]
         return buf.with_tensors(out_tensors)
+
+    def _push_result(self, buf: TensorBuffer, outs) -> FlowReturn:
+        return self.push(self._compose_output(buf, list(outs)))
+
+    # -- parallel invoke workers ---------------------------------------------
+    def _start_workers(self, thread_safe: bool) -> None:
+        """Spawn the invoke pool + ordered pusher.  Where the backend is
+        not thread-safe each worker gets its OWN backend instance (same
+        props, so same model and weights); a THREADSAFE_INVOKE backend is
+        shared, so its graphs and device weights exist once."""
+        backends = []
+        for i in range(self._workers_n):
+            if thread_safe or i == 0:
+                backends.append(self.fw)
+            else:
+                backends.append(open_backend(dataclasses.replace(
+                    self._props)))
+        self._wk_backends = backends
+        self._wk_tasks: queue.Queue = queue.Queue()
+        self._wk_cv = make_condition("filter.workers")
+        self._wk_results: dict = {}   # seq -> (buf, outs, exc)
+        self._wk_seq = 0                # frames submitted
+        self._wk_pushed = 0             # frames pushed (or error-skipped)
+        self._wk_error = None
+        self._wk_stop = False
+        # in-flight bound: backpressure so a slow downstream or a burst
+        # does not queue unbounded frames inside the element
+        self._wk_sem = threading.Semaphore(self._workers_n * 2)
+        self._wk_threads = [
+            threading.Thread(target=self._worker_loop, args=(fw,),
+                             daemon=True, name=f"invoke:{self.name}:{i}")
+            for i, fw in enumerate(backends)]
+        self._wk_pusher = threading.Thread(
+            target=self._pusher_loop, daemon=True,
+            name=f"invoke-push:{self.name}")
+        for t in self._wk_threads:
+            t.start()
+        self._wk_pusher.start()
+
+    def _submit_frame(self, tensors, buf: TensorBuffer) -> FlowReturn:
+        self._wk_sem.acquire()
+        with self._wk_cv:
+            if self._wk_stop:
+                self._wk_sem.release()
+                return FlowReturn.EOS
+            if self._wk_error is not None:
+                self._wk_sem.release()
+                return FlowReturn.ERROR
+            seq = self._wk_seq
+            self._wk_seq += 1
+            # enqueue under the cv: _stop_workers sets _wk_stop under the
+            # same lock BEFORE queueing the pool's exit sentinels, so a
+            # task can never land behind a sentinel
+            self._wk_tasks.put((seq, list(tensors), buf))
+        return FlowReturn.OK
+
+    def _worker_loop(self, fw) -> None:
+        while True:
+            item = self._wk_tasks.get()
+            if item is None:
+                return
+            seq, tensors, buf = item
+            try:
+                res = (buf, list(fw.invoke(tensors)), None)
+            except Exception as exc:  # noqa: BLE001 — surfaced by pusher
+                res = (buf, None, exc)
+            with self._wk_cv:
+                self._wk_results[seq] = res
+                self._wk_cv.notify_all()
+
+    def _pusher_loop(self) -> None:
+        """Reassemble worker results in strict sequence order and push
+        downstream: output order is arrival order whatever each frame's
+        invoke latency."""
+        while True:
+            with self._wk_cv:
+                self._wk_cv.wait_for(
+                    lambda: self._wk_pushed in self._wk_results
+                    or (self._wk_stop
+                        and self._wk_pushed >= self._wk_seq))
+                if self._wk_pushed not in self._wk_results:
+                    return              # stopped and fully drained
+                buf, outs, exc = self._wk_results.pop(self._wk_pushed)
+                failed = self._wk_error is not None
+            if not failed:
+                try:
+                    if exc is not None:
+                        raise exc
+                    if self._push_result(buf, outs) is FlowReturn.ERROR:
+                        raise RuntimeError(
+                            f"{self.name}: downstream error from invoke "
+                            "worker")
+                except Exception as err:  # noqa: BLE001
+                    with self._wk_cv:
+                        self._wk_error = err
+                    if self.pipeline is not None:
+                        self.pipeline.post_error(self, err)
+            # count the frame pushed (or skipped after an error, so
+            # draining still converges) and free a submit slot
+            with self._wk_cv:
+                self._wk_pushed += 1
+                self._wk_cv.notify_all()
+            self._wk_sem.release()
+
+    def _drain_workers(self) -> None:
+        """Block until every submitted frame has been pushed, in order
+        (EOS, renegotiation, model swap).  Raises on a worker/downstream
+        failure so the event path posts a pipeline error."""
+        if getattr(self, "_workers_n", 1) <= 1:
+            return
+        with self._wk_cv:
+            self._wk_cv.wait_for(
+                lambda: self._wk_pushed >= self._wk_seq)
+            if self._wk_error is not None:
+                raise RuntimeError(
+                    f"{self.name}: invoke worker failed while draining"
+                ) from self._wk_error
+
+    def unblock(self):
+        if getattr(self, "_workers_n", 1) > 1:
+            with self._wk_cv:
+                self._wk_stop = True
+                self._wk_cv.notify_all()
+            self._wk_sem.release()   # wake a producer blocked on the bound
+
+    def _stop_workers(self) -> None:
+        if getattr(self, "_workers_n", 1) <= 1:
+            return
+        with self._wk_cv:
+            self._wk_stop = True
+            self._wk_cv.notify_all()
+        for _ in self._wk_threads:
+            self._wk_tasks.put(None)
+        for t in self._wk_threads:
+            t.join(timeout=10)
+        self._wk_pusher.join(timeout=10)
+        for fw in self._wk_backends:
+            if fw is not self.fw:
+                fw.close()
+        self._workers_n = 1
+
+    # -- micro-batching ------------------------------------------------------
+    def _collect_frame(self, tensors, buf: TensorBuffer) -> FlowReturn:
+        """Append one frame to the collecting bucket; dispatch when it
+        fills.  Caller holds the coalesce lock when the deadline watcher
+        is active."""
+        if self._rewarm:
+            # owed by a pushdown fusion, which may have arrived on a
+            # downstream queue's drain thread: capture both fused graphs
+            # here, on the producer's thread, before the next dispatch
+            self._rewarm = False
+            self.fw.warmup_batched(self._batch)
+        if self._bucket.add((list(tensors), buf)):
+            return self._dispatch_pending()
+        return FlowReturn.OK
+
+    def _dispatch_pending(self) -> FlowReturn:
+        """Dispatch the collecting batch, then — once the in-flight queue
+        is at depth — push the OLDEST batch's results (the device→host
+        copies of every queued batch overlap this batch's collection)."""
+        t0 = self._bucket.opened_at()
+        items = self._bucket.take()
+        pending = [tensors for tensors, _ in items]
+        bufs = [b for _, b in items]
+        handle = self.fw.invoke_batched(pending, self._batch,
+                                        emit_device=self._emit_device)
+        self._inflight.append((bufs, handle, t0))
+        if len(self._inflight) > self._inflight_depth:
+            return self._push_inflight(self._inflight.popleft())
+        return FlowReturn.OK
+
+    def _push_inflight(self, inflight) -> FlowReturn:
+        bufs, handle, _t0 = inflight
+        per_frame = handle.views() if self._emit_device else handle.wait()
+        ret = FlowReturn.OK
+        for buf, outs in zip(bufs, per_frame):
+            r = self._push_result(buf, outs)
+            if r is FlowReturn.ERROR:
+                return r
+            ret = r
+        return ret
+
+    def _deadline_loop(self) -> None:
+        """Coalescer watcher: dispatch a partial bucket (and flush expired
+        in-flight batches) once the oldest queued frame has waited
+        batch-timeout-ms.  Under throughput load buckets fill before
+        their deadline and this thread just sleeps; on underrun it bounds
+        per-frame latency.  A failure is posted as a pipeline error."""
+        to = self._batch_deadline
+        while not self._deadline_stop.is_set():
+            try:
+                with self._coalesce_lock:
+                    now = time.monotonic()
+                    oldest = self._oldest_t0()
+                    if oldest is not None and now - oldest >= to:
+                        self._flush_expired(now)
+                        oldest = self._oldest_t0()
+                wait = (to / 2 if oldest is None
+                        else oldest + to - time.monotonic())
+            except Exception as exc:  # noqa: BLE001 — becomes pipeline err
+                if self.pipeline is not None:
+                    self.pipeline.post_error(self, exc)
+                return
+            self._deadline_stop.wait(max(0.001, min(wait, to / 2)))
+
+    def _oldest_t0(self):
+        """Arrival time of the oldest un-pushed frame (None when idle).
+        Caller holds the coalesce lock."""
+        if self._inflight:
+            return self._inflight[0][2]
+        return self._bucket.opened_at()
+
+    def _flush_expired(self, now: float) -> None:
+        """Push every batch whose oldest frame's budget expired, oldest
+        first; dispatch the partial bucket if ITS budget expired.  Caller
+        holds the coalesce lock; stream order is preserved because both
+        this thread and chain() push under it."""
+        to = self._batch_deadline
+        while self._inflight and now - self._inflight[0][2] >= to:
+            if self._push_inflight(self._inflight.popleft()) \
+                    is FlowReturn.ERROR:
+                raise RuntimeError(
+                    f"{self.name}: downstream error on deadline flush")
+        if self._bucket.expired(now):
+            # _dispatch_pending may itself push an over-depth batch: its
+            # ERROR must propagate like the loop pushes' do
+            if self._dispatch_pending() is FlowReturn.ERROR:
+                raise RuntimeError(
+                    f"{self.name}: downstream error on deadline flush")
+            while self._inflight and now - self._inflight[0][2] >= to:
+                if self._push_inflight(self._inflight.popleft()) \
+                        is FlowReturn.ERROR:
+                    raise RuntimeError(
+                        f"{self.name}: downstream error on deadline flush")
+
+    def _drain_batches(self) -> None:
+        """Flush the collecting partial batch and the in-flight batches, in
+        stream order (EOS, renegotiation, model swap).  A downstream ERROR
+        raises so the event path posts a pipeline error."""
+        if self._batch <= 1:
+            return
+        if self._batch_deadline > 0:
+            with self._coalesce_lock:
+                self._drain_batches_locked()
+        else:
+            self._drain_batches_locked()
+
+    def _drain_batches_locked(self) -> None:
+        ret = FlowReturn.OK
+        if self._bucket.fill:
+            ret = self._dispatch_pending()
+        while self._inflight:
+            r = self._push_inflight(self._inflight.popleft())
+            ret = r if r is FlowReturn.ERROR else ret
+        if ret is FlowReturn.ERROR:
+            raise RuntimeError(
+                f"{self.name}: downstream error while draining batches")
 
     # -- events --------------------------------------------------------------
     def on_upstream_event(self, pad, event):
@@ -274,6 +786,11 @@ class TensorFilter(Element):
                 # AFTER invoke; a reduction computed against the combined
                 # view cannot be fused onto the raw outputs
                 return False
+            if self._workers_n > 1:
+                # the worker pool invokes concurrently, possibly on
+                # per-worker backend instances: fusing into self.fw alone
+                # would emit mixed output shapes under the reduced caps
+                return False
             fn = event.data["fn"]
             if not self._fuse(fn):
                 return False
@@ -288,32 +805,49 @@ class TensorFilter(Element):
         return super().on_upstream_event(pad, event)
 
     def on_event(self, pad, event):
+        if isinstance(event, EOSEvent):
+            self._drain_batches()
+            self._drain_workers()   # all in-flight frames precede EOS
         if isinstance(event, CustomEvent) and \
                 event.name == "tensor_filter_update_model":
             if not self.is_updatable:
                 raise RuntimeError(f"{self.name}: not is-updatable")
+            self._drain_batches()  # frames of the old model flush first
+            self._drain_workers()
             try:
                 self.fw.handle_event("reload_model", event.data)
+                # per-worker backend instances serve the same model
+                for wfw in getattr(self, "_wk_backends", []):
+                    if wfw is not self.fw:
+                        wfw.handle_event("reload_model", event.data)
             except Exception as exc:  # noqa: BLE001
                 # a rejected reload keeps the old model serving — log and
                 # keep streaming instead of erroring the pipeline (unless
                 # the backend could not be restored at all)
-                from ..utils.log import ml_logw
-
                 if not self.fw.opened:
                     raise
                 ml_logw("%s: model reload rejected, keeping old model: %s",
                         self.name, exc)
+            if self._batch > 1:
+                self._rewarm = True     # a reload rebuilt the forward
             self._reapply_pushdown()
             return  # consumed, like the reference custom-event sink
         super().on_event(pad, event)
 
     def _fuse(self, fn) -> bool:
-        """Compose a decoder's reduction into the backend's forward and
-        compile the fused forward now (on the card: capture its graph),
-        so that the next frame, the stream's first, finds it warm."""
+        """Compose a decoder's reduction into the backend's forwards and
+        compile the fused forwards before the next dispatch (on the card:
+        capture their graphs), so the stream finds them warm.  Per frame
+        that is now; with micro-batching it is the producer's next
+        chain(), since this may run on a downstream queue's drain
+        thread: until then the backend keeps dispatching its unfused
+        graphs (decoders dispatch on actual shapes)."""
         if not self.fw.set_postprocess(fn):
             return False
+        self._xb_warm = 0               # the pad set is captured anew
+        if self._batch > 1:
+            self._rewarm = True
+            return True
         warmup = getattr(self.fw, "warmup", None)
         if warmup is not None:
             warmup()
@@ -335,8 +869,6 @@ class TensorFilter(Element):
             return
         if self._fuse(self._pushdown):
             return
-        from ..utils.log import ml_logw
-
         ml_logw("%s: device-reduce fusion could not be re-applied after "
                 "reload; serving full outputs (host decode)", self.name)
         self._pushdown = None

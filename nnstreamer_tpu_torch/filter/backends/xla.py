@@ -6,6 +6,8 @@ name ``xla`` so a launch string written for the JAX package
 port; what runs is a model from the port's registry, in PyTorch, on
 ``cuda:0`` (or on the CPU with ``accelerator=true:cpu``).
 
+It serves micro-batches (``tensor_filter batch=N``) through the model's
+batched forward (``Model.batched``) as one CUDA graph per pad shape.
 The JAX package's persistent compilation cache, ``custom=mesh:dp=N``
 sharding and ``checkpoint`` restore are not ported yet.
 """
@@ -54,7 +56,8 @@ class XLAFilter(TorchExecMixin, FilterFramework):
         zeros = [np.zeros(i.np_shape, i.np_dtype)
                  for i in self._model.in_info]
         # the warm-up invoke captures the open signature's graph
-        self._setup_exec(self._model.module, device, warmup_inputs=zeros)
+        self._setup_exec(self._model.module, device, warmup_inputs=zeros,
+                         batched_fn=self._model.batched)
         super().open(props)
 
     def close(self) -> None:

@@ -138,6 +138,14 @@ class FilterFramework:
     NAME: str = ""
     #: hardware this backend can run on, best first
     SUPPORTED_ACCELERATORS: Sequence[Accelerator] = (Accelerator.CPU,)
+    #: True when :meth:`invoke_batched` coalesces frames into one device
+    #: dispatch (tensor_filter's ``batch`` property gates on this)
+    SUPPORTS_BATCHING: bool = False
+    #: True when :meth:`invoke` may be called from multiple threads on ONE
+    #: instance (tensor_filter's ``workers`` property then shares the
+    #: backend: graphs and device weights exist once).  False (default)
+    #: makes ``workers=N`` open one backend instance per worker instead.
+    THREADSAFE_INVOKE: bool = False
 
     def __init__(self) -> None:
         self.props: Optional[FilterProperties] = None
@@ -166,6 +174,27 @@ class FilterFramework:
     # -- hot path ------------------------------------------------------------
     def invoke(self, inputs: List[Any]) -> List[Any]:
         raise NotImplementedError
+
+    def invoke_batched(self, frames: List[List[Any]], bucket: int,
+                       emit_device: bool = False):
+        """Dispatch ONE device invocation covering ``len(frames)`` frames
+        (each a per-frame input list), padded up to the fixed ``bucket``
+        batch size so steady state uses a single executable.
+
+        Returns a handle with ``wait() -> List[List[np.ndarray]]`` (one
+        output list per input frame, padding sliced away) and ``views()``
+        (``emit_device=True``: device-resident per-frame payloads, no
+        device→host copy started — cascade mode).  The dispatch itself
+        must not block on device completion: tensor_filter only
+        ``wait()``s a batch after the NEXT one has been dispatched, so the
+        copies in, the compute and the copies out of consecutive batches
+        overlap."""
+        raise FilterError(f"{self.NAME}: batched invoke not supported")
+
+    def warmup_batched(self, bucket: int) -> None:
+        """Compile the batched executable for ``bucket`` (and the
+        per-frame one its tiny flush tails ride) so frame 1 of the stream
+        is steady state."""
 
     def set_postprocess(self, fn) -> bool:
         """Compose a reduction ``fn(outputs) -> outputs`` into the
@@ -401,6 +430,47 @@ def close_backend(fw: Optional[FilterFramework],
             fw.close()
     else:
         fw.close()
+
+
+class OutputTransfers:
+    """Device→host copies of a dispatch's outputs, started without
+    blocking: the port of the JAX package's ``start_output_transfers``.
+
+    Each CUDA output is copied into pinned host memory owned by this
+    object (``non_blocking``), and one CUDA event is recorded after the
+    copies; :meth:`wait` synchronizes on the event and hands back numpy
+    arrays over that memory.  Host (CPU tensor or numpy) outputs pass
+    through.  Downstream reads the bytes after later dispatches have been
+    queued, so the copies overlap them."""
+
+    def __init__(self, outs) -> None:
+        import torch
+
+        self._host: List[Any] = []
+        self._event = None
+        for o in outs:
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                host = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                host.copy_(o, non_blocking=True)
+                o = host
+                if self._event is None:
+                    self._event = torch.cuda.Event()
+            self._host.append(o)
+        if self._event is not None:
+            self._event.record()
+
+    def wait(self) -> List[Any]:
+        from ..tensor.buffer import to_host
+
+        if self._event is not None:
+            self._event.synchronize()
+        return [to_host(o) for o in self._host]
+
+
+def start_output_transfers(outs) -> OutputTransfers:
+    """Begin device→host copies of invoke outputs without blocking; the
+    returned object's ``wait()`` gives the host arrays."""
+    return OutputTransfers(outs)
 
 
 # ---------------------------------------------------------------------------

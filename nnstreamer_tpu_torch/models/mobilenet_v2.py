@@ -140,7 +140,8 @@ class MobileNetV2(nn.Module):
         return self.classifier(x).float()
 
     def preprocess(self, frame: torch.Tensor) -> torch.Tensor:
-        """uint8 (H, W, 3) → (H, W, 3) in [-1, 1], model dtype."""
+        """uint8 ``([B,] H, W, 3)`` → the same shape in [-1, 1], model
+        dtype (one K1 launch for a whole batch)."""
         from ..ops.preprocess import cast_then_scale, normalize_frame
 
         if self.use_pallas:
@@ -148,11 +149,13 @@ class MobileNetV2(nn.Module):
         return cast_then_scale(frame, self.dtype)
 
     def forward(self, frame: torch.Tensor) -> Tuple[torch.Tensor]:
-        """frame: uint8 (H, W, 3) → ``(logits_f32[num_classes],)``."""
+        """frame: uint8 ``(H, W, 3)`` → ``(logits_f32[num_classes],)``; a
+        batch ``(B, H, W, 3)`` → ``(logits_f32[B, num_classes],)``."""
         x = self.preprocess(frame)
-        # HWC → NCHW view whose memory is already channels_last
-        x = x.permute(2, 0, 1).unsqueeze(0)
-        return (self.logits(x)[0],)
+        if frame.dim() == 3:
+            # HWC → NCHW view whose memory is already channels_last
+            return (self.logits(x.permute(2, 0, 1).unsqueeze(0))[0],)
+        return (self.logits(x.permute(0, 3, 1, 2)),)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -295,7 +298,7 @@ def build_mobilenet_v2(custom_props: Dict[str, str],
     in_info = TensorsInfo([TensorInfo(TensorType.UINT8, (3, size, size))])
     out_info = TensorsInfo([TensorInfo(TensorType.FLOAT32, (num_classes,))])
     return Model(name="mobilenet_v2", module=module, device=device,
-                 in_info=in_info, out_info=out_info)
+                 in_info=in_info, out_info=out_info, batched=module)
 
 
 register_model("mobilenet_v2")(build_mobilenet_v2)

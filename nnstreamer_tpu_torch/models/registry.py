@@ -1,8 +1,9 @@
 """Model registry: named models the ``xla`` filter backend serves.
 
 The PyTorch counterpart of ``nnstreamer_tpu/models/registry.py``: a model
-is an ``nn.Module`` whose ``forward`` takes one unbatched frame per input
-and returns a tuple of outputs, built on an explicit device.  The JAX
+is an ``nn.Module`` whose ``forward`` takes one frame per input and
+returns a tuple of outputs, plus its forward over a leading batch axis
+(the micro-batched filter's), built on an explicit device.  The JAX
 package's ``host_init`` and orbax checkpoint restore have no counterpart
 here yet; weights are random from ``custom=seed:N``.
 
@@ -28,15 +29,22 @@ from ..tensor.info import TensorsInfo
 class Model:
     """A ready-to-serve model.
 
-    ``module(*inputs) -> tuple(outputs)`` operates on *unbatched*
-    numpy-shaped tensors (one stream frame) on ``device``.
-    ``in_info``/``out_info`` use reference dim order (innermost first)."""
+    ``module(*inputs) -> tuple(outputs)`` operates on numpy-shaped
+    tensors of one stream frame on ``device``.  ``batched(*inputs)`` is
+    the same forward on ``(B, *frame_shape)`` inputs, returning ``(B,
+    *output_shape)`` outputs: the JAX package's ``jax.vmap`` of the
+    forward, written out.  ``None`` serves the batch through
+    ``torch.func.vmap`` of ``module``, which no CUDA kernel wrapper of
+    the port supports: a model whose forward reaches one supplies its
+    own.  ``in_info``/``out_info`` use reference dim order (innermost
+    first)."""
 
     name: str
     module: nn.Module
     device: torch.device
     in_info: TensorsInfo
     out_info: TensorsInfo
+    batched: Optional[Callable] = None
 
 
 #: name -> build(custom_props: dict, device) -> Model
@@ -55,7 +63,7 @@ def register_model(name: str, trainable: bool = False):
 
 
 def _ensure_loaded() -> None:
-    from . import mobilenet_v2, streamformer_lm, vit  # noqa: F401
+    from . import mlp, mobilenet_v2, streamformer_lm, vit  # noqa: F401
 
 
 def get_model(name: str, custom_props: Optional[Dict[str, str]] = None,

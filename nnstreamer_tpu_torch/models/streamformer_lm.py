@@ -112,7 +112,7 @@ def _embed(params, tokens, pos, cfg):
 
 
 def _prefill(params, tokens, cfg, flash, keep_kv: bool):
-    t = tokens.shape[0]
+    t = tokens.shape[-1]
     if flash is None:
         from ..ops.flash_attention import flash_wins
 
@@ -141,7 +141,9 @@ def _prefill(params, tokens, cfg, flash, keep_kv: bool):
 def forward_logits(params: Dict[str, Any], tokens: torch.Tensor,
                    cfg: StreamFormerConfig,
                    flash: Optional[bool] = None) -> torch.Tensor:
-    """Full-sequence forward: tokens (T,) int → logits (T, vocab) f32.
+    """Full-sequence forward: tokens ``([B,] T)`` int → logits ``([B,] T,
+    vocab)`` f32; a batch runs each attention layer as one launch with
+    the batch in its grid.
 
     ``flash``: causal attention through the flash kernel; ``None`` lets
     :func:`~..ops.flash_attention.flash_wins` pick (the kernel on the
@@ -304,8 +306,9 @@ def generate(params: Dict[str, Any], cfg: StreamFormerConfig,
 
 
 class StreamFormerLM(nn.Module):
-    """The registry model: tokens (T,) int32 → ``(logits (T, vocab)
-    f32,)``.  ``params`` is the plain tree, already on its device."""
+    """The registry model: tokens ``([B,] T)`` int32 → ``(logits ([B,] T,
+    vocab) f32,)``.  ``params`` is the plain tree, already on its
+    device."""
 
     def __init__(self, params: Dict[str, Any],
                  cfg: StreamFormerConfig) -> None:
@@ -334,8 +337,9 @@ def _build_registry_model(custom_props: Dict[str, str],
     in_info = TensorsInfo([TensorInfo(TensorType.INT32, (seq,))])
     out_info = TensorsInfo([TensorInfo(TensorType.FLOAT32,
                                        (cfg.vocab, seq))])
-    return Model(name="streamformer_lm", module=StreamFormerLM(params, cfg),
-                 device=device, in_info=in_info, out_info=out_info)
+    module = StreamFormerLM(params, cfg)
+    return Model(name="streamformer_lm", module=module, device=device,
+                 in_info=in_info, out_info=out_info, batched=module)
 
 
 def _register():

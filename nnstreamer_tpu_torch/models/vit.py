@@ -304,7 +304,7 @@ def build_vit(custom_props: Dict[str, str], device: DeviceLike = None,
     in_info = TensorsInfo([TensorInfo(TensorType.UINT8, (3, size, size))])
     out_info = TensorsInfo([TensorInfo(TensorType.FLOAT32, (num_classes,))])
     return Model(name="vit", module=module, device=device,
-                 in_info=in_info, out_info=out_info)
+                 in_info=in_info, out_info=out_info, batched=module)
 
 
 register_model("vit", trainable=True)(build_vit)

@@ -3,9 +3,9 @@
 Supplies the GStreamer-pipeline role (reference L0, SURVEY.md §1): element
 ownership, state changes, streaming threads, EOS aggregation, error posting.
 Scheduling model: each :class:`Source` owns one streaming thread; dataflow is
-synchronous downstream of it.  A ``queue`` introduces a thread boundary
-with a bounded buffer (backpressure) in the JAX package; the port has no
-queue element yet, so each pipeline runs on its sources' threads.
+synchronous downstream of it.  A :class:`Queue` introduces a thread
+boundary with a bounded buffer (backpressure); events travel through it
+in band.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Dict, List, Optional
 from ..analysis.sanitizer import make_condition
 from ..tensor.buffer import TensorBuffer
 from .caps import Caps
-from .element import Element, EOSEvent, Event, FlowReturn, Pad
+from .element import CapsEvent, Element, EOSEvent, Event, FlowReturn, Pad
 from .registry import register_element
 
 
@@ -359,3 +359,127 @@ class AppSrc(Source):
                 self.src_pad.push_event(item)
                 continue
             return item
+
+
+@register_element
+class Queue(Element):
+    """Thread-boundary element with a bounded buffer.
+
+    The GStreamer ``queue`` role (the JAX package's ``Queue``): decouples
+    upstream and downstream into separate streaming threads with
+    backpressure.  Events travel through the queue in band, so ordering
+    is kept.
+    """
+
+    FACTORY = "queue"
+    PROPERTIES = {"max-size-buffers": (16, "queue capacity")}
+    UPSTREAM_TRANSPARENT = True    # buffers pass untouched, one consumer
+
+    def _make_pads(self):
+        self.add_sink_pad(Caps.any(), "sink")
+        self.add_src_pad(Caps.any(), "src")
+
+    def start(self):
+        # capacity bounds DATA buffers only (the _used counter); the queue
+        # itself is unbounded so control markers (caps/events/EOS) can
+        # always be enqueued — a caps announcement arriving from the
+        # drain thread of a downstream queue must never block on data
+        # capacity (that is a self-deadlock: the would-be consumer is
+        # the blocked thread).  DATA admission blocks on the _space
+        # condition below, so depth is bounded by construction.
+        # nnslint: allow(unbounded-queue)
+        self._q: _queue.Queue = _queue.Queue()
+        self._cap = max(1, int(self.max_size_buffers))
+        self._used = 0
+        self._space = make_condition("queue.space")
+        self._drain_done = False
+        self._worker = threading.Thread(target=self._drain,
+                                        name=f"queue:{self.name}", daemon=True)
+        self._stop = threading.Event()
+        self._worker.start()
+
+    def unblock(self):
+        with self._space:
+            self._space.notify_all()
+
+    def stop(self):
+        self._stop.set()
+        with self._space:
+            self._space.notify_all()
+        # drain so the sentinel always fits even if the worker died with a
+        # full queue (upstream error case)
+        while True:
+            try:
+                self._q.get_nowait()
+            except _queue.Empty:
+                break
+        self._q.put(None)
+        self._worker.join(timeout=10)
+
+    def get_allowed_caps(self, sink_pad):
+        return self.src_pad.peer_allowed_caps()
+
+    def _enqueue(self, buf) -> FlowReturn:
+        """Slot-bounded data put that can't deadlock: purely event-driven
+        (no poll) — woken by the drain worker freeing a slot, by stop(),
+        or by the worker exiting (EOS drained / downstream error)."""
+        with self._space:
+            while True:
+                if self._stop.is_set():
+                    return FlowReturn.EOS
+                if self._used < self._cap:
+                    break
+                if self._drain_done:
+                    return FlowReturn.ERROR
+                self._space.wait()
+            self._used += 1
+        self._q.put(("buf", buf))
+        return FlowReturn.OK
+
+    def _enqueue_event(self, event) -> None:
+        if not self._stop.is_set():
+            self._q.put(("event", event))   # unbounded: never blocks
+
+    def chain(self, pad, buf):
+        return self._enqueue(buf)
+
+    def set_caps(self, pad, caps):
+        self._enqueue_event(CapsEvent(caps))
+
+    def on_event(self, pad, event):
+        self._enqueue_event(event)
+
+    def _release_slot(self):
+        with self._space:
+            self._used -= 1
+            self._space.notify()
+
+    def _drain(self):
+        try:
+            while not self._stop.is_set():
+                item = self._q.get()
+                if item is None:
+                    return
+                kind, payload = item
+                try:
+                    if kind == "buf":
+                        try:
+                            self.src_pad.push(payload)
+                        finally:
+                            self._release_slot()
+                    else:
+                        self.src_pad.push_event(payload)
+                        if isinstance(payload, EOSEvent):
+                            return
+                except Exception as exc:  # noqa: BLE001
+                    if self.pipeline is not None:
+                        self.pipeline.post_error(self, exc)
+                    return
+        finally:
+            # wake any producer blocked on a full queue: _drain_done is the
+            # worker-exited signal _enqueue checks, set under the lock so a
+            # waiter can't re-check and sleep between the flag write and
+            # the notify
+            with self._space:
+                self._drain_done = True
+                self._space.notify_all()

@@ -808,3 +808,133 @@ def test_train_capture_failure_raises_without_fallback(card):
     assert torch.cuda.current_stream(card) == torch.cuda.default_stream(card)
     torch.cuda.synchronize()
     assert w.sum().item() == 32.0
+
+
+# ---------------------------------------------------------------------------
+# micro-batched serving
+# ---------------------------------------------------------------------------
+
+#: (model, custom, per-frame input, kernel, launches of one batched forward)
+BATCHED_MODELS = [
+    ("mobilenet_v2", "input_size:32,num_classes:10,use_pallas:1,"
+     "dtype:float32", ((32, 32, 3), np.uint8, 256), "normalize_frame", 1),
+    ("vit", "input_size:32,dim:64,depth:2,heads:2,num_classes:10,"
+     "dtype:float32", ((32, 32, 3), np.uint8, 256), "flash_attention", 2),
+    ("streamformer_lm", "seq:64,vocab:61,dim:32,heads:4,head_dim:8,mlp:64,"
+     "layers:1,experts:2,dtype:float32", ((64,), np.int32, 61),
+     "flash_attention", 1),
+]
+
+
+@pytest.mark.parametrize("model,custom,frame,kernel,per_batch",
+                         BATCHED_MODELS, ids=[m[0] for m in BATCHED_MODELS])
+def test_batched_models_launch_their_kernels_once_a_batch(
+        card, monkeypatch, model, custom, frame, kernel, per_batch):
+    """A registry model's batched forward reaches its kernel with the
+    batch in one launch, never through torch.func.vmap, and equals its
+    per-frame forward (f32, TF32 off: summation order only)."""
+    from nnstreamer_tpu_torch.filter.framework import FilterProperties
+    from nnstreamer_tpu_torch.models.registry import get_model
+
+    def no_vmap(*args, **kwargs):
+        raise AssertionError("torch.func.vmap reached")
+
+    monkeypatch.setattr(torch.func, "vmap", no_vmap)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    m = get_model(model, FilterProperties.parse_custom(custom), card)
+    shape, dtype, high = frame
+    batch = torch.from_numpy(np.stack(_frames(shape, dtype, high, 4))).to(
+        card)
+    with torch.inference_mode():
+        before = _cuda.launches[kernel]
+        got = m.batched(batch)[0]
+        torch.cuda.synchronize()
+        assert _cuda.launches[kernel] == before + per_batch
+        want = torch.stack([m.module(x)[0] for x in batch])
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+def test_batched_filter_graph_equals_eager(card, monkeypatch):
+    """A padded batch (3 of 4 frames) through the captured batched graph
+    equals the same batch run eagerly, bit for bit; the stream after
+    warmup_batched captures nothing."""
+    custom = "input_size:32,num_classes:10,use_pallas:1,seed:0"
+    frames = [[f] for f in _frames((32, 32, 3), np.uint8, 256, 3)]
+    graph = _open_filter(monkeypatch, "mobilenet_v2", custom, eager=False)
+    eager = _open_filter(monkeypatch, "mobilenet_v2", custom, eager=True)
+    try:
+        graph.fw.warmup_batched(4)
+        captures = _cuda.graphs["captures"]
+        held = [graph.fw.invoke_batched(frames, 4) for _ in range(2)]
+        assert _cuda.graphs["captures"] == captures
+        want = eager.fw.invoke_batched(frames, 4).wait()
+        for handle in held:
+            for got, ref in zip(handle.wait(), want):
+                np.testing.assert_array_equal(got[0], ref[0])
+    finally:
+        graph.stop()
+        eager.stop()
+
+
+def _stream_logits(inflight, frames):
+    from nnstreamer_tpu_torch import parse_launch
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    p = parse_launch(
+        "appsrc name=in caps=other/tensors,format=static,num_tensors=1,"
+        "dimensions=3:32:32,types=uint8,framerate=0/1 ! tensor_filter "
+        "framework=xla model=mobilenet_v2 custom=input_size:32,"
+        f"num_classes:10,use_pallas:1 batch=4 inflight={inflight} ! "
+        "queue max-size-buffers=8 ! tensor_sink name=out")
+    p.play()
+    try:
+        captures = _cuda.graphs["captures"]
+        for f in frames:
+            p.get("in").push_buffer(TensorBuffer(tensors=[f]))
+        p.get("in").end_of_stream()
+        p.wait(timeout=120)
+        assert _cuda.graphs["captures"] == captures
+        return [b.np(0) for b in p.get("out").results]
+    finally:
+        p.stop()
+
+
+def test_inflight_depth_is_bit_equal(card):
+    """inflight=8 keeps eight batches' outputs on the card at once: each
+    batch's host copy comes from its own clone, so its logits equal
+    inflight=1's bit for bit (30 frames: 7 full batches and a padded
+    2-frame one)."""
+    frames = _frames((32, 32, 3), np.uint8, 256, 30)
+    deep, shallow = _stream_logits(8, frames), _stream_logits(1, frames)
+    assert len(deep) == len(shallow) == 30
+    for a, b in zip(deep, shallow):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_capture_holds_off_the_garbage_collector(card):
+    """A dead cycle that owns a graph must not be collected inside
+    another graph's capture (destroying a graph there invalidates the
+    capture): the collector is off during the capture, on again after,
+    and a capture with such a cycle pending succeeds."""
+    import gc
+
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return (x * 2,)
+
+    x = torch.ones(4, device=card)
+
+    class Owner:
+        pass
+
+    dead = Owner()
+    dead.self = dead
+    dead.graph = _cuda.CapturedGraph(fn, [x], _cuda.graph_memory(card))
+    del dead                          # a cycle the collector has to find
+    graph = _cuda.CapturedGraph(fn, [x], _cuda.graph_memory(card))
+    assert seen == [True, False, True, False]
+    assert gc.isenabled()
+    assert torch.equal(graph.replay()[0], x * 2)

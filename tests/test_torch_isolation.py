@@ -25,9 +25,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "nnstreamer_tpu"}
 
 #: the flagship pipeline's elements, plus appsrc (the pipeline module's
 #: programmatic source), fakesink and the training slice's tensor_trainer
-SLICE_ELEMENTS = ["appsrc", "capsfilter", "fakesink", "tensor_converter",
-                  "tensor_decoder", "tensor_filter", "tensor_sink",
-                  "tensor_trainer", "videotestsrc"]
+SLICE_ELEMENTS = ["appsrc", "capsfilter", "fakesink", "queue",
+                  "tensor_converter", "tensor_decoder", "tensor_filter",
+                  "tensor_sink", "tensor_trainer", "videotestsrc"]
 
 LAUNCH = ("videotestsrc num-buffers=2 ! "
           "video/x-raw,format=RGB,width=32,height=32,framerate=30/1 ! "
