@@ -17,7 +17,8 @@ Phases, each of which must pass:
    tensor-core versions are checked and timed against each other in
    turns at the four attention paths' shapes; K1's floor is traced inside
    CUDA graph replays: an empty kernel (the card's per-kernel floor), K1
-   on a 1-element frame and K1 on the main path's;
+   on a 1-element frame, on the main path's and on a 32-frame bucket
+   (beside that bucket's event-timed call and its bytes bound);
 3. drive each path through the port's entry points at full width, with
    every kernel launch counter set to 0 just before it and read just
    after.  The four serving paths run as CUDA graphs (the filter
@@ -68,6 +69,21 @@ Phases, each of which must pass:
    - ``xbatch_bucket``: ``invoke_stacked`` at capacity 32 over fills
      1..32 on the MLP and MobileNetV2: 7 pad shapes captured by
      ``warmup_stacked``, a replay a fill, each fill bit-equal to eager;
+   - ``query_serve``: the README's query pair, ``tensor_query_serversrc
+     batch=32 batch-timeout-ms=5 ! tensor_filter model=mobilenet_v2 !
+     tensor_query_serversink`` in this process, 32 client connections in
+     threads (one warm-up frame each, then 16 seeded frames each) and one
+     more client pipeline (``videotestsrc ! tensor_converter !
+     tensor_query_client ! tensor_decoder ! tensor_sink``, 64 frames)
+     through ``python -m nnstreamer_tpu_torch.launch`` in a child
+     process; replies/s, round-trip p50/p99 and the mean bucket fill; the
+     same string at batch=1 on the same frames is the reference (every
+     reply within the bf16 bound, the CLI client's labels wherever the
+     top-2 margin is above twice the largest reply difference, and at
+     least one label so compared); every bucket of the timed run
+     replayed eagerly, each of the 512 replies bit for bit; one capture
+     at open and the 7 pad shapes at the first cross-stream bucket, none
+     after; K1 once a bucket; zero sheds and errors;
 
    Each training path runs as CUDA graphs (step 1 is the capture's eager
    warm-up, every later step a replay of the one graph: launches count as
@@ -84,12 +100,15 @@ Phases, each of which must pass:
    each model with the kernels against the same step with plain attention
    (loss and every gradient, in f32 and bf16).
 
-With ``--profile DIR`` the seven serving paths and the three training
-paths are traced first, each in a process of its own, in graph and
+With ``--profile DIR`` the seven serving paths, the three training
+paths and ``query_serve`` are traced first, each in a process of its
+own, in graph and
 eager mode in turns (graph, eager, eager, graph): device busy time,
 device kernels and host launch calls a unit (and a bucket, on the
 batched paths), the idle share and the rates, one ``profile_modes`` line
-a path with both modes side by side.
+a path with both modes side by side; and ``query_pace`` serves the
+query pair twice more, with the clients in processes of their own and
+without the wire's CRC.
 
 Earlier lines are JSON objects of the phases' numbers, the card's name and
 power limit as ``nvidia-smi`` gives them, and the ``kernels`` line; the
@@ -279,11 +298,15 @@ def time_ms(fn, reps: int = 200, warmup: int = 10, backlog: bool = True
 NORMALIZE_SHAPES = [(224, 224, 3), (1,), (7, 13, 3), (1080, 1920, 3),
                     (32, 224, 224, 3)]
 MAIN_PATH_SHAPE = (224, 224, 3)
+#: a 32-frame bucket of the batched and served paths
+BUCKET_SHAPE = (32, 224, 224, 3)
 
 
-def check_normalize_frame(reps: int) -> dict:
+def check_normalize_frame(reps: int):
     """normalize_frame: bit-exact against its plain version in f32 and
-    bf16 (tolerance 0: both round ``x * scale + shift`` once to f32)."""
+    bf16 (tolerance 0: both round ``x * scale + shift`` once to f32).
+    Returns the kernel's row of the ``kernels`` line and the bf16 event
+    timings by shape."""
     import torch
 
     from nnstreamer_tpu_torch.ops.preprocess import (
@@ -324,21 +347,25 @@ def check_normalize_frame(reps: int) -> dict:
     if worst != 0.0:
         raise AssertionError(f"normalize_frame differs from its plain "
                              f"version by {worst}")
-    main = next(r for r in rows if tuple(r["shape"]) == MAIN_PATH_SHAPE
-                and r["dtype"] == "bfloat16")
-    return {"name": "normalize_frame", "route": "cuda",
-            "source": "nnstreamer_tpu_torch/csrc/normalize_frame.cu",
-            "replaces": "nnstreamer_tpu/ops/preprocess.py:57",
-            "max_abs_err": worst, "ms": main["kernel_ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+    bf16 = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}
+    main = bf16[MAIN_PATH_SHAPE]
+    return ({"name": "normalize_frame", "route": "cuda",
+             "source": "nnstreamer_tpu_torch/csrc/normalize_frame.cu",
+             "replaces": "nnstreamer_tpu/ops/preprocess.py:57",
+             "max_abs_err": worst, "ms": main["kernel_ms"],
+             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+             "bound_by": main["bound_by"], "library_ms": main["library_ms"]},
+            {shape: r["kernel_ms"] for shape, r in bf16.items()})
 
 
 #: K1's floor: kernels inside a CUDA graph's replay, traced — an empty
 #: kernel (what any launch costs the card, independent of K1), K1 on one
-#: element and K1 on the main path's frame; each graph holds
-#: K1_FLOOR_CALLS launches, replayed K1_FLOOR_REPLAYS times in the trace
-K1_FLOOR_SHAPES = [(1,), MAIN_PATH_SHAPE]
+#: element, on the main path's frame and on a 32-frame bucket; each graph
+#: holds K1_FLOOR_CALLS launches, replayed K1_FLOOR_REPLAYS times in the
+#: trace.  ``time_ms`` records an event pair around each launch, which
+#: adds a few µs to a kernel that runs in a few: the traced times are the
+#: device's own
+K1_FLOOR_SHAPES = [(1,), MAIN_PATH_SHAPE, BUCKET_SHAPE]
 K1_FLOOR_CALLS = 50
 K1_FLOOR_REPLAYS = 20
 #: the empty kernel (a probe of the card, not a kernel of the port)
@@ -390,14 +417,16 @@ def empty_kernel_launcher():
     return launch
 
 
-def k1_floor(card: str) -> dict:
+def k1_floor(card: str, event_ms: dict) -> dict:
     """Device time a call inside a replay, traced, of an empty kernel and
     of K1 at each of K1_FLOOR_SHAPES (bf16 out, as on the main path): no
     launch or event pair is paid there, so the empty kernel's time is the
     least any kernel costs the card, and K1's bound is the larger of its
     bytes over HBM and that floor.  K1's 1-element time stands beside it
     (K1's own fixed cost).  One trace holds every graph's replays, one
-    graph after the other."""
+    graph after the other.  The bucket's traced time stands beside its
+    event-pair time (``event_ms``, from check_normalize_frame) and its
+    share of its bytes bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -453,18 +482,29 @@ def k1_floor(card: str) -> dict:
                      "events": len(mine),
                      "in_graph_us": sum(e.time_range.elapsed_us()
                                         for e in mine) / len(mine)})
-    n = 1
-    for d in MAIN_PATH_SHAPE:
-        n *= d
-    bytes_ms = 3 * n / HBM_BYTES_PER_S * 1e3    # uint8 in, bf16 out
-    floor_ms, k1_one_ms, main_ms = (r["in_graph_us"] / 1e3 for r in rows)
-    bound = max(bytes_ms, floor_ms)
+    def bytes_ms(shape):                        # uint8 in, bf16 out
+        n = 1
+        for d in shape:
+            n *= d
+        return 3 * n / HBM_BYTES_PER_S * 1e3
+
+    floor_ms, k1_one_ms, main_ms, bucket_ms = (r["in_graph_us"] / 1e3
+                                               for r in rows)
+    bound = max(bytes_ms(MAIN_PATH_SHAPE), floor_ms)
+    bucket_bound = max(bytes_ms(BUCKET_SHAPE), floor_ms)
     row = {"phase": "kernel_floor", "kernel": "normalize_frame",
-           "rows": rows, "bytes_bound_ms": bytes_ms,
+           "rows": rows, "bytes_bound_ms": bytes_ms(MAIN_PATH_SHAPE),
            "empty_kernel_ms": floor_ms, "k1_one_element_ms": k1_one_ms,
            "bound_ms": bound, "main_path_ms": main_ms,
            "share_of_bound": bound / main_ms,
-           "reaches_half_of_bound": main_ms <= 2 * bound, "card": card}
+           "reaches_half_of_bound": main_ms <= 2 * bound,
+           "bucket": {"shape": list(BUCKET_SHAPE), "in_graph_ms": bucket_ms,
+                      "event_pair_ms": event_ms[BUCKET_SHAPE],
+                      "bytes_bound_ms": bytes_ms(BUCKET_SHAPE),
+                      "bound_ms": bucket_bound,
+                      "share_of_bound": bucket_bound / bucket_ms,
+                      "reaches_half_of_bound": bucket_ms <= 2 * bucket_bound},
+           "card": card}
     emit(row)
     return row
 
@@ -1434,6 +1474,468 @@ def run_batched_paths(args, card: str) -> dict:
     check_cascade(args.batched_frames, args.reps)
     rows["xbatch_bucket"] = run_xbatch_bucket(card)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the query plane: the README's query pair, served from the card
+# ---------------------------------------------------------------------------
+
+#: the server's caps and the two strings of the README's query pair, with
+#: the server's cross-stream bucket (the JAX package's tests/test_xbatch.py
+#: strings at the flagship's model); ``{batch}`` is empty for batch=1
+QUERY_SIZE = 224
+QUERY_CAPS = ("other/tensors,format=static,num_tensors=1,"
+              f"dimensions=3:{QUERY_SIZE}:{QUERY_SIZE},types=uint8")
+QUERY_SERVER = ("tensor_query_serversrc name=qsrc id={sid} port=0 {batch}"
+                f"caps={QUERY_CAPS} ! tensor_filter framework=xla "
+                "model=mobilenet_v2 custom=seed:0,use_pallas:1 name=f ! "
+                "tensor_query_serversink id={sid}")
+QUERY_BATCH = "batch=32 batch-timeout-ms=5 "
+QUERY_CLIENT = ("videotestsrc num-buffers={frames} pattern=random "
+                "cache-frames=64 ! video/x-raw,format=RGB,"
+                f"width={QUERY_SIZE},height={QUERY_SIZE},framerate=120/1 ! "
+                "tensor_converter ! "
+                "tensor_query_client port={port} timeout=120 ! "
+                "tensor_decoder mode=image_labeling ! tensor_sink name=out")
+#: client connections of query_serve, and the frames each sends
+QUERY_CLIENTS = 32
+QUERY_FRAMES = 16
+#: graphs of the served MobileNetV2: the per-frame forward at open, then
+#: the 7 pad shapes of a 32-row bucket (1, 2, 4, 8, 16, 24, 32) at the
+#: first cross-stream bucket
+QUERY_CAPTURES = 1 + 7
+
+
+def query_frames(seed: int):
+    """Seeded (QUERY_SIZE, QUERY_SIZE, 3) uint8 frames, QUERY_FRAMES for
+    each of QUERY_CLIENTS clients; pixel (0, 0) carries (client,
+    request), so a bucket's rows name their frames."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(QUERY_CLIENTS):
+        row = []
+        for k in range(QUERY_FRAMES):
+            f = rng.integers(0, 256, (QUERY_SIZE, QUERY_SIZE, 3),
+                             dtype=np.uint8)
+            f[0, 0, :2] = (i, k)
+            row.append(f)
+        frames.append(row)
+    return frames
+
+
+def drive_query_clients(port: int, frames) -> dict:
+    """One synchronous ``QueryConnection`` a client, each in a thread,
+    started together; every reply's logits (copied out of the pooled
+    slab), round trips and the wall from the start to the last reply."""
+    import threading
+
+    import numpy as np
+
+    from nnstreamer_tpu_torch.query import QueryConnection
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    outs = [[None] * len(row) for row in frames]
+    rtt, done, errors, start = [], [], [], []
+    barrier = threading.Barrier(len(frames), timeout=120,
+                                action=lambda: start.append(
+                                    time.perf_counter()))
+
+    def run(i):
+        try:
+            conn = QueryConnection("127.0.0.1", port, timeout=120.0)
+            conn.connect()
+        except Exception as exc:  # noqa: BLE001 - counted and raised below
+            errors.append(repr(exc))
+            barrier.abort()
+            return
+        try:
+            barrier.wait()
+            for k, frame in enumerate(frames[i]):
+                t0 = time.perf_counter()
+                out = conn.query(TensorBuffer(tensors=[frame]))
+                t1 = time.perf_counter()
+                rtt.append(t1 - t0)
+                done.append(t1)
+                outs[i][k] = np.array(out.np(0))
+        except Exception as exc:  # noqa: BLE001 - counted and raised below
+            errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(frames))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("query_serve: a client thread hung")
+    rtt.sort()
+    n = len(rtt)
+    return {"outs": outs, "errors": errors, "replies": n,
+            "t0": start[0] if start else None,
+            "t1": max(done) if done else None,
+            "replies_per_s": (n / (max(done) - start[0]) if n and start
+                              else 0.0),
+            "rtt_p50_ms": statistics.median(rtt) * 1e3 if n else None,
+            "rtt_p99_ms": rtt[min(n - 1, int(0.99 * n))] * 1e3 if n
+            else None}
+
+
+@contextlib.contextmanager
+def query_server(sid: int, batch: str, frames, before_play=None):
+    """The server string (``batch``: QUERY_BATCH or "") started, warmed
+    with one frame from each client (the first cross-stream bucket
+    captures the pad set), and stopped after: yields (pipeline, port)."""
+    from nnstreamer_tpu_torch import parse_launch
+    from nnstreamer_tpu_torch.query import shutdown_server
+
+    p = parse_launch(QUERY_SERVER.format(sid=sid, batch=batch))
+    if before_play is not None:
+        before_play(p)
+    p.play()
+    try:
+        port = p.get("qsrc").bound_port
+        warm = drive_query_clients(port, [row[:1] for row in frames])
+        if warm["errors"]:
+            raise AssertionError(f"query server warm-up: "
+                                 f"{warm['errors'][:3]}")
+        yield p, port
+    finally:
+        p.stop()
+        shutdown_server(sid)
+
+
+def buckets_served(p) -> int:
+    """Buckets a batching serversrc has dispatched (one frame or more)."""
+    qsrc = p.get("qsrc")
+    return qsrc._m_xb_batched.value + qsrc._m_xb_solo.value
+
+
+def traced_window(p, run):
+    """``run()`` under a counters-only tracer on the server pipeline (two
+    clock reads a ``chain()``): its result and each element's mean time
+    inside ``chain()`` (a bucket's, where the server batches)."""
+    tracer = p.enable_tracing()
+    try:
+        out = run()
+    finally:
+        p.tracer = None
+    return out, {k: v["proctime_avg_us"]
+                 for k, v in tracer.report().items()}
+
+
+def serve_query(batch: str, frames, card: str, child_frames: int = 0,
+                extra_frames=()) -> dict:
+    """Serve the clients from the server string (``batch``: QUERY_BATCH
+    or ""), then (``child_frames``) the README's client string through
+    the port's CLI in a child process, or (``extra_frames``) those frames
+    from one more connection; the row, the replies and what the server
+    recorded (each bucket's captures, and the rows of the timed run's
+    buckets)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.analysis import compileledger
+    from nnstreamer_tpu_torch.query import QueryConnection
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    buckets, recording = [], [False]
+
+    def record_buckets(p):
+        f = p.get("f")
+
+        def chain(pad, buf, chain=f.chain):
+            # each bucket's rows by the (client, request) pixel, and the
+            # captures once the bucket is dispatched
+            t = buf.tensors[0]
+            ids = (t[:, 0, 0, :2].numpy() if buf.extra.get("nns_xbatch")
+                   else np.asarray(t)[None, 0, 0, :2])
+            ret = chain(pad, buf)
+            buckets.append({"xbatch": "nns_xbatch" in buf.extra,
+                            "rows": [tuple(int(v) for v in r) for r in ids]
+                            if recording[0] else None,
+                            "captures": _cuda.graphs["captures"]})
+            return ret
+
+        f.chain = chain
+
+    _cuda.reset_launches()
+    compileledger.reset()
+    child, extra = None, []
+    with query_server(9100 + bool(batch), batch, frames,
+                      record_buckets) as (p, port):
+        recording[0] = True
+        run, chain_us = traced_window(
+            p, lambda: drive_query_clients(port, frames))
+        recording[0] = False
+        if child_frames:
+            child = subprocess.run(
+                [sys.executable, "-m", "nnstreamer_tpu_torch.launch",
+                 QUERY_CLIENT.format(frames=child_frames, port=port),
+                 "--print-sink", "out", "--timeout", "300", "--quiet"],
+                capture_output=True, text=True, timeout=600, cwd=HERE,
+                env=dict(os.environ, PYTHONPATH=HERE))
+        if extra_frames:
+            conn = QueryConnection("127.0.0.1", port, timeout=120.0)
+            conn.connect()
+            try:
+                extra = [np.array(conn.query(TensorBuffer(
+                    tensors=[x])).np(0)) for x in extra_frames]
+            finally:
+                conn.close()
+        qsrc = p.get("qsrc")
+        counters = qsrc.server.counters()
+        xb = ((qsrc._m_xb_batched.value, qsrc._m_xb_solo.value,
+               qsrc._m_xb_frames.value) if batch else (0, 0, 0))
+        evicted = qsrc.server._m_evicted.value
+    launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
+    timed = [b for b in buckets if b["rows"]]
+    row = {"phase": "query_serve", "batch": 32 if batch else 1,
+           "clients": len(frames), "frames": sum(map(len, frames)),
+           "replies": run["replies"],
+           "replies_per_s": run["replies_per_s"],
+           "rtt_p50_ms": run["rtt_p50_ms"], "rtt_p99_ms": run["rtt_p99_ms"],
+           "buckets": len(buckets), "timed_buckets": len(timed),
+           "mean_fill": (sum(len(b["rows"]) for b in timed) / len(timed)
+                         if timed else 0.0),
+           "batched_buckets": xb[0], "solo_buckets": xb[1],
+           "batched_frames": xb[2],
+           "shed": sum(counters["shed"].values()),
+           "admitted": sum(counters["admitted"].values()),
+           "errors": len(run["errors"]) + evicted,
+           "chain_us_per_bucket": chain_us,
+           "launches": launches, "graphs": graphs,
+           "compile_ledger": compileledger.snapshot(), "card": card}
+    if child is not None:
+        labels = [int(line.split()[-1]) for line in child.stdout.splitlines()
+                  if line.startswith("pts=")]
+        row.update(cli_rc=child.returncode, cli_labels=len(labels))
+    emit(row)
+    if run["errors"] or row["errors"] or row["shed"]:
+        raise AssertionError(f"query_serve (batch {row['batch']}): "
+                             f"{row['shed']} sheds, errors "
+                             f"{run['errors'][:3]}, {evicted} evicted")
+    if child is not None and (child.returncode or len(labels)
+                              != child_frames):
+        raise AssertionError(f"query_serve: the CLI client exited "
+                             f"{child.returncode} with {len(labels)} "
+                             f"labels of {child_frames}: "
+                             f"{child.stderr[-800:]}")
+    return {"row": row, "outs": run["outs"], "buckets": buckets,
+            "labels": labels if child is not None else None,
+            "extra": extra}
+
+
+def _query_client_process(port: int, frames, out, go) -> None:
+    """A process of client threads (``query_pace``): once imported it
+    reports ready and waits for ``go``, so every process starts
+    together; then its replies, errors and the monotonic start and end
+    of its run (the clock is the host's, comparable across its
+    processes)."""
+    sys.path.insert(0, HERE)
+    import nnstreamer_tpu_torch.query  # noqa: F401 - before the start
+
+    out.put("ready")
+    if not go.wait(timeout=600):
+        raise TimeoutError("query_pace: no start signal")
+    run = drive_query_clients(port, frames)
+    out.put({k: run[k] for k in ("replies", "errors", "t0", "t1")})
+
+
+#: the pace variants of the served pair: the clients in QUERY_PROCESSES
+#: processes of their own instead of the server's, and the wire without
+#: its CRC-32C (both sides' software CRC of every payload)
+QUERY_PROCESSES = 4
+
+
+def run_query_pace(seed: int, card: str) -> None:
+    """What sets the pace of ``query_serve`` (with ``--profile``): the
+    same batched server and frames with the client threads moved into
+    QUERY_PROCESSES processes (the server's interpreter lock no longer
+    shared with them), and in-process without the CRC; replies/s and
+    each element's time a bucket inside ``chain()`` over the timed
+    run."""
+    import multiprocessing
+
+    from nnstreamer_tpu_torch.query import protocol
+
+    frames = query_frames(seed)
+
+    def in_processes(port):
+        ctx = multiprocessing.get_context("spawn")
+        out, go = ctx.Queue(), ctx.Event()
+        step = -(-len(frames) // QUERY_PROCESSES)
+        procs = [ctx.Process(target=_query_client_process,
+                             args=(port, frames[i:i + step], out, go))
+                 for i in range(0, len(frames), step)]
+        for proc in procs:
+            proc.start()
+        if [out.get(timeout=600) for _ in procs] != ["ready"] * len(procs):
+            raise AssertionError("query_pace: a client process did not "
+                                 "start")
+        go.set()
+        runs = [out.get(timeout=600) for _ in procs]
+        for proc in procs:
+            proc.join(timeout=60)
+        return runs
+
+    def without_crc(port):
+        protocol._CRC_FN = False
+        try:
+            return [drive_query_clients(port, frames)]
+        finally:
+            protocol._CRC_FN = None
+
+    for variant, drive in (("client_processes", in_processes),
+                           ("no_crc", without_crc)):
+        with query_server(9103, QUERY_BATCH, frames) as (p, port):
+            before = buckets_served(p)
+            runs, chain_us = traced_window(p, lambda: drive(port))
+            buckets = buckets_served(p) - before
+        replies = sum(r["replies"] for r in runs)
+        errors = sum(len(r["errors"]) for r in runs)
+        wall = max(r["t1"] for r in runs) - min(r["t0"] for r in runs)
+        emit({"phase": "query_pace", "variant": variant,
+              "clients": len(frames), "replies": replies,
+              "replies_per_s": replies / wall, "buckets": buckets,
+              "mean_fill": replies / max(buckets, 1), "errors": errors,
+              "chain_us_per_bucket": chain_us, "card": card})
+        if errors or replies != sum(map(len, frames)):
+            raise AssertionError(f"query_pace ({variant}): {replies} "
+                                 f"replies, {errors} errors")
+
+
+def check_query_eager(frames, graph: dict) -> int:
+    """Every bucket of the graph run's timed clients, rebuilt from its
+    frames, through the same model eagerly: each served reply bit for bit
+    (a bucket as ``invoke_stacked`` at capacity 32, a lone frame as
+    ``invoke``), so a reply routed to the wrong client or request fails.
+    Returns the frames compared, which must be every frame sent."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.filter import FilterSingle
+
+    subset = [b for b in graph["buckets"] if b["rows"]]
+    differ, compared = [], 0
+    with eager_filters(True):
+        with FilterSingle(framework="xla", model="mobilenet_v2",
+                          custom="seed:0,use_pallas:1") as single:
+            for b in subset:
+                rows = b["rows"]
+                if b["xbatch"]:
+                    stacked = np.stack([frames[i][k] for i, k in rows])
+                    out = single.fw.invoke_stacked(
+                        [stacked], len(rows), capacity=BATCH)[0]
+                    got = out.float().cpu().numpy()[:len(rows)]
+                else:
+                    i, k = rows[0]
+                    got = single.fw.invoke([frames[i][k]])[0].float(
+                        ).cpu().numpy()[None]
+                for (i, k), g in zip(rows, got):
+                    compared += 1
+                    if not np.array_equal(g, graph["outs"][i][k]):
+                        differ.append((i, k))
+    emit({"phase": "graph_vs_eager", "path": "query_serve",
+          "buckets": len(subset), "frames": compared,
+          "outputs_bit_equal": compared - len(differ)})
+    sent = sum(map(len, frames))
+    if differ or compared != sent:
+        raise AssertionError(f"query_serve: {compared} of {sent} replies "
+                             f"replayed eagerly; served logits differ "
+                             f"from the eager forward on frames "
+                             f"{differ[:8]}")
+    return compared
+
+
+def run_query_serve(args, card: str) -> dict:
+    """The README's query pair on the card (the server in this process:
+    ``serversrc batch=32 ! tensor_filter model=mobilenet_v2 !
+    serversink``; 32 client connections in threads, one more client
+    pipeline through the port's CLI in a child process), then the same
+    string at batch=1 on the same frames as the reference, then a subset
+    of the served buckets eagerly.  Checks: zero sheds and errors; every
+    reply within the bf16 bound of batch=1's (LOGITS_ATOL + LOGITS_RTOL
+    x |logit|); every reply bit for bit against its bucket replayed
+    eagerly; the CLI client's labels against batch=1's wherever batch=1's
+    top-2 margin is above twice the largest reply difference (at least
+    one label so compared); the graphs: one capture at open
+    and the pad set at the first cross-stream bucket, none after it; K1
+    launched once a bucket (a replay of a graph that launches it once)
+    besides the captures' eager runs; the compile ledger's events."""
+    import numpy as np
+
+    frames = query_frames(args.seed)
+    child_frames = source_frames(CACHED, SOURCE_SEED, QUERY_SIZE)
+    graph = serve_query(QUERY_BATCH, frames, card, child_frames=CACHED)
+    row = graph["row"]
+    b1 = serve_query("", frames, card, extra_frames=child_frames)
+    over, worst, sure, differ, scale = 0, 0.0, 0, [], []
+    for i, row_frames in enumerate(frames):
+        for k in range(len(row_frames)):
+            got, want = graph["outs"][i][k], b1["outs"][i][k]
+            if got.shape != (1001,) or not np.isfinite(got).all():
+                raise AssertionError(f"query_serve: reply ({i}, {k}) is "
+                                     f"{got.shape}, finite "
+                                     f"{np.isfinite(got).all()}")
+            diff = np.abs(got - want)
+            worst = max(worst, float(diff.max()))
+            over += int((diff > LOGITS_ATOL + LOGITS_RTOL
+                         * np.abs(want)).sum())
+            scale.append(np.abs(want))
+    # a label is held where batch=1's top-2 margin is more than twice the
+    # largest difference of a served reply from batch=1's
+    margin = 2 * worst
+    for x, label in zip(b1["extra"], graph["labels"]):
+        top2 = np.sort(x)[-2:]
+        if top2[1] - top2[0] > margin:
+            sure += 1
+            if int(np.argmax(x)) != label:
+                differ.append(label)
+    compared = check_query_eager(frames, graph)
+    buckets = graph["buckets"]
+    first_xb = next((j for j, b in enumerate(buckets) if b["xbatch"]), None)
+    late_captures = ([b["captures"] for b in buckets[first_xb:]
+                      if b["captures"] != QUERY_CAPTURES]
+                     if first_xb is not None else ["no cross-stream bucket"])
+    k1 = row["launches"].get("normalize_frame", 0)
+    graphs = row["graphs"]
+    emit({"phase": "query_serve_outputs",
+          "replies_vs_batch1_max_abs_diff": worst,
+          "atol": LOGITS_ATOL, "rtol": LOGITS_RTOL,
+          "logits_over_tolerance": over,
+          "median_abs_logit": float(np.median(np.concatenate(scale))),
+          "cli_label_margin": margin,
+          "cli_labels_compared": sure, "cli_labels_differ": differ,
+          "eager_frames_bit_equal": compared,
+          "fps": {"batch32": row["replies_per_s"],
+                  "batch1": b1["row"]["replies_per_s"]},
+          "rtt_p50_ms": {"batch32": row["rtt_p50_ms"],
+                         "batch1": b1["row"]["rtt_p50_ms"]},
+          "rtt_p99_ms": {"batch32": row["rtt_p99_ms"],
+                         "batch1": b1["row"]["rtt_p99_ms"]},
+          "mean_fill": row["mean_fill"], "card": card})
+    if over or differ or not sure:
+        raise AssertionError(f"query_serve: {over} logits beyond the bf16 "
+                             f"bound of batch=1, CLI labels differ on "
+                             f"{differ}, {sure} compared")
+    if late_captures or graphs.get("captures") != QUERY_CAPTURES:
+        raise AssertionError(f"query_serve: graphs {graphs}, captures "
+                             f"after the first bucket {late_captures[:4]}")
+    if (graphs.get("replays") != row["buckets"]
+            or k1 != graphs["captures"] + graphs["replays"]):
+        raise AssertionError(f"query_serve: K1 launched {k1} times over "
+                             f"{row['buckets']} buckets, graphs {graphs}")
+    if row["compile_ledger"] != {"filter.jitexec.invoke": 1,
+                                 "filter.jitexec.vmap": 7}:
+        raise AssertionError(f"query_serve: compile ledger "
+                             f"{row['compile_ledger']}")
+    if not row["batched_buckets"]:
+        raise AssertionError("query_serve: no bucket held more than one "
+                             "frame")
+    return {"launches": row["launches"]}
 
 
 def lm_f32_diff(custom: dict, tokens) -> float:
@@ -2433,7 +2935,8 @@ def profile_llm_serve(steps: int, seed: int, out_dir: str, eager: bool,
 
 
 #: the metrics a profile_modes line puts side by side
-MODE_KEYS = ("fps", "p50_ms", "p90_ms", "prefill_tok_s",
+MODE_KEYS = ("fps", "p50_ms", "p90_ms", "p99_ms", "mean_fill",
+             "prefill_tok_s",
              "device_busy_us_per_bucket", "host_launch_calls_per_bucket",
              "decode_tok_s_bucket8", "step_ms_p50", "step_ms_p90",
              "device_busy_us_per_unit", "device_idle_share",
@@ -2495,7 +2998,40 @@ def profiled_paths(args) -> dict:
         paths[name] = functools.partial(
             profile_train, name, launch, samples, args.profile,
             TRAIN_PER_STEP[name])
+    paths["query_serve"] = functools.partial(
+        profile_query_serve, args.seed, args.profile)
     return paths
+
+
+def profile_query_serve(seed: int, out_dir: str, eager: bool,
+                        turn: int) -> dict:
+    """Trace the served query pair in one mode: the server is started and
+    warmed (one frame a client: the pad set captured at the first
+    bucket), then the clients' frames are traced; a unit is a frame, and
+    the row gives busy time and host launch calls a bucket too."""
+    frames = query_frames(seed)
+    mode = "eager" if eager else "graph"
+    run = {}
+    with eager_filters(eager):
+        with query_server(9102, QUERY_BATCH, frames) as (p, port):
+            before = buckets_served(p)
+            row = trace(f"query_serve_{mode}{turn}", out_dir,
+                        lambda: run.update(drive_query_clients(port,
+                                                               frames)),
+                        lambda t0, t1: QUERY_CLIENTS * QUERY_FRAMES,
+                        "normalize_frame_kernel", 1)
+            buckets = buckets_served(p) - before
+    n = QUERY_CLIENTS * QUERY_FRAMES
+    row.update(path="query_serve", mode=mode, turn=turn,
+               fps=run["replies_per_s"], p50_ms=run["rtt_p50_ms"],
+               p99_ms=run["rtt_p99_ms"], buckets=buckets,
+               mean_fill=n / max(buckets, 1),
+               device_busy_us_per_bucket=row["device_busy_us"]
+               / max(buckets, 1),
+               host_launch_calls_per_bucket=row[
+                   "host_launch_calls_per_unit"] * n / max(buckets, 1))
+    emit(row)
+    return row
 
 
 #: tries of a path's traces.  A profiler session now and then crashed the
@@ -2644,8 +3180,9 @@ def main(argv=None) -> int:
             # before this process makes a CUDA context: a profiled child
             # beside another process's context on the card crashed
             profile_all(args, sys.argv[1:] if argv is None else argv)
-        kernels = [check_normalize_frame(args.reps)]
-        k1_floor(card)
+        k1, k1_event_ms = check_normalize_frame(args.reps)
+        kernels = [k1]
+        k1_floor(card, k1_event_ms)
         kernels += [check_flash_attention(args.reps),
                    *check_flash_backward(args.reps)]
         time_flash_versions(args.reps)
@@ -2667,6 +3204,9 @@ def main(argv=None) -> int:
                            GRAPH_LOGITS_FRAMES, args.seed)
         check_vit_outputs(vit["labels"], args.vit_frames, args.seed)
         batched = run_batched_paths(args, card)
+        query = run_query_serve(args, card)
+        if args.profile:
+            run_query_pace(args.seed, card)
         lm = run_lm_filter(args.lm_frames, args.seed, card)
         serve = run_llm_serve(args.steps, args.seed, card)
         trains = train_runs(args)
@@ -2685,7 +3225,7 @@ def main(argv=None) -> int:
             # launches summed over every path's own run (graph mode)
             k["launches"] = sum(path["launches"].get(k["name"], 0)
                                 for path in (main_path, vit, lm, serve,
-                                             *batched.values(),
+                                             query, *batched.values(),
                                              *train_rows.values()))
             if k["launches"] == 0:
                 raise AssertionError(f"{k['name']} never launched on the "

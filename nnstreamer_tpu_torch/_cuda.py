@@ -137,9 +137,12 @@ class CapturedGraph:
         return self.outputs
 
 
-def host_tensor(x):
-    """``x`` as a tensor: a tensor as it is, anything else through numpy
-    (copied where it is read-only, which ``torch.from_numpy`` refuses)."""
+def host_tensor(x, pin: bool = False):
+    """``x`` as a tensor: a tensor as it is, anything else through numpy.
+    A read-only array (a frame decoded over a received wire payload),
+    which ``torch.from_numpy`` refuses to wrap, is copied once: into
+    pinned memory with ``pin`` (the caller's device is the card), so its
+    copy there needs no second, pageable staging copy."""
     import numpy as np
     import torch
 
@@ -147,8 +150,31 @@ def host_tensor(x):
         return x
     arr = np.asarray(x)
     if not arr.flags.writeable:
-        arr = arr.copy()
+        return stack_host([arr], None, pin)
     return torch.from_numpy(arr)
+
+
+def stack_host(arrs, rows=0, pin: bool = False):
+    """Host arrays of one shape and dtype stacked into ONE host tensor of
+    ``rows`` rows (``len(arrs)`` when 0; rows past them repeat the last
+    array; ``None``: the one array itself, unstacked): one copy of each
+    array, into pinned memory with ``pin`` (the caller's device is the
+    card), after which the tensor's copy there is asynchronous."""
+    import numpy as np
+    import torch
+
+    arrs = [np.asarray(a) for a in arrs]
+    lead = () if rows is None else (max(int(rows), len(arrs)),)
+    host = torch.empty(lead + arrs[0].shape,
+                       dtype=torch.from_numpy(np.empty(0, arrs[0].dtype)
+                                              ).dtype,
+                       pin_memory=pin)
+    if rows is None:
+        np.copyto(host.numpy(), arrs[0])
+    else:
+        np.stack(arrs + [arrs[-1]] * (lead[0] - len(arrs)),
+                 out=host.numpy())
+    return host
 
 
 class GraphedStep:

@@ -20,9 +20,7 @@ tuple that keyed the executable).  The ledger keeps, per site:
   and its nearest neighbor, diffed.
 
 The ledger exports ``nns_jit_compiles_total{site=...}`` through the obs
-registry where one is present; the port has no ``obs/metrics`` yet, so
-the export is skipped by the same guard that the JAX package keeps for
-an absent obs plane.
+registry (``obs/metrics.py``).
 
 Sentinel OFF (the default) costs one attribute load and one falsy test
 per *compile*; dispatch paths guard their signature bookkeeping with

@@ -28,7 +28,8 @@ property/lifecycle logic of tensor_filter_common.c):
 
 The JAX package's fused-dispatch hooks (``plan_step``, ``lower_step``),
 its metrics gauges and its trace spans are not ported: the port's
-pipeline has the interpret tier only and no observability plane yet.
+pipeline has the interpret tier only, and the filter publishes nothing
+to the metrics registry yet.
 """
 
 from __future__ import annotations
@@ -443,6 +444,12 @@ class TensorFilter(Element):
         if self._workers_n > 1:
             return self._submit_frame(tensors, buf)
         return self._push_result(buf, fw.invoke(list(tensors)))
+
+    def pins_host_input(self) -> bool:
+        """Whether host frames bound for this filter are best stacked in
+        pinned memory: its backend runs on the card."""
+        device = getattr(self.fw, "_device", None)
+        return device is not None and device.type == "cuda"
 
     def _invoke_xbatch(self, buf: TensorBuffer, xb) -> TensorBuffer:
         """One shared device invoke for a cross-stream batch buffer

@@ -231,7 +231,8 @@ class TorchExecMixin:
         if isinstance(x, torch.Tensor):
             return x if x.device == self._device else \
                 x.to(self._device, non_blocking=True)
-        return _cuda.host_tensor(x).to(self._device, non_blocking=True)
+        return _cuda.host_tensor(x, self._device.type == "cuda").to(
+            self._device, non_blocking=True)
 
     def _graphed(self) -> bool:
         return self._device.type == "cuda" and not self._eager
@@ -291,7 +292,8 @@ class TorchExecMixin:
     def _replay(self, graph, inputs: List[Any]):
         try:
             for static, x in zip(graph.inputs, inputs):
-                static.copy_(_cuda.host_tensor(x), non_blocking=True)
+                static.copy_(_cuda.host_tensor(x, static.is_cuda),
+                             non_blocking=True)
             outs = graph.replay()
         except RuntimeError as exc:
             raise FilterError(f"{self.NAME}: CUDA graph replay failed: "
@@ -394,6 +396,10 @@ class TorchExecMixin:
             rows = int(arr.shape[0])
             if rows < bucket:
                 if isinstance(arr, torch.Tensor):
+                    # a host stack (a query server's bucket, in pinned
+                    # memory) pads on the device: its one host copy was
+                    # the stacking
+                    arr = self._to_device(arr)
                     arr = torch.cat([arr, arr[-1:].expand(
                         (bucket - rows,) + tuple(arr.shape[1:]))])
                 else:
@@ -418,15 +424,8 @@ class TorchExecMixin:
         asynchronous."""
         n = len(arrs)
         if not all(map(is_device_array, arrs)):
-            arrs = [np.asarray(a) for a in arrs]
-            arrs += [arrs[-1]] * (bucket - n)
-            pin = self._device.type == "cuda"
-            host = torch.empty((bucket,) + arrs[0].shape,
-                               dtype=torch.from_numpy(
-                                   np.empty(0, arrs[0].dtype)).dtype,
-                               pin_memory=pin)
-            np.stack(arrs, out=host.numpy())
-            return host
+            return _cuda.stack_host(arrs, bucket,
+                                    self._device.type == "cuda")
         if all(isinstance(a, BatchView) for a in arrs):
             # group consecutive rows of the same underlying batch
             segs, i = [], 0

@@ -12,7 +12,7 @@ The PyTorch counterpart of ``nnstreamer_tpu/llm/``, dense slot pool only:
   conserved :class:`PhaseClock` attribution.
 
 The paged pool, the ``tensor_llm`` element, the client and token-level
-observability are not ported yet (ROADMAP A8/A9).
+observability are not ported yet.
 """
 
 from .engine import DecodeEngine, PhaseClock

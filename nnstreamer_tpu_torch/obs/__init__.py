@@ -1,1 +1,3 @@
-"""Observability helpers.  Only the clock is ported so far."""
+"""Observability: the clock, trace spans and the metrics registry
+(``obs/httpd``, ``attrib``, ``profile``, ``timeseries``, ``federation`` and
+``dashboard`` are not ported yet)."""

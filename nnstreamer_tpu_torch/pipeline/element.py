@@ -286,8 +286,16 @@ class Element:
 
     # -- dataflow entries (called by pads) -----------------------------------
     def _chain_entry(self, pad: Pad, buf: TensorBuffer) -> FlowReturn:
+        tracer = (self.pipeline.tracer
+                  if self.pipeline is not None else None)
         try:
-            return self.chain(pad, buf)
+            if tracer is None:
+                return self.chain(pad, buf)
+            tracer.enter(self.name, buf)
+            try:
+                return self.chain(pad, buf)
+            finally:
+                tracer.exit()
         except Exception as exc:  # noqa: BLE001 - becomes pipeline error
             if self.pipeline is not None:
                 self.pipeline.post_error(self, exc)
@@ -364,6 +372,19 @@ class Element:
         (reference: tensor_filter injects its rolling invoke latency when
         latency-report=1, tensor_filter.c:1313-1377).  Default: 0."""
         return 0
+
+    def health_state(self) -> "Optional[str]":
+        """Readiness hook: ``"degraded"`` while this element runs in a
+        reduced mode (open circuit breakers, lost endpoints, fallback
+        serving), ``"draining"`` while it refuses new work ahead of a
+        shutdown, else None."""
+        return None
+
+    def drain(self, deadline: float = 5.0) -> None:
+        """Graceful-drain hook (``Pipeline.drain``): stop accepting new
+        work and finish what is in flight, within ``deadline`` seconds.
+        Elements that front external clients (tensor_query_serversrc)
+        override it; ordinary elements finish when upstream stops."""
 
     # -- helpers -------------------------------------------------------------
     def announce_src_caps(self, caps: Caps, pad: Optional[Pad] = None) -> None:

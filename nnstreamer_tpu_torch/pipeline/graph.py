@@ -43,12 +43,15 @@ class Pipeline:
 
     def __init__(self, name: str = "pipeline"):
         self.name = name
+        self.tracer = None          # set by enable_tracing()
         self.elements: List[Element] = []
         self._by_name: Dict[str, Element] = {}
         self._error: Optional[PipelineError] = None
         self._eos_sinks: set = set()
         self._cv = make_condition("pipeline.state")
         self._playing = False
+        #: readiness lifecycle: starting -> serving -> draining
+        self._lifecycle = "starting"
 
     # -- construction --------------------------------------------------------
     def add(self, *elements: Element):
@@ -145,6 +148,7 @@ class Pipeline:
         #: running-time origin: sinks with sync=true render buffer PTS
         #: against this (GStreamer base-time role)
         self.base_time_ns = time.monotonic_ns()
+        self._lifecycle = "serving"
         for el in self.elements:
             if isinstance(el, Source):
                 try:
@@ -154,6 +158,36 @@ class Pipeline:
                     # failure surfaces as the same PipelineError start()
                     # failures do, not as a raw ValueError
                     raise PipelineError(el, exc) from exc
+
+    def health_state(self) -> str:
+        """Readiness state: the lifecycle phase, demoted to ``degraded``
+        while any element reports it (a ``tensor_query_client`` whose
+        endpoint breakers are open) and to ``draining`` while a serving
+        element refuses new work."""
+        if self._lifecycle == "serving":
+            if self._error is not None:
+                return "degraded"
+            worst = "serving"
+            for el in self.elements:
+                state = el.health_state()
+                if state == "draining":
+                    return "draining"
+                if state == "degraded":
+                    worst = "degraded"
+            return worst
+        return self._lifecycle
+
+    def enable_tracing(self, spans: bool = False):
+        """Attach a dataflow tracer (proctime/framerate per element, the
+        GstShark tracer role).  Returns the
+        :class:`~nnstreamer_tpu_torch.pipeline.tracing.Tracer`; call
+        ``tracer.report()`` after the run.  ``spans=True`` additionally
+        records per-buffer timeline spans (``tracer.export_chrome``), the
+        ones a query server sends its clients after each reply."""
+        from .tracing import Tracer
+
+        self.tracer = Tracer(spans=spans)
+        return self.tracer
 
     def _check_links(self) -> None:
         for el in self.elements:
@@ -199,8 +233,27 @@ class Pipeline:
         if not ok:
             raise TimeoutError(f"pipeline {self.name}: EOS not reached")
 
+    def drain(self, deadline: float = 5.0) -> None:
+        """Graceful drain, then stop: elements that front external
+        clients refuse new work with explicit retry-after answers and
+        finish their in-flight replies (``Element.drain``, e.g.
+        ``tensor_query_serversrc`` -> ``QueryServer.drain``), then the
+        pipeline is torn down.  The CLI's SIGTERM handler calls this."""
+        self._lifecycle = "draining"
+        for el in self.elements:
+            if el._started:
+                try:
+                    el.drain(deadline)
+                except Exception as exc:   # noqa: BLE001 - one element's
+                    # failure must not block the teardown of the rest
+                    from ..utils.log import logger
+
+                    logger.warning("%s: drain failed: %r", el.name, exc)
+        self.stop()
+
     def stop(self) -> None:
         self._playing = False
+        self._lifecycle = "draining"
         # phase 0: release blocking waits (a sync sink's PTS wait holds
         # the very streaming thread _halt() is about to join)
         for el in self.elements:
@@ -272,10 +325,15 @@ class Source(Element):
                 caps = self.negotiate()
                 self.announce_src_caps(caps)
                 self._caps_announced = True
+            seq = 0
             while not self._halted.is_set():
                 buf = self.create()
                 if buf is None:
                     break
+                pl = self.pipeline
+                if pl is not None and pl.tracer is not None:
+                    self._stamp(pl.tracer, buf.extra, seq)
+                seq += 1
                 ret = self.push(buf)
                 if ret in (FlowReturn.ERROR, FlowReturn.EOS):
                     break
@@ -285,6 +343,39 @@ class Source(Element):
                 self.pipeline.post_error(self, exc)
             else:
                 raise
+
+    def _stamp(self, tr, extra: dict, seq: int) -> None:
+        """Source stamp under a tracer: seq, birth time (the
+        interlatency origin) and the trace context every transport sink
+        forwards on the wire.  Seq and birth are overwritten per push (an
+        app may reuse one buffer object); a wire-restored trace context
+        (the query server's) survives."""
+        extra["nns_seq"] = seq
+        src_ns = extra["nns_src_ns"] = time.monotonic_ns()
+        if "nns_trace" not in extra:
+            from ..obs.span import TraceContext
+
+            extra["nns_trace"] = TraceContext(
+                tr.trace_id, 0,
+                tr.anchor_wall_us + (src_ns - tr.anchor_mono_ns) // 1000)
+        if tr.ring is None:
+            return
+        from ..obs.span import Span
+
+        # zero-duration birth marker: the frame window's left edge
+        tid = extra["nns_trace"].trace_id or tr.trace_id
+        tr.ring.append(Span("src:" + self.name, threading.get_ident(),
+                            src_ns, 0, seq, tid))
+        adm = extra.pop("nns_admission_ns", None)
+        if adm is not None:
+            # a serving source (serversrc) deferred its admission-wait
+            # span to here, the one place seq is assigned
+            tr.annotate_span("admission-wait", adm[0], adm[1], seq=seq,
+                             trace_id=tid)
+        for state, s0, s1, stid in extra.pop("nns_xb_spans", ()):
+            # a cross-stream bucket's per-frame residency spans, each
+            # under its own client's trace id
+            tr.annotate_span(state, s0, s1, seq=seq, trace_id=stid or tid)
 
 
 @register_element

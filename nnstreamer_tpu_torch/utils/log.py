@@ -13,8 +13,8 @@ ml_logi/w/e/d macros + ml_loge_stacktrace): standard logging channel
 
 Any other ``NNS_LOG`` value sets the channel's level by name (e.g.
 ``NNS_LOG=debug``); both may be combined as ``NNS_LOG=json,debug``.
-The JAX package's trace-context filter is not carried over: the port has
-no pipeline tracer yet.
+The JAX package's trace-context filter (element and buffer seq of the
+live traced ``chain()`` on every record) is not carried over yet.
 """
 
 from __future__ import annotations

@@ -24,10 +24,20 @@ PORT = os.path.dirname(nnstreamer_tpu_torch.__file__)
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "nnstreamer_tpu"}
 
 #: the flagship pipeline's elements, plus appsrc (the pipeline module's
-#: programmatic source), fakesink and the training slice's tensor_trainer
+#: programmatic source), fakesink, the training slice's tensor_trainer
+#: and the query plane's three elements
 SLICE_ELEMENTS = ["appsrc", "capsfilter", "fakesink", "queue",
                   "tensor_converter", "tensor_decoder", "tensor_filter",
-                  "tensor_sink", "tensor_trainer", "videotestsrc"]
+                  "tensor_query_client", "tensor_query_serversink",
+                  "tensor_query_serversrc", "tensor_sink", "tensor_trainer",
+                  "videotestsrc"]
+#: the query plane's modules, the CLI and the native binding, each
+#: imported alone in a fresh interpreter
+QUERY_MODULES = ["nnstreamer_tpu_torch.query", "nnstreamer_tpu_torch.launch",
+                 "nnstreamer_tpu_torch.native",
+                 "nnstreamer_tpu_torch.obs.metrics",
+                 "nnstreamer_tpu_torch.obs.span",
+                 "nnstreamer_tpu_torch.pipeline.tracing"]
 
 LAUNCH = ("videotestsrc num-buffers=2 ! "
           "video/x-raw,format=RGB,width=32,height=32,framerate=30/1 ! "
@@ -81,6 +91,24 @@ def test_pipeline_runs_without_loading_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_query_modules_load_without_jax():
+    """Each query-plane module, the CLI and the native binding, imported
+    in a fresh interpreter (and the CRC library built and loaded), load
+    no module of JAX or of the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"bad = {sorted(FORBIDDEN)!r}\n"
+        f"for name in {QUERY_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from nnstreamer_tpu_torch import native\n"
+        "native.available()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_registry_knows_only_the_slice_elements():
     assert list_factories() == SLICE_ELEMENTS
 
@@ -103,6 +131,42 @@ def test_pipeline_without_cpu_request_raises(no_gpu):
     with pytest.raises(PipelineError, match="no CUDA device"):
         p.run(timeout=60)
     assert p.get("out").results == []
+
+
+def test_query_server_without_cpu_request_raises(no_gpu):
+    """A serving pipeline whose filter did not ask for the CPU refuses
+    to start without a card; the same pipeline with the CPU asked for
+    serves."""
+    from nnstreamer_tpu_torch.query import QueryConnection, shutdown_server
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    serve = ("tensor_query_serversrc name=q id={sid} port=0 "
+             "caps=other/tensors,format=static,num_tensors=1,dimensions=8,"
+             "types=float32,framerate=0/1 ! tensor_filter framework=xla "
+             "model=mlp {accel}custom=in_dim:8,width:16,depth:1,out_dim:4 ! "
+             "tensor_query_serversink id={sid}")
+    p = nnstreamer_tpu_torch.parse_launch(serve.format(sid=1960, accel=""))
+    try:
+        with pytest.raises(PipelineError, match="no CUDA device"):
+            p.play()
+    finally:
+        p.stop()
+        shutdown_server(1960)
+    p = nnstreamer_tpu_torch.parse_launch(
+        serve.format(sid=1961, accel="accelerator=true:cpu "))
+    p.play()
+    try:
+        conn = QueryConnection("127.0.0.1", p.get("q").bound_port,
+                               timeout=10.0)
+        conn.connect()
+        import numpy as np
+
+        out = conn.query(TensorBuffer(tensors=[np.ones(8, np.float32)]))
+        conn.close()
+        assert out.np(0).shape == (4,)
+    finally:
+        p.stop()
+        shutdown_server(1961)
 
 
 def test_model_builder_without_device_raises(no_gpu):
