@@ -84,6 +84,28 @@ Phases, each of which must pass:
      replayed eagerly, each of the 512 replies bit for bit; one capture
      at open and the 7 pad shapes at the first cross-stream bucket, none
      after; K1 once a bucket; zero sheds and errors;
+   - ``llm_stream``: the LLM serving tier, ``tensor_query_serversrc !
+     tensor_llm ! tensor_query_serversink`` at the LM's full width
+     (max_seq 2048, bf16) in this process, 16 gold ``TokenStreamClient``
+     threads sending 4 requests each (prompts of SERVE_PROMPTS' lengths,
+     32 new tokens): ``dense`` (``slots=8 batch=8``: prefill through K2,
+     4 launches a prompt) and ``paged`` (``slots=32 page-size=16
+     pages=1151 prefill-chunk=32 prefix-cache=1``, an arena of the dense
+     pool's bytes; phase A the same mix, phase B one shared 128-token
+     system prompt and unique tails); a row a part: served tok/s, TTFT
+     and ITL p50/p99 (the element's ``TokenObs``; the clients' own TTFT
+     beside), mean decode fill, peak resident sessions, arena bytes,
+     prefix tokens reused and the serversink's time a token.  Every
+     stream complete and in order, 0 sheds and errors, no capture after
+     ``warmup()`` (its ledger: 4 step + 9 prefill graphs dense, 32 paged
+     steps + 7 chunks paged), prefix hits in phase B only, no page leak;
+     each served stream teacher-forced through the plain forward (bf16:
+     at most BF16_LM_SHARE of the confident choices differ; the same
+     strings in f32 at a small load: none); a scripted paged engine
+     (whole and chunked prefill, a prefix hit) bit-equal graph vs eager;
+     and the dense string served by ``python -m
+     nnstreamer_tpu_torch.launch`` in a child process to one more client
+     (the child drains and exits 0 on SIGTERM);
 
    Each training path runs as CUDA graphs (step 1 is the capture's eager
    warm-up, every later step a replay of the one graph: launches count as
@@ -96,14 +118,15 @@ Phases, each of which must pass:
 4. check what came out: the labels and logits of each path against the
    same model run with the kernels' plain versions (and MobileNetV2's f32
    forward against the CPU's), the LM engine's token streams against an
-   engine that prefills with plain attention, and one training step of
+   engine that prefills with plain attention, the served token streams
+   against the plain-attention forward, and one training step of
    each model with the kernels against the same step with plain attention
    (loss and every gradient, in f32 and bf16).
 
 With ``--profile DIR`` the seven serving paths, the three training
-paths and ``query_serve`` are traced first, each in a process of its
-own, in graph and
-eager mode in turns (graph, eager, eager, graph): device busy time,
+paths, ``query_serve`` and ``llm_stream`` (dense and paged: a unit is a
+decode step) are traced first, each in a process of its own, in graph
+and eager mode in turns (graph, eager, eager, graph): device busy time,
 device kernels and host launch calls a unit (and a bucket, on the
 batched paths), the idle share and the rates, one ``profile_modes`` line
 a path with both modes side by side; and ``query_pace`` serves the
@@ -2284,6 +2307,527 @@ def run_llm_serve(steps: int, seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the LLM serving tier: tensor_llm over the query plane
+# ---------------------------------------------------------------------------
+
+#: the request frame: [prompt_len, max_new, stop_token] and room for 320
+#: prompt tokens (SERVE_PROMPTS reach 300)
+LLM_REQ = 3 + 320
+LLM_CAPS = ("other/tensors,format=static,num_tensors=1,"
+            f"dimensions={LLM_REQ},types=int32,framerate=0/1")
+LLM_DENSE = "slots=8 batch=8 max-new-tokens=64"
+#: an arena byte-identical to the dense pool's: (8 + 1) x 2048 / 16 - 1
+#: pages and the scratch page, for 4x the resident sessions
+LLM_PAGED = ("slots=32 batch=8 max-new-tokens=64 page-size=16 pages=1151 "
+             "prefill-chunk=32 prefix-cache=1")
+#: a request waits for a slot instead of shedding (16 clients share the
+#: dense pool's 8 slots); the clients are gold, whose slot admission
+#: sheds only at the hard no-free-slot boundary
+LLM_WAIT = "admit-timeout-ms=120000"
+LLM_SERVER = ("tensor_query_serversrc name=qsrc id={sid} port={port} "
+              f"caps={LLM_CAPS} ! tensor_llm name={{name}} "
+              "custom={custom} seed={seed} {props} " + LLM_WAIT
+              + " id={sid} ! tensor_query_serversink name=qsink id={sid}")
+
+
+def llm_server(sid: int, port: int, name: str, props: str, seed: int,
+               custom: str = "") -> str:
+    return LLM_SERVER.format(sid=sid, port=port, name=name, props=props,
+                             seed=seed, custom=custom or llm_custom())
+#: client connections, requests each (one after the other) and new tokens
+#: a request
+LLM_CLIENTS = 16
+LLM_REQUESTS = 4
+LLM_NEW = 32
+#: phase B's shared system prompt: 8 full 16-token pages
+LLM_SYSTEM = 128
+#: the f32 served runs (exactness): clients, requests each, new tokens
+LLM_F32 = (4, 2, 16)
+#: graphs tensor_llm captures in start(): dense, 4 lane buckets x (a
+#: step) + 9 prompt buckets; paged, 4 lane buckets x 8 table widths + the
+#: 32-token chunk at the 7 widths that hold it
+LLM_WARM = {"dense": {"llm.engine.step": 4, "llm.engine.prefill": 9},
+            "paged": {"llm.engine.pstep": 32, "llm.engine.chunk": 7}}
+
+
+def llm_custom(dtype=None) -> str:
+    custom = {**LM_CUSTOM, "max_seq": str(LM_SEQ)}
+    if dtype:
+        custom["dtype"] = dtype
+    return ",".join(f"{k}:{v}" for k, v in custom.items())
+
+
+def llm_jobs(seed: int, clients: int, requests: int, system: bool):
+    """Each client's prompts: SERVE_PROMPTS' lengths in turn, unique
+    tokens; or (``system``) one shared LLM_SYSTEM-token system prompt and
+    a unique 16-64-token tail."""
+    import numpy as np
+
+    vocab = int(LM_CUSTOM["vocab"])
+    rng = np.random.default_rng(seed + (3 if system else 2))
+    shared = rng.integers(0, vocab, LLM_SYSTEM)
+    jobs = []
+    for i in range(clients):
+        row = []
+        for k in range(requests):
+            if system:
+                tail = rng.integers(0, vocab, int(rng.integers(16, 65)))
+                row.append(np.concatenate([shared, tail]).astype(np.int32))
+            else:
+                n = SERVE_PROMPTS[(i * requests + k) % len(SERVE_PROMPTS)]
+                row.append(rng.integers(0, vocab, n).astype(np.int32))
+        jobs.append(row)
+    return jobs
+
+
+def drive_token_clients(port: int, jobs, new: int) -> dict:
+    """One ``TokenStreamClient`` (gold) a client, each in a thread,
+    started together, sending its requests one after the other; each
+    stream (order-checked by the client) and the wall from the start to
+    the last token."""
+    import threading
+
+    from nnstreamer_tpu_torch.llm import TokenStreamClient
+
+    from nnstreamer_tpu_torch.obs.clock import mono_ns
+
+    streams = [[None] * len(row) for row in jobs]
+    ttft_ms, errors, start, done = [], [], [], []
+    barrier = threading.Barrier(len(jobs), timeout=300,
+                                action=lambda: start.append(
+                                    time.perf_counter()))
+
+    def run(i):
+        try:
+            cli = TokenStreamClient("127.0.0.1", port, timeout=300.0,
+                                    qos="gold").connect()
+        except Exception as exc:  # noqa: BLE001 - counted and raised below
+            errors.append(repr(exc))
+            barrier.abort()
+            return
+        try:
+            barrier.wait()
+            for k, prompt in enumerate(jobs[i]):
+                sent = mono_ns()
+                streams[i][k] = cli.generate(prompt, new,
+                                             frame_len=LLM_REQ)
+                ttft_ms.append((cli.stamps_ns[0] - sent) / 1e6)
+            done.append(time.perf_counter())
+        except Exception as exc:  # noqa: BLE001 - counted and raised below
+            errors.append(repr(exc))
+        finally:
+            cli.close()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("llm_stream: a client thread hung")
+    tokens = sum(len(s) for row in streams for s in row if s)
+    wall = (max(done) - start[0]) if done and start else 0.0
+    ttft_ms.sort()
+    n = len(ttft_ms)
+    return {"streams": streams, "errors": errors, "tokens": tokens,
+            "wall_s": wall, "tok_s": tokens / wall if wall else 0.0,
+            "client_ttft_p50_ms": statistics.median(ttft_ms) if n else None,
+            "client_ttft_p99_ms": ttft_ms[min(n - 1, int(0.99 * n))]
+            if n else None}
+
+
+class _PeakResident:
+    """Polls a pool's resident sessions every millisecond in a thread;
+    ``peak`` is the most seen."""
+
+    def __init__(self, pool) -> None:
+        import threading
+
+        self.pool, self.peak = pool, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.001):
+            self.peak = max(self.peak, self.pool.live)
+
+    def close(self) -> int:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return self.peak
+
+
+def _hist_counts(tobs, family: str):
+    return list(tobs._hist(family, "gold").state()[2])
+
+
+def serve_llm(mode: str, props: str, parts, seed: int, card: str, sid: int,
+              new: int = LLM_NEW, custom: str = "", traced: bool = True
+              ) -> dict:
+    """Serve ``parts`` (``[(part, jobs)]``, one after the other) from the
+    ``tensor_llm`` string in ``mode`` (``props``: LLM_DENSE or LLM_PAGED)
+    in this process; each part's row: served tok/s, TTFT and ITL p50/p99
+    (the element's ``TokenObs`` histograms), mean decode fill, peak
+    resident sessions, prefix hits and tokens reused, and (``traced``) the
+    serversink's time a token from a counters-only tracer.  Returns the
+    rows, every part's prompts and streams, the run's launches, graphs
+    and ledgers, and the served parameters."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.analysis import compileledger
+    from nnstreamer_tpu_torch.llm.tokenobs import ITL_US, TTFT_US
+    from nnstreamer_tpu_torch.obs.metrics import quantile_from_counts
+    from nnstreamer_tpu_torch.query import shutdown_server
+
+    name = f"llm_{mode}"
+    p = parse_launch(llm_server(sid, 0, name, props, seed, custom))
+    compileledger.reset()
+    t0 = time.perf_counter()
+    p.play()
+    out = {"warmup_s": time.perf_counter() - t0,
+           "compile_ledger": compileledger.snapshot(), "rows": [],
+           "prompts": [], "streams": []}
+    llm = p.get(name)
+    eng, pool, tobs = llm.engine, llm.pool, llm._tok_obs
+    _cuda.reset_launches()
+    compileledger.reset()
+    port = p.get("qsrc").bound_port
+    peak = None
+    try:
+        for part, jobs in parts:
+            before = {"steps": eng.steps_total, "fill": eng.step_tokens,
+                      "stats": pool.stats() if eng.paged else {},
+                      TTFT_US: _hist_counts(tobs, TTFT_US),
+                      ITL_US: _hist_counts(tobs, ITL_US)}
+            peak = _PeakResident(pool)
+            if traced:
+                run, chain_us = traced_window(
+                    p, lambda: drive_token_clients(port, jobs, new))
+            else:
+                run, chain_us = drive_token_clients(port, jobs, new), {}
+            row = {"phase": "llm_stream", "mode": mode, "part": part,
+                   "clients": len(jobs),
+                   "sessions": sum(map(len, jobs)), "new": new,
+                   "tokens": run["tokens"], "served_tok_s": run["tok_s"],
+                   "wall_s": run["wall_s"], "errors": run["errors"][:3],
+                   "client_ttft_p50_ms": run["client_ttft_p50_ms"],
+                   "client_ttft_p99_ms": run["client_ttft_p99_ms"],
+                   "peak_resident": peak.close(),
+                   "steps": eng.steps_total - before["steps"],
+                   "mean_fill": (eng.step_tokens - before["fill"])
+                   / max(1, eng.steps_total - before["steps"]),
+                   "sink_us_per_token": chain_us.get("qsink")}
+            peak = None
+            for key, family in (("ttft", TTFT_US), ("itl", ITL_US)):
+                counts = [a - b for a, b in zip(_hist_counts(tobs, family),
+                                                before[family])]
+                for q in (0.5, 0.99):
+                    row[f"{key}_p{round(q * 100)}_ms"] = (
+                        quantile_from_counts(counts, q) / 1e3
+                        if sum(counts) else None)
+            if eng.paged:
+                now = pool.stats()
+                row.update({k: now[k] - before["stats"][k] for k in (
+                    "prefix_hits", "prefix_misses", "prefix_tokens_reused",
+                    "pages_reclaimed")})
+            out["rows"].append(row)
+            out["prompts"] += [pr for r in jobs for pr in r]
+            out["streams"] += [s for r in run["streams"] for s in r]
+            if run["errors"]:
+                raise AssertionError(f"llm_stream ({mode}, {part}): client "
+                                     f"errors {run['errors'][:3]}")
+        counters = p.get("qsrc").server.counters()
+        out.update(
+            launches=dict(_cuda.launches), graphs=dict(_cuda.graphs),
+            window_ledger=compileledger.snapshot(), shed=llm.shed_total,
+            wire_shed=sum(counters["shed"].values()),
+            evicted=llm.evicted_total, rejected=llm.rejected_total,
+            arena_bytes=pool.cache_bytes(), engine=eng.report(),
+            params=eng.params, cfg=eng.cfg,
+            warm_set=[len(eng._step_fns), len(eng._prefill_fns)])
+    finally:
+        if peak is not None:
+            peak.close()
+        p.stop()
+        shutdown_server(sid)
+    out["leaks"] = pool.check_leaks() if eng.paged else []
+    out["live_after_stop"] = pool.live
+    for row in out["rows"]:
+        row.update(arena_bytes=out["arena_bytes"], card=card)
+        emit(row)
+    return out
+
+
+def teacher_forced(params, cfg, prompts, streams):
+    """Each served stream teacher-forced through the plain-attention
+    forward (its prompt and its own tokens but the last): at the
+    positions where that forward's top-2 margin exceeds MARGIN, how many
+    greedy choices were compared and how many differ."""
+    import torch
+
+    from nnstreamer_tpu_torch.models.streamformer_lm import forward_logits
+
+    device = params["embed"].device
+    compared = differ = 0
+    with torch.inference_mode():
+        for prompt, toks in zip(prompts, streams):
+            seq = torch.as_tensor(list(prompt) + list(toks[:-1]),
+                                  device=device)
+            logits = forward_logits(params, seq, cfg, flash=False)
+            top = logits[len(prompt) - 1:].float().topk(2, dim=-1)
+            sure = (top.values[:, 0] - top.values[:, 1]) > MARGIN
+            served = torch.as_tensor(toks, device=device)
+            compared += int(sure.sum())
+            differ += int(((top.indices[:, 0] != served) & sure).sum())
+    return compared, differ
+
+
+def llm_scripted_paged(params, cfg, seed: int, eager: bool) -> dict:
+    """A scripted paged engine at the served width (the element's paged
+    sizing, 8 lanes, 32-token chunks), in a fixed order: a 300-token
+    prompt prefilled whole (every chunk inline), a 100-token one chunked
+    between decode steps, a 168-token one (a 128-token system prompt)
+    whole, and at the 4th step a 148-token one on the same system prompt,
+    a prefix hit, chunked; 24 tokens each.  Every dispatch's logits (each
+    prefill's last, each step's) and the streams."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.llm import DecodeEngine, PagedKVCachePool
+
+    pool = PagedKVCachePool(cfg, 1151, 16, slots=32,
+                            device=params["embed"].device)
+    eng = DecodeEngine(params, cfg, pool, capacity=8, chunk=32)
+    eng._eager = eager
+    eng.warmup()
+    rng = np.random.default_rng(seed + 5)
+    system = rng.integers(0, cfg.vocab, LLM_SYSTEM)
+    prompts = [rng.integers(0, cfg.vocab, 300), rng.integers(0, cfg.vocab,
+                                                             100),
+               np.concatenate([system, rng.integers(0, cfg.vocab, 40)]),
+               np.concatenate([system, rng.integers(0, cfg.vocab, 20)])]
+    new, logits, streams = 24, [], {}
+
+    def first(s, tok):
+        s.next_token = tok
+        streams[s.key] = [tok]
+        logits.append(eng.last_logits.copy())
+
+    def admit(i, whole):
+        s = pool.acquire(i, prompt=prompts[i].astype(np.int32), max_new=new)
+        if whole:
+            first(s, eng.prefill(s, prompts[i]))
+
+    admit(0, True)
+    admit(1, False)
+    admit(2, True)
+    step = 0
+    while step < 4 or any(len(streams.get(s.key, ())) < new
+                          for s in pool.sessions()):
+        if step == 4:
+            admit(3, False)
+        ready = [s for s in pool.sessions()
+                 if not s.prefilling and len(streams[s.key]) < new]
+        if ready:
+            for s, tok in zip(ready, eng.step(ready)):
+                streams[s.key].append(tok)
+                s.next_token = tok
+            logits.append(eng.last_logits.copy())
+        waiting = [s for s in pool.sessions() if s.prefilling]
+        if waiting:
+            tok = eng.prefill_chunk_step(waiting[0])
+            if tok is not None:
+                first(waiting[0], tok)
+        step += 1
+    hits, reused = pool.prefix_hits, pool.prefix_tokens_reused
+    for s in pool.sessions():
+        pool.release(s.key)
+    return {"streams": [streams[i] for i in range(4)], "logits": logits,
+            "prefix_hits": hits, "prefix_tokens_reused": reused,
+            "leaks": pool.check_leaks(), "chunks": eng.prefill_chunks_total}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def llm_cli_stream(seed: int, prompt, card: str) -> dict:
+    """The dense string served by ``python -m nnstreamer_tpu_torch.launch``
+    in a child process, one more client's stream from it, then SIGTERM
+    (the CLI drains and exits 0)."""
+    import signal
+
+    from nnstreamer_tpu_torch.llm import TokenStreamClient
+
+    port = free_port()
+    launch = llm_server(9310, port, "llm", LLM_DENSE, seed)
+    child = subprocess.Popen(
+        [sys.executable, "-m", "nnstreamer_tpu_torch.launch", launch,
+         "--timeout", "900", "--quiet"], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if child.poll() is not None:
+                raise AssertionError(f"llm_stream: the CLI server exited "
+                                     f"{child.returncode}: "
+                                     f"{child.stderr.read()[-800:]}")
+            try:
+                cli = TokenStreamClient("127.0.0.1", port, timeout=300.0,
+                                        qos="gold").connect()
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 300:
+                    raise
+                time.sleep(0.5)
+        try:
+            toks = cli.generate(prompt, LLM_NEW, frame_len=LLM_REQ)
+        finally:
+            cli.close()
+        took = time.perf_counter() - t0
+        child.send_signal(signal.SIGTERM)
+        _, err = child.communicate(timeout=120)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    return {"tokens": toks, "rc": child.returncode, "stderr": err[-800:],
+            "start_to_stream_s": took}
+
+
+def run_llm_stream(seed: int, card: str) -> dict:
+    """``tensor_query_serversrc ! tensor_llm ! tensor_query_serversink``
+    at the LM's full width in bf16, dense (LLM_DENSE: prefill through
+    K2) and paged (LLM_PAGED: phase A, the dense mix; phase B, one shared
+    system prompt), 16 clients x 4 requests x 32 tokens each; then the
+    same strings in f32 at LLM_F32's load, a scripted paged engine in
+    graph and eager mode, and the dense string through the CLI."""
+    import numpy as np
+    import torch
+
+    mix = llm_jobs(seed, LLM_CLIENTS, LLM_REQUESTS, system=False)
+    dense = serve_llm("dense", LLM_DENSE, [("mix", mix)], seed, card, 9300)
+    paged = serve_llm("paged", LLM_PAGED, [
+        ("A", mix),
+        ("B", llm_jobs(seed, LLM_CLIENTS, LLM_REQUESTS, system=True))],
+        seed, card, 9301)
+    params, cfg = dense["params"], dense["cfg"]
+    n_dense = len(dense["prompts"])
+    bf16 = {mode: teacher_forced(params, cfg, run["prompts"],
+                                 run["streams"])
+            for mode, run in (("dense", dense), ("paged", paged))}
+
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        clients, requests, new = LLM_F32
+        small = llm_jobs(seed, clients, requests, system=False)
+        f32 = {}
+        for mode, props, sid in (("dense", LLM_DENSE, 9302),
+                                 ("paged", LLM_PAGED, 9303)):
+            run = serve_llm(mode, props, [("f32", small)], seed, card, sid,
+                            new=new, custom=llm_custom("float32"),
+                            traced=False)
+            f32[mode] = teacher_forced(run["params"], run["cfg"],
+                                       run["prompts"], run["streams"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+    graph = llm_scripted_paged(params, cfg, seed, eager=False)
+    eager = llm_scripted_paged(params, cfg, seed, eager=True)
+    bits_differ = sum(not np.array_equal(a, b)
+                      for a, b in zip(graph["logits"], eager["logits"]))
+    cli = llm_cli_stream(seed, mix[0][0], card)
+    cli_forced = teacher_forced(params, cfg, [mix[0][0]], [cli["tokens"]])
+
+    k2 = dense["launches"].get("flash_attention", 0)
+    row = {"phase": "llm_stream_checks", "card": card,
+           "dense_prompts": n_dense, "k2_launches_dense": k2,
+           "k2_launches_paged": paged["launches"].get("flash_attention", 0),
+           "graphs": {m: r["graphs"] for m, r in (("dense", dense),
+                                                   ("paged", paged))},
+           "compile_ledger": {m: r["compile_ledger"] for m, r in (
+               ("dense", dense), ("paged", paged))},
+           "window_ledger": {m: r["window_ledger"] for m, r in (
+               ("dense", dense), ("paged", paged))},
+           "warmup_s": {m: r["warmup_s"] for m, r in (("dense", dense),
+                                                      ("paged", paged))},
+           "sheds": {m: [r["shed"], r["wire_shed"]] for m, r in (
+               ("dense", dense), ("paged", paged))},
+           "evicted": dense["evicted"] + paged["evicted"],
+           "leaks": paged["leaks"], "margin": MARGIN,
+           "bf16_share": BF16_LM_SHARE,
+           "bf16_compared_differ": bf16, "f32_compared_differ": f32,
+           "scripted_paged": {"dispatches": len(graph["logits"]),
+                              "bit_differ": bits_differ,
+                              "tokens_equal": graph["streams"]
+                              == eager["streams"],
+                              "prefix_hits": graph["prefix_hits"],
+                              "prefix_tokens_reused":
+                                  graph["prefix_tokens_reused"],
+                              "chunks": graph["chunks"],
+                              "leaks": graph["leaks"] + eager["leaks"]},
+           "cli": {"rc": cli["rc"], "tokens": len(cli["tokens"]),
+                   "compared_differ": cli_forced,
+                   "start_to_stream_s": cli["start_to_stream_s"]},
+           "engine": {m: r["engine"] for m, r in (("dense", dense),
+                                                   ("paged", paged))}}
+    emit(row)
+
+    problems = []
+    for mode, run in (("dense", dense), ("paged", paged)):
+        if run["shed"] or run["wire_shed"] or run["evicted"] \
+                or run["rejected"]:
+            problems.append(f"{mode}: {run['shed']} + {run['wire_shed']} "
+                            f"sheds, {run['evicted']} evicted, "
+                            f"{run['rejected']} rejected")
+        if any(len(s) != LLM_NEW for s in run["streams"]):
+            problems.append(f"{mode}: a stream is incomplete")
+        if run["graphs"].get("captures") or not run["graphs"].get(
+                "replays") or run["window_ledger"]:
+            problems.append(f"{mode}: captured after warmup: graphs "
+                            f"{run['graphs']}, ledger "
+                            f"{run['window_ledger']}")
+        if run["compile_ledger"] != LLM_WARM[mode]:
+            problems.append(f"{mode}: warm-up ledger "
+                            f"{run['compile_ledger']}, want {LLM_WARM[mode]}")
+        compared, differ = bf16[mode]
+        if not compared or differ > BF16_LM_SHARE * compared:
+            problems.append(f"{mode}: bf16 served tokens differ from the "
+                            f"plain forward at {differ} of {compared}")
+        compared, differ = f32[mode]
+        if not compared or differ:
+            problems.append(f"{mode}: f32 served tokens differ from the "
+                            f"plain forward at {differ} of {compared}")
+    if k2 != n_dense * cfg.layers:
+        problems.append(f"dense: flash_attention launched {k2} times, want "
+                        f"{n_dense} prompts x {cfg.layers} layers")
+    a, b = paged["rows"]
+    if a["prefix_hits"] or not b["prefix_hits"]:
+        problems.append(f"paged: prefix hits {a['prefix_hits']} in phase A "
+                        f"and {b['prefix_hits']} in phase B")
+    if paged["leaks"] or paged["live_after_stop"]:
+        problems.append(f"paged: leaks {paged['leaks']}")
+    sp = row["scripted_paged"]
+    if bits_differ or not sp["tokens_equal"] or sp["prefix_hits"] != 1 \
+            or sp["leaks"]:
+        problems.append(f"scripted paged engine: {sp}")
+    if cli["rc"] != 0 or len(cli["tokens"]) != LLM_NEW:
+        problems.append(f"CLI server: rc {cli['rc']}, "
+                        f"{len(cli['tokens'])} tokens: {cli['stderr']}")
+    if problems:
+        raise AssertionError("llm_stream: " + "; ".join(problems))
+    return {"launches": dense["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # the training paths
 # ---------------------------------------------------------------------------
 
@@ -2936,7 +3480,7 @@ def profile_llm_serve(steps: int, seed: int, out_dir: str, eager: bool,
 
 #: the metrics a profile_modes line puts side by side
 MODE_KEYS = ("fps", "p50_ms", "p90_ms", "p99_ms", "mean_fill",
-             "prefill_tok_s",
+             "prefill_tok_s", "served_tok_s",
              "device_busy_us_per_bucket", "host_launch_calls_per_bucket",
              "decode_tok_s_bucket8", "step_ms_p50", "step_ms_p90",
              "device_busy_us_per_unit", "device_idle_share",
@@ -3000,7 +3544,53 @@ def profiled_paths(args) -> dict:
             TRAIN_PER_STEP[name])
     paths["query_serve"] = functools.partial(
         profile_query_serve, args.seed, args.profile)
+    for mode in ("dense", "paged"):
+        paths[f"llm_stream_{mode}"] = functools.partial(
+            profile_llm_stream, mode, args.seed, args.profile)
     return paths
+
+
+def profile_llm_stream(mode: str, seed: int, out_dir: str, eager: bool,
+                       turn: int) -> dict:
+    """Trace the served ``tensor_llm`` string (``mode``: dense or paged)
+    in one mode: the server is started (its engine's graph set captured,
+    or, eager, each executable run once) before the trace, then the 16
+    clients' dense mix is traced; a unit is a decode step."""
+    from nnstreamer_tpu_torch import parse_launch
+    from nnstreamer_tpu_torch.llm import DecodeEngine
+    from nnstreamer_tpu_torch.query import shutdown_server
+
+    jobs = llm_jobs(seed, LLM_CLIENTS, LLM_REQUESTS, system=False)
+    props = LLM_DENSE if mode == "dense" else LLM_PAGED
+    kind = "eager" if eager else "graph"
+    sid = 9320 + turn
+    was = DecodeEngine._eager
+    DecodeEngine._eager = eager
+    run = {}
+    try:
+        p = parse_launch(llm_server(sid, 0, "llm", props, seed))
+        p.play()
+        try:
+            eng = p.get("llm").engine
+            steps, fill = eng.steps_total, eng.step_tokens
+            port = p.get("qsrc").bound_port
+            row = trace(f"llm_stream_{mode}_{kind}{turn}", out_dir,
+                        lambda: run.update(drive_token_clients(
+                            port, jobs, LLM_NEW)),
+                        lambda t0, t1: eng.steps_total - steps)
+            steps = eng.steps_total - steps
+            fill = (eng.step_tokens - fill) / max(1, steps)
+        finally:
+            p.stop()
+            shutdown_server(sid)
+    finally:
+        DecodeEngine._eager = was
+    if run["errors"]:
+        raise AssertionError(f"llm_stream profile: {run['errors'][:3]}")
+    row.update(path=f"llm_stream_{mode}", mode=kind, turn=turn,
+               served_tok_s=run["tok_s"], mean_fill=fill, steps=steps)
+    emit(row)
+    return row
 
 
 def profile_query_serve(seed: int, out_dir: str, eager: bool,
@@ -3209,6 +3799,7 @@ def main(argv=None) -> int:
             run_query_pace(args.seed, card)
         lm = run_lm_filter(args.lm_frames, args.seed, card)
         serve = run_llm_serve(args.steps, args.seed, card)
+        stream = run_llm_stream(args.seed, card)
         trains = train_runs(args)
         train_rows = {}
         for name, (launch, samples, unit) in trains.items():
@@ -3225,7 +3816,8 @@ def main(argv=None) -> int:
             # launches summed over every path's own run (graph mode)
             k["launches"] = sum(path["launches"].get(k["name"], 0)
                                 for path in (main_path, vit, lm, serve,
-                                             query, *batched.values(),
+                                             stream, query,
+                                             *batched.values(),
                                              *train_rows.values()))
             if k["launches"] == 0:
                 raise AssertionError(f"{k['name']} never launched on the "

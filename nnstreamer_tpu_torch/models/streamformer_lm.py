@@ -12,13 +12,16 @@ dict of tensors:
 - :func:`decode_step_pooled` — one continuous-batching step over a slot
   pool, updating the pool **in place** (the JAX package donates the
   pool into its executable; here the scatter writes into it);
+- :func:`decode_step_paged` / :func:`prefill_chunk_paged` — the same
+  step, and one bounded prompt chunk, over the block-paged arena of
+  ``llm/paged.py``, written in place; no host sync inside, so each runs
+  as one CUDA graph per padded shape;
 - :func:`decode_step` / :func:`generate` — the single-sequence cache and
   an eager greedy/sampled loop, in place of the ``lax.scan``.
 
 Numerics kept from the JAX package: the bias-free ``_ln`` in f32, matmuls
 in ``cfg.dtype``, the embedding sum, the router and the head in f32, and
-``jax.nn.gelu``'s tanh approximation.  The paged decode step and the
-chunked paged prefill wait for the paged pool (ROADMAP A8).
+``jax.nn.gelu``'s tanh approximation.
 """
 
 from __future__ import annotations
@@ -199,6 +202,120 @@ def decode_step_pooled(params: Dict[str, Any], k_pool: torch.Tensor,
         x = _mlp_residual(x + _out_proj(attn, lyr, cfg), lyr, cfg)
     logits = _ln(x.float(), params["ln_f"]) @ params["head"]
     return logits, k_pool, v_pool
+
+
+def _attend(q, kcur, vcur, valid, scale, lanes: str):
+    """Plain masked attention in f32: ``q (Q, H, Dh)`` against
+    ``kcur``/``vcur`` (``lanes="q"``: one ``(T, H, Dh)`` run per query,
+    ``""``: one run shared by every query), ``valid (Q, T)``."""
+    s = torch.einsum(f"qhd,{lanes}thd->qht", q.float(), kcur.float()) * scale
+    s = s.masked_fill(~valid[:, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum(f"qht,{lanes}thd->qhd", p, vcur.float())
+
+
+def decode_step_paged(params: Dict[str, Any], k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, tokens: torch.Tensor,
+                      pos: torch.Tensor, tables: torch.Tensor,
+                      cfg: StreamFormerConfig, page_size: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One continuous-batching decode step over a block-paged cache (the
+    vLLM/PagedAttention layout: a session's cache is a chain of
+    fixed-size pages named by a block table).
+
+    - ``k_pages``/``v_pages``: ``(P, L, page_size, H, Dh)``, one arena
+      shared by every session, the last page the caller's scratch page;
+      this step's K/V are written into them **in place** (the JAX
+      package donates the arena) and they are returned for parity;
+    - ``tokens``/``pos``: ``(B,)`` int per lane;
+    - ``tables``: ``(B, W)`` int — each lane's block table, page ``j``
+      holding positions ``[j*page_size, (j+1)*page_size)``, with
+      ``W*page_size > max(pos)``; entries past a lane's pages and every
+      entry of a padding lane point at the scratch page;
+    - returns ``(logits (B, vocab) f32, k_pages, v_pages)``.
+
+    Per layer: append the new K/V into the tail page (``tables[b,
+    pos//page_size]`` at offset ``pos % page_size``), gather the lane's
+    pages back as one ``W*page_size`` run and attend with the dense
+    step's causal-prefix mask.  Nothing here reads a value back to the
+    host, so one CUDA graph serves every lane content."""
+    ps = int(page_size)
+    b, w = tables.shape
+    span = w * ps
+    tokens, pos, tables = tokens.long(), pos.long(), tables.long()
+    x = _embed(params, tokens, pos, cfg)
+    valid = torch.arange(span, device=pos.device)[None, :] \
+        <= pos[:, None]                                       # (B, W*ps)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    # tail-page coordinates of this step's append
+    wpage = torch.gather(tables, 1, (pos // ps)[:, None])[:, 0]
+    woff = pos % ps
+    for li, lyr in enumerate(params["layers"]):
+        q, k, v = _qkv(x, lyr, cfg)                           # (B, H, Dh)
+        k_pages[wpage, li, woff] = k
+        v_pages[wpage, li, woff] = v
+        kcur = k_pages[tables, li].reshape(b, span, cfg.heads, cfg.head_dim)
+        vcur = v_pages[tables, li].reshape(b, span, cfg.heads, cfg.head_dim)
+        attn = _attend(q, kcur, vcur, valid, scale, "q")
+        x = _mlp_residual(x + _out_proj(attn, lyr, cfg), lyr, cfg)
+    logits = _ln(x.float(), params["ln_f"]) @ params["head"]
+    return logits, k_pages, v_pages
+
+
+def prefill_chunk_paged(params: Dict[str, Any], k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, tokens: torch.Tensor,
+                        table: torch.Tensor, start: torch.Tensor,
+                        true_len: torch.Tensor, cfg: StreamFormerConfig,
+                        page_size: int, scratch: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One bounded prefill chunk of a paged session: ``C`` prompt tokens
+    from absolute position ``start``, written into the session's pages
+    and attending over what the pages already hold (a shared prefix,
+    earlier chunks) plus the chunk itself, causally, so chaining chunks
+    gives the whole-prompt prefill's math.
+
+    - ``tokens (C,)`` int: the chunk, zero-padded past ``true_len``;
+    - ``table (W,)`` int: the session's block table, scratch-padded,
+      ``W*page_size >= start + true_len``;
+    - ``start``, ``true_len``, ``scratch``: 0-d or ``(1,)`` int device
+      tensors — the chunk's origin, its real length and the arena's
+      scratch page; being operands, not constants, one CUDA graph per
+      ``(C, W)`` serves every chunk of every prompt at every offset;
+    - returns ``(last_logits (vocab,) f32, k_pages, v_pages)``, the row of
+      position ``start + true_len - 1``, the pages written in place.
+
+    Padding queries write into the scratch page.  Where a padding query's
+    position runs past the table or the position embedding, its index is
+    clamped to the last entry (the JAX package's out-of-range gather
+    clamps the same way); its row is never read."""
+    ps = int(page_size)
+    c = tokens.shape[0]
+    w = table.shape[0]
+    span = w * ps
+    dev = tokens.device
+    tokens, table = tokens.long(), table.long()
+    start, true_len = start.long().reshape(()), true_len.long().reshape(())
+    ar = torch.arange(c, device=dev)
+    qpos = start + ar                                         # (C,)
+    qvalid = ar < true_len
+    x = _embed(params, tokens, qpos.clamp(max=cfg.max_seq - 1), cfg)
+    # key position t is visible to chunk query i iff t <= start + i
+    kvalid = torch.arange(span, device=dev)[None, :] <= qpos[:, None]
+    wpage = torch.where(qvalid, table[(qpos // ps).clamp(max=w - 1)],
+                        scratch.long().reshape(()))           # (C,)
+    woff = qpos % ps
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    for li, lyr in enumerate(params["layers"]):
+        q, k, v = _qkv(x, lyr, cfg)                           # (C, H, Dh)
+        k_pages[wpage, li, woff] = k
+        v_pages[wpage, li, woff] = v
+        kcur = k_pages[table, li].reshape(span, cfg.heads, cfg.head_dim)
+        vcur = v_pages[table, li].reshape(span, cfg.heads, cfg.head_dim)
+        attn = _attend(q, kcur, vcur, kvalid, scale, "")
+        x = _mlp_residual(x + _out_proj(attn, lyr, cfg), lyr, cfg)
+    logits = _ln(x.float(), params["ln_f"]) @ params["head"]
+    last = logits.index_select(0, (true_len - 1).reshape(1))[0]
+    return last, k_pages, v_pages
 
 
 def config_from_custom(custom: Mapping[str, Any], default_seq: int = 64,

@@ -24,20 +24,25 @@ PORT = os.path.dirname(nnstreamer_tpu_torch.__file__)
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "nnstreamer_tpu"}
 
 #: the flagship pipeline's elements, plus appsrc (the pipeline module's
-#: programmatic source), fakesink, the training slice's tensor_trainer
-#: and the query plane's three elements
+#: programmatic source), fakesink, the training slice's tensor_trainer,
+#: the query plane's three elements and the LLM tier's tensor_llm
 SLICE_ELEMENTS = ["appsrc", "capsfilter", "fakesink", "queue",
                   "tensor_converter", "tensor_decoder", "tensor_filter",
-                  "tensor_query_client", "tensor_query_serversink",
+                  "tensor_llm", "tensor_query_client",
+                  "tensor_query_serversink",
                   "tensor_query_serversrc", "tensor_sink", "tensor_trainer",
                   "videotestsrc"]
-#: the query plane's modules, the CLI and the native binding, each
-#: imported alone in a fresh interpreter
+#: the query plane's modules, the CLI, the native binding and the LLM
+#: serving tier, imported in a fresh interpreter
 QUERY_MODULES = ["nnstreamer_tpu_torch.query", "nnstreamer_tpu_torch.launch",
                  "nnstreamer_tpu_torch.native",
                  "nnstreamer_tpu_torch.obs.metrics",
                  "nnstreamer_tpu_torch.obs.span",
-                 "nnstreamer_tpu_torch.pipeline.tracing"]
+                 "nnstreamer_tpu_torch.pipeline.tracing",
+                 "nnstreamer_tpu_torch.llm",
+                 "nnstreamer_tpu_torch.llm.element",
+                 "nnstreamer_tpu_torch.llm.client",
+                 "nnstreamer_tpu_torch.obs.timeseries"]
 
 LAUNCH = ("videotestsrc num-buffers=2 ! "
           "video/x-raw,format=RGB,width=32,height=32,framerate=30/1 ! "
@@ -92,9 +97,9 @@ def test_pipeline_runs_without_loading_jax():
 
 
 def test_query_modules_load_without_jax():
-    """Each query-plane module, the CLI and the native binding, imported
-    in a fresh interpreter (and the CRC library built and loaded), load
-    no module of JAX or of the JAX package."""
+    """Each query-plane module, the CLI, the native binding and the LLM
+    tier's modules, imported in a fresh interpreter (and the CRC library
+    built and loaded), load no module of JAX or of the JAX package."""
     code = (
         "import importlib, sys\n"
         f"bad = {sorted(FORBIDDEN)!r}\n"

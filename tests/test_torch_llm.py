@@ -1,5 +1,5 @@
 """LLM serving tier (dense slot pool): the PyTorch port against the JAX
-package.
+package (the paged arena: ``test_torch_llm_paged.py``).
 
 The decode engine's greedy token streams — prompts prefilled at padded
 power-of-two lengths, sessions sharing one padded decode step — must equal
@@ -164,11 +164,17 @@ def test_retry_after_hint_tracks_soonest_finisher(model):
 
 
 def test_engine_refuses_paged_pool_and_bad_mode(model):
+    """A paged pool is served (block tables, chunked prefill); an unknown
+    prefill mode is refused."""
+    from nnstreamer_tpu_torch.llm import PagedKVCachePool
+
     _, _, tc, tp = model
-    pool = KVCachePool(tc, 2, device="cpu")
-    pool.page_size = 16
-    with pytest.raises(NotImplementedError, match="paged"):
-        DecodeEngine(tp, tc, pool, capacity=2)
+    pool = PagedKVCachePool(tc, 8, 16, slots=2, device="cpu")
+    eng = DecodeEngine(tp, tc, pool, capacity=2, chunk=16)
+    assert eng.paged and eng.chunk == 16
+    # the dense pool takes no chunk: its prompts prefill whole
+    assert DecodeEngine(tp, tc, KVCachePool(tc, 2, device="cpu"), 2,
+                        chunk=16).chunk == 0
     with pytest.raises(ValueError, match="prefill mode"):
         DecodeEngine(tp, tc, KVCachePool(tc, 2, device="cpu"), 2,
                      prefill_mode="chunked")
