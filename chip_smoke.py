@@ -1500,6 +1500,532 @@ def run_batched_paths(args, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the vision zoo: the JAX benchmark's ssd, deeplab and posenet strings
+# ---------------------------------------------------------------------------
+
+#: path -> (model, input size, decoder options): bench.py's configs ssd,
+#: deeplab and posenet (bench.py:973-992); ``{priors}`` is SSD's box
+#: priors file (bench.py's ``_ssd_priors_file`` recipe)
+ZOO_PATHS = {
+    "detect": ("ssd_mobilenet_v2", 300,
+               "mode=bounding_boxes option1=mobilenet-ssd option3={priors} "
+               "option4=300:300 option5=300:300"),
+    "segment": ("deeplab_v3", 257, "mode=image_segment"),
+    "pose": ("posenet", 257,
+             "mode=pose_estimation option1=257:257 option2=257:257"),
+}
+ZOO_LAUNCH = ("videotestsrc num-buffers={frames} pattern=random seed={seed} ! "
+              "video/x-raw,format=RGB,width={size},height={size},"
+              "framerate=30/1 ! tensor_converter ! "
+              "tensor_filter name=f framework=xla model={model} "
+              "custom=seed:0 ! tensor_decoder {decoder} ! "
+              "tensor_sink name=out")
+#: keypoints of the pushdown against the host decode (f32 on the card,
+#: f64 on the host)
+KEYPOINT_ATOL = 1e-5
+#: box corners of the device NMS against the host decode, and of the
+#: card's NMS against the CPU's over the same raw heads
+BOX_ATOL = 1e-5
+#: f32 card against CPU, TF32 off: summation order only
+F32_ZOO_ATOL = 1e-3
+
+
+def zoo_priors() -> str:
+    """SSD's box priors at 300x300 (cy cx h w rows x anchors), written
+    once into the build directory by the JAX benchmark's recipe
+    (``default_rng(0)``; bench.py ``_ssd_priors_file``)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.models.ssd import anchor_count
+
+    n = anchor_count(ZOO_PATHS["detect"][1])
+    path = os.path.join(HERE, "nnstreamer_tpu_torch", "_build",
+                        f"ssd_priors_{n}.txt")
+    if not os.path.exists(path):
+        rng = np.random.default_rng(0)
+        rows = (rng.random(n), rng.random(n), np.full(n, 0.2),
+                np.full(n, 0.2))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w", encoding="utf-8") as f:
+            for row in rows:
+                f.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+    return path
+
+
+def zoo_decoder(path: str) -> str:
+    return ZOO_PATHS[path][2].format(priors=zoo_priors())
+
+
+def zoo_launch(path: str, frames: int, seed: int, batch: int = 1,
+               pushdown: bool = True) -> str:
+    model, size, _ = ZOO_PATHS[path]
+    decoder = f"{zoo_decoder(path)} pushdown={str(pushdown).lower()}"
+    if batch > 1:
+        return BATCHED_LAUNCH.format(
+            frames=frames, cache="cache-frames", size=size, model=model,
+            custom="seed:0", batch=batch, inflight=1,
+            depth=max(8, 2 * batch),
+            tail=f"tensor_decoder {decoder} ! tensor_sink name=out")
+    return ZOO_LAUNCH.format(frames=frames, seed=seed, size=size,
+                             model=model, decoder=decoder)
+
+
+def zoo_reduction(path: str, out_info):
+    """The decoder of ``path``'s string, configured by its options, and
+    its device reduction for a model of ``out_info``."""
+    from nnstreamer_tpu_torch.decoders import find_decoder
+    from nnstreamer_tpu_torch.tensor.info import TensorsConfig
+
+    opts = dict(kv.split("=", 1) for kv in zoo_decoder(path).split())
+    dec = find_decoder(opts.pop("mode"))()
+    for key, value in opts.items():
+        dec.set_option(int(key[len("option"):]), value)
+    fn, _ = dec.device_reduce_spec(TensorsConfig(info=out_info))
+    return dec, fn
+
+
+def zoo_result(path: str, buf):
+    """What a decoded frame of ``path`` carries: the detected objects
+    (class, score, corners), the class map, or the keypoints."""
+    import numpy as np
+
+    if path == "detect":
+        return [(o.class_id, o.score, o.ymin, o.xmin, o.ymax, o.xmax)
+                for o in buf.extra["objects"]]
+    if path == "segment":
+        return buf.extra["class_map"]
+    return np.array(buf.extra["keypoints"], np.float64)
+
+
+def zoo_equal(path: str, a, b) -> bool:
+    if path == "detect":
+        return a == b
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def run_zoo(path: str, frames: int, seed: int, card: str, batch: int = 1,
+            eager: bool = False, pushdown: bool = True) -> dict:
+    """Drive one zoo string in one mode.  Checks: every frame decoded; no
+    kernel of the port launched (the zoo models preprocess with the plain
+    cast and scale, and no TPU kernel is behind their decoders); in graph
+    mode every capture made before the first frame reached the sink (per
+    frame: the open's and, with the pushdown, the fused forward's;
+    batched: the per-frame and batched forwards, each again fused) and a
+    replay a frame or bucket; the compile ledger's events."""
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.analysis import compileledger
+
+    stamps, captures_at = [], []
+
+    def on_data(buf):
+        stamps.append(time.perf_counter())
+        captures_at.append(_cuda.graphs["captures"])
+
+    _cuda.reset_launches()
+    compileledger.reset()
+    p = parse_launch(zoo_launch(path, frames, seed, batch, pushdown))
+    p.get("out").connect("new-data", on_data)
+    t0 = time.perf_counter()
+    with eager_filters(eager):
+        p.run(timeout=900)
+    wall = time.perf_counter() - t0
+    launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
+    results = p.get("out").results
+    if len(results) != frames:
+        raise AssertionError(f"{path}: {len(results)} decoded frames of "
+                             f"{frames}")
+    gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+    sites = 1 + int(pushdown)           # open, then fused
+    if batch > 1:
+        units = -(-frames // batch)
+        want_ledger = {"filter.jitexec.invoke": sites,
+                       "filter.jitexec.vmap": sites}
+        captures = 2 * sites
+    else:
+        units = frames
+        want_ledger = {"filter.jitexec.invoke": sites}
+        captures = sites
+    row = {"phase": f"{path}_path", "model": ZOO_PATHS[path][0],
+           "batch": batch, "mode": "eager" if eager else "graph",
+           "pushdown": pushdown, "frames": frames, "launches": launches,
+           "graphs": graphs, "compile_ledger": compileledger.snapshot(),
+           "fps": (len(stamps) - 1) / (stamps[-1] - stamps[0]),
+           "p50_gap_ms": statistics.median(gaps),
+           "p90_gap_ms": gaps[int(0.9 * (len(gaps) - 1))],
+           "wall_s_incl_open": wall, "card": card}
+    emit(row)
+    if launches:
+        raise AssertionError(f"{path}: kernels of the port launched on a "
+                             f"path that has none: {launches}")
+    if graphs != graph_counts(eager, captures, units):
+        raise AssertionError(f"{path} (batch {batch}, {row['mode']}): "
+                             f"graphs {graphs}, expected {captures} "
+                             f"captures and {units} replays")
+    if captures_at and captures_at[0] != graphs.get("captures", 0):
+        raise AssertionError(f"{path} (batch {batch}): captures inside "
+                             "the stream")
+    if row["compile_ledger"] != want_ledger:
+        raise AssertionError(f"{path} (batch {batch}): compile ledger "
+                             f"{row['compile_ledger']}, expected "
+                             f"{want_ledger}")
+    return {"results": [zoo_result(path, b) for b in results],
+            "fps": row["fps"], "launches": launches}
+
+
+def zoo_results_equal(path: str, what: str, a: dict, b: dict) -> None:
+    """Two runs' decoded frames, frame by frame, exactly."""
+    differ = [i for i, (x, y) in enumerate(zip(a["results"], b["results"]))
+              if not zoo_equal(path, x, y)]
+    emit({"phase": "graph_vs_eager", "path": path, "what": what,
+          "frames": len(a["results"]),
+          "decoded_equal": len(a["results"]) - len(differ),
+          "fps": {"graph": a["fps"], "eager": b["fps"]}})
+    if differ or len(a["results"]) != len(b["results"]):
+        raise AssertionError(f"{path}: {what} differ on frames {differ}")
+
+
+def check_zoo_graph_outputs(path: str, seed: int) -> None:
+    """The filter's raw outputs and its outputs fused with the decoder's
+    reduction, per frame (8 frames) and batched (a bucket of 32 and a
+    padded one of 20), in graph mode against eager mode, bit for bit."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.filter import FilterSingle
+
+    model, size, _ = ZOO_PATHS[path]
+    imgs = source_frames(GRAPH_LOGITS_FRAMES, seed, size)
+    bucket = [[f] for f in source_frames(BATCH + 20, SOURCE_SEED, size)]
+
+    def batched(fw):
+        handles = [fw.invoke_batched(bucket[:BATCH], BATCH),
+                   fw.invoke_batched(bucket[BATCH:], BATCH)]
+        return [row for h in handles for row in h.wait()]
+
+    outs = {}
+    for eager in (False, True):
+        with eager_filters(eager):
+            with FilterSingle(framework="xla", model=model,
+                              custom="seed:0") as single:
+                fw = single.fw
+                fw.warmup_batched(BATCH)
+                raw = [[o.cpu() for o in fw.invoke([img])] for img in imgs]
+                raw_b = batched(fw)
+                _, fn = zoo_reduction(path, fw.get_model_info()[1])
+                fw.set_postprocess(fn)
+                fw.warmup_batched(BATCH)
+                red = [[o.cpu() for o in fw.invoke([img])] for img in imgs]
+                red_b = batched(fw)
+                torch.cuda.synchronize()
+        outs[eager] = {"raw": raw, "reduced": red, "raw_batched": raw_b,
+                       "reduced_batched": red_b}
+    counts = {}
+    for key, graph in outs[False].items():
+        eager = outs[True][key]
+        same = [all(np.array_equal(np.asarray(a), np.asarray(b))
+                    for a, b in zip(g, e)) for g, e in zip(graph, eager)]
+        counts[key] = [sum(same), len(same)]
+        if not all(same) or len(graph) != len(eager):
+            emit({"phase": "graph_vs_eager", "path": path,
+                  "outputs_bit_equal": counts})
+            raise AssertionError(f"{path}: {key} graph outputs differ from "
+                                 "eager")
+    emit({"phase": "graph_vs_eager", "path": path, "model": model,
+          "outputs_bit_equal": counts})
+
+
+def check_zoo_outputs(path: str, card: str) -> None:
+    """The model of ``path`` directly on the cached frames of the batched
+    string: finite outputs of the registry's shapes; the batched forward
+    within the bf16 bound (LOGITS_ATOL/RTOL) of the per-frame one; in f32
+    with TF32 off, the card within F32_ZOO_ATOL of the CPU on two frames;
+    for SSD, the decoder's device NMS on the card against the same
+    reduction on the CPU over the fetched raw heads (classes, scores and
+    survivor counts exact, corners within BOX_ATOL)."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.models.registry import get_model
+
+    name, size, _ = ZOO_PATHS[path]
+    model = get_model(name, {"seed": "0"})
+    imgs = torch.from_numpy(np.stack(
+        source_frames(CACHED, SOURCE_SEED, size))).cuda()
+    with torch.inference_mode():
+        batched = [torch.cat(parts) for parts in zip(
+            *(model.batched(imgs[i:i + BATCH])
+              for i in range(0, CACHED, BATCH)))]
+        per_frame = [torch.stack(parts) for parts in zip(
+            *(model.module(x) for x in imgs))]
+    row = {"phase": f"{path}_outputs", "model": name, "frames": CACHED,
+           "atol": LOGITS_ATOL, "rtol": LOGITS_RTOL, "card": card,
+           "outputs": []}
+    bad = []
+    for i, (b, p) in enumerate(zip(batched, per_frame)):
+        want = (CACHED,) + model.out_info[i].np_shape
+        diff = (b - p).abs()
+        over = int((diff > LOGITS_ATOL + LOGITS_RTOL * p.abs()).sum())
+        row["outputs"].append({
+            "shape": list(b.shape), "finite": bool(torch.isfinite(b).all()),
+            "max_abs": p.abs().max().item(),
+            "batched_max_abs_diff_vs_per_frame": diff.max().item(),
+            "over_tolerance": over})
+        if tuple(b.shape) != want or not torch.isfinite(b).all() or over:
+            bad.append(f"output {i}: shape {tuple(b.shape)} (want {want}), "
+                       f"{over} beyond the bf16 bound")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        f32 = {"seed": "0", "dtype": "float32"}
+        gpu = get_model(name, f32).module
+        cpu = get_model(name, f32, device="cpu").module
+        worst = 0.0
+        with torch.inference_mode():
+            for x in imgs[:2]:
+                for a, b in zip(gpu(x), cpu(x.cpu())):
+                    worst = max(worst, (a.cpu() - b).abs().max().item())
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    row.update(f32_card_vs_cpu_max_abs_diff=worst, f32_atol=F32_ZOO_ATOL)
+    if worst > F32_ZOO_ATOL:
+        bad.append(f"f32 card differs from the CPU by {worst}")
+    if path == "detect":
+        _, fn = zoo_reduction(path, model.out_info)
+        counts, box_diff, differ = [], 0.0, []
+        with torch.inference_mode():
+            for j in range(GRAPH_LOGITS_FRAMES):
+                raw = [o[j] for o in per_frame]
+                card_out = [t.cpu() for t in fn(raw)]
+                cpu_out = fn([t.cpu() for t in raw])
+                counts.append(int(card_out[3][0]))
+                box_diff = max(box_diff, (card_out[0] - cpu_out[0]).abs()
+                               .max().item())
+                if not all(torch.equal(card_out[k], cpu_out[k])
+                           for k in (1, 2, 3)):
+                    differ.append(j)
+        row.update(nms_card_vs_cpu={"frames": GRAPH_LOGITS_FRAMES,
+                                    "survivors": counts,
+                                    "frames_differ": differ,
+                                    "box_max_abs_diff": box_diff,
+                                    "box_atol": BOX_ATOL})
+        if differ or box_diff > BOX_ATOL:
+            bad.append(f"device NMS differs from the CPU's on frames "
+                       f"{differ} (corners by {box_diff})")
+    emit(row)
+    if bad:
+        raise AssertionError(f"{path}: " + "; ".join(bad))
+
+
+def ssd_candidate_cut(frames, seed: int):
+    """Per frame of the per-frame string: the score at which the decoder's
+    DETECTION_MAX candidate cut falls, and whether it falls on a tie (the
+    candidates ranked DETECTION_MAX and DETECTION_MAX + 1 score equal);
+    None where fewer candidates pass the threshold."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.decoders.boundingbox import (
+        DEFAULT_THRESHOLD, DETECTION_MAX)
+    from nnstreamer_tpu_torch.models.registry import get_model
+
+    model = get_model(ZOO_PATHS["detect"][0], {"seed": "0"})
+    cuts = []
+    with torch.inference_mode():
+        for img in source_frames(frames, seed, ZOO_PATHS["detect"][1]):
+            _, scores = model.module(torch.from_numpy(img).cuda())
+            sc = np.sort(scores[:, 1:].amax(1).cpu().numpy())[::-1]
+            sc = sc[sc >= DEFAULT_THRESHOLD]
+            if len(sc) <= DETECTION_MAX:
+                cuts.append(None)
+            else:
+                cut = float(sc[DETECTION_MAX - 1])
+                cuts.append((cut, cut == float(sc[DETECTION_MAX])))
+    return cuts
+
+
+def check_zoo_pushdown_vs_host(path: str, device: dict, host: dict,
+                               seed: int) -> None:
+    """The device pushdown's decoded frames against the host decode's
+    (``pushdown=false``) over the same frames: class maps exactly,
+    keypoints within KEYPOINT_ATOL; detected objects equal in class and
+    score and within BOX_ATOL in their corners — where the candidate cut
+    falls on a tied score the two pick different candidates among the
+    tie, and only the objects scored above the tie are compared."""
+    import numpy as np
+
+    row = {"phase": "pushdown_vs_host", "path": path,
+           "frames": len(device["results"]),
+           "fps": {"pushdown": device["fps"], "host": host["fps"]}}
+    differ = []
+    if path == "detect":
+        cuts = ssd_candidate_cut(len(device["results"]), seed)
+        ties, compared = [], 0
+        for i, (d, h, cut) in enumerate(zip(device["results"],
+                                            host["results"], cuts)):
+            if cut is not None and cut[1]:
+                ties.append(i)
+                d = [o for o in d if o[1] > cut[0]]
+                h = [o for o in h if o[1] > cut[0]]
+            compared += len(d)
+            if len(d) != len(h) or any(
+                    a[:2] != b[:2] or max(abs(x - y) for x, y in
+                                          zip(a[2:], b[2:])) > BOX_ATOL
+                    for a, b in zip(d, h)):
+                differ.append(i)
+        row.update(objects_compared=compared, cut_on_a_tie=ties,
+                   objects_per_frame=[len(d) for d in device["results"]],
+                   box_atol=BOX_ATOL)
+    else:
+        worst = 0.0
+        for i, (d, h) in enumerate(zip(device["results"],
+                                       host["results"])):
+            if path == "segment":
+                ok = d.shape == h.shape and bool((d == h).all())
+            else:
+                err = float(np.abs(d - h).max())
+                worst = max(worst, err)
+                ok = d.shape == h.shape and err <= KEYPOINT_ATOL
+            if not ok:
+                differ.append(i)
+        if path == "pose":
+            row.update(keypoint_max_abs_diff=worst,
+                       keypoint_atol=KEYPOINT_ATOL)
+    row["frames_differ"] = differ
+    emit(row)
+    if differ:
+        raise AssertionError(f"{path}: the pushdown's decoded frames differ "
+                             f"from the host decode's on frames {differ}")
+
+
+def time_nms_scan(seed: int, reps: int, card: str) -> None:
+    """SSD's forward graph alone and fused with the decoder's device NMS,
+    per frame and as a 32-frame bucket: device time of one replay (the
+    replays queued back to back) and the NMS tail's share of the fused
+    graph; and the torch operations one NMS call dispatches (a count of
+    the non-view aten calls of an eager run, roughly its kernels)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from nnstreamer_tpu_torch.filter import FilterSingle
+    from nnstreamer_tpu_torch.filter.backends._torchexec import INVOKE_SITE
+
+    class _Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    model, size, _ = ZOO_PATHS["detect"]
+    ms = {}
+    with FilterSingle(framework="xla", model=model,
+                      custom="seed:0") as single:
+        fw = single.fw
+        fw.warmup_batched(BATCH)
+        raw = fw.invoke([source_frames(1, seed, size)[0]])
+        graphs = {"model": dict(fw._execs)}
+        _, fn = zoo_reduction("detect", fw.get_model_info()[1])
+        fw.set_postprocess(fn)
+        fw.warmup_batched(BATCH)
+        graphs["model+nms"] = dict(fw._execs)
+        for name, execs in graphs.items():
+            for (site, _sig), graph in execs.items():
+                unit = "frame" if site == INVOKE_SITE else "bucket"
+                ms[f"{name}_per_{unit}"] = time_ms(graph.graph.replay,
+                                                   reps=max(reps // 4, 20))
+    count = _Count()
+    with torch.inference_mode(), count:
+        fn(raw)
+    row = {"phase": "nms_scan", "card": card, "replay_ms": ms,
+           "nms_share_per_frame": 1 - ms["model_per_frame"]
+           / ms["model+nms_per_frame"],
+           "nms_share_per_bucket": 1 - ms["model_per_bucket"]
+           / ms["model+nms_per_bucket"],
+           "nms_ms_per_frame": ms["model+nms_per_frame"]
+           - ms["model_per_frame"],
+           "nms_ms_per_bucket": ms["model+nms_per_bucket"]
+           - ms["model_per_bucket"],
+           "aten_ops_per_nms_call": count.ops}
+    emit(row)
+
+
+def run_zoo_paths(args, card: str) -> dict:
+    """detect_path, segment_path and pose_path: each string per frame and
+    batched, in graph mode then eagerly (decoded frames equal), the raw
+    and reduced outputs graph against eager bit for bit, the model's
+    outputs checked, and the pushdown held to the host decode; then the
+    NMS tail timed.  Returns path -> the graph runs' rows."""
+    rows = {}
+    for path in ZOO_PATHS:
+        graph = run_zoo(path, args.frames, args.seed, card)
+        eager = run_zoo(path, args.frames, args.seed, card, eager=True)
+        zoo_results_equal(path, "per-frame decoded frames", graph, eager)
+        batched = run_zoo(path, args.batched_frames, args.seed, card,
+                          batch=BATCH)
+        batched_eager = run_zoo(path, args.batched_frames, args.seed, card,
+                                batch=BATCH, eager=True)
+        zoo_results_equal(path, "batched decoded frames", batched,
+                          batched_eager)
+        check_zoo_graph_outputs(path, args.seed)
+        check_zoo_outputs(path, card)
+        host = run_zoo(path, args.frames, args.seed, card, pushdown=False)
+        check_zoo_pushdown_vs_host(path, graph, host, args.seed)
+        rows[f"{path}_b1"], rows[f"{path}_batched"] = graph, batched
+    time_nms_scan(args.seed, args.reps, card)
+    return rows
+
+
+#: the transform on frames resident on the card: normalize then move the
+#: channel axis first, each tensor_transform on the device (acceleration
+#: true) or through numpy (false)
+TRANSFORM_LAUNCH = (
+    "videotestsrc num-buffers={frames} pattern=random device-cache=64 ! "
+    "video/x-raw,format=RGB,width=224,height=224,framerate=120/1 ! "
+    "tensor_converter ! tensor_transform mode=arithmetic "
+    "option=typecast:float32,add:-127.5,div:127.5 acceleration={acc} ! "
+    "tensor_transform mode=transpose option=1:2:0:3 acceleration={acc} ! "
+    "tensor_sink name=out")
+
+
+def run_transform_path(frames: int, card: str) -> None:
+    """tensor_transform on device-resident frames, on the card, against
+    the same string through numpy: every frame equal bit for bit, and the
+    device run's frames left on the card."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch import parse_launch
+
+    out = {}
+    for acc in ("true", "false"):
+        p = parse_launch(TRANSFORM_LAUNCH.format(frames=frames, acc=acc))
+        t0 = time.perf_counter()
+        p.run(timeout=600)
+        wall = time.perf_counter() - t0
+        results = p.get("out").results
+        out[acc] = {"on_card": all(isinstance(b.tensors[0], torch.Tensor)
+                                   and b.tensors[0].is_cuda
+                                   for b in results),
+                    "frames": [b.np(0) for b in results], "wall_s": wall}
+    differ = [i for i, (a, b) in enumerate(zip(out["true"]["frames"],
+                                               out["false"]["frames"]))
+              if a.dtype != b.dtype or not np.array_equal(a, b)]
+    emit({"phase": "transform_path", "frames": frames, "card": card,
+          "shape": list(out["true"]["frames"][0].shape),
+          "dtype": str(out["true"]["frames"][0].dtype),
+          "device_frames_on_card": out["true"]["on_card"],
+          "frames_equal": frames - len(differ),
+          "wall_s": {"device": out["true"]["wall_s"],
+                     "numpy": out["false"]["wall_s"]}})
+    if differ or not out["true"]["on_card"] \
+            or len(out["true"]["frames"]) != frames:
+        raise AssertionError(f"transform_path: the device transform differs "
+                             f"from numpy on frames {differ} (on the card: "
+                             f"{out['true']['on_card']})")
+
+
+# ---------------------------------------------------------------------------
 # the query plane: the README's query pair, served from the card
 # ---------------------------------------------------------------------------
 
@@ -3538,6 +4064,17 @@ def profiled_paths(args) -> dict:
             args.batched_frames, SOURCE_SEED, args.profile,
             "normalize_frame_kernel" if kernel == "normalize_frame"
             else K2_MARKER, per_replay / BATCH, batch=BATCH)
+    for path in ZOO_PATHS:
+        for suffix, batch, pushdown in (("b1", 1, True),
+                                        ("batched", BATCH, True),
+                                        ("b1_host", 1, False)):
+            if suffix == "b1_host" and path != "detect":
+                continue
+            frames = args.frames if batch == 1 else args.batched_frames
+            paths[f"{path}_{suffix}"] = functools.partial(
+                profile_path, f"{path}_{suffix}",
+                zoo_launch(path, frames, args.seed, batch, pushdown),
+                frames, args.seed, args.profile, None, 1, batch=batch)
     for name, (launch, samples, _) in train_runs(args).items():
         paths[name] = functools.partial(
             profile_train, name, launch, samples, args.profile,
@@ -3794,6 +4331,8 @@ def main(argv=None) -> int:
                            GRAPH_LOGITS_FRAMES, args.seed)
         check_vit_outputs(vit["labels"], args.vit_frames, args.seed)
         batched = run_batched_paths(args, card)
+        zoo = run_zoo_paths(args, card)
+        run_transform_path(args.frames, card)
         query = run_query_serve(args, card)
         if args.profile:
             run_query_pace(args.seed, card)
@@ -3818,6 +4357,7 @@ def main(argv=None) -> int:
                                 for path in (main_path, vit, lm, serve,
                                              stream, query,
                                              *batched.values(),
+                                             *zoo.values(),
                                              *train_rows.values()))
             if k["launches"] == 0:
                 raise AssertionError(f"{k['name']} never launched on the "

@@ -65,5 +65,18 @@ def list_decoders():
 
 
 def _ensure_loaded() -> None:
-    from . import imagelabel  # noqa: F401 - the slice's one decoder
+    # serialize (flatbuf/protobuf/python payloads) waits for the
+    # utils it needs; lower_decode (the fuse-xla hook) for that tier
+    from . import (boundingbox, directvideo, font, imagelabel,  # noqa: F401
+                   imagesegment, pose)
+
+
+def squeeze_leading(arr, want_ndim: int):
+    """Strip leading unit (batch) dims down to ``want_ndim`` — real
+    tflite/pb graphs emit (1, ...) outputs while reference dims are
+    1-padded the same way.  Plain indexing, so a device tensor stays a
+    view on its device (no host sync)."""
+    while arr is not None and arr.ndim > want_ndim and arr.shape[0] == 1:
+        arr = arr[0]
+    return arr
 

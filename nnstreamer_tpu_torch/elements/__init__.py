@@ -1,9 +1,10 @@
 """Element library of the port.  Importing this package registers every
 element factory the port has (the reference's plugin registerer role,
 gst/nnstreamer/registerer/nnstreamer.c:91-133): the flagship
-image-labeling pipeline's elements, ``tensor_trainer``, the query
-plane's ``tensor_query_serversrc``/``serversink``/``client`` and the LLM
-serving tier's ``tensor_llm``.
+image-labeling pipeline's elements, ``tensor_transform``,
+``tensor_trainer``, the query plane's
+``tensor_query_serversrc``/``serversink``/``client`` and the LLM serving
+tier's ``tensor_llm``.
 """
 
 from .converter import TensorConverter
@@ -12,9 +13,10 @@ from .filter_elem import TensorFilter
 from .sink import FakeSink, TensorSink
 from .src import VideoTestSrc
 from .trainer import TensorTrainer
+from .transform import TensorTransform
 from ..llm import element as _llm_element  # noqa: F401
 from ..query import client as _query_client  # noqa: F401
 from ..query import server as _query_server  # noqa: F401
 
 __all__ = ["FakeSink", "TensorConverter", "TensorDecoder", "TensorFilter",
-           "TensorSink", "TensorTrainer", "VideoTestSrc"]
+           "TensorSink", "TensorTrainer", "TensorTransform", "VideoTestSrc"]

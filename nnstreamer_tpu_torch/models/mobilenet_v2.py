@@ -26,7 +26,7 @@ by (0, 1), not (1, 1); :class:`_SameConv2d` reproduces it exactly.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,6 +107,31 @@ class _InvertedResidual(nn.Module):
         return y + x if self.residual else y
 
 
+def inverted_residuals(cin: int, cfg=_INVERTED_RESIDUAL_CFG, c=int
+                       ) -> Tuple[List[_InvertedResidual], int]:
+    """The inverted residual stack of ``cfg`` after a stem of ``cin``
+    channels, each stage's channels through ``c`` (the width rounding);
+    returns the blocks and the last stage's channels."""
+    blocks: List[nn.Module] = []
+    for t, ch, n, s in cfg:
+        for i in range(n):
+            blocks.append(_InvertedResidual(cin, c(ch), s if i == 0 else 1, t))
+            cin = c(ch)
+    return blocks, cin
+
+
+def frames_nchw(frame: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint8 ``([B,] H, W, 3)`` → ``(B, 3, H, W)`` in [-1, 1] in ``dtype``
+    (the JAX models' plain ``frame.astype(dtype) * (1/127.5) - 1``), a
+    view whose memory is channels_last."""
+    from ..ops.preprocess import cast_then_scale
+
+    x = cast_then_scale(frame, dtype)
+    if frame.dim() == 3:
+        x = x.unsqueeze(0)
+    return x.permute(0, 3, 1, 2)
+
+
 class MobileNetV2(nn.Module):
     """MobileNetV2 classifier over one uint8 HWC frame."""
 
@@ -121,13 +146,7 @@ class MobileNetV2(nn.Module):
         self.dtype = dtype
         self.use_pallas = use_pallas
         self.stem = _ConvBN(3, c(32), 3, 2)
-        blocks: List[nn.Module] = []
-        cin = c(32)
-        for t, ch, n, s in _INVERTED_RESIDUAL_CFG:
-            for i in range(n):
-                blocks.append(_InvertedResidual(cin, c(ch), s if i == 0 else 1,
-                                                t))
-                cin = c(ch)
+        blocks, cin = inverted_residuals(c(32), c=c)
         self.blocks = nn.Sequential(*blocks)
         last = c(1280) if width > 1.0 else 1280
         self.head = _ConvBN(cin, last, 1)
@@ -156,6 +175,15 @@ class MobileNetV2(nn.Module):
             # HWC → NCHW view whose memory is already channels_last
             return (self.logits(x.permute(2, 0, 1).unsqueeze(0))[0],)
         return (self.logits(x.permute(0, 3, 1, 2)),)
+
+    def flax_targets(self):
+        """(flax leaf path, state_dict key, transpose) for every leaf, in
+        the order flax auto-names the submodules."""
+        yield from convbn_targets("stem.", ("_ConvBN_0",))
+        yield from ir_targets(self.blocks, "blocks.")
+        yield from convbn_targets("head.", ("_ConvBN_1",))
+        yield ("params", "Dense_0", "kernel"), "classifier.weight", (1, 0)
+        yield ("params", "Dense_0", "bias"), "classifier.bias", None
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -192,30 +220,34 @@ def _bn_targets(prefix: str, path: Tuple[str, ...]):
         prefix + "running_var", None
 
 
-def _convbn_targets(prefix: str, path: Tuple[str, ...]):
+def convbn_targets(prefix: str, path: Tuple[str, ...]):
+    """A ``_ConvBN`` at flax ``path`` onto the torch module at ``prefix``."""
     yield from _conv_targets(prefix + "conv.", path)
     yield from _bn_targets(prefix + "bn.", path)
 
 
-def _targets(model: MobileNetV2) -> Iterator[Tuple[Tuple[str, ...], str, Any]]:
-    """(flax leaf path, torch state_dict key, transpose) for every leaf,
-    in the order flax auto-names the submodules."""
-    yield from _convbn_targets("stem.", ("_ConvBN_0",))
-    for i, blk in enumerate(model.blocks):
+def conv_bias_targets(prefix: str, name: str):
+    """A top-level flax ``nn.Conv`` with bias (``name``, e.g. ``Conv_0``)
+    onto an ``nn.Conv2d`` at ``prefix``."""
+    yield ("params", name, "kernel"), prefix + "weight", (3, 2, 0, 1)
+    yield ("params", name, "bias"), prefix + "bias", None
+
+
+def ir_targets(blocks, prefix: str):
+    """The inverted residuals ``blocks`` (flax ``_InvertedResidual_0..``)
+    onto the torch modules at ``prefix`` + their index."""
+    for i, blk in enumerate(blocks):
         path = (f"_InvertedResidual_{i}",)
-        pre = f"blocks.{i}."
+        pre = f"{prefix}{i}."
         n = 0
         if blk.expand is not None:
-            yield from _convbn_targets(pre + "expand.",
-                                       path + (f"_ConvBN_{n}",))
+            yield from convbn_targets(pre + "expand.",
+                                      path + (f"_ConvBN_{n}",))
             n += 1
-        yield from _convbn_targets(pre + "depthwise.",
-                                   path + (f"_ConvBN_{n}",))
+        yield from convbn_targets(pre + "depthwise.",
+                                  path + (f"_ConvBN_{n}",))
         yield from _conv_targets(pre + "project.", path)
         yield from _bn_targets(pre + "project_bn.", path)
-    yield from _convbn_targets("head.", ("_ConvBN_1",))
-    yield ("params", "Dense_0", "kernel"), "classifier.weight", (1, 0)
-    yield ("params", "Dense_0", "bias"), "classifier.bias", None
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
@@ -228,11 +260,11 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
-def params_from_flax(variables: Mapping, model: MobileNetV2
+def params_from_flax(variables: Mapping, model: nn.Module
                      ) -> Dict[str, torch.Tensor]:
-    """Map the JAX package's MobileNetV2 variables (``{"params": ...,
-    "batch_stats": ...}``, leaves as numpy arrays) onto ``model``'s
-    ``state_dict`` keys:
+    """Map the JAX package's variables of a MobileNetV2-family model
+    (``{"params": ..., "batch_stats": ...}``, leaves as numpy arrays) onto
+    ``model``'s ``state_dict`` keys, along ``model.flax_targets()``:
 
     - conv kernels HWIO → OIHW (depthwise ``(3,3,1,C)`` → ``(C,1,3,3)``);
     - Dense ``(in, out)`` → Linear ``(out, in)``;
@@ -245,7 +277,7 @@ def params_from_flax(variables: Mapping, model: MobileNetV2
     state = model.state_dict()
     used = set()
     out: Dict[str, torch.Tensor] = {}
-    for path, key, perm in _targets(model):
+    for path, key, perm in model.flax_targets():
         if path not in leaves:
             raise KeyError(f"flax variables lack {'/'.join(path)}")
         if path in used or key in out:
@@ -270,7 +302,7 @@ def params_from_flax(variables: Mapping, model: MobileNetV2
     return out
 
 
-def load_flax(model: MobileNetV2, variables: Mapping) -> MobileNetV2:
+def load_flax(model: nn.Module, variables: Mapping) -> nn.Module:
     """Copy the JAX package's variables into ``model`` in place."""
     model.load_state_dict(params_from_flax(variables, model), strict=False)
     return model

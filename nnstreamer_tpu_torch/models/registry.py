@@ -63,7 +63,8 @@ def register_model(name: str, trainable: bool = False):
 
 
 def _ensure_loaded() -> None:
-    from . import mlp, mobilenet_v2, streamformer_lm, vit  # noqa: F401
+    from . import (deeplab_v3, mlp, mobilenet_v2, posenet,  # noqa: F401
+                   ssd, streamformer_lm, vit)
 
 
 def get_model(name: str, custom_props: Optional[Dict[str, str]] = None,

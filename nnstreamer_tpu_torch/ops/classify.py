@@ -17,3 +17,11 @@ def top1(scores: torch.Tensor) -> torch.Tensor:
     reduction.  Ties go to the first maximal index, as ``jnp.argmax``."""
     return torch.argmax(scores.reshape(-1)).to(torch.int32).reshape(1)
 
+
+def topk_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k flattened indices, descending, as ``(k,)`` int32 — the
+    multi-label generalization.  Equal scores keep the lower index first,
+    as ``lax.top_k`` does (a stable sort: ``torch.topk`` on CUDA promises
+    no order among ties)."""
+    _, idx = torch.sort(scores.reshape(-1), descending=True, stable=True)
+    return idx[:k].to(torch.int32)

@@ -25,13 +25,14 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "nnstreamer_tpu"}
 
 #: the flagship pipeline's elements, plus appsrc (the pipeline module's
 #: programmatic source), fakesink, the training slice's tensor_trainer,
-#: the query plane's three elements and the LLM tier's tensor_llm
+#: the query plane's three elements, the LLM tier's tensor_llm and the
+#: vision zoo's tensor_transform
 SLICE_ELEMENTS = ["appsrc", "capsfilter", "fakesink", "queue",
                   "tensor_converter", "tensor_decoder", "tensor_filter",
                   "tensor_llm", "tensor_query_client",
                   "tensor_query_serversink",
                   "tensor_query_serversrc", "tensor_sink", "tensor_trainer",
-                  "videotestsrc"]
+                  "tensor_transform", "videotestsrc"]
 #: the query plane's modules, the CLI, the native binding and the LLM
 #: serving tier, imported in a fresh interpreter
 QUERY_MODULES = ["nnstreamer_tpu_torch.query", "nnstreamer_tpu_torch.launch",
@@ -43,6 +44,19 @@ QUERY_MODULES = ["nnstreamer_tpu_torch.query", "nnstreamer_tpu_torch.launch",
                  "nnstreamer_tpu_torch.llm.element",
                  "nnstreamer_tpu_torch.llm.client",
                  "nnstreamer_tpu_torch.obs.timeseries"]
+
+#: the vision zoo's models, decoders, ops and tensor_transform
+ZOO_MODULES = ["nnstreamer_tpu_torch.models.ssd",
+               "nnstreamer_tpu_torch.models.deeplab_v3",
+               "nnstreamer_tpu_torch.models.posenet",
+               "nnstreamer_tpu_torch.ops", "nnstreamer_tpu_torch.ops.nms",
+               "nnstreamer_tpu_torch.decoders.boundingbox",
+               "nnstreamer_tpu_torch.decoders.imagesegment",
+               "nnstreamer_tpu_torch.decoders.pose",
+               "nnstreamer_tpu_torch.decoders.directvideo",
+               "nnstreamer_tpu_torch.decoders.font",
+               "nnstreamer_tpu_torch.decoders.rasterfont",
+               "nnstreamer_tpu_torch.elements.transform"]
 
 LAUNCH = ("videotestsrc num-buffers=2 ! "
           "video/x-raw,format=RGB,width=32,height=32,framerate=30/1 ! "
@@ -107,6 +121,38 @@ def test_query_modules_load_without_jax():
         "    importlib.import_module(name)\n"
         "from nnstreamer_tpu_torch import native\n"
         "native.available()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_zoo_modules_load_without_jax():
+    """The vision zoo's modules, imported in a fresh interpreter, and an
+    SSD string with its device NMS run on the CPU, load no module of JAX
+    or of the JAX package."""
+    launch = ("videotestsrc num-buffers=1 pattern=random ! "
+              "video/x-raw,format=RGB,width=33,height=33,framerate=30/1 ! "
+              "tensor_converter ! tensor_transform mode=typecast "
+              "option=uint8 ! tensor_filter framework=xla "
+              "model=ssd_mobilenet_v2 accelerator=true:cpu "
+              "custom=input_size:33 ! tensor_decoder mode=bounding_boxes "
+              "option1=mobilenet-ssd option3={priors} ! tensor_sink name=out")
+    code = (
+        "import importlib, sys, tempfile\n"
+        f"bad = {sorted(FORBIDDEN)!r}\n"
+        f"for name in {ZOO_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import nnstreamer_tpu_torch as n\n"
+        "from nnstreamer_tpu_torch.models.ssd import anchor_count\n"
+        "k = anchor_count(33)\n"
+        "f = tempfile.NamedTemporaryFile('w', suffix='.txt', delete=False)\n"
+        "f.write(('0.5 ' * k + '\\n') * 2 + ('0.2 ' * k + '\\n') * 2)\n"
+        "f.close()\n"
+        f"p = n.parse_launch({launch!r}.format(priors=f.name))\n"
+        "p.run(timeout=120)\n"
+        "assert 'objects' in p.get('out').results[0].extra\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -566,6 +566,9 @@ SMALL = {
     "streamformer_lm": {"vocab": "61", "dim": "32", "heads": "4",
                         "head_dim": "8", "mlp": "64", "layers": "1",
                         "experts": "2", "seq": "16"},
+    "ssd_mobilenet_v2": {"input_size": "33"},
+    "deeplab_v3": {"input_size": "33"},
+    "posenet": {"input_size": "33"},
 }
 
 
