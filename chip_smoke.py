@@ -84,6 +84,24 @@ Phases, each of which must pass:
      replayed eagerly, each of the 512 replies bit for bit; one capture
      at open and the 7 pad shapes at the first cross-stream bucket, none
      after; K1 once a bucket; zero sheds and errors;
+   - ``fuse_tiers``: the segment compiler's tiers (``Pipeline(fuse=…)``:
+     ``interpret``, ``python`` — the default every other path runs
+     under — and ``xla``, where a lowered segment runs as one CUDA graph)
+     on ``main_path`` and ``vit_path``, in turns, and ``xla`` again at
+     ``NNS_FUSE_DEPTH=1``: fps, p50/p90 gap, captures and replays, K1/K2
+     launches and the ``plans()`` rows a run, with the host launch calls
+     a frame and the idle share of each tier from traces taken first in a
+     child process (TIER_TURNS); labels bit-equal across the tiers and
+     depths, the filter's logits too (the strings cut before the
+     decoder, 8 frames); under xla the segment lowered whole, one capture
+     before the first frame reaches the sink and none after, K1 once and
+     K2 12 times a replay of the segment's graph; MobileNetV2 in f32
+     under xla on the card against the CPU within 1e-3; and
+     ``query_serve`` once more under xla: the plan row says xla, the
+     segment's 8 graphs (7 pad shapes, a lone frame's) at the first
+     cross-stream bucket and none after, K1 once a replay, every reply
+     bit for bit against its bucket through the filter's own graphs (the
+     python tier's path), zero sheds and errors;
    - ``llm_stream``: the LLM serving tier, ``tensor_query_serversrc !
      tensor_llm ! tensor_query_serversink`` at the LM's full width
      (max_seq 2048, bf16) in this process, 16 gold ``TokenStreamClient``
@@ -123,7 +141,9 @@ Phases, each of which must pass:
    each model with the kernels against the same step with plain attention
    (loss and every gradient, in f32 and bf16).
 
-With ``--profile DIR`` the seven serving paths, the three training
+The ``fuse_tiers`` traces run first in every call (a child process,
+``--profile-path fuse_tiers``); with ``--profile DIR`` the seven serving
+paths, the three training
 paths, ``query_serve`` and ``llm_stream`` (dense and paged: a unit is a
 decode step) are traced first, each in a process of its own, in graph
 and eager mode in turns (graph, eager, eager, graph): device busy time,
@@ -871,14 +891,20 @@ def graph_counts(eager: bool, captures: int, replays: int):
 
 def run_labeling(phase: str, launch: str, frames: int, seed: int,
                  card: str, kernel: str, per_frame: int,
-                 eager: bool = False) -> dict:
-    """Drive an image-labeling pipeline of ``frames`` frames.  In graph
-    mode the filter captures its forward at open and again, fused with
-    the decoder's pushdown, before the first frame; every frame is a
-    replay.  ``kernel`` must launch ``per_frame`` times a frame and as
-    often in each eager run of the forward: the one before each capture
-    (graph mode) or the open's warm-up invoke (``eager``)."""
-    from nnstreamer_tpu_torch import _cuda, parse_launch
+                 eager: bool = False, tier=None, depth: int = 2,
+                 traced=None) -> dict:
+    """Drive an image-labeling pipeline of ``frames`` frames under the
+    segment compiler's ``tier`` (None: the default) and
+    ``NNS_FUSE_DEPTH``.  In graph mode the filter captures its forward
+    at open and again, fused with the decoder's pushdown, before the
+    first frame; every frame is a replay, of the filter's graph or, under
+    xla, of the segment's, captured at the first frame (the plan row
+    must say xla).  ``kernel`` must launch ``per_frame`` times a replay
+    and as often in each eager run of the forward: the one before each
+    capture (graph mode) or the open's warm-up invoke (``eager``).
+    ``traced``: the tier's host launch calls and idle share, from the
+    trace in a child, for the row."""
+    from nnstreamer_tpu_torch import Pipeline, _cuda, parse_launch
     from nnstreamer_tpu_torch.analysis import compileledger
 
     stamps, captures_at = [], []
@@ -889,11 +915,18 @@ def run_labeling(phase: str, launch: str, frames: int, seed: int,
 
     _cuda.reset_launches()
     compileledger.reset()
-    p = parse_launch(launch.format(frames=frames, seed=seed))
+    with fuse_depth(depth):
+        p = parse_launch(launch.format(frames=frames, seed=seed),
+                         Pipeline(fuse=tier))
     p.get("out").connect("new-data", on_data)
     t0 = time.perf_counter()
     with eager_filters(eager):
-        p.run(timeout=600)
+        p.play()
+        try:
+            p.wait(timeout=600)
+            plans = p.planner.plans() if p.planner is not None else []
+        finally:
+            p.stop()
     wall = time.perf_counter() - t0
     launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
     results = p.get("out").results
@@ -905,31 +938,41 @@ def run_labeling(phase: str, launch: str, frames: int, seed: int,
     # latency from source to sink
     gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
     row = {"phase": phase, "mode": "eager" if eager else "graph",
-           "frames": frames, "launches": launches, "graphs": graphs,
+           "fuse": p.fuse_tier, "depth": depth, "frames": frames,
+           "launches": launches, "graphs": graphs,
            "compile_ledger": compileledger.snapshot(),
            "fps": (len(stamps) - 1) / (stamps[-1] - stamps[0]),
            "p50_ms": statistics.median(gaps),
            "p90_ms": gaps[int(0.9 * (len(gaps) - 1))],
-           "wall_s_incl_open": wall, "card": card}
+           "wall_s_incl_open": wall, **(traced or {}), "plans": plans,
+           "card": card}
     emit(row)
+    xla = p.fuse_tier == "xla"
+    if xla and not eager and (len(plans) != 1 or plans[0]["lowering"]
+                              != "xla" or "fallback" in plans[0]):
+        raise AssertionError(f"{phase} under xla: plans {plans}")
     # graph mode: one eager run before each of the two captures (open,
-    # pushdown), then a replay a frame; eager: the open's warm-up invoke
-    # and one run a frame
-    warm_runs = 1 if eager else PUSHDOWN_CAPTURES
-    want = per_frame * (frames + warm_runs)
+    # pushdown) and, under xla, the segment's at the first frame, then a
+    # replay a later frame; eager: the open's warm-up invoke and one run
+    # a frame
+    captures = PUSHDOWN_CAPTURES + (xla and not eager)
+    replays = frames - (xla and not eager)
+    want = per_frame * (frames + 1 if eager else captures + replays)
     if launches.get(kernel, 0) != want:
         raise AssertionError(f"{kernel} launched {launches.get(kernel, 0)} "
                              f"times on {phase}, expected {want}")
-    if graphs != graph_counts(eager, PUSHDOWN_CAPTURES, frames):
+    if graphs != graph_counts(eager, captures, replays):
         raise AssertionError(f"{phase}: graphs {graphs}, expected "
-                             f"{PUSHDOWN_CAPTURES} captures before the "
-                             f"stream and a replay a frame")
+                             f"{captures} captures before the stream's "
+                             f"first frame reached the sink, {replays} "
+                             "replays")
     if captures_at and captures_at[0] != graphs.get("captures", 0):
         raise AssertionError(f"{phase}: captures inside the stream")
-    if row["compile_ledger"] != {"filter.jitexec.invoke": 2}:
+    ledger = {"filter.jitexec.invoke": 2,
+              **({"pipeline.segment": 1} if xla else {})}
+    if row["compile_ledger"] != ledger:
         raise AssertionError(f"{phase}: compile ledger "
-                             f"{row['compile_ledger']}, expected the open "
-                             f"and the pushdown signatures")
+                             f"{row['compile_ledger']}, expected {ledger}")
     return {"labels": labels, "launches": launches, "fps": row["fps"]}
 
 
@@ -1081,6 +1124,174 @@ def check_vit_outputs(labels, frames: int, seed: int) -> None:
         raise AssertionError(f"ViT kernel run differs from plain attention: "
                              f"{over} logits beyond tolerance (max "
                              f"{worst}), labels on {differ}")
+
+
+# ---------------------------------------------------------------------------
+# the segment compiler's tiers on the per-frame paths
+# ---------------------------------------------------------------------------
+
+#: the segment compiler's tiers (pipeline/schedule.py), in turn order
+FUSE_TIERS = ("interpret", "python", "xla")
+#: path -> (launch, kernel, its launches a frame) of the fuse_tiers runs
+TIER_PATHS = {"main_path": (LAUNCH, "normalize_frame", 1),
+              "vit_path": (VIT_LAUNCH, "flash_attention", 12)}
+#: the tiers --profile-path fuse_tiers traces, in turns
+TIER_TURNS = ("interpret", "python", "xla", "xla", "python", "interpret")
+
+
+def logits_launch(path: str) -> str:
+    """A fuse_tiers path's string cut before its decoder: the filter's
+    logits reach the sink."""
+    launch = TIER_PATHS[path][0]
+    return launch[:launch.index("tensor_decoder")] + "tensor_sink name=out"
+
+
+@contextlib.contextmanager
+def fuse_depth(depth: int):
+    """``NNS_FUSE_DEPTH`` while the block builds its pipelines."""
+    was = os.environ.get("NNS_FUSE_DEPTH")
+    os.environ["NNS_FUSE_DEPTH"] = str(depth)
+    try:
+        yield
+    finally:
+        if was is None:
+            os.environ.pop("NNS_FUSE_DEPTH")
+        else:
+            os.environ["NNS_FUSE_DEPTH"] = was
+
+
+def tier_logits(path: str, seed: int, tier: str, depth: int,
+                custom: str = "", device: str = "cuda"):
+    """The filter's outputs of GRAPH_LOGITS_FRAMES frames through the
+    path's string cut before its decoder, under one tier; every output
+    held until all arrived (a replay must not overwrite an earlier
+    frame's).  ``custom`` is appended to the filter's properties;
+    ``device="cpu"`` runs the filter on the CPU."""
+    import torch
+
+    from nnstreamer_tpu_torch import Pipeline, parse_launch
+
+    launch = logits_launch(path).format(frames=GRAPH_LOGITS_FRAMES,
+                                        seed=seed)
+    if custom:
+        launch = launch.replace(f"custom=seed:{seed}",
+                                f"custom=seed:{seed},{custom}")
+    if device == "cpu":
+        launch = launch.replace("name=f ", "name=f accelerator=true:cpu ")
+    with fuse_depth(depth):
+        p = parse_launch(launch, Pipeline(fuse=tier))
+    p.run(timeout=600)
+    outs = [b.tensors[0] for b in p.get("out").results]
+    return [o.cpu() if isinstance(o, torch.Tensor) else torch.from_numpy(o)
+            for o in outs]
+
+
+def run_fuse_tiers(args, card: str, traced: dict) -> dict:
+    """Phase ``fuse_tiers``: the flagship and ViT paths under the three
+    tiers in turns (and xla at ``NNS_FUSE_DEPTH=1``); labels bit-equal
+    across them, the filter's logits too (the strings cut before the
+    decoder); MobileNetV2 in f32 under xla on the card against the CPU
+    within the main path's bound."""
+    import torch
+
+    out = {}
+    for path in TIER_PATHS:
+        frames = args.frames if path == "main_path" else args.vit_frames
+        launch, kernel, per_frame = TIER_PATHS[path]
+        runs = {}
+        for tier, depth in (("interpret", 2), ("python", 2), ("xla", 2),
+                            ("xla", 1)):
+            runs[tier, depth] = run_labeling(
+                f"fuse_tiers/{path}", launch, frames, args.seed, card,
+                kernel, per_frame, tier=tier, depth=depth,
+                traced=traced.get(path, {}).get(tier))
+        logits = {key: tier_logits(path, args.seed, *key) for key in runs}
+        ref_labels = runs["python", 2]["labels"]
+        ref_logits = logits["python", 2]
+        differ = {f"{t}/{d}": [i for i, (a, b) in enumerate(zip(
+            r["labels"], ref_labels)) if a != b]
+                  for (t, d), r in runs.items()}
+        bits = {f"{t}/{d}": sum(torch.equal(a, b) for a, b in zip(
+            lg, ref_logits)) for (t, d), lg in logits.items()}
+        emit({"phase": "fuse_tiers_bits", "path": path, "frames": frames,
+              "labels_differ_from_python": differ,
+              "logits_frames": GRAPH_LOGITS_FRAMES,
+              "logits_bit_equal_to_python": bits})
+        if any(differ.values()) or any(v != GRAPH_LOGITS_FRAMES
+                                       for v in bits.values()):
+            raise AssertionError(f"fuse_tiers {path}: labels differ "
+                                 f"{differ}, logits bit-equal {bits}")
+        out[path] = {"launches": dict(sum(
+            (collections.Counter(r["launches"]) for r in runs.values()),
+            collections.Counter()))}
+    # the card's f32 segment graph against the CPU's eager segment
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gpu = tier_logits("main_path", args.seed, "xla", 2,
+                          "dtype:float32")[:2]
+        cpu = tier_logits("main_path", args.seed, "xla", 2,
+                          "dtype:float32", device="cpu")[:2]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    diff = max((a - b).abs().max().item() for a, b in zip(gpu, cpu))
+    emit({"phase": "fuse_tiers_f32_card_vs_cpu", "fuse": "xla",
+          "max_abs_diff": diff, "atol": 1e-3})
+    if diff > 1e-3 or any(int(a.argmax()) != int(b.argmax())
+                          for a, b in zip(gpu, cpu)):
+        raise AssertionError(f"fuse_tiers: f32 logits under xla differ "
+                             f"from the CPU by {diff} > 1e-3")
+    return out
+
+
+def profile_fuse_tiers(args) -> None:
+    """``--profile-path fuse_tiers``: trace each fuse_tiers path's steady
+    window under the three tiers in turns (TIER_TURNS), then one
+    ``profile_tiers`` line a path: each metric's values by tier, in turn
+    order."""
+    was = os.environ.get("NNS_FUSE")
+    out_dir = args.profile or os.path.join(HERE, "nnstreamer_tpu_torch",
+                                           "_build", "profile_fuse_tiers")
+    try:
+        for path, (launch, kernel, per_frame) in TIER_PATHS.items():
+            frames = args.frames if path == "main_path" else args.vit_frames
+            marker = ("normalize_frame_kernel" if kernel == "normalize_frame"
+                      else K2_MARKER)
+            rows = []
+            for turn, tier in enumerate(TIER_TURNS):
+                os.environ["NNS_FUSE"] = tier
+                row = profile_path(f"{path}_{tier}", launch, frames,
+                                   args.seed, out_dir, marker, per_frame,
+                                   False, turn)
+                rows.append((tier, row))
+            emit({"phase": "profile_tiers", "path": path, **{
+                tier: {k: [r[k] for t, r in rows if t == tier]
+                       for k in ("host_launch_calls_per_unit",
+                                 "device_idle_share",
+                                 "device_busy_us_per_unit", "fps",
+                                 "p50_ms") if k in rows[0][1]}
+                for tier in FUSE_TIERS}})
+    finally:
+        if was is None:
+            os.environ.pop("NNS_FUSE", None)
+        else:
+            os.environ["NNS_FUSE"] = was
+
+
+def trace_fuse_tiers(argv) -> dict:
+    """The fuse_tiers traces in a child process (``profile_child``):
+    path -> tier -> host launch calls a frame and idle share, each the
+    median of the tier's turns."""
+    traced = {}
+    for line in profile_child("fuse_tiers", argv):
+        if line.startswith('{"phase": "profile_tiers"'):
+            row = json.loads(line)
+            traced[row["path"]] = {tier: {
+                "host_launch_calls_a_frame": statistics.median(
+                    row[tier]["host_launch_calls_per_unit"]),
+                "device_idle_share": statistics.median(
+                    row[tier]["device_idle_share"])}
+                for tier in FUSE_TIERS}
+    return traced
 
 
 # ---------------------------------------------------------------------------
@@ -2134,14 +2345,17 @@ def drive_query_clients(port: int, frames) -> dict:
 
 
 @contextlib.contextmanager
-def query_server(sid: int, batch: str, frames, before_play=None):
-    """The server string (``batch``: QUERY_BATCH or "") started, warmed
-    with one frame from each client (the first cross-stream bucket
-    captures the pad set), and stopped after: yields (pipeline, port)."""
-    from nnstreamer_tpu_torch import parse_launch
+def query_server(sid: int, batch: str, frames, before_play=None,
+                 tier=None):
+    """The server string (``batch``: QUERY_BATCH or "") started under the
+    segment compiler's ``tier`` (None: the default), warmed with one frame
+    from each client (the first cross-stream bucket captures the pad set),
+    and stopped after: yields (pipeline, port)."""
+    from nnstreamer_tpu_torch import Pipeline, parse_launch
     from nnstreamer_tpu_torch.query import shutdown_server
 
-    p = parse_launch(QUERY_SERVER.format(sid=sid, batch=batch))
+    p = parse_launch(QUERY_SERVER.format(sid=sid, batch=batch),
+                     Pipeline(fuse=tier))
     if before_play is not None:
         before_play(p)
     p.play()
@@ -2177,13 +2391,13 @@ def traced_window(p, run):
 
 
 def serve_query(batch: str, frames, card: str, child_frames: int = 0,
-                extra_frames=()) -> dict:
+                extra_frames=(), tier=None) -> dict:
     """Serve the clients from the server string (``batch``: QUERY_BATCH
-    or ""), then (``child_frames``) the README's client string through
-    the port's CLI in a child process, or (``extra_frames``) those frames
-    from one more connection; the row, the replies and what the server
-    recorded (each bucket's captures, and the rows of the timed run's
-    buckets)."""
+    or "") under ``tier`` (None: the default), then (``child_frames``)
+    the README's client string through the port's CLI in a child process,
+    or (``extra_frames``) those frames from one more connection; the row,
+    the replies and what the server recorded (each bucket's captures, and
+    the rows of the timed run's buckets)."""
     import numpy as np
 
     from nnstreamer_tpu_torch import _cuda
@@ -2194,28 +2408,30 @@ def serve_query(batch: str, frames, card: str, child_frames: int = 0,
     buckets, recording = [], [False]
 
     def record_buckets(p):
-        f = p.get("f")
+        qsrc = p.get("qsrc")
 
-        def chain(pad, buf, chain=f.chain):
+        def push(buf, pad=None, push=qsrc.push):
             # each bucket's rows by the (client, request) pixel, and the
-            # captures once the bucket is dispatched
+            # captures once the bucket went through the pipeline (at the
+            # source, so every tier is seen alike)
+            xb = "nns_xbatch" in buf.extra
             t = buf.tensors[0]
-            ids = (t[:, 0, 0, :2].numpy() if buf.extra.get("nns_xbatch")
-                   else np.asarray(t)[None, 0, 0, :2])
-            ret = chain(pad, buf)
-            buckets.append({"xbatch": "nns_xbatch" in buf.extra,
+            ids = t[:, 0, 0, :2].numpy() if xb else np.asarray(t)[None,
+                                                                  0, 0, :2]
+            ret = push(buf, pad)
+            buckets.append({"xbatch": xb,
                             "rows": [tuple(int(v) for v in r) for r in ids]
                             if recording[0] else None,
                             "captures": _cuda.graphs["captures"]})
             return ret
 
-        f.chain = chain
+        qsrc.push = push
 
     _cuda.reset_launches()
     compileledger.reset()
     child, extra = None, []
-    with query_server(9100 + bool(batch), batch, frames,
-                      record_buckets) as (p, port):
+    with query_server(9100 + bool(batch) + 2 * (tier == "xla"), batch,
+                      frames, record_buckets, tier) as (p, port):
         recording[0] = True
         run, chain_us = traced_window(
             p, lambda: drive_query_clients(port, frames))
@@ -2240,9 +2456,11 @@ def serve_query(batch: str, frames, card: str, child_frames: int = 0,
         xb = ((qsrc._m_xb_batched.value, qsrc._m_xb_solo.value,
                qsrc._m_xb_frames.value) if batch else (0, 0, 0))
         evicted = qsrc.server._m_evicted.value
+        plans = p.planner.plans() if p.planner is not None else []
     launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
     timed = [b for b in buckets if b["rows"]]
     row = {"phase": "query_serve", "batch": 32 if batch else 1,
+           "fuse": p.fuse_tier, "plans": plans,
            "clients": len(frames), "frames": sum(map(len, frames)),
            "replies": run["replies"],
            "replies_per_s": run["replies_per_s"],
@@ -2357,19 +2575,22 @@ def run_query_pace(seed: int, card: str) -> None:
                                  f"replies, {errors} errors")
 
 
-def check_query_eager(frames, graph: dict) -> int:
-    """Every bucket of the graph run's timed clients, rebuilt from its
-    frames, through the same model eagerly: each served reply bit for bit
-    (a bucket as ``invoke_stacked`` at capacity 32, a lone frame as
-    ``invoke``), so a reply routed to the wrong client or request fails.
-    Returns the frames compared, which must be every frame sent."""
+def check_query_eager(frames, graph: dict, eager: bool = True,
+                      phase: str = "graph_vs_eager") -> int:
+    """Every bucket of the served run's timed clients, rebuilt from its
+    frames, through the same model (eagerly; or, ``eager=False``, the
+    filter's own graphs: the python tier's path): each served reply bit
+    for bit (a bucket as ``invoke_stacked`` at capacity 32, a lone frame
+    as ``invoke``), so a reply routed to the wrong client or request
+    fails.  Returns the frames compared, which must be every frame
+    sent."""
     import numpy as np
 
     from nnstreamer_tpu_torch.filter import FilterSingle
 
     subset = [b for b in graph["buckets"] if b["rows"]]
     differ, compared = [], 0
-    with eager_filters(True):
+    with eager_filters(eager):
         with FilterSingle(framework="xla", model="mobilenet_v2",
                           custom="seed:0,use_pallas:1") as single:
             for b in subset:
@@ -2387,15 +2608,16 @@ def check_query_eager(frames, graph: dict) -> int:
                     compared += 1
                     if not np.array_equal(g, graph["outs"][i][k]):
                         differ.append((i, k))
-    emit({"phase": "graph_vs_eager", "path": "query_serve",
-          "buckets": len(subset), "frames": compared,
+    emit({"phase": phase, "path": "query_serve",
+          "fuse": graph["row"]["fuse"], "against": "eager" if eager
+          else "filter graphs", "buckets": len(subset), "frames": compared,
           "outputs_bit_equal": compared - len(differ)})
     sent = sum(map(len, frames))
     if differ or compared != sent:
         raise AssertionError(f"query_serve: {compared} of {sent} replies "
-                             f"replayed eagerly; served logits differ "
-                             f"from the eager forward on frames "
-                             f"{differ[:8]}")
+                             f"replayed; served logits differ from the "
+                             f"{'eager forward' if eager else 'filter graphs'}"
+                             f" on frames {differ[:8]}")
     return compared
 
 
@@ -2484,6 +2706,59 @@ def run_query_serve(args, card: str) -> dict:
     if not row["batched_buckets"]:
         raise AssertionError("query_serve: no bucket held more than one "
                              "frame")
+    xla = check_query_xla(frames, card)
+    return {"launches": dict(collections.Counter(row["launches"])
+                             + collections.Counter(xla["launches"]))}
+
+
+#: the served pair's graphs under fuse=xla: the filter's own at open, and
+#: the segment's at the first cross-stream bucket (the 7 pad shapes and a
+#: lone frame's)
+QUERY_XLA_CAPTURES = 1 + 7 + 1
+
+
+def check_query_xla(frames, card: str) -> dict:
+    """The query pair once more under ``fuse=xla`` (phase ``fuse_tiers``,
+    path ``query_serve``): the serversrc's segment (the filter) lowered to
+    one CUDA graph a signature, every bucket through ``run_stacked``.
+    Checks: the plan row says ``xla``; 0 sheds and errors; the segment's
+    8 graphs captured at the first cross-stream bucket and none after;
+    every replay one of the segment's (replays = its cache hits) and K1
+    launched once a replay besides the captures' eager runs; every reply
+    bit for bit against its bucket through the filter's own graphs (the
+    python tier's path)."""
+    served = serve_query(QUERY_BATCH, frames, card, tier="xla")
+    row = served["row"]
+    graphs, k1 = row["graphs"], row["launches"].get("normalize_frame", 0)
+    plans = [pl for pl in row["plans"] if pl["head"] == "qsrc.src"]
+    buckets = served["buckets"]
+    first_xb = next((j for j, b in enumerate(buckets) if b["xbatch"]), None)
+    late = ([b["captures"] for b in buckets[first_xb:]
+             if b["captures"] != QUERY_XLA_CAPTURES]
+            if first_xb is not None else ["no cross-stream bucket"])
+    compared = check_query_eager(frames, served, eager=False,
+                                 phase="fuse_tiers_bits")
+    seg = plans[0] if plans else {}
+    emit({"phase": "fuse_tiers", "path": "query_serve", "fuse": "xla",
+          "plans": row["plans"], "graphs": graphs, "launches":
+          row["launches"], "compile_ledger": row["compile_ledger"],
+          "buckets": row["buckets"], "replies_per_s": row["replies_per_s"],
+          "rtt_p50_ms": row["rtt_p50_ms"], "rtt_p99_ms": row["rtt_p99_ms"],
+          "mean_fill": row["mean_fill"], "frames_bit_equal_python_tier":
+          compared, "card": card})
+    if seg.get("lowering") != "xla" or "fallback" in seg:
+        raise AssertionError(f"query_serve under xla: plans {row['plans']}")
+    if late or graphs.get("captures") != QUERY_XLA_CAPTURES:
+        raise AssertionError(f"query_serve under xla: graphs {graphs}, "
+                             f"captures after the first bucket {late[:4]}")
+    if graphs.get("replays") != seg["exec_cache_hits"] \
+            or k1 != graphs["captures"] + graphs["replays"]:
+        raise AssertionError(f"query_serve under xla: K1 launched {k1} "
+                             f"times, graphs {graphs}, plan {seg}")
+    if row["compile_ledger"] != {"filter.jitexec.invoke": 1,
+                                 "pipeline.segment": 8}:
+        raise AssertionError(f"query_serve under xla: compile ledger "
+                             f"{row['compile_ledger']}")
     return {"launches": row["launches"]}
 
 
@@ -4168,26 +4443,36 @@ def profile_query_serve(seed: int, out_dir: str, eager: bool,
 PROFILE_TRIES = 2
 
 
+def profile_child(name: str, argv) -> list:
+    """Trace path ``name`` in a child process of its own (this script
+    with ``--profile-path``), run before this process makes a CUDA
+    context (a profiled child beside another process's context crashed);
+    its profile lines are printed here and returned.  A child that
+    crashes is run once more."""
+    for _ in range(PROFILE_TRIES):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), *argv,
+             "--profile-path", name], capture_output=True, text=True,
+            timeout=1800)
+        if out.returncode == 0:
+            break
+        emit({"phase": "profile_crash", "path": name,
+              "rc": out.returncode, "stderr": out.stderr[-800:]})
+    else:
+        raise AssertionError(f"the profile of {name} failed "
+                             f"{PROFILE_TRIES} times")
+    lines = [line for line in out.stdout.splitlines()
+             if line.startswith('{"phase": "profile')]
+    for line in lines:
+        print(line, flush=True)
+    return lines
+
+
 def profile_all(args, argv) -> None:
-    """Trace every path in a child process of its own (this script with
-    ``--profile-path``), in both modes in turns; its profile lines are
-    printed here.  A child that crashes is run once more."""
+    """Trace every path in a child process of its own, in both modes in
+    turns."""
     for name in profiled_paths(args):
-        for _ in range(PROFILE_TRIES):
-            out = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), *argv,
-                 "--profile-path", name], capture_output=True, text=True,
-                timeout=1800)
-            if out.returncode == 0:
-                break
-            emit({"phase": "profile_crash", "path": name,
-                  "rc": out.returncode, "stderr": out.stderr[-800:]})
-        else:
-            raise AssertionError(f"the profile of {name} failed "
-                                 f"{PROFILE_TRIES} times")
-        for line in out.stdout.splitlines():
-            if line.startswith('{"phase": "profile'):
-                print(line, flush=True)
+        profile_child(name, argv)
 
 
 def profile_train(name: str, launch: str, samples, out_dir: str,
@@ -4284,8 +4569,11 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-        profile_modes({args.profile_path:
-                       profiled_paths(args)[args.profile_path]})
+        if args.profile_path == "fuse_tiers":
+            profile_fuse_tiers(args)
+        else:
+            profile_modes({args.profile_path:
+                           profiled_paths(args)[args.profile_path]})
         return 0
 
     card = card_line()
@@ -4303,10 +4591,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = False
 
     try:
+        # before this process makes a CUDA context: a profiled child
+        # beside another process's context on the card crashed
         if args.profile:
-            # before this process makes a CUDA context: a profiled child
-            # beside another process's context on the card crashed
             profile_all(args, sys.argv[1:] if argv is None else argv)
+        traced = trace_fuse_tiers(sys.argv[1:] if argv is None else argv)
         k1, k1_event_ms = check_normalize_frame(args.reps)
         kernels = [k1]
         k1_floor(card, k1_event_ms)
@@ -4330,6 +4619,7 @@ def main(argv=None) -> int:
         check_graph_logits("vit_path", "vit", {"seed": args.seed},
                            GRAPH_LOGITS_FRAMES, args.seed)
         check_vit_outputs(vit["labels"], args.vit_frames, args.seed)
+        fuse = run_fuse_tiers(args, card, traced)
         batched = run_batched_paths(args, card)
         zoo = run_zoo_paths(args, card)
         run_transform_path(args.frames, card)
@@ -4356,6 +4646,7 @@ def main(argv=None) -> int:
             k["launches"] = sum(path["launches"].get(k["name"], 0)
                                 for path in (main_path, vit, lm, serve,
                                              stream, query,
+                                             *fuse.values(),
                                              *batched.values(),
                                              *zoo.values(),
                                              *train_rows.values()))

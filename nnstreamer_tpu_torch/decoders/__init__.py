@@ -40,6 +40,16 @@ class Decoder:
         still carry the raw layout."""
         return None
 
+    def lower_decode(self, config: TensorsConfig):
+        """Whole-segment lowering hook (fuse=xla, pipeline/schedule.py via
+        ``tensor_decoder.lower_step``): return ``(fn, needs_post)`` where
+        ``fn(tensors) -> tensors`` is the decoder's plain tensor math (it
+        joins the segment's CUDA graph), and ``needs_post`` says whether
+        ``decode`` must still run as a host finisher at segment exit over
+        the reduced tensors (a label lookup).  None (the default) = not
+        lowerable; the segment falls back to fuse-python."""
+        return None
+
 
 _DECODERS: Dict[str, Type[Decoder]] = {}
 

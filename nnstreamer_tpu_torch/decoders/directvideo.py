@@ -2,8 +2,7 @@
 
 Parity with ext/nnstreamer/tensor_decoder/tensordec-directvideo.c
 (tensor dims (c,w,h) with c∈{1,3,4} → GRAY8/RGB/RGBA video).  The
-counterpart of ``nnstreamer_tpu/decoders/directvideo.py``; its
-``lower_decode`` (the fuse-xla payload passthrough) waits for that tier.
+counterpart of ``nnstreamer_tpu/decoders/directvideo.py``.
 """
 
 from __future__ import annotations
@@ -38,6 +37,13 @@ class DirectVideoDecoder(Decoder):
 
     def decode(self, buf: TensorBuffer, config: TensorsConfig) -> TensorBuffer:
         return buf.with_tensors([buf.np(0)])
+
+    def lower_decode(self, config: TensorsConfig):
+        """fuse=xla: a payload passthrough (the uint8/channel checks ran
+        at caps time): the frame stays on the device to segment exit,
+        where the consumer's ``np()`` is the one sync.  No host
+        finisher."""
+        return (lambda ts: [ts[0]]), False
 
 
 @register_decoder

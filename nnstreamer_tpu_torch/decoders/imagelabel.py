@@ -62,6 +62,21 @@ class ImageLabelDecoder(Decoder):
 
         return fn, TensorsInfo([TensorInfo(TensorType.INT32, (1,))])
 
+    def lower_decode(self, config: TensorsConfig):
+        """fuse=xla: the argmax reduction (ops/classify.py ``top1``) joins
+        the segment's graph; the label lookup stays a host post-finisher
+        over the reduced (1,) int32, which ``decode`` already reads.  When
+        the reduction was ALREADY pushed into the upstream filter
+        (``device_reduce_spec`` is None on the reduced config), the
+        lowered part is the identity."""
+        if config.info.num_tensors != 1:
+            return None
+        spec = self.device_reduce_spec(config)
+        if spec is None:
+            return (lambda ts: ts), True
+        red_fn, _ = spec
+        return (lambda ts: red_fn(ts)), True
+
     def decode(self, buf: TensorBuffer, config: TensorsConfig) -> TensorBuffer:
         scores = buf.np(0)
         if scores.size == 1 and scores.dtype == np.int32:

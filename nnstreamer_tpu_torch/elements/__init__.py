@@ -1,7 +1,8 @@
 """Element library of the port.  Importing this package registers every
 element factory the port has (the reference's plugin registerer role,
 gst/nnstreamer/registerer/nnstreamer.c:91-133): the flagship
-image-labeling pipeline's elements, ``tensor_transform``,
+image-labeling pipeline's elements, ``identity`` and ``tensor_debug``,
+``tensor_transform``,
 ``tensor_trainer``, the query plane's
 ``tensor_query_serversrc``/``serversink``/``client`` and the LLM serving
 tier's ``tensor_llm``.
@@ -10,6 +11,7 @@ tier's ``tensor_llm``.
 from .converter import TensorConverter
 from .decoder_elem import TensorDecoder
 from .filter_elem import TensorFilter
+from .misc import Identity, TensorDebug
 from .sink import FakeSink, TensorSink
 from .src import VideoTestSrc
 from .trainer import TensorTrainer
@@ -18,5 +20,6 @@ from ..llm import element as _llm_element  # noqa: F401
 from ..query import client as _query_client  # noqa: F401
 from ..query import server as _query_server  # noqa: F401
 
-__all__ = ["FakeSink", "TensorConverter", "TensorDecoder", "TensorFilter",
-           "TensorSink", "TensorTrainer", "TensorTransform", "VideoTestSrc"]
+__all__ = ["FakeSink", "Identity", "TensorConverter", "TensorDebug",
+           "TensorDecoder", "TensorFilter", "TensorSink", "TensorTrainer",
+           "TensorTransform", "VideoTestSrc"]

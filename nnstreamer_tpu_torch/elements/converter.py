@@ -6,7 +6,8 @@ converter.py``: an ``(h, w, c)`` frame IS the tensor layout, so a frame
 passes through untouched — a device-resident frame (``videotestsrc
 device-cache``) is never synced to host here — and ``frames-per-tensor``
 N>1 stacks N frames into one ``(N, h, w, c)`` tensor, on the device when
-the frames are there.
+the frames are there.  At ``frames-per-tensor=1`` the element fuses
+(``plan_step``) and lowers (``lower_step``: the payload passthrough).
 
 The JAX package's audio, text, octet-stream and flexible-tensor paths and
 its converter subplugins are not ported yet.
@@ -19,7 +20,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..pipeline.element import Element, FlowReturn
+from ..pipeline.element import Element, FlowReturn, LoweredStep
 from ..pipeline.registry import register_element
 from ..tensor.buffer import TensorBuffer, is_device_array, to_host
 from ..tensor.caps_util import caps_from_config, tensors_template_caps
@@ -61,12 +62,16 @@ class TensorConverter(Element):
         self.announce_src_caps(caps_from_config(cfg))
 
     # -- dataflow ------------------------------------------------------------
+    def _video_frame(self, buf: TensorBuffer) -> TensorBuffer:
+        t = buf.tensors[0]
+        return buf.with_tensors([t if is_device_array(t) else buf.np(0)])
+
     def chain(self, pad, buf: TensorBuffer) -> FlowReturn:
-        frame = buf.tensors[0] if is_device_array(buf.tensors[0]) \
-            else buf.np(0)
         fpt = int(self.frames_per_tensor)
         if fpt == 1:
-            return self.push(buf.with_tensors([frame]))
+            return self.push(self._video_frame(buf))
+        frame = buf.tensors[0] if is_device_array(buf.tensors[0]) \
+            else buf.np(0)
         self._pending.append(frame)
         if self._pending_pts is None:
             self._pending_pts = buf.pts
@@ -83,4 +88,27 @@ class TensorConverter(Element):
                            duration=(buf.duration or 0) * fpt)
         self._pending_pts = None
         return self.push(out)
+
+    def plan_step(self):
+        # fused dispatch covers the stateless 1:1 conversion; the
+        # accumulating path (frames-per-tensor>1) keeps interpreted
+        # dispatch
+        if int(self.frames_per_tensor) == 1:
+            return self._video_frame
+        return None
+
+    def lower_reason(self):
+        if int(self.frames_per_tensor) != 1:
+            return "frames-per-tensor>1 accumulates state across buffers"
+        return None
+
+    def lower_step(self):
+        # video at frames-per-tensor=1 is a pure payload passthrough
+        if self.lower_reason() is not None:
+            return None
+        return LoweredStep(_first_tensor, batched=_first_tensor)
+
+
+def _first_tensor(ts):
+    return [ts[0]]
 

@@ -3,16 +3,16 @@
 The counterpart of ``nnstreamer_tpu/elements/decoder_elem.py``, with its
 parity to gst/nnstreamer/elements/gsttensor_decoder.c (mode + option1..9
 properties select and configure the subplugin; custom callback mode via
-``mode=custom-code`` like the reference tensor_decoder_custom.h).  The JAX
-package's fused-dispatch hooks (``plan_step``/``lower_step``) are not
-ported: the port runs the interpret tier only.
+``mode=custom-code`` like the reference tensor_decoder_custom.h), with
+its fused-dispatch hooks (``plan_step``, and ``lower_step`` over the
+decoder's ``lower_decode``).
 """
 
 from __future__ import annotations
 
 from ..decoders import find_decoder
 from ..pipeline.caps import Caps
-from ..pipeline.element import CustomEvent, Element
+from ..pipeline.element import CustomEvent, Element, LoweredStep
 from ..pipeline.registry import register_element
 from ..tensor.caps_util import config_from_caps, tensors_template_caps
 
@@ -106,3 +106,30 @@ class TensorDecoder(Element):
 
     def chain(self, pad, buf):
         return self.push(self._decode_one(buf))
+
+    def plan_step(self):
+        return self._decode_one
+
+    def lower_reason(self):
+        mode = str(self.mode or "")
+        if mode == "custom-code":
+            return "custom-code decoders run arbitrary host callbacks"
+        try:
+            dec = find_decoder(mode) if mode else None
+        except KeyError:
+            dec = None
+        if dec is None or "lower_decode" not in vars(dec):
+            return (f"decoder mode {mode!r} has no lower_decode "
+                    "(pure-tensor lowering hook)")
+        return None
+
+    def lower_step(self):
+        if getattr(self, "_custom_fn", None) is not None \
+                or getattr(self, "_decoder", None) is None \
+                or getattr(self, "_config", None) is None:
+            return None
+        spec = self._decoder.lower_decode(self._config)
+        if spec is None:
+            return None
+        fn, needs_post = spec
+        return LoweredStep(fn, post=self._decode_one if needs_post else None)

@@ -24,12 +24,14 @@ property/lifecycle logic of tensor_filter_common.c):
   :class:`~nnstreamer_tpu_torch.tensor.buffer.BatchView` rows on;
   cross-stream buckets (``buf.extra["nns_xbatch"]``) dispatch as one
   padded invoke (:class:`CrossStreamBatcher` is the shared bucket core);
-- the ``workers`` invoke pool, reassembling results in stream order.
+- the ``workers`` invoke pool, reassembling results in stream order;
+- the fused-dispatch hooks of the segment compiler (``plan_step``, and
+  ``lower_step``: the opened backend's eager forward composed into a
+  segment's CUDA graph); micro-batching, the worker pool, an active QoS
+  throttle and a backend without a torch forward opt out.
 
-The JAX package's fused-dispatch hooks (``plan_step``, ``lower_step``),
-its metrics gauges and its trace spans are not ported: the port's
-pipeline has the interpret tier only, and the filter publishes nothing
-to the metrics registry yet.
+The JAX package's metrics gauges and trace spans are not ported: the
+filter publishes nothing to the metrics registry yet.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from ..analysis.sanitizer import make_condition, make_lock
 from ..filter.framework import (Accelerator, FilterError, FilterProperties,
                                 close_backend, open_backend)
 from ..pipeline.element import (CustomEvent, Element, EOSEvent, FlowReturn,
-                                QoSEvent)
+                                LoweredStep, QoSEvent)
 from ..pipeline.registry import register_element
 from ..tensor.buffer import TensorBuffer, to_host
 from ..tensor.caps_util import (caps_from_config, config_from_caps,
@@ -445,6 +447,74 @@ class TensorFilter(Element):
             return self._submit_frame(tensors, buf)
         return self._push_result(buf, fw.invoke(list(tensors)))
 
+    def plan_step(self):
+        """Fused-dispatch hook: the per-frame synchronous path flattens
+        into an upstream segment plan; micro-batching and the worker pool
+        push from their own threads, so they keep interpreted dispatch."""
+        if getattr(self, "_batch", 1) > 1 \
+                or getattr(self, "_workers_n", 1) > 1:
+            return None
+        return self._plan_invoke
+
+    def lower_reason(self):
+        # 0/unset alike collapse to 1
+        if max(1, int(self.batch or 1)) > 1:
+            return "batch>1: the micro-batch coalescer owns dispatch"
+        if max(1, int(self.workers or 1)) > 1:
+            return "workers>1: the invoke pool owns dispatch"
+        fw = getattr(self, "fw", None)
+        if fw is not None:
+            if getattr(fw, "segment_forward", None) is None \
+                    or getattr(fw, "_forward_fn", None) is None:
+                return (f"backend {self._props.framework!r} has no "
+                        "jit-exec forward (host-code invoke)")
+            if getattr(self, "_throttle_ns", 0):
+                return ("QoS throttling active: per-buffer drop state "
+                        "is host-side")
+        return None
+
+    def lower_step(self):
+        """fuse=xla: the backend's EAGER forward (with a pushed-down
+        decoder reduction) joins the segment's one CUDA graph; the
+        backend's own graphs are not replayed there (a replay cannot be
+        captured inside another capture).  Input and output combination
+        are index selections; a cross-stream bucket runs the backend's
+        batched forward (``Model.batched``)."""
+        if self.lower_reason() is not None \
+                or getattr(self, "fw", None) is None \
+                or getattr(self, "_in_config", None) is None \
+                or not self.fw.opened:
+            return None
+        fwd, bfwd, device = self.fw.segment_forward()
+        in_comb, out_comb = self._in_comb, self._out_comb
+
+        def combined(forward):
+            def fn(ts, _fwd=forward, _in=in_comb, _out=out_comb):
+                xs = ts if _in is None else [ts[i] for i in _in]
+                outs = list(_fwd(*xs))
+                if _out is not None:
+                    ins, sel = _out
+                    outs = [ts[i] for i in ins] + [outs[k] for k in sel]
+                return outs
+            return fn
+
+        return LoweredStep(combined(fwd), batched=combined(bfwd),
+                           device=device)
+
+    def _plan_invoke(self, buf: TensorBuffer):
+        fw = self.fw
+        if fw is None or not fw.opened:
+            raise RuntimeError(f"{self.name}: not started")
+        xb = buf.extra.get("nns_xbatch")
+        if xb is not None:
+            # a cross-stream bucket traverses the fused segment as ONE
+            # plan execution
+            return self._invoke_xbatch(buf, xb)
+        tensors = self._preprocess(buf)
+        if tensors.__class__ is FlowReturn:
+            return tensors
+        return self._compose_output(buf, list(fw.invoke(list(tensors))))
+
     def pins_host_input(self) -> bool:
         """Whether host frames bound for this filter are best stacked in
         pinned memory: its backend runs on the card."""
@@ -778,6 +848,14 @@ class TensorFilter(Element):
                 self._throttle_ns = int(frame_ns * max(1.0,
                                                        event.proportion))
                 self.latency_report = True
+            # a fuse=xla segment cannot express the per-buffer drop
+            # state: drop its plan so the next buffer rebuilds it at the
+            # fuse-python tier (and back, once a catch-up report clears
+            # the throttle); lower_reason() answers per current state
+            pl = self.pipeline
+            if pl is not None and getattr(pl, "planner", None) is not None \
+                    and pl.planner.tier == "xla":
+                pl.planner.invalidate(element=self)
             # keep propagating so upstream sources can throttle too — the
             # filter is a participant, not the owner
             super().on_upstream_event(pad, event)

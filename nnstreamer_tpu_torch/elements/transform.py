@@ -18,8 +18,9 @@ promote ``uint8 + float`` differently: f64, f32, f32): arithmetic casts
 back to the negotiated type, a per-channel op writes back into the
 current type (jnp's ``.at[].set``, here an out-of-place ``torch.where``),
 and ``clamp`` of an integer tensor by its float bounds computes in f32,
-as ``jnp.clip`` does.  The fused-dispatch hooks (``plan_step``,
-``lower_step``, ``lower_reason``) wait for the port's fuse tiers.
+as ``jnp.clip`` does.  The element fuses (``plan_step``) and, in the
+``typecast``, ``arithmetic`` and ``dimchg`` modes, lowers into a segment's
+graph (``lower_step``: the torch path of the same math).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..pipeline.element import Element, FlowReturn
+from ..pipeline.element import Element, FlowReturn, LoweredStep
 from ..pipeline.registry import register_element
 from ..utils.log import ml_logw
 from ..tensor.buffer import BatchView, TensorBuffer
@@ -190,6 +191,39 @@ class TensorTransform(Element):
 
     def chain(self, pad, buf: TensorBuffer) -> FlowReturn:
         return self.push(self._apply(buf))
+
+    def plan_step(self):
+        return self._apply
+
+    #: modes the fuse=xla tier lowers (the JAX package's set; stand,
+    #: clamp and transpose fall the segment back to fuse-python)
+    _LOWERABLE_MODES = ("typecast", "arithmetic", "dimchg")
+
+    def lower_reason(self):
+        mode = str(self.mode or "")
+        if mode not in self._LOWERABLE_MODES:
+            return (f"tensor_transform mode={mode!r} has no jnp lowering "
+                    f"(lowerable: {','.join(self._LOWERABLE_MODES)})")
+        return None
+
+    def lower_step(self):
+        if self.lower_reason() is not None \
+                or getattr(self, "_out_config", None) is None:
+            return None
+        # the torch path of _transform is the lowered math: in a segment
+        # every payload is a tensor, so one implementation serves the
+        # three tiers (uint8 arithmetic promotes through f32 here, as the
+        # JAX package's traced path does, where its host path takes f64)
+        info = self._out_config.info
+        applies = [self._applies(i) for i in range(info.num_tensors)]
+        targets = [info[i].dtype for i in range(info.num_tensors)]
+        transform = self._transform_torch
+
+        def fn(ts, _applies=applies, _targets=targets, _tf=transform):
+            return [_tf(t, _targets[i]) if _applies[i] else t
+                    for i, t in enumerate(ts)]
+
+        return LoweredStep(fn)
 
     def _transform(self, arr: Any, target=None) -> Any:
         xp = _xp(arr)

@@ -488,3 +488,14 @@ class TorchExecMixin:
 
     def has_postprocess(self) -> bool:
         return getattr(self, "_postprocess_fn", None) is not None
+
+    def segment_forward(self):
+        """What a fused segment composes (``tensor_filter.lower_step``):
+        ``(forward, batched, device)``, the EAGER per-frame and batched
+        forwards (a staged pushdown taking over first) and their device.
+        The segment captures them into its own CUDA graph, with the
+        steps around the filter; this backend's graphs stay for the
+        python tier."""
+        with self._exec_lock:
+            self._apply_fusion()
+            return self._forward_fn, self._batched_fn, self._device

@@ -32,14 +32,11 @@ UNPORTED = {
     "--metrics-port": "obs/httpd.py",
     "--push-metrics": "obs/federation.py",
     "--top": "obs/dashboard.py",
-    "--fuse": "pipeline/schedule.py",
-    "--no-fuse": "pipeline/schedule.py",
     "--soak": "slo/",
     "--slo": "slo/",
 }
 #: unported options that take a value
-_WITH_VALUE = ("--metrics-port", "--push-metrics", "--fuse",
-               "--soak", "--slo")
+_WITH_VALUE = ("--metrics-port", "--push-metrics", "--soak", "--slo")
 
 
 def inspect(name=None, out=None) -> int:
@@ -114,6 +111,18 @@ def main(argv=None) -> int:
                          "elements shed new requests with retry-after "
                          "and finish in-flight replies, then the process "
                          "exits 0 (Pipeline.drain)")
+    ap.add_argument("--fuse", default=None,
+                    choices=["interpret", "python", "xla"],
+                    help="segment-compiler lowering tier "
+                         "(pipeline/schedule.py): 'interpret' = per-pad "
+                         "dispatch, 'python' = fused plan_step loops "
+                         "(default), 'xla' = one CUDA graph a lowerable "
+                         "segment, double-buffered (segments with a "
+                         "non-lowerable step run python).  Same as "
+                         "NNS_FUSE=0|1|xla")
+    ap.add_argument("--no-fuse", action="store_true",
+                    help="disable the segment compiler: interpreted "
+                         "per-pad dispatch; same as --fuse interpret")
     for opt, module in UNPORTED.items():
         kw = ({"nargs": "?", "const": True} if opt in _WITH_VALUE
               else {"action": "store_true"})
@@ -131,6 +140,15 @@ def main(argv=None) -> int:
         return inspect(args.inspect or args.pipeline)
     if not args.pipeline:
         ap.error("pipeline launch string required (or use --inspect)")
+    if args.no_fuse:
+        args.fuse = "interpret"
+    if args.fuse is not None:
+        # through the env, so every pipeline this process builds inherits
+        # the requested tier
+        import os
+
+        os.environ["NNS_FUSE"] = {"interpret": "0", "python": "1",
+                                  "xla": "xla"}[args.fuse]
 
     from . import parse_launch
 

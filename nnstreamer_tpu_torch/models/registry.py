@@ -36,7 +36,9 @@ class Model:
     forward, written out.  ``None`` serves the batch through
     ``torch.func.vmap`` of ``module``, which no CUDA kernel wrapper of
     the port supports: a model whose forward reaches one supplies its
-    own.  ``in_info``/``out_info`` use reference dim order (innermost
+    own.  A fused segment (``fuse=xla``) composes both, eagerly, into
+    its own CUDA graph (``TorchExecMixin.segment_forward``).
+    ``in_info``/``out_info`` use reference dim order (innermost
     first)."""
 
     name: str

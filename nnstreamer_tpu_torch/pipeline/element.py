@@ -3,8 +3,9 @@
 The reference builds on GStreamer's element/pad/caps machinery (external, L0
 in SURVEY.md) — pad push model, caps events, EOS propagation
 (gst/nnstreamer/elements/* all subclass GstElement).  This module supplies
-that substrate for the PyTorch port (interpret tier only: the JAX
-package's fused-dispatch and XLA-lowering hooks are not carried over):
+that substrate for the PyTorch port, with the JAX package's fused-dispatch
+hooks (``plan_step``, ``lower_step``, ``lower_reason``,
+``has_pending_input``) that the segment compiler (schedule.py) reads:
 
 - **Push model**: a src :class:`Pad` pushes :class:`TensorBuffer` s into its
   peer sink pad, which dispatches to the owning element's ``chain``.
@@ -90,6 +91,42 @@ class QoSEvent(Event):
                 f"proportion={self.proportion:.2f})")
 
 
+class LoweredStep:
+    """One element's contribution to a whole-segment computation (the
+    ``fuse=xla`` lowering tier, pipeline/schedule.py): on the card the
+    segment runs as ONE CUDA graph, on the CPU as one eager call.
+
+    ``fn(tensors) -> tensors`` is a plain torch function over a list of
+    tensors: no host sync (``.item()``, ``TensorBuffer.np()``,
+    ``np.asarray``: a sync inside a capture makes it fail loudly), no
+    buffer metadata, no side effects.  A filter's weights are the
+    module's own: the graph reads them by address, so a model update
+    drops the plan (the custom-event invalidation) and the segment is
+    captured anew against the new module on its next buffer.
+
+    ``batched(tensors) -> tensors`` is the same function over a leading
+    batch axis, for cross-stream buckets (the filter passes its model's
+    batched forward); ``None`` lifts ``fn`` with ``torch.func.vmap``.
+    ``device``: where the step's state lives (the filter's device), or
+    ``None`` for a stateless step; a segment runs on its steps' device,
+    else where its input lies.
+
+    ``post`` (optional) is a cheap host finisher ``post(buf) -> buf`` run
+    at SEGMENT EXIT, outside the graph: the escape hatch for decoders
+    whose output is not a tensor (a label lookup over a device-reduced
+    argmax).  Only the LAST element of a segment may carry one; an
+    interior ``post`` makes the segment fall back to fuse-python.
+    """
+
+    __slots__ = ("fn", "post", "batched", "device")
+
+    def __init__(self, fn, post=None, batched=None, device=None) -> None:
+        self.fn = fn
+        self.post = post
+        self.batched = batched
+        self.device = device
+
+
 class PadDirection(enum.Enum):
     SRC = "src"
     SINK = "sink"
@@ -132,6 +169,13 @@ class Pad:
                 f"{sink.full_name} ({sink.template}): no common caps")
         self.peer = sink
         sink.peer = self
+        # request-pad link after play: the fused-dispatch head set changed
+        # (a new tee branch is a new head) — rescan (schedule.py)
+        for el in (self.element, sink.element):
+            pl = getattr(el, "pipeline", None)
+            if pl is not None and getattr(pl, "planner", None) is not None:
+                pl.planner.rescan()
+                break
 
     # -- dataflow (called on src pads) --------------------------------------
     def push(self, buf: TensorBuffer) -> FlowReturn:
@@ -305,6 +349,10 @@ class Element:
     def _event_entry(self, pad: Pad, event: Event) -> None:
         if isinstance(event, CapsEvent):
             pad.caps = event.caps
+            # caps (re)negotiation changes what fused dispatch plans may
+            # assume around THIS element: drop the affected plans (and
+            # their graphs); the next buffer rebuilds them (schedule.py)
+            self._invalidate_plans()
             try:
                 self.set_caps(pad, event.caps)
             except Exception as exc:  # noqa: BLE001
@@ -315,7 +363,19 @@ class Element:
             return
         if isinstance(event, EOSEvent):
             pad.eos = True
+        if isinstance(event, CustomEvent):
+            # model-update and friends can change an element's fusability
+            # and the state a captured segment reads
+            self._invalidate_plans()
         self.on_event(pad, event)
+
+    def _invalidate_plans(self) -> None:
+        """Drop the fused plans this element takes part in (no-op when
+        the pipeline runs interpreted); scoped, so an event crossing a
+        queue late never wipes unrelated segments' plans."""
+        pl = self.pipeline
+        if pl is not None and getattr(pl, "planner", None) is not None:
+            pl.planner.invalidate(element=self)
 
     # -- overridables --------------------------------------------------------
     def chain(self, pad: Pad, buf: TensorBuffer) -> FlowReturn:
@@ -360,6 +420,48 @@ class Element:
             if sp.push_upstream_event(event):
                 return True
         return False
+
+    def has_pending_input(self) -> bool:
+        """Is another in-band item (buffer or event) ALREADY queued for
+        this element's streaming thread?  The fuse-xla double buffer
+        (schedule.py) holds a finished frame only while this answers
+        True: the queued item then either pushes (buffer) or flushes
+        (event) the held slot, so a quiescent stream never strands a
+        frame.  Default False (no hold); boundary elements with a
+        visible input queue (appsrc, queue) override."""
+        return False
+
+    def plan_step(self):
+        """Fused-dispatch hook (schedule.py segment compiler).
+
+        Return a callable ``step(buf) -> TensorBuffer | None | FlowReturn``
+        to let this element be flattened into a fused segment plan: the
+        steady state then calls ``step`` in a flat loop instead of
+        dispatching ``Pad.push → _chain_entry → chain`` per element.  The
+        step must NOT push downstream itself; it returns the output
+        buffer (``None`` = consumed, a ``FlowReturn`` = terminal, e.g.
+        ``DROPPED``).  Return ``None`` from *this method* to opt out (the
+        default).  Only 1-sink/1-src elements are ever fused, and the
+        answer is re-queried on every plan (re)build, so it may change
+        with configuration (tensor_filter with batch>1 opts out)."""
+        return None
+
+    def lower_step(self) -> "Optional[LoweredStep]":
+        """Lowering hook (schedule.py ``fuse=xla`` tier): return a
+        :class:`LoweredStep` whose ``fn`` is a plain torch twin of this
+        element's per-buffer work, and the whole fused segment runs as
+        ONE CUDA graph on the card.  ``None`` (the default) keeps the
+        segment at the ``fuse-python`` tier; :meth:`lower_reason` then
+        names why.  Queried at plan-compile time (after negotiation) and
+        on every rebuild."""
+        return None
+
+    def lower_reason(self) -> "Optional[str]":
+        """Why this element cannot join a whole-segment computation: a
+        reason string, or ``None`` when it is expected to lower.  Safe to
+        call before ``start()`` (a property-level assessment)."""
+        return (f"{self.FACTORY or type(self).__name__} has no "
+                "lower_step implementation")
 
     def get_allowed_caps(self, sink_pad: Pad) -> Caps:
         """Answer a downstream caps query on ``sink_pad``.  Default: the pad

@@ -1,11 +1,13 @@
-"""Pipeline container and sources: the scheduling substrate.
+"""Pipeline container, sources, queues, tee: the scheduling substrate.
 
 Supplies the GStreamer-pipeline role (reference L0, SURVEY.md §1): element
 ownership, state changes, streaming threads, EOS aggregation, error posting.
 Scheduling model: each :class:`Source` owns one streaming thread; dataflow is
 synchronous downstream of it.  A :class:`Queue` introduces a thread
 boundary with a bounded buffer (backpressure); events travel through it
-in band.
+in band.  While playing, a :class:`~nnstreamer_tpu_torch.pipeline.
+schedule.SegmentPlanner` fuses the linear runs between those boundaries
+(``Pipeline(fuse=…)``, the JAX package's tiers).
 """
 
 from __future__ import annotations
@@ -41,9 +43,19 @@ class Pipeline:
         p.run()          # play + wait EOS + stop
     """
 
-    def __init__(self, name: str = "pipeline"):
+    def __init__(self, name: str = "pipeline", fuse=None):
         self.name = name
         self.tracer = None          # set by enable_tracing()
+        #: lowering tier of the segment compiler (schedule.py):
+        #: ``interpret`` (no fusion), ``python`` (flat plan_step loops,
+        #: the default) or ``xla`` (one CUDA graph a lowerable segment).
+        #: ``fuse`` takes a boolean, a tier name, or None = the NNS_FUSE
+        #: env ("0" | "1" | "xla"); ``self.fuse`` is the boolean view.
+        from .schedule import resolve_tier
+
+        self.fuse_tier = resolve_tier(fuse)
+        self.fuse = self.fuse_tier != "interpret"
+        self.planner = None         # SegmentPlanner while playing
         self.elements: List[Element] = []
         self._by_name: Dict[str, Element] = {}
         self._error: Optional[PipelineError] = None
@@ -145,6 +157,11 @@ class Pipeline:
                 raise PipelineError(el, exc) from exc
             el._started = True
         self._playing = True
+        if self.fuse:
+            from .schedule import SegmentPlanner
+
+            self.planner = SegmentPlanner(self)
+            self.planner.install()
         #: running-time origin: sinks with sync=true render buffer PTS
         #: against this (GStreamer base-time role)
         self.base_time_ns = time.monotonic_ns()
@@ -187,6 +204,10 @@ class Pipeline:
         from .tracing import Tracer
 
         self.tracer = Tracer(spans=spans)
+        if self.planner is not None:
+            # compiled executors bind the tracer when built: swap them in
+            # place, keeping the step lists and warm fuse-xla graphs
+            self.planner.retrace()
         return self.tracer
 
     def _check_links(self) -> None:
@@ -266,6 +287,9 @@ class Pipeline:
             if el._started:
                 el.stop()
                 el._started = False
+        if self.planner is not None:
+            self.planner.uninstall()
+            self.planner = None
 
     def run(self, timeout: Optional[float] = None) -> None:
         try:
@@ -410,6 +434,12 @@ class AppSrc(Source):
     def push_buffer(self, buf: TensorBuffer) -> None:
         self._fifo.put(buf)
 
+    def has_pending_input(self) -> bool:
+        # fuse-xla double-buffer gate: hold a finished frame only while
+        # the fifo already carries the next item (buffer OR event: an
+        # event flushes the held slot when it drains)
+        return not self._fifo.empty()
+
     def push_event(self, event: Event) -> None:
         """Queue a downstream event IN-BAND: it is delivered from the
         streaming thread in arrival order with the buffers (how GStreamer
@@ -510,6 +540,12 @@ class Queue(Element):
     def get_allowed_caps(self, sink_pad):
         return self.src_pad.peer_allowed_caps()
 
+    def has_pending_input(self) -> bool:
+        # fuse-xla double-buffer gate (Element.has_pending_input): the
+        # drain thread heads the downstream segment, and _q holds what it
+        # processes next
+        return not self._q.empty()
+
     def _enqueue(self, buf) -> FlowReturn:
         """Slot-bounded data put that can't deadlock: purely event-driven
         (no poll) — woken by the drain worker freeing a slot, by stop(),
@@ -574,3 +610,52 @@ class Queue(Element):
             with self._space:
                 self._drain_done = True
                 self._space.notify_all()
+
+
+@register_element
+class Tee(Element):
+    """1→N branch duplicator (GStreamer ``tee`` role).  Tensor PAYLOADS are
+    shared, never copied: each branch gets a fresh :class:`TensorBuffer`
+    wrapper (so per-buffer ``extra``/meta mutations stay branch-local)
+    holding the same tensor handles, so device tensors stay on the
+    device.  Downstream must not mutate tensor data in place.  Each
+    branch heads a fused segment of its own (schedule.py)."""
+
+    FACTORY = "tee"
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._done: set = set()     # branch pads that returned EOS
+
+    def _make_pads(self):
+        self.add_sink_pad(Caps.any(), "sink")
+
+    def request_src_pad(self) -> Pad:
+        return self.add_src_pad(Caps.any())
+
+    def start(self):
+        self._done = set()
+
+    def get_allowed_caps(self, sink_pad):
+        allowed = Caps.any()
+        for sp in self.src_pads:
+            allowed = allowed.intersect(sp.peer_allowed_caps())
+        return allowed
+
+    def chain(self, pad, buf):
+        # a branch that answered EOS is done for good: drop it from the
+        # fan-out; the LAST live branch gets the original wrapper (no
+        # copy), the others a fresh wrapper each
+        done = self._done
+        live = [sp for sp in self.src_pads if sp not in done]
+        if not live:
+            return FlowReturn.EOS
+        last = len(live) - 1
+        for i, sp in enumerate(live):
+            ret = sp.push(buf if i == last else buf.copy())
+            if ret is FlowReturn.ERROR:
+                return ret
+            if ret is FlowReturn.EOS:
+                done.add(sp)
+        return FlowReturn.EOS if len(done) >= len(self.src_pads) \
+            else FlowReturn.OK

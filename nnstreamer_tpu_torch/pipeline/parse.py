@@ -73,6 +73,22 @@ class CapsFilter(Element):
     def chain(self, pad, buf):
         return self.src_pad.push(buf)
 
+    def _passthrough(self, buf):
+        return buf
+
+    def plan_step(self):
+        # negotiation work all happens at caps time; per buffer this is a
+        # pure passthrough, so fused dispatch elides it
+        return self._passthrough
+
+    def lower_reason(self):
+        return None
+
+    def lower_step(self):
+        from .element import LoweredStep
+
+        return LoweredStep(lambda ts: ts, batched=lambda ts: ts)
+
 
 def _coerce(value: str):
     try:

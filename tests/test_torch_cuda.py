@@ -938,3 +938,67 @@ def test_capture_holds_off_the_garbage_collector(card):
     assert seen == [True, False, True, False]
     assert gc.isenabled()
     assert torch.equal(graph.replay()[0], x * 2)
+
+
+def test_segment_graph_matches_the_python_tier(card):
+    """Under ``fuse=xla`` the flagship-shaped segment (converter → filter
+    with the decoder's pushdown → decoder) runs as one CUDA graph a
+    signature: captured at the first frame, a replay every later frame,
+    K1 once a replay, the plan row ``xla``; its labels equal the python
+    tier's and a held frame keeps its own outputs."""
+    from nnstreamer_tpu_torch import parse_launch
+    from nnstreamer_tpu_torch.pipeline.graph import Pipeline
+
+    launch = ("videotestsrc num-buffers=6 pattern=random ! "
+              "video/x-raw,format=RGB,width=32,height=32,framerate=30/1 ! "
+              "tensor_converter ! tensor_filter framework=xla "
+              "model=mobilenet_v2 custom=input_size:32,use_pallas:1 ! "
+              "tensor_decoder mode=image_labeling ! tensor_sink name=out")
+    labels = {}
+    for tier in ("python", "xla"):
+        p = parse_launch(launch, Pipeline(fuse=tier))
+        _cuda.reset_launches()
+        p.play()
+        try:
+            p.wait(timeout=300)
+            plans = p.planner.plans()
+        finally:
+            p.stop()
+        labels[tier] = [b.extra["index"] for b in p.get("out").results]
+        if tier == "xla":
+            (plan,) = plans
+            assert plan["lowering"] == "xla" and plan["compiles"] == 1
+            assert dict(_cuda.graphs) == {"captures": 3, "replays": 5}
+            assert _cuda.launches["normalize_frame"] == 3 + 5
+    assert labels["xla"] == labels["python"] and len(labels["xla"]) == 6
+
+
+def test_held_segment_outputs_are_not_overwritten(card):
+    """An appsrc fed ahead of the stream keeps the fuse=xla double buffer
+    holding a frame while the next replays: every held frame's logits are
+    its own (the segment clones the graph's outputs), bit-equal to the
+    python tier's."""
+    from nnstreamer_tpu_torch import parse_launch
+    from nnstreamer_tpu_torch.pipeline.graph import Pipeline
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    caps = ("other/tensors,format=static,num_tensors=1,dimensions=64,"
+            "types=float32,framerate=0/1")
+    launch = (f"appsrc caps={caps} name=in ! tensor_transform "
+              "mode=arithmetic option=mul:0.5 ! tensor_filter "
+              "framework=xla model=mlp custom=in_dim:64,width:256,depth:2,"
+              "out_dim:16 ! tensor_sink name=out")
+    rng = np.random.default_rng(5)
+    frames = [rng.standard_normal(64).astype(np.float32) for _ in range(12)]
+    outs = {}
+    for tier in ("python", "xla"):
+        p = parse_launch(launch, Pipeline(fuse=tier))
+        src = p.get("in")
+        for i, x in enumerate(frames):
+            src.push_buffer(TensorBuffer(tensors=[x], pts=i))
+        src.end_of_stream()
+        p.run(timeout=300)
+        outs[tier] = [b.np(0) for b in p.get("out").results]
+    assert len(outs["xla"]) == len(frames)
+    for a, b in zip(outs["xla"], outs["python"]):
+        np.testing.assert_array_equal(a, b)

@@ -25,10 +25,12 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "nnstreamer_tpu"}
 
 #: the flagship pipeline's elements, plus appsrc (the pipeline module's
 #: programmatic source), fakesink, the training slice's tensor_trainer,
-#: the query plane's three elements, the LLM tier's tensor_llm and the
-#: vision zoo's tensor_transform
-SLICE_ELEMENTS = ["appsrc", "capsfilter", "fakesink", "queue",
-                  "tensor_converter", "tensor_decoder", "tensor_filter",
+#: the query plane's three elements, the LLM tier's tensor_llm, the
+#: vision zoo's tensor_transform and the scheduling slice's tee,
+#: identity and tensor_debug
+SLICE_ELEMENTS = ["appsrc", "capsfilter", "fakesink", "identity", "queue",
+                  "tee", "tensor_converter", "tensor_debug",
+                  "tensor_decoder", "tensor_filter",
                   "tensor_llm", "tensor_query_client",
                   "tensor_query_serversink",
                   "tensor_query_serversrc", "tensor_sink", "tensor_trainer",

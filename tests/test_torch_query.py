@@ -103,6 +103,17 @@ def native_crc_both():
         pytest.skip("a native CRC library is unavailable")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def settled_native():
+    """Both packages' CRC libraries settled before any test of the file:
+    ``available()`` joins a background build still in flight.  Until a
+    build lands its package frames with CRC 0 ("unchecked"), so on a
+    fresh tree one package could frame a message with its CRC and the
+    other without, and the byte comparisons below would differ."""
+    jax_native.available()
+    port_native.available()
+
+
 # ---------------------------------------------------------------------------
 # wire parity
 # ---------------------------------------------------------------------------
