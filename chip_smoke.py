@@ -124,6 +124,28 @@ Phases, each of which must pass:
      and the dense string served by ``python -m
      nnstreamer_tpu_torch.launch`` in a child process to one more client
      (the child drains and exits 0 on SIGTERM);
+   - the among-device transports, after ``offload_reference`` (the
+     main path's string at OFFLOAD_FRAMES frames: the labels and fps
+     each offload is held to): ``edge_offload``, ``mqtt_offload`` and
+     ``shm_offload`` run three pipelines, ``videotestsrc ! ... !
+     tensor_converter`` into the transport, ``src ! tensor_filter
+     model=mobilenet_v2 custom=seed:0,use_pallas:1 ! sink`` on the card
+     and ``src ! tensor_decoder mode=image_labeling ! tensor_sink``
+     (edge and MQTT in this process through one in-process broker; the
+     shm producer a spawned child on the CPU): fps first to last
+     arrival, p50/p90 arrival gap and the bytes a frame puts on a hop;
+     every frame arrives once and in order (the source's pts on both
+     hops), the logits the tail receives equal byte for byte those the
+     filter handed its sink, the labels equal the reference's, one
+     capture and a replay a frame (K1 once a replay), and every shm end
+     ran the native ring with ``tw_shm_push2`` bound (its producer
+     starts first, so its start-up overlaps the edge and MQTT paths);
+     ``hybrid_query`` is query_serve's batched pair (32 clients x 16
+     frames) with ``connect-type=HYBRID`` on the serversrc and every
+     client through the port's MQTT broker: the clients find the bound
+     port there, every reply bit for bit against its bucket,
+     query_serve's graph checks, and the record is cleared at stop.
+     gRPC is left out: the card host is not known to have ``grpcio``;
 
    Each training path runs as CUDA graphs (step 1 is the capture's eager
    warm-up, every later step a replay of the one graph: launches count as
@@ -144,14 +166,17 @@ Phases, each of which must pass:
 The ``fuse_tiers`` traces run first in every call (a child process,
 ``--profile-path fuse_tiers``); with ``--profile DIR`` the seven serving
 paths, the three training
-paths, ``query_serve`` and ``llm_stream`` (dense and paged: a unit is a
-decode step) are traced first, each in a process of its own, in graph
-and eager mode in turns (graph, eager, eager, graph): device busy time,
-device kernels and host launch calls a unit (and a bucket, on the
-batched paths), the idle share and the rates, one ``profile_modes`` line
-a path with both modes side by side; and ``query_pace`` serves the
-query pair twice more, with the clients in processes of their own and
-without the wire's CRC.
+paths, ``query_serve``, ``llm_stream`` (dense and paged: a unit is a
+decode step), the three offload paths (a unit is a frame reaching the
+decoding end) and ``hybrid_query`` are traced first, each in a process
+of its own, in graph and eager mode in turns (graph, eager, eager,
+graph): device busy time, device kernels and host launch calls a unit
+(and a bucket, on the batched paths), the idle share and the rates, one
+``profile_modes`` line a path with both modes side by side;
+``query_pace`` serves the query pair twice more, with the clients in
+processes of their own and without the wire's CRC; and ``offload_pace``
+runs edge and MQTT with the producer in a child process, and edge
+without the wire's CRC, each in turns with the default path.
 
 Earlier lines are JSON objects of the phases' numbers, the card's name and
 power limit as ``nvidia-smi`` gives them, and the ``kernels`` line; the
@@ -2257,6 +2282,9 @@ QUERY_CLIENT = ("videotestsrc num-buffers={frames} pattern=random "
                 "tensor_converter ! "
                 "tensor_query_client port={port} timeout=120 ! "
                 "tensor_decoder mode=image_labeling ! tensor_sink name=out")
+#: hybrid_query: the topic under which the HYBRID serversrc advertises its
+#: data address on the MQTT broker (``nns/query/<topic>``)
+HYBRID_TOPIC = "mobilenet_v2"
 #: client connections of query_serve, and the frames each sends
 QUERY_CLIENTS = 32
 QUERY_FRAMES = 16
@@ -2285,10 +2313,23 @@ def query_frames(seed: int):
     return frames
 
 
-def drive_query_clients(port: int, frames) -> dict:
+def hybrid_client(broker_port: int, name: str):
+    """A ``tensor_query_client connect-type=HYBRID`` that knows only the
+    MQTT broker (its ``_server_address`` is the element's discovery)."""
+    from nnstreamer_tpu_torch.query.client import TensorQueryClient
+
+    return TensorQueryClient(name, **{
+        "connect-type": "HYBRID", "dest-host": "127.0.0.1",
+        "dest-port": broker_port, "topic": HYBRID_TOPIC, "timeout": 60.0})
+
+
+def drive_query_clients(port: int, frames, hybrid=None) -> dict:
     """One synchronous ``QueryConnection`` a client, each in a thread,
     started together; every reply's logits (copied out of the pooled
-    slab), round trips and the wall from the start to the last reply."""
+    slab), round trips and the wall from the start to the last reply.
+    ``hybrid``: the MQTT broker's port; each client then finds the
+    server's address there (``port`` unused) and the ports found are
+    returned."""
     import threading
 
     import numpy as np
@@ -2297,14 +2338,19 @@ def drive_query_clients(port: int, frames) -> dict:
     from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 
     outs = [[None] * len(row) for row in frames]
-    rtt, done, errors, start = [], [], [], []
+    rtt, done, errors, start, found = [], [], [], [], []
     barrier = threading.Barrier(len(frames), timeout=120,
                                 action=lambda: start.append(
                                     time.perf_counter()))
 
     def run(i):
         try:
-            conn = QueryConnection("127.0.0.1", port, timeout=120.0)
+            host, at = "127.0.0.1", port
+            if hybrid is not None:
+                host, at = hybrid_client(hybrid,
+                                         f"c{i}")._server_address()
+                found.append(at)
+            conn = QueryConnection(host, at, timeout=120.0)
             conn.connect()
         except Exception as exc:  # noqa: BLE001 - counted and raised below
             errors.append(repr(exc))
@@ -2334,9 +2380,15 @@ def drive_query_clients(port: int, frames) -> dict:
         raise AssertionError("query_serve: a client thread hung")
     rtt.sort()
     n = len(rtt)
+    done.sort()
+    gaps = sorted((b - a) * 1e3 for a, b in zip(done, done[1:]))
     return {"outs": outs, "errors": errors, "replies": n,
+            "found_ports": sorted(set(found)),
             "t0": start[0] if start else None,
             "t1": max(done) if done else None,
+            "arrival_gap_p50_ms": statistics.median(gaps) if gaps else None,
+            "arrival_gap_p90_ms": (gaps[int(0.9 * (len(gaps) - 1))]
+                                   if gaps else None),
             "replies_per_s": (n / (max(done) - start[0]) if n and start
                               else 0.0),
             "rtt_p50_ms": statistics.median(rtt) * 1e3 if n else None,
@@ -2346,14 +2398,19 @@ def drive_query_clients(port: int, frames) -> dict:
 
 @contextlib.contextmanager
 def query_server(sid: int, batch: str, frames, before_play=None,
-                 tier=None):
+                 tier=None, hybrid=None):
     """The server string (``batch``: QUERY_BATCH or "") started under the
     segment compiler's ``tier`` (None: the default), warmed with one frame
     from each client (the first cross-stream bucket captures the pad set),
-    and stopped after: yields (pipeline, port)."""
+    and stopped after: yields (pipeline, port).  ``hybrid``: the MQTT
+    broker's port; the serversrc runs ``connect-type=HYBRID`` and
+    advertises itself there, and the clients find it there."""
     from nnstreamer_tpu_torch import Pipeline, parse_launch
     from nnstreamer_tpu_torch.query import shutdown_server
 
+    if hybrid is not None:
+        batch += (f"connect-type=HYBRID dest-host=127.0.0.1 "
+                  f"dest-port={hybrid} topic={HYBRID_TOPIC} ")
     p = parse_launch(QUERY_SERVER.format(sid=sid, batch=batch),
                      Pipeline(fuse=tier))
     if before_play is not None:
@@ -2361,7 +2418,8 @@ def query_server(sid: int, batch: str, frames, before_play=None,
     p.play()
     try:
         port = p.get("qsrc").bound_port
-        warm = drive_query_clients(port, [row[:1] for row in frames])
+        warm = drive_query_clients(port, [row[:1] for row in frames],
+                                   hybrid)
         if warm["errors"]:
             raise AssertionError(f"query server warm-up: "
                                  f"{warm['errors'][:3]}")
@@ -2391,13 +2449,14 @@ def traced_window(p, run):
 
 
 def serve_query(batch: str, frames, card: str, child_frames: int = 0,
-                extra_frames=(), tier=None) -> dict:
+                extra_frames=(), tier=None, hybrid=None) -> dict:
     """Serve the clients from the server string (``batch``: QUERY_BATCH
     or "") under ``tier`` (None: the default), then (``child_frames``)
     the README's client string through the port's CLI in a child process,
     or (``extra_frames``) those frames from one more connection; the row,
     the replies and what the server recorded (each bucket's captures, and
-    the rows of the timed run's buckets)."""
+    the rows of the timed run's buckets).  ``hybrid``: the MQTT broker's
+    port, through which the server and the clients find each other."""
     import numpy as np
 
     from nnstreamer_tpu_torch import _cuda
@@ -2430,11 +2489,13 @@ def serve_query(batch: str, frames, card: str, child_frames: int = 0,
     _cuda.reset_launches()
     compileledger.reset()
     child, extra = None, []
-    with query_server(9100 + bool(batch) + 2 * (tier == "xla"), batch,
-                      frames, record_buckets, tier) as (p, port):
+    sid = (9100 + bool(batch) + 2 * (tier == "xla")
+           + 10 * (hybrid is not None))
+    with query_server(sid, batch, frames, record_buckets, tier,
+                      hybrid) as (p, port):
         recording[0] = True
         run, chain_us = traced_window(
-            p, lambda: drive_query_clients(port, frames))
+            p, lambda: drive_query_clients(port, frames, hybrid))
         recording[0] = False
         if child_frames:
             child = subprocess.run(
@@ -2458,13 +2519,21 @@ def serve_query(batch: str, frames, card: str, child_frames: int = 0,
         evicted = qsrc.server._m_evicted.value
         plans = p.planner.plans() if p.planner is not None else []
     launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
+    phase = "query_serve" if hybrid is None else "hybrid_query"
+    cleared = hybrid is None or hybrid_record(hybrid, 0.3) is None
     timed = [b for b in buckets if b["rows"]]
-    row = {"phase": "query_serve", "batch": 32 if batch else 1,
+    row = {"phase": phase, "batch": 32 if batch else 1,
            "fuse": p.fuse_tier, "plans": plans,
            "clients": len(frames), "frames": sum(map(len, frames)),
            "replies": run["replies"],
            "replies_per_s": run["replies_per_s"],
            "rtt_p50_ms": run["rtt_p50_ms"], "rtt_p99_ms": run["rtt_p99_ms"],
+           "first_to_last_s": run["t1"] - run["t0"],
+           "arrival_gap_p50_ms": run["arrival_gap_p50_ms"],
+           "arrival_gap_p90_ms": run["arrival_gap_p90_ms"],
+           "wire_bytes_per_frame": {
+               "in": transport_bytes("query", frames[0][0]),
+               "out": transport_bytes("query", run["outs"][0][0])},
            "buckets": len(buckets), "timed_buckets": len(timed),
            "mean_fill": (sum(len(b["rows"]) for b in timed) / len(timed)
                          if timed else 0.0),
@@ -2480,14 +2549,22 @@ def serve_query(batch: str, frames, card: str, child_frames: int = 0,
         labels = [int(line.split()[-1]) for line in child.stdout.splitlines()
                   if line.startswith("pts=")]
         row.update(cli_rc=child.returncode, cli_labels=len(labels))
+    if hybrid is not None:
+        row.update(bound_port=port, found_ports=run["found_ports"],
+                   record_cleared_at_stop=cleared)
     emit(row)
+    if hybrid is not None and (run["found_ports"] != [port]
+                               or not cleared):
+        raise AssertionError(f"hybrid_query: clients found ports "
+                             f"{run['found_ports']}, the server bound "
+                             f"{port}; record cleared at stop: {cleared}")
     if run["errors"] or row["errors"] or row["shed"]:
-        raise AssertionError(f"query_serve (batch {row['batch']}): "
+        raise AssertionError(f"{phase} (batch {row['batch']}): "
                              f"{row['shed']} sheds, errors "
                              f"{run['errors'][:3]}, {evicted} evicted")
     if child is not None and (child.returncode or len(labels)
                               != child_frames):
-        raise AssertionError(f"query_serve: the CLI client exited "
+        raise AssertionError(f"{phase}: the CLI client exited "
                              f"{child.returncode} with {len(labels)} "
                              f"labels of {child_frames}: "
                              f"{child.stderr[-800:]}")
@@ -2575,6 +2652,34 @@ def run_query_pace(seed: int, card: str) -> None:
                                  f"replies, {errors} errors")
 
 
+def check_served_graphs(graph: dict) -> None:
+    """The graphs of a batched served run: one capture at open and the
+    pad set at the first cross-stream bucket, none after; a replay a
+    bucket and K1 once a replay (besides the captures' eager runs); the
+    compile ledger's events; at least one bucket of several frames."""
+    row, buckets = graph["row"], graph["buckets"]
+    phase, graphs = row["phase"], row["graphs"]
+    first_xb = next((j for j, b in enumerate(buckets) if b["xbatch"]), None)
+    late_captures = ([b["captures"] for b in buckets[first_xb:]
+                      if b["captures"] != QUERY_CAPTURES]
+                     if first_xb is not None else ["no cross-stream bucket"])
+    k1 = row["launches"].get("normalize_frame", 0)
+    if late_captures or graphs.get("captures") != QUERY_CAPTURES:
+        raise AssertionError(f"{phase}: graphs {graphs}, captures "
+                             f"after the first bucket {late_captures[:4]}")
+    if (graphs.get("replays") != row["buckets"]
+            or k1 != graphs["captures"] + graphs["replays"]):
+        raise AssertionError(f"{phase}: K1 launched {k1} times over "
+                             f"{row['buckets']} buckets, graphs {graphs}")
+    if row["compile_ledger"] != {"filter.jitexec.invoke": 1,
+                                 "filter.jitexec.vmap": 7}:
+        raise AssertionError(f"{phase}: compile ledger "
+                             f"{row['compile_ledger']}")
+    if not row["batched_buckets"]:
+        raise AssertionError(f"{phase}: no bucket held more than one "
+                             "frame")
+
+
 def check_query_eager(frames, graph: dict, eager: bool = True,
                       phase: str = "graph_vs_eager") -> int:
     """Every bucket of the served run's timed clients, rebuilt from its
@@ -2608,13 +2713,14 @@ def check_query_eager(frames, graph: dict, eager: bool = True,
                     compared += 1
                     if not np.array_equal(g, graph["outs"][i][k]):
                         differ.append((i, k))
-    emit({"phase": phase, "path": "query_serve",
+    emit({"phase": phase, "path": graph["row"]["phase"],
           "fuse": graph["row"]["fuse"], "against": "eager" if eager
           else "filter graphs", "buckets": len(subset), "frames": compared,
           "outputs_bit_equal": compared - len(differ)})
     sent = sum(map(len, frames))
     if differ or compared != sent:
-        raise AssertionError(f"query_serve: {compared} of {sent} replies "
+        raise AssertionError(f"{graph['row']['phase']}: {compared} of "
+                             f"{sent} replies "
                              f"replayed; served logits differ from the "
                              f"{'eager forward' if eager else 'filter graphs'}"
                              f" on frames {differ[:8]}")
@@ -2666,13 +2772,6 @@ def run_query_serve(args, card: str) -> dict:
             if int(np.argmax(x)) != label:
                 differ.append(label)
     compared = check_query_eager(frames, graph)
-    buckets = graph["buckets"]
-    first_xb = next((j for j, b in enumerate(buckets) if b["xbatch"]), None)
-    late_captures = ([b["captures"] for b in buckets[first_xb:]
-                      if b["captures"] != QUERY_CAPTURES]
-                     if first_xb is not None else ["no cross-stream bucket"])
-    k1 = row["launches"].get("normalize_frame", 0)
-    graphs = row["graphs"]
     emit({"phase": "query_serve_outputs",
           "replies_vs_batch1_max_abs_diff": worst,
           "atol": LOGITS_ATOL, "rtol": LOGITS_RTOL,
@@ -2692,20 +2791,7 @@ def run_query_serve(args, card: str) -> dict:
         raise AssertionError(f"query_serve: {over} logits beyond the bf16 "
                              f"bound of batch=1, CLI labels differ on "
                              f"{differ}, {sure} compared")
-    if late_captures or graphs.get("captures") != QUERY_CAPTURES:
-        raise AssertionError(f"query_serve: graphs {graphs}, captures "
-                             f"after the first bucket {late_captures[:4]}")
-    if (graphs.get("replays") != row["buckets"]
-            or k1 != graphs["captures"] + graphs["replays"]):
-        raise AssertionError(f"query_serve: K1 launched {k1} times over "
-                             f"{row['buckets']} buckets, graphs {graphs}")
-    if row["compile_ledger"] != {"filter.jitexec.invoke": 1,
-                                 "filter.jitexec.vmap": 7}:
-        raise AssertionError(f"query_serve: compile ledger "
-                             f"{row['compile_ledger']}")
-    if not row["batched_buckets"]:
-        raise AssertionError("query_serve: no bucket held more than one "
-                             "frame")
+    check_served_graphs(graph)
     xla = check_query_xla(frames, card)
     return {"launches": dict(collections.Counter(row["launches"])
                              + collections.Counter(xla["launches"]))}
@@ -2760,6 +2846,499 @@ def check_query_xla(frames, card: str) -> dict:
         raise AssertionError(f"query_serve under xla: compile ledger "
                              f"{row['compile_ledger']}")
     return {"launches": row["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# the among-device transports
+# ---------------------------------------------------------------------------
+
+#: frames of each offload path (``source_frames(seed)``: the main path's)
+OFFLOAD_FRAMES = 256
+OFFLOAD_SOURCE = ("videotestsrc num-buffers={frames} pattern=random "
+                  "seed={seed} ! video/x-raw,format=RGB,width=224,"
+                  "height=224,framerate=30/1 ! tensor_converter ! {sink}")
+OFFLOAD_CARD = ("{src} ! tensor_filter name=f framework=xla "
+                "model=mobilenet_v2 custom=seed:{seed},use_pallas:1 ! "
+                "{sink}")
+OFFLOAD_TAIL = ("{src} ! tensor_decoder mode=image_labeling ! "
+                "tensor_sink name=out")
+OFFLOAD_KINDS = ("edge", "mqtt", "shm")
+#: hops a frame makes: publisher -> broker -> subscriber, or one ring slot
+OFFLOAD_HOPS = {"edge": 2, "mqtt": 2, "shm": 1}
+
+
+def transport_bytes(kind: str, arr) -> int:
+    """Bytes one frame of ``arr`` (one tensor) puts on one hop of a
+    transport, from the port's own framing: the query wire's message
+    (``edge``, ``query``), the MQTT PUBLISH with its 1024-byte header
+    (``mqtt``), the ring slot with its 16-byte header (``shm``)."""
+    from nnstreamer_tpu_torch.query import mqtt, protocol
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    parts = protocol.tensor_parts(TensorBuffer(tensors=[arr]))
+    body = sum(memoryview(p).nbytes for p in parts)
+    if kind in ("edge", "query"):
+        return protocol.HEADER.size + body
+    if kind == "shm":
+        return 16 + body
+    # topic "frames"/"logits": 2-byte length + 6 bytes
+    remaining = 2 + 6 + mqtt.HDR_LEN + arr.nbytes
+    return 1 + len(mqtt._remaining_len(remaining)) + remaining
+
+
+def hybrid_record(broker_port: int, timeout: float):
+    """The retained discovery record of HYBRID_TOPIC, or None."""
+    from nnstreamer_tpu_torch.query.mqtt import fetch_retained_record
+
+    return fetch_retained_record("127.0.0.1", broker_port,
+                                 f"nns/query/{HYBRID_TOPIC}", timeout,
+                                 "chip-smoke-check")
+
+
+def _offload_producer(sink: str, frames: int, seed: int, out, go) -> None:
+    """An offload's producer in a spawned child, CPU only: the source
+    string into ``sink``, built, then reported ready, and played once
+    ``go`` is set; reports the pts it sent, its own rate (first to last
+    hand-over to the sink) and, for a ring, whether it was the native
+    one with the scatter push bound."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, HERE)
+    from nnstreamer_tpu_torch import native, parse_launch
+
+    native.available()
+    p = parse_launch(OFFLOAD_SOURCE.format(frames=frames, seed=seed,
+                                           sink=sink))
+    stamps = []
+    pts = tap_pts(p.get("tx"), stamps)
+    out.put("ready")
+    if not go.wait(timeout=600):
+        raise TimeoutError("offload producer: no start signal")
+    p.play()
+    try:
+        p.wait(timeout=600)
+        report = {"pts": pts, "fps": (len(stamps) - 1)
+                  / (stamps[-1] - stamps[0])}
+        ring = getattr(p.get("tx"), "_ring", None)
+        if ring is not None:
+            report.update(native=ring.is_native,
+                          push2=hasattr(ring._lib, "tw_shm_push2"))
+        out.put(report)
+    finally:
+        p.stop()
+
+
+def tap_pts(sink, stamps=None) -> list:
+    """The pts of every buffer ``sink`` takes, in order (a wrapper of its
+    ``chain``); ``stamps`` also gets the time of each."""
+    seen = []
+
+    def chain(pad, buf, chain=sink.chain):
+        seen.append(buf.pts)
+        if stamps is not None:
+            stamps.append(time.perf_counter())
+        return chain(pad, buf)
+
+    sink.chain = chain
+    return seen
+
+
+def start_producer(sink: str, frames: int, seed: int):
+    """Spawn an offload's producer (``_offload_producer``) now; its
+    start-up (a fresh interpreter, torch's import) runs while the caller
+    goes on.  Returns ``(process, out, go)``."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    out, go = ctx.Queue(), ctx.Event()
+    proc = ctx.Process(target=_offload_producer,
+                       args=(sink, frames, seed, out, go))
+    proc.start()
+    return proc, out, go
+
+
+def ring_ends(what: str):
+    """shm_offload's element strings (sink, src) of the ``frames`` or
+    ``logits`` ring, a name unique to this process."""
+    name = f"nns-offload-{what}-{os.getpid()}"
+    return (f"tensor_shm_sink name=tx path={name} timeout=120",
+            f"tensor_shm_src name=rx path={name} timeout=120")
+
+
+@contextlib.contextmanager
+def offload_ends(kind: str):
+    """The broker or ring names of one offload run, released after:
+    yields ``(ends, broker)``, ``ends(what, frames) -> (sink, src)`` the
+    element strings of the ``frames`` and ``logits`` streams."""
+    from nnstreamer_tpu_torch.query.edge import EdgeBroker
+    from nnstreamer_tpu_torch.query.mqtt import MqttBroker
+
+    broker = {"edge": EdgeBroker, "mqtt": MqttBroker}.get(kind,
+                                                          lambda: None)()
+
+    def ends(what: str, frames: int):
+        if kind == "edge":
+            return (f"edge_sink name=tx port={broker.port} topic={what}",
+                    f"edge_src name=rx port={broker.port} topic={what} "
+                    f"num-buffers={frames}")
+        if kind == "mqtt":
+            return (f"mqttsink name=tx port={broker.port} pub-topic={what}",
+                    f"mqttsrc name=rx port={broker.port} sub-topic={what} "
+                    f"num-buffers={frames}")
+        return ring_ends(what)
+
+    try:
+        yield ends, broker
+    finally:
+        if broker is not None:
+            broker.close()
+        for what in ("frames", "logits"):
+            with contextlib.suppress(OSError):
+                os.unlink(f"/dev/shm/nns-offload-{what}-{os.getpid()}")
+
+
+def wait_subscribed(kind: str, broker, topics) -> None:
+    """An edge broker registers a subscription on its own thread: wait
+    until it holds one for each topic (a publish before that is lost:
+    pub/sub is QoS 0).  MQTT subscribes synchronously (SUBACK)."""
+    if kind != "edge":
+        return
+    deadline = time.monotonic() + 30
+    while not all(broker._subs.get(t) for t in topics):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"edge_offload: no subscription on "
+                                 f"{topics}")
+        time.sleep(0.001)
+
+
+def drive_offload(kind: str, frames: int, seed: int, eager: bool = False,
+                  during=None, producer_child=None, spawned=None) -> dict:
+    """The three offload pipelines of ``kind``: the source string into the
+    transport (``frames``), ``src ! tensor_filter model=mobilenet_v2 !
+    sink`` on the card (``frames`` -> ``logits``), and ``src !
+    tensor_decoder ! tensor_sink`` (edge, mqtt: in this process through
+    one in-process broker; shm, or ``producer_child``: the producer in a
+    spawned child, CPU only).  Records what the card's filter handed its
+    sink (pts and the logits, still on the card) and what the tail's
+    source received (pts, logits on the host), the tail sink's arrival
+    stamps and labels, the graphs and launches of the run, the producer's
+    own rate (a child's) and, for shm, whether each end's ring was
+    native.  ``during(wait, stamps)``: called once the first frame
+    reached the tail sink, with a function that waits for the end (the
+    profile's window).  ``spawned``: the child producer, already started
+    by ``start_producer`` (its start-up then overlaps earlier work)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import _cuda, native, parse_launch
+    from nnstreamer_tpu_torch.analysis import compileledger
+
+    native.available()
+    if producer_child is None:
+        producer_child = kind == "shm"
+    sent, got, stamps, labels, captures_at = [], [], [], [], []
+    producer, released = None, False
+    with offload_ends(kind) as (ends, broker):
+        frames_sink, frames_src = ends("frames", frames)
+        logits_sink, logits_src = ends("logits", frames)
+        if producer_child and spawned is None:
+            spawned = start_producer(frames_sink, frames, seed)
+        child, out, go = spawned if producer_child else (None, None, None)
+        tail = parse_launch(OFFLOAD_TAIL.format(src=logits_src))
+        on_card = parse_launch(OFFLOAD_CARD.format(src=frames_src,
+                                                   sink=logits_sink,
+                                                   seed=seed))
+        source = (parse_launch(OFFLOAD_SOURCE.format(
+            frames=frames, seed=seed, sink=frames_sink))
+            if not producer_child else None)
+        card_tx, tail_rx = on_card.get("tx"), tail.get("rx")
+
+        def handed(pad, buf, chain=card_tx.chain):
+            sent.append((buf.pts, buf.tensors[0]))
+            return chain(pad, buf)
+
+        def received(create=tail_rx.create):
+            buf = create()
+            if buf is not None:
+                got.append((buf.pts, np.array(buf.np(0))))
+            return buf
+
+        def arrived(buf):
+            stamps.append(time.perf_counter())
+            labels.append(buf.extra.get("index"))
+            captures_at.append(_cuda.graphs["captures"])
+
+        card_tx.chain, tail_rx.create = handed, received
+        tail.get("out").connect("new-data", arrived)
+        source_pts = [] if source is None else tap_pts(source.get("tx"))
+        _cuda.reset_launches()
+        compileledger.reset()
+        pipelines = [p for p in (tail, on_card, source) if p is not None]
+        native_ends = {}
+        try:
+            with eager_filters(eager):
+                tail.play()
+                on_card.play()
+                wait_subscribed(kind, broker, ("frames", "logits"))
+                if source is not None:
+                    source.play()
+                else:
+                    if out.get(timeout=600) != "ready":
+                        raise AssertionError(f"{kind}_offload: the "
+                                             "producer did not start")
+                    go.set()
+                    released = True
+
+                def wait():
+                    for p in pipelines:
+                        p.wait(timeout=600)
+
+                if during is not None:
+                    deadline = time.monotonic() + 600
+                    while not stamps and time.monotonic() < deadline:
+                        time.sleep(0.001)
+                    during(wait, stamps)
+                else:
+                    wait()
+                if child is not None:
+                    producer = out.get(timeout=600)
+                    source_pts = producer.pop("pts")
+                if kind == "shm":
+                    native_ends = {
+                        "producer": {k: producer[k]
+                                     for k in ("native", "push2")},
+                        "card_src": on_card.get("rx")._ring.is_native,
+                        "card_sink": card_tx._ring.is_native,
+                        "tail_src": tail_rx._ring.is_native}
+        finally:
+            for p in reversed(pipelines):
+                p.stop()
+            if child is not None:
+                # a producer never released waits on ``go``: end it now
+                child.join(timeout=60 if released else 1)
+                if child.is_alive():
+                    child.kill()
+                    child.join(timeout=10)
+    return {"source_pts": source_pts, "sent": sent, "got": got,
+            "stamps": stamps, "labels": labels,
+            "captures_at": captures_at, "native": native_ends,
+            "launches": dict(_cuda.launches), "graphs": dict(_cuda.graphs),
+            "compile_ledger": compileledger.snapshot(),
+            "producer_fps": producer and producer["fps"],
+            "child_rc": None if child is None else child.exitcode}
+
+
+def offload_delivery(run: dict, frames: int) -> dict:
+    """An offload run's arrivals at the decoding end (fps first to last,
+    p50/p90 gap) and whether it was lossless: ``in_order`` (every frame
+    once and in order: the source's rising pts on both hops) and
+    ``logits_bit_equal`` (frames whose logits the tail received equal,
+    byte for byte, those the card's filter handed its sink)."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.tensor.buffer import to_host
+
+    want_pts = run["source_pts"]
+    stamps = run["stamps"]
+    gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+    return {
+        "arrived": len(stamps),
+        "fps": (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        if len(stamps) > 1 else 0.0,
+        "first_to_last_s": stamps[-1] - stamps[0] if stamps else None,
+        "p50_ms": statistics.median(gaps) if gaps else None,
+        "p90_ms": gaps[int(0.9 * (len(gaps) - 1))] if gaps else None,
+        "in_order": ([pts for pts, _ in run["sent"]] == want_pts
+                     == [pts for pts, _ in run["got"]]
+                     and len(want_pts) == len(stamps) == frames
+                     and want_pts == sorted(set(want_pts))),
+        "logits_bit_equal": sum(
+            got.dtype == np.float32 and got.shape == (1001,)
+            and bool(np.isfinite(got).all())
+            and to_host(t).tobytes() == got.tobytes()
+            for (_, t), (_, got) in zip(run["sent"], run["got"]))}
+
+
+def check_offload(kind: str, run: dict, frames: int, reference: dict,
+                  card: str) -> dict:
+    """One offload run's row and checks: every frame arrived, in order
+    and once, with its logits byte-equal (``offload_delivery``); the
+    labels equal the flagship per-frame path's on the same frames
+    (``reference``, run in this call); one capture (the filter's open;
+    no pushdown, the decoder is in another pipeline) before the first
+    arrival, a replay a frame and K1 once a replay; for shm, every end
+    on the native ring with ``tw_shm_push2`` bound."""
+    import numpy as np
+
+    phase = f"{kind}_offload"
+    delivery = offload_delivery(run, frames)
+    labels_equal = sum(a == b for a, b in zip(run["labels"],
+                                              reference["labels"]))
+    launches, graphs = run["launches"], run["graphs"]
+    k1 = launches.get("normalize_frame", 0)
+    row = {"phase": phase, "frames": frames, **delivery,
+           "flagship_b1_fps": reference["fps"],
+           "wire_bytes_per_frame": {
+               "in": transport_bytes(kind, np.zeros((224, 224, 3),
+                                                    np.uint8)),
+               "out": transport_bytes(kind, np.zeros(1001, np.float32))},
+           "hops": OFFLOAD_HOPS[kind], "labels_equal_flagship":
+           labels_equal, "launches": launches, "graphs": graphs,
+           "compile_ledger": run["compile_ledger"], "card": card}
+    if kind == "shm":
+        row.update(native=run["native"], producer_fps=run["producer_fps"],
+                   producer_rc=run["child_rc"])
+    emit(row)
+    if not delivery["in_order"]:
+        raise AssertionError(f"{phase}: {len(run['sent'])} frames reached "
+                             f"the card's sink, {len(run['got'])} the "
+                             f"tail, {delivery['arrived']} its sink, of "
+                             f"{frames}, or not once each in order")
+    if delivery["logits_bit_equal"] != frames or labels_equal != frames:
+        raise AssertionError(f"{phase}: logits byte-equal on "
+                             f"{delivery['logits_bit_equal']}, labels "
+                             f"equal to the flagship on {labels_equal} of "
+                             f"{frames}")
+    if graphs != graph_counts(False, 1, frames) or k1 != 1 + frames \
+            or any(c != 1 for c in run["captures_at"]):
+        raise AssertionError(f"{phase}: graphs {graphs}, K1 {k1}, "
+                             f"expected 1 capture before the first "
+                             f"arrival and {frames} replays")
+    if run["compile_ledger"] != {"filter.jitexec.invoke": 1}:
+        raise AssertionError(f"{phase}: compile ledger "
+                             f"{run['compile_ledger']}")
+    if kind == "shm":
+        native = run["native"]
+        if run["child_rc"] != 0 or native["producer"] != {
+                "native": True, "push2": True} or not all(
+                native[k] for k in ("card_src", "card_sink", "tail_src")):
+            raise AssertionError(f"shm_offload: not every end ran the "
+                                 f"native ring: {native}, producer exit "
+                                 f"{run['child_rc']}")
+    return {"launches": launches, "fps": row["fps"]}
+
+
+def run_hybrid_query(args, card: str) -> dict:
+    """query_serve's batched pair, 32 clients x 16 frames, with
+    ``connect-type=HYBRID`` on the serversrc and every client, through
+    the port's MQTT broker: each client finds the server's address there
+    (``TensorQueryClient._server_address``, the element's discovery);
+    every reply bit for bit against its bucket replayed eagerly; the
+    graphs, K1 and ledger of query_serve; the record cleared when the
+    server stops."""
+    from nnstreamer_tpu_torch.query.mqtt import MqttBroker
+
+    frames = query_frames(args.seed)
+    broker = MqttBroker()
+    try:
+        graph = serve_query(QUERY_BATCH, frames, card, hybrid=broker.port)
+    finally:
+        broker.close()
+    check_query_eager(frames, graph)
+    check_served_graphs(graph)
+    return {"launches": graph["row"]["launches"]}
+
+
+def run_transports(args, card: str) -> dict:
+    """The flagship per-frame path on OFFLOAD_FRAMES frames (the
+    reference of every offload's labels, and its fps beside theirs), then
+    ``edge_offload``, ``mqtt_offload``, ``shm_offload`` and
+    ``hybrid_query``; each path's launches."""
+    # the shm producer's child starts first: its start-up (a fresh
+    # interpreter importing torch) overlaps the paths before it
+    shm = start_producer(ring_ends("frames")[0], OFFLOAD_FRAMES, args.seed)
+    try:
+        reference = run_labeling("offload_reference", LAUNCH,
+                                 OFFLOAD_FRAMES, args.seed, card,
+                                 "normalize_frame", 1)
+        paths = {"offload_reference": reference}
+        for kind in OFFLOAD_KINDS:
+            run = drive_offload(kind, OFFLOAD_FRAMES, args.seed,
+                                spawned=shm if kind == "shm" else None)
+            paths[f"{kind}_offload"] = check_offload(
+                kind, run, OFFLOAD_FRAMES, reference, card)
+    finally:
+        if shm[0].is_alive():      # an earlier path failed
+            shm[0].kill()
+            shm[0].join(timeout=10)
+    paths["hybrid_query"] = run_hybrid_query(args, card)
+    return paths
+
+
+#: the pace variants of the offloads (``--profile``): the producer in a
+#: child process of its own (the card process's interpreter lock no
+#: longer shared with the source), and the edge wire without its CRC-32C
+#: (the sender's, the broker's and the subscriber's pass over each frame)
+OFFLOAD_PACE = (("edge", "producer_child"), ("mqtt", "producer_child"),
+                ("edge", "no_crc"))
+
+
+def run_offload_pace(seed: int, card: str) -> None:
+    """What sets the pace of the edge and MQTT offloads (with
+    ``--profile``): each OFFLOAD_PACE variant in turns with the default
+    path (default, variant, variant, default), a row a run with its fps,
+    gaps and the producer's own rate; every run must stay lossless."""
+    from nnstreamer_tpu_torch.query import protocol
+
+    for kind, variant in OFFLOAD_PACE:
+        # default, variant, variant, default
+        for turn, on in enumerate(MODE_TURNS):
+            if on and variant == "no_crc":
+                protocol._CRC_FN = False
+            try:
+                run = drive_offload(kind, OFFLOAD_FRAMES, seed,
+                                    producer_child=on and variant
+                                    == "producer_child")
+            finally:
+                protocol._CRC_FN = None
+            delivery = offload_delivery(run, OFFLOAD_FRAMES)
+            emit({"phase": "offload_pace", "path": f"{kind}_offload",
+                  "variant": variant if on else "default", "turn": turn,
+                  **delivery, "producer_fps": run["producer_fps"],
+                  "card": card})
+            if not delivery["in_order"] \
+                    or delivery["logits_bit_equal"] != OFFLOAD_FRAMES:
+                raise AssertionError(f"offload_pace ({kind}, {variant}): "
+                                     "not lossless")
+
+
+def profile_offload(kind: str, seed: int, out_dir: str, eager: bool,
+                    turn: int) -> dict:
+    """Trace an offload path in one mode: the window opens once the first
+    frame reached the tail sink (the filter has opened and captured by
+    then) and closes at the end of the run; a unit is a frame that
+    reached the tail sink inside it."""
+    mode = "eager" if eager else "graph"
+    rows = []
+
+    def during(wait, stamps):
+        window = {}
+
+        def units(t0, t1):
+            window.update(_latency(stamps, t0, t1))
+            return sum(t0 <= t <= t1 for t in stamps)
+
+        rows.append(trace(f"{kind}_offload_{mode}{turn}", out_dir, wait,
+                          units, "normalize_frame_kernel", 1))
+        rows[0].update(window)
+
+    drive_offload(kind, OFFLOAD_FRAMES, seed, eager, during)
+    row = rows[0]
+    row.update(path=f"{kind}_offload", mode=mode, turn=turn)
+    emit(row)
+    return row
+
+
+def profile_hybrid_query(seed: int, out_dir: str, eager: bool,
+                         turn: int) -> dict:
+    """profile_query_serve's trace of the batched pair, with the server
+    and its clients meeting through the MQTT broker (HYBRID)."""
+    from nnstreamer_tpu_torch.query.mqtt import MqttBroker
+
+    broker = MqttBroker()
+    try:
+        return profile_query_serve(seed, out_dir, eager, turn,
+                                   hybrid=broker.port)
+    finally:
+        broker.close()
 
 
 def lm_f32_diff(custom: dict, tokens) -> float:
@@ -4356,6 +4935,11 @@ def profiled_paths(args) -> dict:
             TRAIN_PER_STEP[name])
     paths["query_serve"] = functools.partial(
         profile_query_serve, args.seed, args.profile)
+    paths["hybrid_query"] = functools.partial(
+        profile_hybrid_query, args.seed, args.profile)
+    for kind in OFFLOAD_KINDS:
+        paths[f"{kind}_offload"] = functools.partial(
+            profile_offload, kind, args.seed, args.profile)
     for mode in ("dense", "paged"):
         paths[f"llm_stream_{mode}"] = functools.partial(
             profile_llm_stream, mode, args.seed, args.profile)
@@ -4406,25 +4990,28 @@ def profile_llm_stream(mode: str, seed: int, out_dir: str, eager: bool,
 
 
 def profile_query_serve(seed: int, out_dir: str, eager: bool,
-                        turn: int) -> dict:
+                        turn: int, hybrid=None) -> dict:
     """Trace the served query pair in one mode: the server is started and
     warmed (one frame a client: the pad set captured at the first
     bucket), then the clients' frames are traced; a unit is a frame, and
-    the row gives busy time and host launch calls a bucket too."""
+    the row gives busy time and host launch calls a bucket too.
+    ``hybrid``: the MQTT broker's port through which they meet."""
     frames = query_frames(seed)
     mode = "eager" if eager else "graph"
+    path = "query_serve" if hybrid is None else "hybrid_query"
     run = {}
     with eager_filters(eager):
-        with query_server(9102, QUERY_BATCH, frames) as (p, port):
+        with query_server(9102, QUERY_BATCH, frames,
+                          hybrid=hybrid) as (p, port):
             before = buckets_served(p)
-            row = trace(f"query_serve_{mode}{turn}", out_dir,
-                        lambda: run.update(drive_query_clients(port,
-                                                               frames)),
+            row = trace(f"{path}_{mode}{turn}", out_dir,
+                        lambda: run.update(drive_query_clients(
+                            port, frames, hybrid)),
                         lambda t0, t1: QUERY_CLIENTS * QUERY_FRAMES,
                         "normalize_frame_kernel", 1)
             buckets = buckets_served(p) - before
     n = QUERY_CLIENTS * QUERY_FRAMES
-    row.update(path="query_serve", mode=mode, turn=turn,
+    row.update(path=path, mode=mode, turn=turn,
                fps=run["replies_per_s"], p50_ms=run["rtt_p50_ms"],
                p99_ms=run["rtt_p99_ms"], buckets=buckets,
                mean_fill=n / max(buckets, 1),
@@ -4571,6 +5158,8 @@ def main(argv=None) -> int:
         torch.backends.cudnn.benchmark = False
         if args.profile_path == "fuse_tiers":
             profile_fuse_tiers(args)
+        elif args.profile_path == "offload_pace":
+            run_offload_pace(args.seed, card_line())
         else:
             profile_modes({args.profile_path:
                            profiled_paths(args)[args.profile_path]})
@@ -4626,6 +5215,9 @@ def main(argv=None) -> int:
         query = run_query_serve(args, card)
         if args.profile:
             run_query_pace(args.seed, card)
+        offload = run_transports(args, card)
+        if args.profile:
+            run_offload_pace(args.seed, card)
         lm = run_lm_filter(args.lm_frames, args.seed, card)
         serve = run_llm_serve(args.steps, args.seed, card)
         stream = run_llm_stream(args.seed, card)
@@ -4647,6 +5239,7 @@ def main(argv=None) -> int:
                                 for path in (main_path, vit, lm, serve,
                                              stream, query,
                                              *fuse.values(),
+                                             *offload.values(),
                                              *batched.values(),
                                              *zoo.values(),
                                              *train_rows.values()))

@@ -75,10 +75,8 @@ def list_decoders():
 
 
 def _ensure_loaded() -> None:
-    # serialize (flatbuf/protobuf/python payloads) waits for the
-    # utils it needs; lower_decode (the fuse-xla hook) for that tier
     from . import (boundingbox, directvideo, font, imagelabel,  # noqa: F401
-                   imagesegment, pose)
+                   imagesegment, pose, serialize)
 
 
 def squeeze_leading(arr, want_ndim: int):

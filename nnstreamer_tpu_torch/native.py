@@ -1,17 +1,23 @@
-"""ctypes binding of the repository's native tensorwire library, for the
-CRC-32C of the query wire (``query/protocol.py``).
+"""ctypes binding of the repository's native tensorwire library: the
+CRC-32C of the query wire (``query/protocol.py``) and the shared-memory
+ring (``query/shm.py``, which binds the ``tw_shm_*`` entry points).
 
 The port's own counterpart of ``nnstreamer_tpu/native.py``: it compiles
-``native/tensorwire/tensorwire.cc`` (the repository-level sources) with
-``g++`` into ``nnstreamer_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and flags, and loads it with ``ctypes``.
+``native/tensorwire/tensorwire.cc`` and ``native/tensorwire/shmring.cc``
+(the repository-level sources) with ``g++`` into
+``nnstreamer_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
+hash of the sources and flags, and loads it with ``ctypes``.  It links
+``-lpthread -lrt`` as ``native/Makefile`` does: ``shm_open`` and
+``shm_unlink`` live in librt on glibc < 2.34, where a library linked
+without it fails to load and every ring would take the Python fallback.
 The JAX package's ``native/libnnstw.so`` stays that package's.
 
 The contract is the JAX module's: the first request starts the build on a
 background thread and :func:`crc32c_fn` answers None until the library
 loads (the wire then carries CRC 0, "unchecked", and receivers verify
-only nonzero values); :func:`available` waits for the build.  Nothing is
-built when the module is imported.
+only nonzero values; a ring opened meanwhile takes the Python fallback);
+:func:`available` waits for the build.  Nothing is built when the module
+is imported.
 """
 
 from __future__ import annotations
@@ -27,10 +33,13 @@ from typing import Optional
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(_HERE), "native", "tensorwire",
-                      "tensorwire.cc")
+_SRC_DIR = os.path.join(os.path.dirname(_HERE), "native", "tensorwire")
+SOURCES = tuple(os.path.join(_SRC_DIR, name)
+                for name in ("tensorwire.cc", "shmring.cc"))
 BUILD_DIR = os.path.join(_HERE, "_build")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+#: after the sources: librt holds shm_open on glibc < 2.34
+LINK_FLAGS = ("-lpthread", "-lrt")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -40,9 +49,10 @@ _building: Optional[threading.Thread] = None
 
 
 def library_path() -> str:
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        digest.update(f.read())
+    digest = hashlib.sha256(" ".join(CXX_FLAGS + LINK_FLAGS).encode())
+    for source in SOURCES:
+        with open(source, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libnnstw-{digest.hexdigest()[:16]}.so")
 
 
@@ -55,7 +65,8 @@ def _build(path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
-        subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE], check=True,
+        subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, *SOURCES,
+                        *LINK_FLAGS], check=True,
                        capture_output=True, timeout=120)
         os.replace(tmp, path)
     except (subprocess.SubprocessError, OSError):

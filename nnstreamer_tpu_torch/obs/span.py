@@ -12,15 +12,17 @@ rides the query wire header (query/protocol.py): ``trace_id`` names the
 whole distributed trace, ``span_id`` the sender-side parent span,
 ``origin_us`` the source stamp (sender wall clock µs) that makes
 cross-process interlatency computable after clock-offset estimation
-(obs/clock.py).
+(obs/clock.py).  The same triple rides the MQTT header's pad region and
+a magic'd trailer on the shm-ring payload (:func:`pack_ctx_trailer`).
 
-The port of ``nnstreamer_tpu/obs/span.py``; the shm and MQTT trace
-trailers wait for those transports.
+The port of ``nnstreamer_tpu/obs/span.py``: the same trailer bytes, so
+either package's shm and MQTT peers read the other's context.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from typing import Any, Dict, Iterable, List, NamedTuple, Optional
 
 
@@ -51,6 +53,36 @@ class Span(NamedTuple):
     dur_ns: int
     seq: int           # buffer sequence number (-1 = unknown)
     trace_id: int
+
+
+#: shm/mqtt trace trailer: magic + trace_id + span_id + origin_us
+_TRAILER = struct.Struct("<4sQQq")
+_TRAILER_MAGIC = b"TRCE"
+TRAILER_SIZE = _TRAILER.size
+
+
+def pack_ctx_trailer(ctx: TraceContext) -> bytes:
+    """Trace context as a self-identifying 28-byte blob, appended after
+    the tensor payload on transports whose framing has no header room
+    (shm ring slots) or spare pad (the MQTT 1024-byte header).
+    ``decode_tensors`` reads exactly the declared tensors, so a trailer
+    after them is invisible to context-unaware consumers."""
+    return _TRAILER.pack(_TRAILER_MAGIC, ctx.trace_id, ctx.span_id,
+                         ctx.origin_us)
+
+
+def unpack_ctx_trailer(payload, end: Optional[int] = None
+                       ) -> Optional[TraceContext]:
+    """Trace context from the trailing bytes of ``payload`` (bytes or
+    memoryview), or None when no trailer is present."""
+    n = len(payload) if end is None else end
+    if n < TRAILER_SIZE:
+        return None
+    raw = bytes(payload[n - TRAILER_SIZE:n])
+    if raw[:4] != _TRAILER_MAGIC:
+        return None
+    _, trace_id, span_id, origin_us = _TRAILER.unpack(raw)
+    return TraceContext(trace_id, span_id, origin_us)
 
 
 class SpanRing:

@@ -1,9 +1,9 @@
 """Distributed query layer (L5): offload tensor streams between hosts.
 
 The port of ``nnstreamer_tpu/query``: the wire protocol, the query
-server and client elements, the resilience policies and the overload
-controls.  ``shm``, ``edge``, ``mqtt`` and ``grpc_service`` are not
-ported yet.
+server and client elements, the resilience policies, the overload
+controls and the among-device transports (``shm``, ``edge``, ``mqtt``,
+``grpc_service``); it exports what the JAX package's ``__init__`` does.
 """
 
 from .client import (FailoverConnection, QueryConnection, TensorQueryClient,

@@ -27,7 +27,8 @@ backoff at the server's retry-after hint capped by the request budget.
 
 The port of ``nnstreamer_tpu/query/client.py``; it speaks the same wire,
 so it offloads to either package's servers.  ``connect-type=HYBRID``
-(MQTT discovery) waits for ``query/mqtt.py``.
+finds the server through the retained MQTT record a serversrc of either
+package publishes (``query/mqtt.py``).
 """
 
 from __future__ import annotations
@@ -876,8 +877,9 @@ class TensorQueryClient(Element):
                              "dest-host/dest-port; the client serves "
                              "from the first live endpoint and fails "
                              "over down the list"),
-        "connect-type": ("tcp", "TCP (HYBRID, MQTT discovery, waits "
-                                "for query/mqtt.py)"),
+        "connect-type": ("tcp", "TCP | HYBRID (reference nicks; hybrid "
+                                "discovers the data address from the "
+                                "retained MQTT record for the topic)"),
         "topic": (None, "hybrid: discovery topic"),
         "timeout": (10.0, "reply timeout seconds (per-request budget "
                           "covering send + reconnect + reply)"),
@@ -917,13 +919,35 @@ class TensorQueryClient(Element):
         self.add_src_pad(tensors_template_caps(), "src")
 
     def _server_address(self) -> "tuple[str, int]":
-        """Resolve the data-channel address the reference way: TCP takes
-        dest-host:dest-port directly, with the legacy host/port pair as
-        fallback (HYBRID's MQTT lookup is not ported)."""
+        """Resolve the data-channel address the reference way: HYBRID
+        looks up the retained record for the topic on the MQTT broker
+        at dest-host:dest-port (tensor_query_client.c via
+        nnstreamer-edge); TCP takes dest-host:dest-port directly, with
+        the legacy host/port pair as fallback."""
         if str(self.connect_type).lower() == "hybrid":
-            raise ValueError(f"{self.name}: connect-type=HYBRID (MQTT "
-                             "discovery) waits for query/mqtt.py, which "
-                             "is not ported yet")
+            from .mqtt import fetch_retained_record
+
+            if self.topic in (None, ""):
+                raise ValueError(f"{self.name}: connect-type=HYBRID "
+                                 "requires topic")
+            broker_host = str(self.dest_host or "127.0.0.1")
+            # port 0 is never a routable broker port: 0/unset both
+            # mean "default" # nnslint: allow(falsy-zero-default)
+            broker_port = int(self.dest_port or 1883)
+            record = fetch_retained_record(
+                broker_host, broker_port, f"nns/query/{self.topic}",
+                float(self.timeout), f"nns-query-cli-{self.name}")
+            if not record:
+                raise ConnectionError(
+                    f"{self.name}: no retained discovery record for "
+                    f"topic {self.topic!r} on "
+                    f"{broker_host}:{broker_port}")
+            host, sep, port = record.decode().rpartition(":")
+            if not sep or not port.isdigit():
+                raise ConnectionError(
+                    f"{self.name}: malformed discovery record "
+                    f"{record!r} (want host:port)")
+            return host, int(port)
         if self.dest_port not in (None, "", 0):
             return str(self.dest_host or "127.0.0.1"), int(self.dest_port)
         if self.dest_host not in (None, ""):

@@ -17,8 +17,9 @@ frames meet the card: a cross-stream bucket is stacked ONCE, straight
 from the received payload views into pinned host memory (the filter's
 graph input copies from there asynchronously), and the serversink takes
 a bucket's outputs off the card in one pinned copy with one sync before
-it splits the replies from host memory.  ``connect-type=HYBRID`` (MQTT
-discovery) waits for ``query/mqtt.py``.
+it splits the replies from host memory.  ``connect-type=HYBRID``
+advertises the server's address as a retained MQTT record
+(``query/mqtt.py``), which a client of either package discovers.
 """
 
 from __future__ import annotations
@@ -394,8 +395,8 @@ class QueryServer:
     def shed_frame(self, extra: Dict, retry_after_s: float) -> bool:
         """Explicit ``T_SHED`` for an ALREADY-ADMITTED frame that a
         downstream serving stage refused — the llm tier's KV-cache slot
-        admission (``llm/element.py``, not ported yet): queue-depth
-        admission at the wire cannot see slot exhaustion, so the element answers the
+        admission (``llm/element.py``): queue-depth admission at the
+        wire cannot see slot exhaustion, so the element answers the
         frame's client here with a retry-after hint instead of holding
         the request as unbounded memory.  Settles the frame's in-flight
         unit (a shed IS its final answer); returns False when the
@@ -567,11 +568,17 @@ class TensorQueryServerSrc(Source):
         "port": (0, "0 = ephemeral"),
         "id": (0, "server table id"),
         "caps": (None, "caps announced for received tensors"),
-        "connect-type": ("tcp", "TCP (HYBRID, MQTT discovery, waits "
-                                "for query/mqtt.py)"),
+        "connect-type": ("tcp", "TCP | HYBRID (reference nicks; hybrid "
+                                "advertises this server's address as a "
+                                "retained MQTT record under the topic)"),
         "dest-host": ("127.0.0.1", "hybrid: MQTT broker host"),
         "dest-port": (1883, "hybrid: MQTT broker port"),
         "topic": (None, "hybrid: discovery topic"),
+        "advertise-host": (None, "address to advertise in the hybrid "
+                                 "record (default: host — set it when "
+                                 "bound to 0.0.0.0, which is not a "
+                                 "reachable address for remote "
+                                 "clients)"),
         "queue-depth": (256, "bound on the incoming frame queue; the "
                              "hard watermark the shed policy's soft "
                              "watermarks sit under"),
@@ -615,10 +622,6 @@ class TensorQueryServerSrc(Source):
         self.add_src_pad(tensors_template_caps(), "src")
 
     def start(self):
-        if str(self.connect_type).lower() == "hybrid":
-            raise ValueError(f"{self.name}: connect-type=HYBRID (MQTT "
-                             "discovery) waits for query/mqtt.py, which "
-                             "is not ported yet")
         self.server = get_server(int(self.id), str(self.host),
                                  int(self.port),
                                  queue_depth=int(self.queue_depth),
@@ -661,6 +664,24 @@ class TensorQueryServerSrc(Source):
                 "nns_xbatch_solo_total", **labels)
             self._m_xb_frames = REGISTRY.counter(
                 "nns_xbatch_frames_total", **labels)
+        self._mqtt = None
+        if str(self.connect_type).lower() == "hybrid":
+            # reference HYBRID (tensor_query_serversrc.c via
+            # nnstreamer-edge): dest-host/dest-port address the MQTT
+            # broker; the server advertises its own data address as a
+            # retained record so clients discover it by topic alone
+            from .mqtt import MqttClient
+
+            if self.topic in (None, ""):
+                raise ValueError(f"{self.name}: connect-type=HYBRID "
+                                 "requires topic")
+            self._mqtt = MqttClient(str(self.dest_host),
+                                    int(self.dest_port),
+                                    f"nns-query-srv-{self.name}")
+            adv = str(self.advertise_host or self.host)
+            self._mqtt.publish(
+                f"nns/query/{self.topic}",
+                f"{adv}:{self.server.port}".encode(), retain=True)
 
     def stop(self):
         if getattr(self, "_xb_gauges", None):
@@ -669,6 +690,16 @@ class TensorQueryServerSrc(Source):
             for g in self._xb_gauges:
                 REGISTRY.unregister(g)
             self._xb_gauges = []
+        if getattr(self, "_mqtt", None) is not None:
+            try:
+                # clear the retained record: late clients must see "no
+                # record", not a dead address
+                self._mqtt.publish(f"nns/query/{self.topic}", b"",
+                                   retain=True)
+            except OSError:
+                pass
+            self._mqtt.close()
+            self._mqtt = None
         super().stop()
 
     @property

@@ -26,18 +26,34 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "nnstreamer_tpu"}
 #: the flagship pipeline's elements, plus appsrc (the pipeline module's
 #: programmatic source), fakesink, the training slice's tensor_trainer,
 #: the query plane's three elements, the LLM tier's tensor_llm, the
-#: vision zoo's tensor_transform and the scheduling slice's tee,
-#: identity and tensor_debug
-SLICE_ELEMENTS = ["appsrc", "capsfilter", "fakesink", "identity", "queue",
+#: vision zoo's tensor_transform, the scheduling slice's tee, identity
+#: and tensor_debug, and the among-device transports (shm, edge with
+#: its reference spellings, MQTT, gRPC)
+SLICE_ELEMENTS = ["appsrc", "capsfilter", "edge_sink", "edge_src",
+                  "edgesink", "edgesrc", "fakesink", "identity",
+                  "mqttsink", "mqttsrc", "queue",
                   "tee", "tensor_converter", "tensor_debug",
                   "tensor_decoder", "tensor_filter",
                   "tensor_llm", "tensor_query_client",
                   "tensor_query_serversink",
-                  "tensor_query_serversrc", "tensor_sink", "tensor_trainer",
+                  "tensor_query_serversrc", "tensor_shm_sink",
+                  "tensor_shm_src", "tensor_sink", "tensor_sink_grpc",
+                  "tensor_src_grpc", "tensor_trainer",
                   "tensor_transform", "videotestsrc"]
-#: the query plane's modules, the CLI, the native binding and the LLM
-#: serving tier, imported in a fresh interpreter
+#: the query plane's modules (the among-device transports and their wire
+#: codecs too), the CLI, the native binding and the LLM serving tier,
+#: imported in a fresh interpreter
 QUERY_MODULES = ["nnstreamer_tpu_torch.query", "nnstreamer_tpu_torch.launch",
+                 "nnstreamer_tpu_torch.query.shm",
+                 "nnstreamer_tpu_torch.query.edge",
+                 "nnstreamer_tpu_torch.query.mqtt",
+                 "nnstreamer_tpu_torch.query.grpc_service",
+                 "nnstreamer_tpu_torch.decoders.serialize",
+                 "nnstreamer_tpu_torch.utils.protowire",
+                 "nnstreamer_tpu_torch.utils.flatbuf",
+                 "nnstreamer_tpu_torch.utils.tensor_flatbuf",
+                 "nnstreamer_tpu_torch.utils.nns_python_compat",
+                 "nnstreamer_tpu_torch.utils.ntp",
                  "nnstreamer_tpu_torch.native",
                  "nnstreamer_tpu_torch.obs.metrics",
                  "nnstreamer_tpu_torch.obs.span",
@@ -123,6 +139,45 @@ def test_query_modules_load_without_jax():
         "    importlib.import_module(name)\n"
         "from nnstreamer_tpu_torch import native\n"
         "native.available()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_transports_run_without_loading_jax():
+    """A fresh interpreter streams frames over the port's shm ring, edge
+    broker and MQTT broker (its own brokers, the native ring built and
+    loaded) and loads no module of JAX or of the JAX package."""
+    code = (
+        "import os, sys, time\n"
+        f"bad = {sorted(FORBIDDEN)!r}\n"
+        "import nnstreamer_tpu_torch as n\n"
+        "from nnstreamer_tpu_torch import native\n"
+        "from nnstreamer_tpu_torch.query.edge import get_broker\n"
+        "from nnstreamer_tpu_torch.query.mqtt import MqttBroker\n"
+        "assert native.available()\n"
+        "edge, mqtt = get_broker(), MqttBroker()\n"
+        "ring = f'iso-{os.getpid()}'\n"
+        "src = ('videotestsrc num-buffers=3 ! video/x-raw,format=RGB,'\n"
+        "       'width=8,height=8,framerate=30/1 ! tensor_converter ! ')\n"
+        "ends = [(f'edge_sink port={edge.port} topic=t',\n"
+        "         f'edge_src port={edge.port} topic=t num-buffers=3'),\n"
+        "        (f'mqttsink port={mqtt.port} pub-topic=t',\n"
+        "         f'mqttsrc port={mqtt.port} sub-topic=t num-buffers=3'),\n"
+        "        (f'tensor_shm_sink path={ring}',\n"
+        "         f'tensor_shm_src path={ring} timeout=30')]\n"
+        "for sink, source in ends:\n"
+        "    rx = n.parse_launch(source + ' ! tensor_sink name=out')\n"
+        "    rx.play()\n"
+        "    while source.startswith('edge') and not edge._subs.get('t'):\n"
+        "        time.sleep(0.005)\n"
+        "    n.parse_launch(src + sink).run(timeout=60)\n"
+        "    rx.wait(timeout=60)\n"
+        "    rx.stop()\n"
+        "    assert len(rx.get('out').results) == 3, sink\n"
+        "mqtt.close()\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -385,15 +385,31 @@ def test_dest_host_without_port_is_loud(pkg):
 
 
 def test_hybrid_connect_type_waits_for_mqtt():
+    """HYBRID discovery goes through an MQTT broker (``query/mqtt.py``):
+    a client waits there for the record the serversrc advertises, finds
+    its address, and finds none once the server stopped."""
+    from nnstreamer_tpu_torch.query.mqtt import MqttBroker
+
     port = PKGS["torch"]
-    qc = port.query.TensorQueryClient("qc", **{"connect-type": "HYBRID",
-                                               "topic": "t"})
-    with pytest.raises(ValueError, match="query/mqtt.py"):
-        qc._server_address()
-    src = port.query.TensorQueryServerSrc("qs", id=1903, caps=tcaps(),
-                                          **{"connect-type": "hybrid"})
-    with pytest.raises(ValueError, match="query/mqtt.py"):
+    broker = MqttBroker()
+    hybrid = {"connect-type": "HYBRID", "dest-host": "127.0.0.1",
+              "dest-port": broker.port, "topic": "t"}
+    try:
+        qc = port.query.TensorQueryClient("qc", timeout=0.3, **hybrid)
+        with pytest.raises(ConnectionError, match="no retained discovery"):
+            qc._server_address()
+        src = port.query.TensorQueryServerSrc("qs", id=1903, caps=tcaps(),
+                                              **hybrid)
         src.start()
+        try:
+            assert qc._server_address() == ("127.0.0.1", src.bound_port)
+        finally:
+            src.stop()
+            port.server.shutdown_server(1903)
+        with pytest.raises(ConnectionError, match="no retained discovery"):
+            qc._server_address()
+    finally:
+        broker.close()
 
 
 class _AlwaysShed:

@@ -337,9 +337,11 @@ def test_host_schemes_match_jax(scheme, ssd_files):
 
 
 def test_decoders_registered():
-    assert list_decoders() == ["bounding_boxes", "direct_video", "font",
+    assert list_decoders() == ["bounding_boxes", "direct_video",
+                               "flatbuf", "flexbuf", "font",
                                "image_labeling", "image_segment",
-                               "octet_stream", "pose_estimation"]
+                               "octet_stream", "pose_estimation",
+                               "protobuf", "python3"]
     for alias, scheme in [("tflite-ssd", "mobilenet-ssd"),
                           ("tf-ssd", "mobilenet-ssd-postprocess"),
                           ("ov-face-detection", "ov-person-detection")]:
