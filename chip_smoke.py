@@ -146,6 +146,30 @@ Phases, each of which must pass:
      port there, every reply bit for bit against its bucket,
      query_serve's graph checks, and the record is cleared at stop.
      gRPC is left out: the card host is not known to have ``grpcio``;
+   - the observability and SLO tier: ``observe_flagship`` runs the main
+     path's string (OBSERVE_FRAMES frames) through ``python -m
+     nnstreamer_tpu_torch.launch`` in a child with ``--profile
+     --metrics-port 0 --top``, beside the same string unprofiled in
+     another child; mid-run scrapes of ``/metrics`` until ``nns_mfu``
+     (the filter's FLOPs a frame from the cost counter, over the H100
+     peak) reads in (0, 1] with the bytes/s and memory gauges present,
+     while ``/healthz`` says serving; the three profile artifacts; every
+     frame's attributed states summing to its end-to-end time; the blame
+     table's states, both fps and the cost counter's FLOPs and bytes a
+     frame printed.  ``slo_query_serve``: query_serve's pair under the
+     open-loop load generator, Poisson arrivals at SLO_LOAD of the
+     unloaded replies/s (same call), QUERY_CLIENTS connections, SLO_S
+     seconds gated live by the demo spec (PASS, 0 errors and sheds),
+     then SLO_STRICT_S seconds more, span-traced, under a spec whose p99
+     bound is 1 µs (FAIL, a flight-recorder bundle); K1 once a bucket;
+     the CLI's ``--soak --slo`` under that spec exits 3.  ``slo_llm_stream``: the token mode against
+     ``tensor_llm`` (the dense string) with ttft/itl objectives: the
+     verdict and TTFT/ITL p50/p99, every stream whole, K2 ``layers``
+     times a prefill.  ``federation``: two CLI workers (echo query
+     servers) push with ``--push-metrics`` into a collector here; the
+     federated counters equal the workers' own.  ``check_cli``:
+     ``--check`` exits 0 on the main path's string and 1 on it with a
+     caps dead end, named by its element path;
 
    Each training path runs as CUDA graphs (step 1 is the capture's eager
    warm-up, every later step a replay of the one graph: launches count as
@@ -2794,7 +2818,8 @@ def run_query_serve(args, card: str) -> dict:
     check_served_graphs(graph)
     xla = check_query_xla(frames, card)
     return {"launches": dict(collections.Counter(row["launches"])
-                             + collections.Counter(xla["launches"]))}
+                             + collections.Counter(xla["launches"])),
+            "replies_per_s": row["replies_per_s"]}
 
 
 #: the served pair's graphs under fuse=xla: the filter's own at open, and
@@ -4208,6 +4233,581 @@ def run_llm_stream(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# observability and SLO gating: the attribution profiler, /metrics and
+# /healthz, nns-top, the SLO harness, federation and the static verifier
+# ---------------------------------------------------------------------------
+
+#: frames of the observed flagship run: long enough for mid-run scrapes
+#: (the first scrape counts the forward's cost on the meta device)
+OBSERVE_FRAMES = 3000
+#: the SLO runs: seconds of open-loop load, and the share of the unloaded
+#: query-serve's replies/s (same call) the Poisson arrivals offer
+SLO_S = 15.0
+SLO_LOAD = 0.5
+#: the strict spec's run: armed after 3 fast windows (2 s each)
+SLO_STRICT_S = 8.0
+#: the CLI soak under the strict spec, seconds
+SOAK_S = 10.0
+#: the token SLO run: clients, stream requests a client a second, the
+#: prompt's tokens, and the objectives' thresholds
+SLO_LLM_CLIENTS = 8
+SLO_LLM_RATE = 1.0
+SLO_LLM_PROMPT = 64
+SLO_TTFT_US = 500_000.0
+SLO_ITL_US = 100_000.0
+#: federation: worker processes and the frames the parent sends each
+FED_WORKERS = 2
+FED_FRAMES = (40, 70)
+FED_CAPS = ("other/tensors,format=static,num_tensors=1,dimensions=4,"
+            "types=float32,framerate=0/1")
+#: the flagship string with a caps dead end between source and converter
+DEAD_END = LAUNCH.replace("video/x-raw,format=RGB,width=224,height=224,"
+                          "framerate=30/1", "audio/x-raw").replace(
+    "tensor_converter", "tensor_converter name=conv")
+
+
+def cli_child(argv, err_path: str) -> "subprocess.Popen":
+    """``python -m nnstreamer_tpu_torch.launch argv`` in a child process,
+    its standard error into ``err_path``."""
+    with open(err_path, "w", encoding="utf-8") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "nnstreamer_tpu_torch.launch", *argv],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            stdout=subprocess.DEVNULL, stderr=err, text=True)
+
+
+def child_result(child, err_path: str, timeout: float):
+    """(exit code, standard error) of a child; killed past ``timeout``."""
+    try:
+        rc = child.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        rc = "killed"
+    with open(err_path, encoding="utf-8") as fh:
+        return rc, fh.read()
+
+
+def scrape(url: str):
+    """(HTTP status, body) of one GET; an error status is returned."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def prom_values(text: str, family: str) -> dict:
+    """``{key: value}`` of a Prometheus exposition's samples of
+    ``family`` (key: the name with its labels)."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(family + "{") or line.startswith(family + " "):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def run_observe_flagship(seed: int, card: str, main_fps: float) -> None:
+    """flagship-b1 through the port's CLI in a child with ``--profile
+    --metrics-port 0 --top``, beside the same string unprofiled (a
+    counters-only ``--trace-out``) in another child.  Mid-run scrapes of
+    ``/metrics`` until ``nns_mfu`` reads in (0, 1] (the H100 peaks) with
+    the bytes/s and memory gauges present, and ``/healthz`` serving; at
+    the end the three profile artifacts, every frame's attributed states
+    summing to its end-to-end time (recomputed from ``trace.json``), the
+    blame table's top states, both fps (the profiler's cost is printed,
+    not held to a bound) and the FLOPs and bytes a frame the cost counter
+    gives for the filter's forward."""
+    import shutil
+    import tempfile
+
+    from nnstreamer_tpu_torch import parse_launch
+    from nnstreamer_tpu_torch.models.registry import get_model
+    from nnstreamer_tpu_torch.obs import attrib
+    from nnstreamer_tpu_torch.obs.profile import pipeline_maps
+    from nnstreamer_tpu_torch.obs.span import Span
+
+    launch = LAUNCH.format(frames=OBSERVE_FRAMES, seed=seed)
+    tmp = tempfile.mkdtemp(prefix="nns-observe-")
+    try:
+        plain_err = os.path.join(tmp, "plain.err")
+        rc, err = child_result(cli_child(
+            [launch, "--quiet", "--trace-out",
+             os.path.join(tmp, "plain.json")], plain_err), plain_err, 600)
+        if rc != 0:
+            raise AssertionError(f"observe_flagship: the unprofiled CLI "
+                                 f"run exited {rc}: {err[-800:]}")
+        with open(os.path.join(tmp, "plain.json"), encoding="utf-8") as fh:
+            plain_fps = json.load(fh)["trace"]["out"]["fps"]
+        out_dir = os.path.join(tmp, "profile")
+        err_path = os.path.join(tmp, "observed.err")
+        child = cli_child([launch, "--profile", "--profile-out", out_dir,
+                           "--metrics-port", "0", "--top", "0.5"], err_path)
+        url = None
+        scrapes, readings, gauges, health = 0, [], {}, None
+        try:
+            t0 = time.perf_counter()
+            while child.poll() is None and time.perf_counter() - t0 < 600:
+                if url is None:
+                    with open(err_path, encoding="utf-8") as fh:
+                        m = re.search(r"metrics endpoint on (http://\S+)",
+                                      fh.read())
+                    if m is None:
+                        time.sleep(0.1)
+                        continue
+                    url = m.group(1)
+                try:
+                    status, text = scrape(url)
+                    hstatus, hbody = scrape(url.replace("/metrics",
+                                                        "/healthz"))
+                except OSError:
+                    break           # the run ended under the scrape
+                scrapes += 1
+                values = prom_values(text, "nns_mfu")
+                hz = (hstatus, json.loads(hbody))
+                if status == 200 and values and hz[1].get("state") \
+                        == "serving":
+                    # mid-run: the pipeline serves while its gauges
+                    # read.  The first reading is over the run's
+                    # lifetime (its open included), each later one since
+                    # the previous scrape
+                    readings.append(max(values.values()))
+                    gauges = {fam: prom_values(text, fam) for fam in (
+                        "nns_mfu", "nns_device_bytes_per_s",
+                        "nns_device_mem_bytes")}
+                    health = hz
+                    if len([r for r in readings if r > 0]) >= 3:
+                        break
+                time.sleep(0.25)
+            rc, err = child_result(child, err_path, 900)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        if rc != 0:
+            raise AssertionError(f"observe_flagship: the profiled CLI run "
+                                 f"exited {rc}: {err[-800:]}")
+        mfu = readings[-1] if readings else 0.0
+        if not 0.0 < mfu <= 1.0 or not all(gauges.values()):
+            raise AssertionError(f"observe_flagship: after {scrapes} "
+                                 f"scrapes nns_mfu readings {readings}, "
+                                 f"gauges {gauges}, /healthz {health}")
+        if health is None or health[0] != 200 \
+                or health[1].get("state") != "serving":
+            raise AssertionError(f"observe_flagship: /healthz {health}")
+        arts = {n: os.path.getsize(os.path.join(out_dir, n))
+                for n in ("profile.json", "trace.json", "flame.folded")
+                if os.path.exists(os.path.join(out_dir, n))}
+        if len(arts) != 3 or not all(arts.values()):
+            raise AssertionError(f"observe_flagship: artifacts {arts}")
+        with open(os.path.join(out_dir, "profile.json"),
+                  encoding="utf-8") as fh:
+            doc = json.load(fh)
+        with open(os.path.join(out_dir, "trace.json"),
+                  encoding="utf-8") as fh:
+            events = json.load(fh)["traceEvents"]
+        spans = [Span(e["name"], e["tid"], round(e["ts"] * 1e3),
+                      round(e["dur"] * 1e3), e["args"]["seq"],
+                      int(e["args"]["trace_id"], 16))
+                 for e in events if e["ph"] == "X" and e["pid"] == 1]
+        states, transit = pipeline_maps(parse_launch(launch))
+        frames = attrib.attribute_frames(spans, states, transit)
+        broken = [fr.seq for fr, st in frames
+                  if sum(st.values()) != fr.t1 - fr.t0]
+        if len(frames) < OBSERVE_FRAMES // 2 or broken:
+            raise AssertionError(f"observe_flagship: {len(frames)} frames "
+                                 f"attributed, not conserved: {broken[:5]}")
+        blame = doc["profile"]["blame"]
+        flops, nbytes = attrib.module_cost(
+            get_model("mobilenet_v2", {"seed": seed, "use_pallas": "1"},
+                      "cuda").module,
+            get_model("mobilenet_v2", {"seed": seed}, "cpu").in_info)
+        peak_flops, peak_bw = attrib.device_peaks(
+            __import__("torch").device("cuda", 0))
+        fps = doc["trace"]["out"]["fps"]
+        emit({"phase": "observe_flagship", "frames": blame["frames"],
+              "frames_conserved": len(frames), "scrapes": scrapes,
+              "nns_mfu": mfu, "nns_mfu_readings": readings,
+              "gauges": gauges, "healthz": health[1],
+              "artifact_bytes": arts, "blame_top": blame["top"],
+              "states_us_per_frame": {
+                  s: row["per_frame_us"]
+                  for s, row in blame["states"].items()},
+              "e2e_us": blame["e2e_us"],
+              "conservation": blame["conservation"],
+              "elements": doc["profile"].get("elements"),
+              "device_gauges_at_report": doc["profile"].get("device"),
+              "fps_profiled": fps, "fps_unprofiled_cli": plain_fps,
+              "fps_main_path": main_fps,
+              "profiler_cost_pct": 100.0 * (1.0 - fps / plain_fps),
+              "cost_counter": {"flops_per_frame": flops,
+                               "bytes_per_frame": nbytes},
+              "peaks": {"flops": peak_flops, "bytes_per_s": peak_bw},
+              "mfu_at_profiled_fps": fps * flops / peak_flops,
+              "card": card})
+        print("\n".join("observe_flagship: " + line for line in
+                        err.splitlines() if line.startswith(
+                            ("profile:", "state ")) or any(
+                            line.startswith(s) for s in attrib.STATES)),
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def strict_spec(duration_s: float):
+    """The demo spec with its p99 threshold at 1 µs, plus the same bound on
+    every element's time inside ``chain()`` (the tracer's histograms): a
+    spec no served stream can meet."""
+    from nnstreamer_tpu_torch.slo.spec import Objective, SLOSpec, demo_spec
+
+    demo = demo_spec(duration_s, p99_threshold_us=1.0)
+    return SLOSpec(
+        name="strict", window_fast_s=demo.window_fast_s,
+        window_slow_s=demo.window_slow_s,
+        burn_threshold=demo.burn_threshold, tick_s=demo.tick_s,
+        objectives=demo.objectives + (Objective(
+            "element_p99", "latency", target=0.90, threshold_us=1.0,
+            metric="nns_element_proctime_us"),))
+
+
+def slo_load(p, port: int, frames, rate: float, seconds: float, seed: int,
+             evaluators) -> dict:
+    """One open-loop run against the served pair ``p`` gated live by an
+    ``SLOMonitor`` an evaluator: the summary, the K1 launches and the
+    buckets the run dispatched."""
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.slo import LoadGenerator, SLOMonitor
+
+    gen = LoadGenerator("127.0.0.1", port, clients=QUERY_CLIENTS,
+                        rate_hz=rate, duration_s=seconds,
+                        schedule="poisson", seed=seed, timeout=30.0,
+                        payload=frames[0][0])
+    monitors = [SLOMonitor(ev) for ev in evaluators]
+    _cuda.reset_launches()
+    before = buckets_served(p)
+    for m in monitors:
+        m.start()
+    try:
+        summary = gen.run()
+    finally:
+        for m in monitors:
+            m.stop(final_tick=True)
+    return {"summary": summary, "launches": dict(_cuda.launches),
+            "buckets": buckets_served(p) - before}
+
+
+def verdict_row(v: dict) -> dict:
+    return {"verdict": v["verdict"], "ticks": v["ticks"],
+            "breaches": [b["objective"] for b in v["breaches"]],
+            "worst_burn": {o["name"]: o["worst_burn_rate"]
+                           for o in v["objectives"]}}
+
+
+def run_slo_query_serve(seed: int, card: str, unloaded_rps: float) -> dict:
+    """query-serve under the port's open-loop load generator: Poisson
+    arrivals at SLO_LOAD of the unloaded replies/s, QUERY_CLIENTS
+    connections.  First SLO_S seconds gated live by the demo spec (must
+    PASS, with 0 errors and 0 sheds and the monitor ticking through the
+    run); then SLO_STRICT_S seconds with span tracing on, gated by the
+    strict spec (must FAIL and write a flight-recorder bundle; its dump
+    at the breach holds the interpreter lock, so it gets a run of its
+    own).  K1 once a bucket in both.  Then the CLI form: the flagship
+    string under ``--soak SOAK_S --slo <strict spec>`` in a child must
+    exit 3 with a bundle."""
+    import shutil
+    import tempfile
+
+    from nnstreamer_tpu_torch.slo import (Evaluator, FlightRecorder,
+                                          demo_spec)
+
+    frames = query_frames(seed)
+    rate = SLO_LOAD * unloaded_rps / QUERY_CLIENTS
+    tmp = tempfile.mkdtemp(prefix="nns-slo-")
+    try:
+        with query_server(9520, QUERY_BATCH, frames) as (p, port):
+            demo = Evaluator(demo_spec(SLO_S))
+            runs = {"demo": slo_load(p, port, frames, rate, SLO_S, seed,
+                                     [demo])}
+            # the spans a breach bundle carries, and the per-element
+            # histograms the strict spec's second objective reads
+            tracer = p.enable_tracing(spans=True)
+            recorder = FlightRecorder(os.path.join(tmp, "flightrec"),
+                                      tracer=tracer)
+            strict = Evaluator(strict_spec(SLO_STRICT_S),
+                               on_breach=recorder.on_breach)
+            strict.on_tick = recorder.record
+            runs["strict"] = slo_load(p, port, frames, rate, SLO_STRICT_S,
+                                      seed + 1, [strict])
+            p.tracer = None
+        verdicts = {"demo": demo.verdict(), "strict": strict.verdict()}
+        bundles = {os.path.basename(b): sorted(os.listdir(b))
+                   for b in recorder.dumps}
+        spec_path = os.path.join(tmp, "strict.json")
+        strict_spec(SOAK_S).dump(spec_path)
+        err_path = os.path.join(tmp, "soak.err")
+        rc, err = child_result(cli_child(
+            [LAUNCH.format(frames=10 ** 7, seed=seed), "--soak",
+             str(SOAK_S), "--slo", spec_path, "--slo-out",
+             os.path.join(tmp, "cli_flightrec"), "--trace-out",
+             os.path.join(tmp, "soak.json"), "--quiet"], err_path),
+            err_path, 600)
+        cli_bundles = (sorted(os.listdir(os.path.join(tmp, "cli_flightrec")))
+                       if os.path.isdir(os.path.join(tmp, "cli_flightrec"))
+                       else [])
+        for name, run in runs.items():
+            emit({"phase": "slo_query_serve", "spec": name,
+                  "offered_rate_hz": run["summary"]["offered_rate_hz"],
+                  "unloaded_replies_per_s": unloaded_rps,
+                  "summary": run["summary"], "buckets": run["buckets"],
+                  "launches": run["launches"],
+                  "verdict": verdict_row(verdicts[name]),
+                  **({"bundles": bundles, "cli_soak_rc": rc,
+                      "cli_bundles": cli_bundles}
+                     if name == "strict" else {}), "card": card})
+        summary = runs["demo"]["summary"]
+        # the monitor ticked through the run, not only at its end
+        ticks = verdicts["demo"]["ticks"]
+        if not verdicts["demo"]["pass"] or summary["errors"] \
+                or summary["shed"] or not summary["ok"] \
+                or ticks < SLO_S / (2 * demo_spec(SLO_S).tick_s):
+            raise AssertionError(f"slo_query_serve: demo spec "
+                                 f"{verdicts['demo']['verdict']} in "
+                                 f"{ticks} ticks, summary {summary}")
+        want = {"breach.json", "manifest.json", "metrics_final.json",
+                "metrics_timeline.jsonl", "trace.json"}
+        if verdicts["strict"]["pass"] or not bundles \
+                or not all(want <= set(b) for b in bundles.values()):
+            raise AssertionError(f"slo_query_serve: strict spec "
+                                 f"{verdicts['strict']['verdict']}, "
+                                 f"bundles {bundles}")
+        for name, run in runs.items():
+            if run["launches"].get("normalize_frame", 0) != run["buckets"]:
+                raise AssertionError(f"slo_query_serve ({name}): K1 "
+                                     f"{run['launches']}, "
+                                     f"{run['buckets']} buckets")
+        if rc != 3 or '"verdict": "FAIL"' not in err or not cli_bundles:
+            raise AssertionError(f"slo_query_serve: the CLI soak exited "
+                                 f"{rc}: {err[-800:]}")
+        return {"launches": dict(
+            collections.Counter(runs["demo"]["launches"])
+            + collections.Counter(runs["strict"]["launches"]))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_slo_llm_stream(seed: int, card: str) -> dict:
+    """The token mode of the load generator against ``tensor_llm`` (the
+    dense string at the LM's full width, in this process): SLO_LLM_CLIENTS
+    gold clients opening streams by Poisson arrivals, SLO_S seconds,
+    gated by ``ttft``/``itl``/availability objectives; the verdict and
+    TTFT/ITL p50/p99 printed, every stream complete, no shed, K2 launched
+    ``layers`` times a prefill."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.query import shutdown_server
+    from nnstreamer_tpu_torch.slo import Evaluator, SLOMonitor
+    from nnstreamer_tpu_torch.slo.loadgen import TokenLoadGenerator
+    from nnstreamer_tpu_torch.slo.spec import Objective, SLOSpec
+
+    sid = 9530
+    p = parse_launch(llm_server(sid, 0, "llm_slo", LLM_DENSE, seed))
+    p.play()
+    try:
+        port = p.get("qsrc").bound_port
+        prompt = np.random.default_rng(seed + 5).integers(
+            0, int(LM_CUSTOM["vocab"]), SLO_LLM_PROMPT).astype(np.int32)
+        fast = SLO_S / 6.0
+        spec = SLOSpec(name="llm-stream", window_fast_s=fast,
+                       window_slow_s=10 * fast, tick_s=fast / 10,
+                       objectives=(
+                           Objective("availability", "availability",
+                                     target=0.95),
+                           Objective("ttft", "ttft", target=0.90,
+                                     threshold_us=SLO_TTFT_US),
+                           Objective("itl", "itl", target=0.90,
+                                     threshold_us=SLO_ITL_US)))
+        ev = Evaluator(spec)
+        monitor = SLOMonitor(ev)
+        gen = TokenLoadGenerator(
+            "127.0.0.1", port, prompt=prompt, max_new=LLM_NEW,
+            frame_len=LLM_REQ, clients=SLO_LLM_CLIENTS,
+            rate_hz=SLO_LLM_RATE, duration_s=SLO_S, schedule="poisson",
+            seed=seed, timeout=120.0, token_timeout=60.0,
+            classes=(("gold", 1.0),), qos=True)
+        _cuda.reset_launches()
+        monitor.start()
+        try:
+            summary = gen.run()
+        finally:
+            monitor.stop(final_tick=True)
+        launches = dict(_cuda.launches)
+    finally:
+        p.stop()
+        shutdown_server(sid)
+    verdict = ev.verdict()
+    lat = summary["token_latency"]
+    emit({"phase": "slo_llm_stream", "verdict": verdict["verdict"],
+          "breaches": [b["objective"] for b in verdict["breaches"]],
+          "ttft_ms": {q: v / 1e3 for q, v in lat["ttft_us"].items()},
+          "itl_ms": {q: v / 1e3 for q, v in lat["itl_us"].items()},
+          "thresholds_ms": {"ttft": SLO_TTFT_US / 1e3,
+                            "itl": SLO_ITL_US / 1e3},
+          "summary": {k: summary[k] for k in (
+              "offered_rate_hz", "achieved_rate_hz", "sent", "ok",
+              "errors", "shed")},
+          "launches": launches, "card": card})
+    layers = int(LM_CUSTOM["layers"])
+    if summary["errors"] or summary["shed"] or not summary["ok"] \
+            or launches.get("flash_attention", 0) != layers * summary["ok"]:
+        raise AssertionError(f"slo_llm_stream: {summary}, launches "
+                             f"{launches}")
+    return {"launches": launches}
+
+
+def run_federation(card: str) -> None:
+    """FED_WORKERS port CLI workers (an echo query server each, ``--soak``)
+    pushing their registries with ``--push-metrics`` into a port
+    collector in this process; this process sends each worker its
+    FED_FRAMES.  The federated counters (per origin, and summed) must
+    equal the workers' own, which each wrote with ``--trace-out``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from nnstreamer_tpu_torch.obs.federation import (CollectorServer,
+                                                     MetricsCollector)
+    from nnstreamer_tpu_torch.query import QueryConnection
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    tmp = tempfile.mkdtemp(prefix="nns-fed-")
+    collector = MetricsCollector(registry=None)
+    server = CollectorServer(collector)
+    children = []
+    try:
+        for i in range(FED_WORKERS):
+            port = free_port()
+            launch = (f"tensor_query_serversrc id={i + 1} port={port} "
+                      f"caps={FED_CAPS} ! tensor_query_serversink "
+                      f"id={i + 1}")
+            err = os.path.join(tmp, f"w{i}.err")
+            children.append((port, err, cli_child(
+                [launch, "--soak", "5", "--push-metrics",
+                 f"127.0.0.1:{server.port}", "--push-interval", "0.2",
+                 "--trace-out", os.path.join(tmp, f"w{i}.json"),
+                 "--quiet"], err)))
+        for (port, _, child), n in zip(children, FED_FRAMES):
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    conn = QueryConnection("127.0.0.1", port, timeout=30.0)
+                    conn.connect()
+                    break
+                except OSError:
+                    if child.poll() is not None \
+                            or time.perf_counter() - t0 > 120:
+                        raise
+                    time.sleep(0.2)
+            try:
+                for k in range(n):
+                    out = conn.query(TensorBuffer(
+                        tensors=[np.full(4, k, np.float32)]))
+                    if not np.array_equal(out.np(0),
+                                          np.full(4, k, np.float32)):
+                        raise AssertionError("federation: echo differs")
+            finally:
+                conn.close()
+        own = {}
+        for i, (port, err, child) in enumerate(children):
+            rc, text = child_result(child, err, 300)
+            if rc != 0:
+                raise AssertionError(f"federation: worker {i} exited {rc}:"
+                                     f" {text[-800:]}")
+            with open(os.path.join(tmp, f"w{i}.json"),
+                      encoding="utf-8") as fh:
+                own[port] = json.load(fh)["metrics"]
+        fed = collector.snapshot_state(prefix="nns_query_server_")
+        text = collector.render_prometheus()
+    finally:
+        for _, _, child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        server.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    fams = ("nns_query_server_accepted_total",
+            "nns_query_server_admitted_total")
+    sums, mine = {}, {}
+    for key, st in fed.items():
+        if st.get("kind") == "counter" and key.startswith(fams):
+            fam = key.partition("{")[0]
+            sums[fam] = sums.get(fam, 0) + st["value"]
+    for metrics in own.values():
+        for key, value in metrics.items():
+            if key.startswith(fams):
+                fam = key.partition("{")[0]
+                mine[fam] = mine.get(fam, 0) + value
+    origins = collector.origins()
+    emit({"phase": "federation", "workers": FED_WORKERS,
+          "frames": list(FED_FRAMES), "federated": sums, "workers_own": mine,
+          "origins": [o["origin"] for o in origins],
+          "exposition_lines": len(text.splitlines()), "card": card})
+    if len(origins) != FED_WORKERS or sums != mine \
+            or mine.get("nns_query_server_admitted_total") \
+            != sum(FED_FRAMES):
+        raise AssertionError(f"federation: origins {origins}, federated "
+                             f"{sums}, workers {mine}")
+
+
+def run_check_cli(seed: int, card: str) -> None:
+    """``--check`` through the port's CLI: 0 on the flagship string, 1 on
+    the same string with a caps dead end, named by its element path."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="nns-check-")
+    try:
+        runs = {}
+        for name, launch in (("flagship", LAUNCH), ("dead_end", DEAD_END)):
+            err = os.path.join(tmp, name + ".err")
+            runs[name] = (cli_child(["--check", launch.format(
+                frames=1, seed=seed)], err), err)
+        out = {name: child_result(child, err, 300)
+               for name, (child, err) in runs.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "check_cli", "rc": {k: v[0] for k, v in out.items()},
+          "dead_end": [ln for ln in out["dead_end"][1].splitlines()
+                       if "error" in ln or "FAIL" in ln],
+          "card": card})
+    rc_ok, err_ok = out["flagship"]
+    rc_bad, err_bad = out["dead_end"]
+    if rc_ok != 0 or "check: OK" not in err_ok:
+        raise AssertionError(f"check_cli: flagship {rc_ok}: {err_ok[-800:]}")
+    if rc_bad != 1 or "caps-mismatch" not in err_bad \
+            or "conv -> f -> " not in err_bad:
+        raise AssertionError(f"check_cli: dead end {rc_bad}: "
+                             f"{err_bad[-800:]}")
+
+
+def run_observability(args, card: str, main_fps: float,
+                      query_rps: float) -> dict:
+    """The observability and SLO phases; the launches of the two that
+    drive kernels in this process."""
+    run_observe_flagship(args.seed, card, main_fps)
+    slo = run_slo_query_serve(args.seed, card, query_rps)
+    llm = run_slo_llm_stream(args.seed, card)
+    run_federation(card)
+    run_check_cli(args.seed, card)
+    return {"slo_query_serve": slo, "slo_llm_stream": llm}
+
+
+# ---------------------------------------------------------------------------
 # the training paths
 # ---------------------------------------------------------------------------
 
@@ -5221,6 +5821,8 @@ def main(argv=None) -> int:
         lm = run_lm_filter(args.lm_frames, args.seed, card)
         serve = run_llm_serve(args.steps, args.seed, card)
         stream = run_llm_stream(args.seed, card)
+        obs = run_observability(args, card, main_path["fps"],
+                                query["replies_per_s"])
         trains = train_runs(args)
         train_rows = {}
         for name, (launch, samples, unit) in trains.items():
@@ -5238,6 +5840,7 @@ def main(argv=None) -> int:
             k["launches"] = sum(path["launches"].get(k["name"], 0)
                                 for path in (main_path, vit, lm, serve,
                                              stream, query,
+                                             *obs.values(),
                                              *fuse.values(),
                                              *offload.values(),
                                              *batched.values(),

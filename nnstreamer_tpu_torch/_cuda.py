@@ -59,6 +59,28 @@ def reset_launches() -> None:
     graphs.clear()
 
 
+_SHAPE_ONLY = threading.local()
+
+
+class shape_only:
+    """Context in which a kernel wrapper given a ``meta`` tensor returns
+    a shape-only stand-in (an aten op of the same input and output
+    shapes and types) instead of refusing it: the cost counter's pass
+    (obs/attrib.py).  Per thread; outside it a meta tensor is refused
+    as before."""
+
+    def __enter__(self) -> "shape_only":
+        _SHAPE_ONLY.depth = getattr(_SHAPE_ONLY, "depth", 0) + 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _SHAPE_ONLY.depth -= 1
+
+
+def shape_only_active() -> bool:
+    return getattr(_SHAPE_ONLY, "depth", 0) > 0
+
+
 def graph_memory(device) -> tuple:
     """A (memory pool, side stream) pair for one owner's graphs: they
     capture on the stream, into the pool, and share its memory."""

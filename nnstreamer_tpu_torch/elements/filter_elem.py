@@ -248,6 +248,79 @@ class TensorFilter(Element):
         self.add_sink_pad(static_tensors_caps(), "sink")
         self.add_src_pad(static_tensors_caps(), "src")
 
+    def static_check(self):
+        """Pre-play verifier hook: surface the scheduler decisions
+        ``start()`` would make silently (forced workers=1, ignored
+        inflight/deadline) and the configs it would reject outright
+        (mesh without micro-batching) — same rules, before any thread
+        exists."""
+        out = []
+
+        def _num(key):
+            raw = self.get_property(key)
+            if raw in (None, ""):
+                return 1
+            try:
+                return int(raw)
+            except (TypeError, ValueError):
+                # start()'s int() would raise: a genuine reject
+                out.append(("error", f"{self.name}: {key}={raw!r} is not "
+                                     "an integer"))
+                return 1
+
+        batch = _num("batch")
+        workers = _num("workers")
+        inflight = _num("inflight")
+        if batch < 1 or workers < 1 or inflight < 1:
+            # start() clamps with max(1, ...): the pipeline runs, the
+            # value is silently overridden — report, don't reject
+            out.append(("warning",
+                        f"{self.name}: batch/workers/inflight below 1 "
+                        f"(got {batch}/{workers}/{inflight}) is clamped "
+                        "to 1 at start"))
+        batch, workers, inflight = (max(1, batch), max(1, workers),
+                                    max(1, inflight))
+        if workers > 1 and batch > 1:
+            out.append(("warning",
+                        f"{self.name}: workers={workers} with "
+                        f"batch={batch}: micro-batching already overlaps "
+                        "dispatch (use inflight=); the scheduler forces "
+                        "workers=1"))
+        if inflight > 1 and batch <= 1:
+            out.append(("warning",
+                        f"{self.name}: inflight={inflight} needs "
+                        "micro-batching (batch>1); runs per-frame"))
+        try:
+            deadline = float(self.batch_timeout_ms or 0)
+        except (TypeError, ValueError):
+            deadline = 0
+            out.append(("error", f"{self.name}: batch-timeout-ms="
+                                 f"{self.batch_timeout_ms!r} is not a "
+                                 "number"))
+        if deadline > 0 and batch <= 1:
+            out.append(("warning",
+                        f"{self.name}: batch-timeout-ms needs "
+                        "micro-batching (batch>1); ignored"))
+        if workers > 1 and self.shared_tensor_filter_key:
+            out.append(("warning",
+                        f"{self.name}: workers={workers} with "
+                        "shared-tensor-filter-key may force workers=1 "
+                        "(per-worker instances impossible unless the "
+                        "backend declares THREADSAFE_INVOKE)"))
+        if "mesh:" in str(self.custom or "") and batch <= 1:
+            out.append(("error",
+                        f"{self.name}: custom=mesh:... requires "
+                        "micro-batching (set batch= to a multiple of "
+                        "dp); per-frame dispatch cannot shard"))
+        pl = self.pipeline
+        if (pl is not None and getattr(pl, "fuse", False)
+                and (workers > 1 or batch > 1)):
+            out.append(("info",
+                        f"{self.name}: workers/batch push from their own "
+                        "threads, so this element opts out of fused "
+                        "dispatch (the segment splits here)"))
+        return out
+
     # -- lifecycle -----------------------------------------------------------
     def start(self):
         in_info = out_info = None
@@ -351,8 +424,113 @@ class TensorFilter(Element):
                 target=self._deadline_loop, daemon=True,
                 name=f"batch-deadline:{self.name}")
             self._deadline_thread.start()
+        # scheduler-state gauges, evaluated only at /metrics scrape time
+        # (obs/metrics.py lazy-callable contract: zero per-frame cost);
+        # pipeline-labeled + identity-unregistered so concurrent
+        # pipelines with same-named filters don't fight over keys
+        from ..obs.metrics import REGISTRY, Gauge
+
+        labels = {"element": self.name,
+                  "pipeline": getattr(self.pipeline, "name", "") or ""}
+        self._obs_gauges = [REGISTRY.register(Gauge(n, labels, fn=f))
+                            for n, f in (
+            ("nns_filter_batch_size", lambda: self._batch),
+            ("nns_filter_inflight", lambda: len(self._inflight)),
+            ("nns_filter_pending", lambda: self._bucket.fill),
+            ("nns_filter_dropped", lambda: self.dropped),
+            # cross-stream (pre-batched) traffic: shared invokes and the
+            # frames they served
+            ("nns_filter_xbatch_invokes", lambda: self._xb_invokes),
+            ("nns_filter_xbatch_frames", lambda: self._xb_frames))]
+        self._register_device_gauges(labels)
+
+    def _register_device_gauges(self, labels) -> None:
+        """Device accounting for the torch-exec backend family: live
+        ``nns_mfu`` (achieved FLOP/s over the device's peak, from
+        :func:`~..obs.attrib.device_peaks`), achieved HBM bytes/s, and
+        device memory in use (``torch.cuda.memory_allocated``).  All
+        lazy callables; the FLOPs/bytes count (a meta-device pass over
+        the negotiated shapes, :func:`~..obs.attrib.estimate_jit_cost`)
+        runs here on the card, else at the first scrape that wants it —
+        zero per-frame cost, nothing launched on the card."""
+        fw = self.fw
+        if getattr(fw, "_forward_fn", None) is None:
+            return   # not a torch-exec backend: no cost model, no claim
+        from ..obs.attrib import device_name, device_peaks, estimate_jit_cost
+        from ..obs.metrics import REGISTRY, Gauge
+
+        el = self
+
+        def _make_rate():
+            # scrape-to-scrape frame rate (first scrape: lifetime).
+            # One state box per gauge so nns_mfu and bytes/s sampled in
+            # the same scrape each get a real window.
+            state = {"frames": None, "t": None}
+
+            def _frame_rate() -> float:
+                st = getattr(fw, "stats", None)
+                if st is None:
+                    return 0.0
+                # frames ~= invokes x micro-batch (batched dispatch
+                # records one stat per bucket; exact at batch=1).
+                # Cross-stream buckets record one stat per shared
+                # invoke but serve a VARIABLE fill — count their real
+                # frames, or the MFU of a batching server understates
+                # by the fill factor
+                frames = ((st.total_invokes - el._xb_invokes)
+                          * max(1, el._batch) + el._xb_frames)
+                now = time.monotonic()
+                prev_f, prev_t = state["frames"], state["t"]
+                state["frames"], state["t"] = frames, now
+                if prev_t is None or now - prev_t < 0.05:
+                    return st.throughput * max(1, el._batch)
+                return max(0.0, (frames - prev_f) / (now - prev_t))
+
+            return _frame_rate
+
+        mfu_rate, bw_rate = _make_rate(), _make_rate()
+        device = fw._device
+
+        def _mfu() -> float:
+            peak, _ = device_peaks(device)
+            if not peak:
+                return 0.0   # no peak for this device: no claim
+            flops, _ = estimate_jit_cost(fw)
+            if not flops:
+                return 0.0
+            return mfu_rate() * flops / peak
+
+        def _bytes_per_s() -> float:
+            _, nbytes = estimate_jit_cost(fw)
+            return bw_rate() * nbytes if nbytes else 0.0
+
+        def _mem_bytes() -> float:
+            if device.type != "cuda":
+                return 0.0
+            import torch
+
+            return float(torch.cuda.memory_allocated(device))
+
+        dev = dict(labels)
+        dev["device"] = device_name(device) or device.type
+        self._obs_gauges.extend(
+            REGISTRY.register(Gauge(n, dev, fn=f)) for n, f in (
+                ("nns_mfu", _mfu),
+                ("nns_device_bytes_per_s", _bytes_per_s),
+                ("nns_device_mem_bytes", _mem_bytes)))
+        if device.type == "cuda":
+            # count now, at open, before the stream: a first scrape or
+            # SLO tick during a loaded run would otherwise pay the meta
+            # pass (a module copy and ~one Python dispatch an op) on the
+            # interpreter lock the serving threads need
+            estimate_jit_cost(fw)
 
     def stop(self):
+        from ..obs.metrics import REGISTRY
+
+        for gauge in getattr(self, "_obs_gauges", ()):
+            REGISTRY.unregister(gauge)
+        self._obs_gauges = []
         self._deadline_stop.set()
         if self._deadline_thread is not None:
             self._deadline_thread.join(timeout=10)
@@ -542,6 +720,10 @@ class TensorFilter(Element):
             tensors = [tensors[i] for i in self._in_comb]
         fw = self.fw
         n = xb.n
+        pl = self.pipeline
+        tracer = pl.tracer if pl is not None else None
+        rec = tracer is not None and tracer.ring is not None
+        t0 = time.monotonic_ns() if rec else 0
         if getattr(fw, "SUPPORTS_BATCHING", False):
             if self._xb_warm != xb.capacity:
                 # first bucket (or a capacity change): capture every pad
@@ -556,6 +738,20 @@ class TensorFilter(Element):
                     for k in range(len(rows[0]))]
         self._xb_invokes += 1
         self._xb_frames += n
+        if rec:
+            t1 = time.monotonic_ns()
+            # the SHARED dispatch window, once per resident client trace:
+            # each client's merged timeline shows its frame inside the
+            # same device-invoke span its bucket peers overlap
+            # (obs/attrib.py — per-frame wall-clock truth, not a 1/n
+            # share).  The materialization sync point (TensorBuffer.np
+            # at the reply split) extends this with the real device time.
+            seq = buf.extra.get("nns_seq", -1)
+            for extra in xb.extras:
+                ctx = extra.get("nns_trace")
+                if ctx is not None and ctx.trace_id:
+                    tracer.annotate_span("device-invoke", t0, t1,
+                                         seq=seq, trace_id=ctx.trace_id)
         return self._compose_output(buf, list(outs))
 
     def _compose_output(self, buf: TensorBuffer, outs) -> TensorBuffer:
@@ -585,7 +781,7 @@ class TensorFilter(Element):
         self._wk_backends = backends
         self._wk_tasks: queue.Queue = queue.Queue()
         self._wk_cv = make_condition("filter.workers")
-        self._wk_results: dict = {}   # seq -> (buf, outs, exc)
+        self._wk_results: dict = {}   # seq -> (buf, outs, exc, ready_ns)
         self._wk_seq = 0                # frames submitted
         self._wk_pushed = 0             # frames pushed (or error-skipped)
         self._wk_error = None
@@ -627,10 +823,24 @@ class TensorFilter(Element):
             if item is None:
                 return
             seq, tensors, buf = item
+            pl = self.pipeline
+            tracer = pl.tracer if pl is not None else None
             try:
-                res = (buf, list(fw.invoke(tensors)), None)
+                if tracer is not None:
+                    # per-invoke span on the worker thread: proctime
+                    # lands under "<name>:invoke" (chain() only covers
+                    # the submit), and the backend's device-invoke
+                    # annotation records inside this frame
+                    tracer.enter(self.name + ":invoke", buf)
+                try:
+                    outs = fw.invoke(tensors)
+                finally:
+                    if tracer is not None:
+                        tracer.exit()
+                res = (buf, list(outs), None,
+                       time.monotonic_ns() if tracer is not None else 0)
             except Exception as exc:  # noqa: BLE001 — surfaced by pusher
-                res = (buf, None, exc)
+                res = (buf, None, exc, 0)
             with self._wk_cv:
                 self._wk_results[seq] = res
                 self._wk_cv.notify_all()
@@ -647,8 +857,20 @@ class TensorFilter(Element):
                         and self._wk_pushed >= self._wk_seq))
                 if self._wk_pushed not in self._wk_results:
                     return              # stopped and fully drained
-                buf, outs, exc = self._wk_results.pop(self._wk_pushed)
+                buf, outs, exc, ready_ns = self._wk_results.pop(
+                    self._wk_pushed)
                 failed = self._wk_error is not None
+            if ready_ns:
+                # reorder-wait: the result was finished at ready_ns but
+                # held for strict stream order (obs/attrib.py state)
+                pl = self.pipeline
+                tracer = pl.tracer if pl is not None else None
+                if tracer is not None and tracer.ring is not None:
+                    ctx = buf.extra.get("nns_trace")
+                    tracer.annotate_span(
+                        "reorder-wait", ready_ns, time.monotonic_ns(),
+                        seq=buf.extra.get("nns_seq", -1),
+                        trace_id=ctx.trace_id if ctx else 0)
             if not failed:
                 try:
                     if exc is not None:
@@ -717,6 +939,13 @@ class TensorFilter(Element):
             # here, on the producer's thread, before the next dispatch
             self._rewarm = False
             self.fw.warmup_batched(self._batch)
+        pl = self.pipeline
+        if pl is not None and pl.tracer is not None \
+                and pl.tracer.ring is not None:
+            # wait-state attribution (obs/attrib.py): bucket-coalescing
+            # arrival stamp; _push_inflight turns it into per-frame
+            # queue-wait + device-invoke spans
+            buf.extra["nns_coll_ns"] = time.monotonic_ns()
         if self._bucket.add((list(tensors), buf)):
             return self._dispatch_pending()
         return FlowReturn.OK
@@ -729,6 +958,10 @@ class TensorFilter(Element):
         items = self._bucket.take()
         pending = [tensors for tensors, _ in items]
         bufs = [b for _, b in items]
+        if bufs and "nns_coll_ns" in bufs[0].extra:
+            d0 = time.monotonic_ns()
+            for b in bufs:
+                b.extra["nns_disp_ns"] = d0
         handle = self.fw.invoke_batched(pending, self._batch,
                                         emit_device=self._emit_device)
         self._inflight.append((bufs, handle, t0))
@@ -739,6 +972,27 @@ class TensorFilter(Element):
     def _push_inflight(self, inflight) -> FlowReturn:
         bufs, handle, _t0 = inflight
         per_frame = handle.views() if self._emit_device else handle.wait()
+        pl = self.pipeline
+        tracer = pl.tracer if pl is not None else None
+        if tracer is not None and tracer.ring is not None:
+            # per-frame attribution of the shared batch (obs/attrib.py):
+            # arrival → dispatch is queue-wait (bucket fill + in-flight
+            # backlog), dispatch → host materialization is this frame's
+            # device window (every batch peer overlaps the same one —
+            # per-frame wall-clock truth, not a 1/n share)
+            t1 = time.monotonic_ns()
+            for buf in bufs:
+                coll = buf.extra.pop("nns_coll_ns", None)
+                disp = buf.extra.pop("nns_disp_ns", None)
+                if coll is None or disp is None:
+                    continue
+                ctx = buf.extra.get("nns_trace")
+                tid = ctx.trace_id if ctx else 0
+                seq = buf.extra.get("nns_seq", -1)
+                tracer.annotate_span("queue-wait", coll, disp,
+                                     seq=seq, trace_id=tid)
+                tracer.annotate_span("device-invoke", disp, t1,
+                                     seq=seq, trace_id=tid)
         ret = FlowReturn.OK
         for buf, outs in zip(bufs, per_frame):
             r = self._push_result(buf, outs)

@@ -62,6 +62,7 @@ import torch
 from ... import _cuda
 from ...analysis import compileledger
 from ...device import resolve_device
+from ...pipeline.tracing import annotate, annotation_active
 from ...tensor.buffer import BatchView, is_device_array
 from ..framework import Accelerator, FilterError, start_output_transfers
 
@@ -344,12 +345,26 @@ class TorchExecMixin:
         for rows in shapes:
             self._warm(VMAP_SITE, self._zeros(rows))
 
+    def _annotate(self, t0: int, known: int) -> None:
+        """Record the dispatch ``[t0, now]`` in the statistics and, under
+        a span-recording tracer, as this frame's device-invoke span, or
+        device-compile where it compiled a signature (``known``: the
+        executables before it).  On the card a replay is asynchronous:
+        the span ends at the launch, and the device time itself lands at
+        the materialization sync (``TensorBuffer.np``)."""
+        t1 = time.monotonic_ns()
+        self.stats.record(t1 - t0)
+        if annotation_active():
+            annotate("device-compile" if len(self._execs) > known
+                     else "device-invoke", t0, t1)
+
     def invoke(self, inputs: List[Any]) -> List[Any]:
         t0 = time.monotonic_ns()
         with self._exec_lock:
             self._apply_fusion()
+            known = len(self._execs)
             outs = self._invoke_device(inputs)
-        self.stats.record(time.monotonic_ns() - t0)
+        self._annotate(t0, known)
         return list(outs)
 
     def invoke_batched(self, frames, bucket: int, emit_device: bool = False):
@@ -366,6 +381,7 @@ class TorchExecMixin:
         payloads; no device→host copy starts."""
         n = len(frames)
         t0 = time.monotonic_ns()
+        known = len(self._execs)
         if 8 * n <= bucket:
             handle = _FlushHandle([self._invoke_device(list(f))
                                    for f in frames], emit_device)
@@ -374,7 +390,7 @@ class TorchExecMixin:
                        for k in range(len(frames[0]))]
             handle = BatchHandle(list(self._dispatch_batched(stacked)), n,
                                  emit_device)
-        self.stats.record(time.monotonic_ns() - t0)
+        self._annotate(t0, known)
         return handle
 
     def invoke_stacked(self, stacked: List[Any], n: int,
@@ -408,8 +424,9 @@ class TorchExecMixin:
                         arr[-1:], (bucket - rows,) + arr.shape[1:])])
             padded.append(arr)
         t0 = time.monotonic_ns()
+        known = len(self._execs)
         outs = self._dispatch_batched(padded)
-        self.stats.record(time.monotonic_ns() - t0)
+        self._annotate(t0, known)
         return list(outs)
 
     def _stage_batch(self, arrs, bucket: int):

@@ -7,14 +7,17 @@ Usage::
         video/x-raw,format=RGB,width=224,height=224 ! tensor_converter ! \
         tensor_filter framework=xla model=mobilenet_v2 ! \
         tensor_decoder mode=image_labeling ! tensor_sink name=out" \
-        [--timeout SECONDS] [--print-sink NAME]
+        [--timeout SECONDS] [--print-sink NAME] [--check] [--profile] \
+        [--metrics-port PORT] [--push-metrics HOST:PORT] [--top] \
+        [--soak SECONDS] [--slo FILE|demo]
 
     python -m nnstreamer_tpu_torch.launch --inspect          # all factories
     python -m nnstreamer_tpu_torch.launch --inspect tensor_filter
 
-The port of ``nnstreamer_tpu/launch.py``.  The options that need a module
-the port does not have yet exit with code 2 and name that module
-(:data:`UNPORTED`).
+The port of ``nnstreamer_tpu/launch.py``, with its exit codes: 1 for
+errors (``--check`` findings included), 3 for an SLO FAIL.  The options
+that need a module the port does not have yet exit with code 2 and name
+that module (:data:`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -25,18 +28,7 @@ import sys
 import time
 
 #: option -> the module of the JAX package it waits for
-UNPORTED = {
-    "--check": "analysis/verify.py",
-    "--jit": "analysis/jitaudit.py",
-    "--profile": "obs/profile.py",
-    "--metrics-port": "obs/httpd.py",
-    "--push-metrics": "obs/federation.py",
-    "--top": "obs/dashboard.py",
-    "--soak": "slo/",
-    "--slo": "slo/",
-}
-#: unported options that take a value
-_WITH_VALUE = ("--metrics-port", "--push-metrics", "--soak", "--slo")
+UNPORTED = {"--jit": "analysis/jitaudit.py"}
 
 
 def inspect(name=None, out=None) -> int:
@@ -84,6 +76,13 @@ def main(argv=None) -> int:
                     metavar="FACTORY",
                     help="list element factories (or one factory's "
                          "properties) instead of running a pipeline")
+    ap.add_argument("--check", action="store_true",
+                    help="statically verify the pipeline graph (or a "
+                         "fleet config .json) and exit without playing: "
+                         "caps dead-ends, deadlock cycles, dead branches "
+                         "and scheduler misconfigurations are reported "
+                         "with element paths (analysis/verify.py); exit "
+                         "1 on errors")
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--print-sink", default=None,
                     help="tensor_sink name whose outputs to print")
@@ -105,6 +104,52 @@ def main(argv=None) -> int:
                          "Chrome trace_event JSON to FILE at EOS (spans "
                          "a tensor_query server sends back merge in under "
                          "their own process row)")
+    ap.add_argument("--profile", action="store_true",
+                    help="utilization attribution profile: record "
+                         "per-buffer spans, decompose every frame's "
+                         "end-to-end wall time into wait states "
+                         "(obs/attrib.py), print the blame table at EOS "
+                         "and write profile.json, trace.json and "
+                         "flame.folded under --profile-out; live nns_mfu "
+                         "and occupancy gauges ride the metrics registry")
+    ap.add_argument("--profile-out", default="profile", metavar="DIR",
+                    help="artifact dir for --profile (default: ./profile)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve live Prometheus metrics on "
+                         "127.0.0.1:PORT while the pipeline runs (GET "
+                         "/metrics and /healthz; same effect as "
+                         "NNS_METRICS_PORT; PORT 0 binds an ephemeral "
+                         "port, exported as NNS_METRICS_BOUND_PORT)")
+    ap.add_argument("--push-metrics", default=None, metavar="HOST:PORT",
+                    help="telemetry federation (obs/federation.py): push "
+                         "this process's metrics registry to a collector "
+                         "as T_METRICS deltas every --push-interval "
+                         "seconds")
+    ap.add_argument("--push-interval", type=float, default=1.0,
+                    metavar="SECONDS",
+                    help="metrics push period for --push-metrics "
+                         "(default 1.0)")
+    ap.add_argument("--top", nargs="?", const=1.0, type=float,
+                    default=None, metavar="INTERVAL",
+                    help="live nns-top dashboard on stderr while the "
+                         "pipeline runs (obs/dashboard.py), refreshed "
+                         "every INTERVAL seconds (default 1.0) from an "
+                         "in-process time-series ring")
+    ap.add_argument("--soak", type=float, default=None, metavar="SECONDS",
+                    help="soak mode: run the pipeline for SECONDS and "
+                         "treat not-reaching-EOS as success; combine "
+                         "with --slo to gate the run on burn-rate "
+                         "objectives")
+    ap.add_argument("--slo", default=None, metavar="FILE",
+                    help="evaluate the run against an SLO spec JSON "
+                         "(slo/spec.py; 'demo' uses the built-in demo "
+                         "spec): verdict JSON on stderr at exit, exit "
+                         "code 3 on FAIL; breaches dump flight-recorder "
+                         "bundles")
+    ap.add_argument("--slo-out", default="flightrec", metavar="DIR",
+                    help="flight-recorder bundle dir for --slo breaches "
+                         "(default: ./flightrec)")
     ap.add_argument("--drain-grace", type=float, default=5.0,
                     metavar="SECONDS",
                     help="graceful-drain budget for SIGTERM: serving "
@@ -118,21 +163,20 @@ def main(argv=None) -> int:
                          "dispatch, 'python' = fused plan_step loops "
                          "(default), 'xla' = one CUDA graph a lowerable "
                          "segment, double-buffered (segments with a "
-                         "non-lowerable step run python).  Same as "
+                         "non-lowerable step run python; --check reports "
+                         "them as xla-fallback warnings).  Same as "
                          "NNS_FUSE=0|1|xla")
     ap.add_argument("--no-fuse", action="store_true",
                     help="disable the segment compiler: interpreted "
                          "per-pad dispatch; same as --fuse interpret")
     for opt, module in UNPORTED.items():
-        kw = ({"nargs": "?", "const": True} if opt in _WITH_VALUE
-              else {"action": "store_true"})
-        ap.add_argument(opt, dest="unported_" + opt[2:].replace("-", "_"),
-                        help=f"not ported yet (waits for {module})", **kw)
+        ap.add_argument(opt, action="store_true",
+                        dest="unported_" + opt[2:].replace("-", "_"),
+                        help=f"not ported yet (waits for {module})")
     args = ap.parse_args(argv)
 
     for opt, module in UNPORTED.items():
-        if getattr(args, "unported_" + opt[2:].replace("-", "_")) not in (
-                None, False):
+        if getattr(args, "unported_" + opt[2:].replace("-", "_")):
             print(f"ERROR: {opt} needs {module} of the JAX package, which "
                   "nnstreamer_tpu_torch does not have yet", file=sys.stderr)
             return 2
@@ -143,16 +187,30 @@ def main(argv=None) -> int:
     if args.no_fuse:
         args.fuse = "interpret"
     if args.fuse is not None:
-        # through the env, so every pipeline this process builds inherits
-        # the requested tier
+        # through the env, so every pipeline this process builds (the
+        # --check graph included) inherits the requested tier
         import os
 
         os.environ["NNS_FUSE"] = {"interpret": "0", "python": "1",
                                   "xla": "xla"}[args.fuse]
+    if args.check:
+        return check(args.pipeline)
+
+    import os
+
+    fleet_role = os.environ.get("NNS_FLEET_ROLE")
+    if fleet_role:
+        # fleet membership tag: rides the federated scrape so the
+        # nns-top fleet view labels each origin
+        from .obs.metrics import REGISTRY
+
+        REGISTRY.gauge("nns_fleet_role", fn=lambda: 1.0,
+                       role=str(fleet_role))
 
     from . import parse_launch
 
     t0 = time.time()
+    slo_failed = False
     try:
         p = parse_launch(args.pipeline)
         if args.print_sink:
@@ -161,20 +219,97 @@ def main(argv=None) -> int:
             for el in p.elements:
                 if hasattr(el, "latency_report"):
                     el.latency_report = True
-        tracer = (p.enable_tracing(spans=bool(args.timeline))
-                  if args.trace or args.trace_out or args.timeline
-                  else None)
-        metrics = None
+        if args.metrics_port is not None:
+            from .obs.httpd import start_metrics_server
+
+            server = start_metrics_server(args.metrics_port)
+            if not args.quiet:
+                # where port 0 landed, for whoever scrapes this run
+                print("metrics endpoint on http://127.0.0.1:"
+                      f"{server.server_address[1]}/metrics",
+                      file=sys.stderr, flush=True)
+        want_trace = (args.trace or args.trace_out or args.timeline
+                      or args.profile)
+        tracer = (p.enable_tracing(spans=bool(args.timeline or args.profile))
+                  if want_trace else None)
+        profiler = None
+        if args.profile:
+            from .obs.profile import Profiler
+
+            profiler = Profiler(p, tracer=tracer)
+        plans = metrics = prof_report = None
+        slo_monitor = slo_evaluator = recorder = None
+        if args.slo:
+            from .slo import Evaluator, FlightRecorder, SLOMonitor
+            from .slo.spec import load_spec
+
+            spec = load_spec(None if args.slo == "demo" else args.slo,
+                             duration_s=args.soak or 60.0)
+            recorder = FlightRecorder(args.slo_out, tracer=tracer)
+            slo_evaluator = Evaluator(spec, on_breach=recorder.on_breach)
+            slo_evaluator.on_tick = recorder.record
+            slo_monitor = SLOMonitor(slo_evaluator)
+        publisher = None
+        if args.push_metrics:
+            from .obs.federation import MetricsPublisher
+            from .obs.httpd import health_report
+
+            host, _, port = str(args.push_metrics).rpartition(":")
+            if not port.isdigit():
+                ap.error(f"--push-metrics {args.push_metrics!r}: "
+                         "want HOST:PORT")
+            publisher = MetricsPublisher(
+                host or "127.0.0.1", int(port),
+                interval_s=args.push_interval,
+                health_fn=lambda: health_report()["state"])
+        top_loop = top_sampler = top_ring = None
+        if args.top is not None:
+            from .obs.dashboard import RingSource, TopLoop
+            from .obs.timeseries import RingSampler, TimeSeriesRing
+
+            top_ring = TimeSeriesRing(interval_s=max(0.1, args.top))
+            top_sampler = RingSampler(top_ring)
+            # in-place redraw only on a real terminal: piped stderr gets
+            # plain appended frames
+            top_loop = TopLoop(RingSource(top_ring, label="launch"),
+                               interval_s=max(0.1, args.top),
+                               out=sys.stderr, ansi=sys.stderr.isatty())
         _install_sigterm_drain(p, args.drain_grace)
         try:
             p.play()
-            p.wait(args.timeout)
+            if slo_monitor is not None:
+                # breach bundles grow per-session token timelines when a
+                # tensor_llm element records them (token-obs=1; its plane
+                # exists only after start())
+                recorder.session_obs = next(
+                    (el._tok_obs for el in p.elements
+                     if getattr(el, "_tok_obs", None) is not None), None)
+                slo_monitor.start()
+            if publisher is not None:
+                publisher.start()
+            if top_loop is not None:
+                top_sampler.start()
+                top_loop.start()
+            if args.soak is not None:
+                try:
+                    p.wait(args.soak)
+                except TimeoutError:
+                    pass    # soak: surviving until the deadline IS the
+                    #         success condition; the SLO verdict judges
+            else:
+                p.wait(args.timeout)
+            if tracer is not None and p.planner is not None:
+                plans = p.planner.plans()   # before stop() drops it
             if tracer is not None:
                 # the LIVE registry before stop(): teardown unregisters
                 # the elements' gauges
                 from .obs.metrics import REGISTRY
 
                 metrics = REGISTRY.report()
+            if profiler is not None:
+                # before stop(): nns_mfu and the device gauges unregister
+                # at element teardown
+                prof_report = profiler.report(metrics_report=metrics)
             if args.stats:
                 total, per = p.query_latency()
                 for name, ns in sorted(per.items()):
@@ -183,22 +318,43 @@ def main(argv=None) -> int:
                 print(f"latency total: {total / 1e6:.3f} ms",
                       file=sys.stderr)
         finally:
+            if top_loop is not None:
+                top_loop.stop()
+                top_sampler.stop(final_capture=False)
+                top_ring.close()
+            if publisher is not None:
+                # final push BEFORE element teardown: the collector's
+                # last view of this worker carries its closing counters
+                publisher.stop(final_push=True)
+            if slo_monitor is not None:
+                # final tick BEFORE element teardown: the verdict sees
+                # the run's last requests while gauges are live
+                slo_monitor.stop(final_tick=True)
             p.stop()
+            if slo_evaluator is not None:
+                verdict = slo_evaluator.verdict()
+                slo_failed = not verdict["pass"]
+                print(json.dumps(verdict, indent=2), file=sys.stderr)
             if tracer is not None:
                 # print even on timeout or error: bounded tracing of a
                 # live pipeline is the --trace --timeout use
-                _write_trace(tracer, metrics, args)
+                _write_trace(tracer, metrics, plans, profiler, prof_report,
+                             args)
     except Exception as exc:  # noqa: BLE001 - the CLI's exit path
         print(f"ERROR: {exc}", file=sys.stderr)
         return 1
     if not args.quiet:
         print(f"pipeline finished in {time.time() - t0:.2f}s",
               file=sys.stderr)
-    return 0
+    return 3 if slo_failed else 0
 
 
-def _write_trace(tracer, metrics, args) -> None:
+def _write_trace(tracer, metrics, plans, profiler, prof_report,
+                 args) -> None:
     report = {"trace": tracer.report()}
+    if plans is not None:
+        # which elements run fused, and where each segment pushes
+        report["plan"] = plans
     resilience = tracer.resilience_report()
     if resilience:
         # retry/failure/breaker/heartbeat counters of this run
@@ -209,13 +365,31 @@ def _write_trace(tracer, metrics, args) -> None:
         metrics = REGISTRY.report()
     if metrics:
         report["metrics"] = metrics
+    if profiler is not None:
+        import os
+
+        os.makedirs(args.profile_out, exist_ok=True)
+        if prof_report is None:   # error or timeout
+            prof_report = profiler.report(metrics_report=metrics)
+        report["attribution"] = prof_report["blame"]
+        print(profiler.blame_table(prof_report), file=sys.stderr)
+        with open(os.path.join(args.profile_out, "profile.json"), "w",
+                  encoding="utf-8") as fh:
+            json.dump({"pipeline": args.pipeline, "profile": prof_report,
+                       "trace": report["trace"]}, fh, indent=2)
+        profiler.export_chrome(os.path.join(args.profile_out, "trace.json"))
+        profiler.export_folded(os.path.join(args.profile_out,
+                                            "flame.folded"))
+        profiler.close()
+        print(f"profile written to {args.profile_out}/"
+              "{profile.json, trace.json, flame.folded}", file=sys.stderr)
     if args.timeline:
         tracer.export_chrome(args.timeline)
         print(f"timeline written to {args.timeline}", file=sys.stderr)
     if args.trace_out:
         with open(args.trace_out, "w", encoding="utf-8") as fh:
             json.dump(report, fh, indent=2)
-    if args.trace:
+    if args.trace or not (args.trace_out or args.timeline or args.profile):
         print(json.dumps(report, indent=2), file=sys.stderr)
 
 
@@ -242,6 +416,57 @@ def _install_sigterm_drain(pipeline, grace_s: float) -> None:
         signal.signal(signal.SIGTERM, _on_term)
     except ValueError:
         pass    # not the main thread (embedded use): caller owns signals
+
+
+def check(description: str, out=None) -> int:
+    """``--check``: build the pipeline graph and run the static verifier
+    WITHOUT playing — no element starts, no thread spawns, no buffer
+    flows.  Prints every finding (errors first, element-path
+    diagnostics) plus the streaming-thread structure; returns 1 when
+    the graph has error-severity findings, else 0.  A path to an
+    existing ``.json`` file is a fleet config (:func:`check_fleet`)."""
+    import os
+
+    out = out or sys.stderr
+    from . import parse_launch
+    from .analysis.verify import thread_segments, verify_pipeline
+    from .pipeline.parse import ParseError
+
+    if str(description).endswith(".json") and os.path.exists(description):
+        return check_fleet(description, out=out)
+    try:
+        p = parse_launch(description)
+    except ParseError as exc:
+        print(f"check: FAIL (parse): {exc}", file=out)
+        return 1
+    findings = verify_pipeline(p)
+    for f in findings:
+        print(f"check: {f}", file=out)
+    for seg in thread_segments(p):
+        members = " -> ".join(seg["elements"]) or "(boundary only)"
+        print(f"check: thread {seg['thread']}: {members}", file=out)
+    return _verdict(findings, out)
+
+
+def check_fleet(path: str, out=None) -> int:
+    """``--check`` on a fleet config JSON: static validation without
+    spawning anything (analysis/verify.py ``verify_fleet_config``)."""
+    out = out or sys.stderr
+    from .analysis.verify import verify_fleet_config
+
+    findings = verify_fleet_config(path)
+    for f in findings:
+        print(f"check: {f}", file=out)
+    return _verdict(findings, out)
+
+
+def _verdict(findings, out) -> int:
+    errors = [f for f in findings if f.severity == "error"]
+    if errors:
+        print(f"check: FAIL ({len(errors)} error(s))", file=out)
+        return 1
+    print("check: OK", file=out)
+    return 0
 
 
 def _print_buffer(buf) -> None:

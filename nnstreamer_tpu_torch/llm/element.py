@@ -40,8 +40,9 @@ CPU (the tests' way), and without that request and without a card
 ``start()`` builds the decode engine's whole executable set (on the
 card, every CUDA graph) before the decode thread starts; that thread
 replays them.  Weights come from :func:`init_llm_params` (random, from
-``seed``).  The verifier hook (``static_check``) waits for the port's
-``analysis/verify``.
+``seed``).  The verifier hook (``static_check``) names the JAX
+package's ``llm-*`` rules, so ``launch.py --check`` reports the same
+findings on the same string.
 
 Stop-token semantics (the client contract): the stream for one request
 ends when the client has received ``max_new_tokens`` frames, or earlier
@@ -201,6 +202,101 @@ class TensorLLM(Element):
         self.announce_src_caps(Caps.from_string(
             "other/tensors,format=static,num_tensors=1,dimensions=1:1,"
             "types=int32,framerate=0/1"))
+
+    # -- verifier hook ---------------------------------------------------
+    def static_check(self):
+        from ..filter.framework import FilterProperties
+        from ..models.streamformer_lm import config_from_custom
+
+        out = []
+
+        def _num(key, default):
+            val = self.get_property(key)
+            if val is None or val == "":
+                return default
+            try:
+                # NOT `val or default`: 0 is a meaningful setting here
+                # (page-size=0 = dense pool) and must not read back as
+                # the default
+                return int(val)
+            except (TypeError, ValueError):
+                out.append(("error", f"llm-bad-{key}",
+                            f"{self.name}: {key}={val!r} is not an "
+                            "integer"))
+                return default
+
+        slots = _num("slots", 8)
+        batch = _num("batch", 4)
+        if slots < 1 or batch < 1:
+            out.append(("warning", "misconfig",
+                        f"{self.name}: slots/batch below 1 is clamped "
+                        "to 1 at start"))
+            slots, batch = max(1, slots), max(1, batch)
+        if slots < batch:
+            out.append(("error", "llm-slots-lt-batch",
+                        f"{self.name}: slots={slots} < batch={batch}: "
+                        "the decode bucket is wider than the session "
+                        "pool — it could never fill; size slots >= "
+                        "batch (cache memory scales with slots, "
+                        "throughput with filled batch)"))
+        ps = _num("page-size", 0)
+        pages = _num("pages", 0)
+        chunk = _num("prefill-chunk", -1)
+        pfx = _num("prefix-cache", -1)
+        custom = FilterProperties.parse_custom(self.custom)
+        if ps < 0 or pages < 0:
+            out.append(("error", "llm-page-size",
+                        f"{self.name}: page-size={ps} / pages={pages} "
+                        "below 0 is meaningless (0 = dense pool / "
+                        "auto-sized arena)"))
+        elif ps > 0 and "max_seq" in custom:
+            try:
+                max_seq = int(custom["max_seq"])
+            except (TypeError, ValueError):
+                max_seq = 0
+            if max_seq > 0 and (ps > max_seq or max_seq % ps != 0):
+                out.append(("error", "llm-page-size",
+                            f"{self.name}: page-size={ps} must tile "
+                            f"max_seq={max_seq} evenly (block tables "
+                            "map position j to page j//page_size; a "
+                            "ragged last page would alias positions)"))
+        if ps == 0 and (pfx == 1 or chunk > 0):
+            out.append(("error", "llm-prefix-without-pages",
+                        f"{self.name}: prefix-cache={pfx} / "
+                        f"prefill-chunk={chunk} with page-size=0: "
+                        "prefix reuse shares content-hashed PAGES and "
+                        "chunked prefill writes into them — neither "
+                        "lever exists over dense per-session slots; "
+                        "set page-size > 0 or drop both"))
+        if "max_seq" not in custom:
+            out.append(("error", "llm-no-max-seq",
+                        f"{self.name}: custom= names no max_seq — the "
+                        "KV-cache slot shape (and with it the tier's "
+                        "whole cache memory, slots x layers x max_seq "
+                        "x heads x head_dim x 2) would be an implicit "
+                        "default; the serving tier must size its cache "
+                        "explicitly"))
+        else:
+            try:
+                config_from_custom(custom)
+            except (ValueError, TypeError) as exc:
+                out.append(("error", "misconfig",
+                            f"{self.name}: custom= rejected: {exc}"))
+        mode = str(self.prefill or "auto")
+        if mode not in ("auto", "flash", "naive", "step"):
+            out.append(("error", "misconfig",
+                        f"{self.name}: prefill={mode!r} (want auto | "
+                        "flash | naive | step)"))
+        elif mode == "step":
+            out.append(("warning", "llm-decode-without-prefill",
+                        f"{self.name}: prefill=step decodes each "
+                        "prompt token-by-token through the decode "
+                        "loop: correct, but the prompt costs T GEMV "
+                        "steps and the flash-attention prefill (which "
+                        "never materializes (T,T) scores) is bypassed "
+                        "— intended only for tiny prompts or "
+                        "debugging"))
+        return out
 
     # -- lifecycle -------------------------------------------------------
     def start(self):

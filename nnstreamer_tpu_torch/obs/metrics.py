@@ -20,8 +20,7 @@ p99 latency reporting with a 128-slot fixed footprint and O(1) observe.
 
 ``render_prometheus()`` emits Prometheus text exposition (counters and
 gauges as-is, histograms as summaries with quantile labels), what the
-JAX package's metrics endpoint (``obs/httpd.py``, not ported yet)
-serves.
+``NNS_METRICS_PORT`` endpoint (obs/httpd.py) serves.
 """
 
 from __future__ import annotations

@@ -469,6 +469,36 @@ class Element:
         they output).  Passthrough elements should forward downstream."""
         return sink_pad.template
 
+    def static_src_caps(self, src_pad: Pad) -> Optional[Caps]:
+        """What can this element statically claim to produce on
+        ``src_pad``, before negotiation?  Used by the pipeline verifier
+        (analysis/verify.py) to find caps dead-ends pre-play.  Default:
+        the pad template, narrowed by a ``caps`` property when the
+        element declares one (sources with explicit caps, capsfilter's
+        constraint).  Return ``None`` when nothing can be known
+        statically (the verifier then skips this pad)."""
+        caps = None
+        if "caps" in self.PROPERTIES:
+            caps = self.get_property("caps")
+        if caps in (None, ""):
+            return src_pad.template
+        if isinstance(caps, str):
+            caps = Caps.from_string(caps)   # raises on a malformed value
+        narrowed = caps.intersect(src_pad.template)
+        if not caps.is_empty() and narrowed.is_empty():
+            raise ValueError(
+                f"{self.name}: caps property {caps} cannot intersect the "
+                f"{src_pad.name} pad template {src_pad.template}")
+        return narrowed
+
+    def static_check(self) -> "List[tuple]":
+        """Pre-play configuration check (verifier hook): return a list
+        of ``(severity, message)`` tuples — ``"error"`` for settings the
+        element's ``start()``/``set_caps`` would reject, ``"warning"``
+        for settings the scheduler will silently override, ``"info"``
+        for notable-but-fine structure.  Default: no findings."""
+        return []
+
     def report_latency(self) -> int:
         """This element's contribution to a pipeline LATENCY query, in ns
         (reference: tensor_filter injects its rolling invoke latency when

@@ -31,6 +31,23 @@ class PipelineError(RuntimeError):
         self.cause = cause
 
 
+class VerifyError(PipelineError):
+    """Static verification rejected the graph at ``play()`` — before
+    any thread spawned or buffer flowed (analysis/verify.py).  Subclasses
+    :class:`PipelineError` so callers treating play/run failures
+    uniformly keep working; ``findings`` carries the full diagnostics."""
+
+    def __init__(self, findings):
+        self.findings = list(findings)
+        self.element = next((f.element for f in self.findings
+                             if f.element is not None), None)
+        self.cause = None
+        detail = "; ".join(str(f) for f in self.findings)
+        RuntimeError.__init__(
+            self, f"pipeline verification failed ({len(self.findings)} "
+                  f"error(s)): {detail}")
+
+
 class Pipeline:
     """Owns elements, drives state, aggregates EOS/errors.
 
@@ -62,8 +79,11 @@ class Pipeline:
         self._eos_sinks: set = set()
         self._cv = make_condition("pipeline.state")
         self._playing = False
-        #: readiness lifecycle: starting -> serving -> draining
+        #: readiness lifecycle surfaced by the /healthz endpoint
+        #: (obs/httpd.py): starting -> serving -> draining; "degraded"
+        #: is computed per scrape from element health (health_state)
         self._lifecycle = "starting"
+        self._health_token: Optional[int] = None
 
     # -- construction --------------------------------------------------------
     def add(self, *elements: Element):
@@ -148,8 +168,28 @@ class Pipeline:
     def sinks(self) -> List[Element]:
         return [e for e in self.elements if not e.src_pads]
 
+    def verify(self):
+        """Run the static pipeline verifier (analysis/verify.py) on the
+        current graph and return its findings — the programmatic face of
+        ``launch.py --check``."""
+        from ..analysis.verify import verify_pipeline
+
+        return verify_pipeline(self)
+
     def play(self) -> None:
+        # static verification first: caps dead-ends, dataflow cycles and
+        # scheduler misconfigs fail HERE, with element-path diagnostics,
+        # instead of crashing a streaming thread on the first buffer
+        # (NNS_VERIFY=0 opts out; _check_links stays as the backstop)
+        from ..analysis.verify import preflight
+
+        preflight(self)
         self._check_links()
+        # live metrics endpoint (obs/httpd.py): a no-op unless
+        # NNS_METRICS_PORT is set; checked once per process
+        from ..obs.httpd import maybe_start_from_env
+
+        maybe_start_from_env()
         for el in self.elements:
             try:
                 el.start()
@@ -166,6 +206,10 @@ class Pipeline:
         #: against this (GStreamer base-time role)
         self.base_time_ns = time.monotonic_ns()
         self._lifecycle = "serving"
+        from ..obs.httpd import register_health_source
+
+        self._health_token = register_health_source(
+            self.health_state, label=f"pipeline:{self.name}")
         for el in self.elements:
             if isinstance(el, Source):
                 try:
@@ -177,8 +221,8 @@ class Pipeline:
                     raise PipelineError(el, exc) from exc
 
     def health_state(self) -> str:
-        """Readiness state: the lifecycle phase, demoted to ``degraded``
-        while any element reports it (a ``tensor_query_client`` whose
+        """Readiness state for /healthz (obs/httpd.py): the lifecycle
+        phase, demoted to ``degraded`` while any element reports it (a ``tensor_query_client`` whose
         endpoint breakers are open) and to ``draining`` while a serving
         element refuses new work."""
         if self._lifecycle == "serving":
@@ -275,6 +319,13 @@ class Pipeline:
     def stop(self) -> None:
         self._playing = False
         self._lifecycle = "draining"
+        if self._health_token is not None:
+            # unregister FIRST: a /healthz scrape racing element
+            # teardown must not walk half-stopped elements
+            from ..obs.httpd import unregister_health_source
+
+            unregister_health_source(self._health_token)
+            self._health_token = None
         # phase 0: release blocking waits (a sync sink's PTS wait holds
         # the very streaming thread _halt() is about to join)
         for el in self.elements:
@@ -545,6 +596,17 @@ class Queue(Element):
         # drain thread heads the downstream segment, and _q holds what it
         # processes next
         return not self._q.empty()
+
+    def static_check(self):
+        try:
+            cap = int(self.max_size_buffers)
+        except (TypeError, ValueError):
+            return [("error", f"{self.name}: max-size-buffers="
+                              f"{self.max_size_buffers!r} is not an int")]
+        if cap < 1:
+            return [("warning", f"{self.name}: max-size-buffers={cap} "
+                                "is clamped to 1 at start")]
+        return []
 
     def _enqueue(self, buf) -> FlowReturn:
         """Slot-bounded data put that can't deadlock: purely event-driven

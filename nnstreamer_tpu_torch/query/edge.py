@@ -332,6 +332,8 @@ class EdgeSink(Element):
             self._mqtt.publish(
                 f"nns/edge/{self.topic}",
                 f"{adv}:{int(self.port)}".encode(), retain=True)
+            # return only once the broker holds the record
+            self._mqtt.flush()
 
     def stop(self):
         if self._mqtt is not None:
@@ -340,6 +342,7 @@ class EdgeSink(Element):
                 # get the clean "no record" error, not a dead address
                 self._mqtt.publish(f"nns/edge/{self.topic}", b"",
                                    retain=True)
+                self._mqtt.flush()   # the broker has cleared it
             except OSError:
                 pass
             self._mqtt.close()

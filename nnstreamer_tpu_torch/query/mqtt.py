@@ -157,7 +157,12 @@ class MqttClient:
     and honored by a background pinger sending PINGREQ every
     ``keepalive/2`` seconds — the liveness role the reference delegates
     to paho's keepAliveInterval (mqttsink.c).  0 disables both (the old
-    behavior, still used by one-shot discovery reads)."""
+    behavior, still used by one-shot discovery reads).
+
+    :meth:`flush` returns once the broker has processed everything this
+    client sent before it (a PINGREQ round trip: MQTT 3.1.1 handles one
+    connection's packets in order), so a publisher of a retained record
+    can return only after the broker holds it."""
 
     def __init__(self, host: str, port: int, client_id: str,
                  timeout: float = 5.0, keepalive: int = 30,
@@ -165,6 +170,7 @@ class MqttClient:
         self._publish_only = bool(publish_only)
         self._sock = socket.create_connection((host, port), timeout=timeout)
         self._sock.settimeout(timeout)
+        self._timeout = float(timeout)
         self.keepalive = max(0, int(keepalive))
         var = (_mqtt_str("MQTT") + bytes([4])    # protocol level 3.1.1
                + bytes([0x02])                   # clean session
@@ -184,6 +190,12 @@ class MqttClient:
         self._closed = False
         self._ping_stop = threading.Event()
         self.pings_sent = 0
+        # PINGREQs written and PINGRESPs read on this link, so flush()
+        # knows which PINGRESP answers its own PINGREQ; one reader at a
+        # time on a publish-only link (flush and the pinger's drain)
+        self._pings_out = 0
+        self._pongs_in = 0
+        self._read_lock = make_lock("leaf")
         if self.keepalive:
             threading.Thread(target=self._ping_loop, daemon=True,
                              name=f"mqtt-keepalive:{client_id}").start()
@@ -195,6 +207,7 @@ class MqttClient:
             try:
                 with self._lock:
                     self._sock.sendall(bytes([0xC0, 0]))  # PINGREQ
+                    self._pings_out += 1
                 self.pings_sent += 1
                 if self._publish_only:
                     self._drain_unread()
@@ -209,15 +222,55 @@ class MqttClient:
         the two would steal each other's bytes."""
         import select
 
-        while True:
-            r, _, _ = select.select([self._sock], [], [], 0)
-            if not r:
-                return
-            try:
-                if not self._sock.recv(4096):
+        with self._read_lock:
+            while True:
+                r, _, _ = select.select([self._sock], [], [], 0)
+                if not r:
+                    return
+                try:
+                    pkt = _read_packet(self._sock)
+                except OSError:
+                    return
+                if pkt is None:
                     return   # EOF: the ping send will surface the close
-            except OSError:
-                return
+                if pkt[0] >> 4 == 13:       # PINGRESP
+                    self._pongs_in += 1
+
+    def flush(self, timeout: Optional[float] = None) -> None:
+        """Return once the broker has processed every packet this client
+        sent before the call: send a PINGREQ on this connection and wait
+        for its PINGRESP, which the broker writes only after handling
+        everything ahead of it.  Raises :class:`TimeoutError` past
+        ``timeout`` seconds (default: the client's connect timeout).
+        For a link no reader thread consumes (a publisher of retained
+        records); PUBLISHes read meanwhile are kept for
+        :meth:`recv_publish`."""
+        import select
+
+        deadline = time.monotonic() + (self._timeout if timeout is None
+                                       else float(timeout))
+        with self._lock:
+            self._sock.sendall(bytes([0xC0, 0]))  # PINGREQ
+            self._pings_out += 1
+            want = self._pings_out
+        with self._read_lock:
+            while self._pongs_in < want:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError("mqtt: no PINGRESP from the broker "
+                                       "within the flush timeout")
+                r, _, _ = select.select([self._sock], [], [], left)
+                if not r:
+                    continue
+                pkt = _read_packet(self._sock)
+                if pkt is None:
+                    raise ConnectionError("mqtt: connection lost before "
+                                          "PINGRESP")
+                if pkt[0] >> 4 == 13:       # PINGRESP
+                    self._pongs_in += 1
+                elif pkt[0] >> 4 == 3:      # PUBLISH
+                    topic, _pid, body = self._split_publish(*pkt)
+                    self._early.append((topic, body))
 
     @staticmethod
     def _split_publish(ptype: int, data: bytes):

@@ -621,6 +621,35 @@ class TensorQueryServerSrc(Source):
     def _make_pads(self):
         self.add_src_pad(tensors_template_caps(), "src")
 
+    def static_check(self):
+        """Pre-play verifier hook: surface the batching decisions
+        ``start()`` would make silently (mirrors tensor_filter's
+        checks)."""
+        out = []
+        try:
+            # mirrors start(): batch=0 and unset both serve unbatched
+            # nnslint: allow(falsy-zero-default)
+            batch = int(self.batch or 1)
+        except (TypeError, ValueError):
+            out.append(("error", f"{self.name}: batch={self.batch!r} is "
+                                 "not an integer"))
+            batch = 1
+        try:
+            timeout = float(self.batch_timeout_ms or 0)
+        except (TypeError, ValueError):
+            out.append(("error", f"{self.name}: batch-timeout-ms="
+                                 f"{self.batch_timeout_ms!r} is not a "
+                                 "number"))
+            timeout = 0.0
+        if batch < 1:
+            out.append(("warning", f"{self.name}: batch={batch} is "
+                                   "clamped to 1 at start"))
+        if timeout > 0 and batch <= 1:
+            out.append(("warning",
+                        f"{self.name}: batch-timeout-ms needs "
+                        "cross-stream batching (batch>1); ignored"))
+        return out
+
     def start(self):
         self.server = get_server(int(self.id), str(self.host),
                                  int(self.port),
@@ -682,6 +711,9 @@ class TensorQueryServerSrc(Source):
             self._mqtt.publish(
                 f"nns/query/{self.topic}",
                 f"{adv}:{self.server.port}".encode(), retain=True)
+            # return only once the broker holds the record: a client that
+            # subscribes right after start() must find it
+            self._mqtt.flush()
 
     def stop(self):
         if getattr(self, "_xb_gauges", None):
@@ -696,6 +728,7 @@ class TensorQueryServerSrc(Source):
                 # record", not a dead address
                 self._mqtt.publish(f"nns/query/{self.topic}", b"",
                                    retain=True)
+                self._mqtt.flush()   # the broker has cleared it
             except OSError:
                 pass
             self._mqtt.close()

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone.
 
-It imports nothing of JAX or of the JAX package, its element registry
+It imports nothing of JAX or of the JAX package (the observability and
+SLO tier included), its element registry
 holds only the elements of the ported pipeline, and its entry points
 refuse to run on the CPU unless the caller asks for it.
 """
@@ -75,6 +76,22 @@ ZOO_MODULES = ["nnstreamer_tpu_torch.models.ssd",
                "nnstreamer_tpu_torch.decoders.font",
                "nnstreamer_tpu_torch.decoders.rasterfont",
                "nnstreamer_tpu_torch.elements.transform"]
+
+#: the observability and SLO tier: the metrics endpoint, attribution,
+#: the profiler, federation, the dashboard, the SLO harness, the fleet
+#: config and the static verifier
+OBS_MODULES = ["nnstreamer_tpu_torch.obs.httpd",
+               "nnstreamer_tpu_torch.obs.attrib",
+               "nnstreamer_tpu_torch.obs.profile",
+               "nnstreamer_tpu_torch.obs.federation",
+               "nnstreamer_tpu_torch.obs.dashboard",
+               "nnstreamer_tpu_torch.slo",
+               "nnstreamer_tpu_torch.slo.spec",
+               "nnstreamer_tpu_torch.slo.evaluator",
+               "nnstreamer_tpu_torch.slo.flightrec",
+               "nnstreamer_tpu_torch.slo.loadgen",
+               "nnstreamer_tpu_torch.fleet.config",
+               "nnstreamer_tpu_torch.analysis.verify"]
 
 LAUNCH = ("videotestsrc num-buffers=2 ! "
           "video/x-raw,format=RGB,width=32,height=32,framerate=30/1 ! "
@@ -210,6 +227,39 @@ def test_zoo_modules_load_without_jax():
         f"p = n.parse_launch({launch!r}.format(priors=f.name))\n"
         "p.run(timeout=120)\n"
         "assert 'objects' in p.get('out').results[0].extra\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_observability_modules_load_without_jax():
+    """The observability and SLO tier's modules, imported in a fresh
+    interpreter, then a profiled pipeline with the metrics endpoint
+    scraped, the verifier and an SLO evaluator run on the CPU, load no
+    module of JAX or of the JAX package."""
+    code = (
+        "import importlib, sys, urllib.request\n"
+        f"bad = {sorted(FORBIDDEN)!r}\n"
+        f"for name in {OBS_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import nnstreamer_tpu_torch as n\n"
+        "from nnstreamer_tpu_torch.obs.httpd import start_metrics_server\n"
+        "from nnstreamer_tpu_torch.obs.profile import Profiler\n"
+        "from nnstreamer_tpu_torch.slo import Evaluator, demo_spec\n"
+        "srv = start_metrics_server(0)\n"
+        f"p = n.parse_launch({LAUNCH.format(accel='accelerator=true:cpu ')!r})\n"
+        "assert not [f for f in p.verify() if f.severity == 'error']\n"
+        "prof = Profiler(p)\n"
+        "ev = Evaluator(demo_spec(10.0))\n"
+        "ev.tick()\n"
+        "p.run(timeout=120)\n"
+        "ev.tick()\n"
+        "assert prof.report()['blame']['frames'] == 2\n"
+        "url = f'http://127.0.0.1:{srv.server_address[1]}/metrics'\n"
+        "assert 'nns_' in urllib.request.urlopen(url).read().decode()\n"
+        "assert ev.verdict()['pass']\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -1,7 +1,8 @@
 """The port's CLI (``python -m nnstreamer_tpu_torch.launch``, the
 gst-launch / gst-inspect roles) driven as real child processes: the
-inspector lists the query factories, a launch line prints its sink, an
-option that needs an unported module exits 2 naming it, and a client
+inspector lists the query factories, a launch line prints its sink, the
+one option that needs an unported module (``--jit``) exits 2 naming it,
+and a client
 pipeline started through the CLI offloads to a port server running in
 this process, with no module of JAX loaded in the child."""
 
@@ -57,9 +58,12 @@ def test_launch_line_runs_and_prints_sink(tmp_path):
 
 
 def test_unported_option_exits_2_naming_its_module():
-    r = _run_cli("--check", FRAMES.format(n=1) + "tensor_sink")
+    """``--jit`` is the one option left: it waits for the JIT-boundary
+    audit."""
+    assert sorted(UNPORTED) == ["--jit"]
+    r = _run_cli("--jit", FRAMES.format(n=1) + "tensor_sink")
     assert r.returncode == 2, r.stderr[-1500:]
-    assert UNPORTED["--check"] in r.stderr
+    assert UNPORTED["--jit"] in r.stderr
 
 
 @pytest.mark.parametrize("option", sorted(UNPORTED))

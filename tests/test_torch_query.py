@@ -412,6 +412,119 @@ def test_hybrid_connect_type_waits_for_mqtt():
         broker.close()
 
 
+def test_hybrid_start_returns_once_the_broker_holds_the_record(
+        monkeypatch):
+    """A broker that handles each PUBLISH late (its connection thread
+    sleeps after reading one): the port's serversrc ``start()`` returns
+    only once the broker holds the advertised record, and ``stop()`` only
+    once it has cleared it (a PINGREQ round trip on the same connection
+    after each retained PUBLISH).  The JAX package has the old ordering,
+    pinned here as the reference's fault: its ``start()`` returns while
+    the broker has not stored the record yet."""
+    from nnstreamer_tpu_torch.query import mqtt as port_mqtt
+
+    delay = 1.5
+    read = port_mqtt._read_packet
+
+    class _Late:
+        """A broker-side connection whose PUBLISHes are handled late."""
+
+        def __init__(self, sock):
+            self._sock = sock
+
+        def __getattr__(self, name):
+            return getattr(self._sock, name)
+
+    def late_read(sock):
+        pkt = read(sock)
+        if isinstance(sock, _Late) and pkt is not None and pkt[0] >> 4 == 3:
+            time.sleep(delay)        # the broker's thread, not the test's
+        return pkt
+
+    monkeypatch.setattr(port_mqtt, "_read_packet", late_read)
+
+    class _LateBroker(port_mqtt.MqttBroker):
+        def _serve(self, conn):
+            super()._serve(_Late(conn))
+
+    broker = _LateBroker()
+    topic = "nns/query/late"
+    hybrid = {"connect-type": "HYBRID", "dest-host": "127.0.0.1",
+              "dest-port": broker.port, "topic": "late"}
+    try:
+        port = PKGS["torch"]
+        src = port.query.TensorQueryServerSrc("qs", id=1904, caps=tcaps(),
+                                              **hybrid)
+        src.start()
+        try:
+            assert broker._retained.get(topic) == \
+                f"127.0.0.1:{src.bound_port}".encode()
+        finally:
+            src.stop()
+            port.server.shutdown_server(1904)
+        assert topic not in broker._retained
+        ref = PKGS["jax"]
+        jsrc = ref.query.TensorQueryServerSrc("qs", id=1905, caps=tcaps(),
+                                              **hybrid)
+        jsrc.start()
+        try:
+            assert topic not in broker._retained
+        finally:
+            jsrc.stop()
+            ref.server.shutdown_server(1905)
+    finally:
+        broker.close()
+
+
+def test_mqtt_flush_waits_for_every_earlier_pingresp():
+    """``MqttClient.flush`` counts PINGREQs: a keepalive PINGREQ sent
+    before the flush's own is answered first, and the flush waits past
+    its PINGRESP for its own."""
+    from nnstreamer_tpu_torch.query.mqtt import MqttBroker, MqttClient
+
+    broker = MqttBroker()
+    try:
+        cli = MqttClient("127.0.0.1", broker.port, "flush", keepalive=0,
+                         publish_only=True)
+        try:
+            with cli._lock:
+                cli._sock.sendall(bytes([0xC0, 0]))   # an earlier ping
+                cli._pings_out += 1
+            cli.publish("nns/query/f", b"x", retain=True)
+            cli.flush()
+            assert cli._pongs_in == cli._pings_out == 2
+            assert broker._retained["nns/query/f"] == b"x"
+        finally:
+            cli.close()
+    finally:
+        broker.close()
+    # a broker that accepts and then never answers: the flush times out
+    mute = socket.create_server(("127.0.0.1", 0))
+    conns = []
+
+    def accept():
+        conn, _ = mute.accept()
+        conns.append(conn)
+        conn.recv(1024)                        # CONNECT
+        conn.sendall(bytes([0x20, 2, 0, 0]))   # CONNACK, then silence
+
+    t = threading.Thread(target=accept, daemon=True)
+    t.start()
+    try:
+        cli = MqttClient("127.0.0.1", mute.getsockname()[1], "mute",
+                         keepalive=0)
+        try:
+            with pytest.raises(TimeoutError):
+                cli.flush(timeout=0.2)
+        finally:
+            cli.close()
+    finally:
+        t.join(timeout=10)
+        for conn in conns:
+            conn.close()
+        mute.close()
+
+
 class _AlwaysShed:
     """A shed policy that refuses everything."""
 
