@@ -170,6 +170,23 @@ Phases, each of which must pass:
      federated counters equal the workers' own.  ``check_cli``:
      ``--check`` exits 0 on the main path's string and 1 on it with a
      caps dead end, named by its element path;
+   - the serving fleet and the analysis tier: ``fleet`` runs the port's
+     ``TensorQueryRouter`` in this process over FLEET_WORKERS ``launch.py
+     --soak`` workers of query_serve's batched server string on the card
+     (each this script's ``--fleet-worker`` around ``launch.main``,
+     spawned by ``WorkerPool``, ready once its warm bucket came back),
+     through the three legs of ``fleet/soak.py``: a capacity probe with
+     query_serve's 32 clients, a kill leg (one worker SIGKILLed, the
+     pool restarts it), a scale-up leg (the autoscaler adds a fourth)
+     and an idle leg (one drained: route-away, SIGTERM drain, reap);
+     a line a leg (replies/s, round trip p50/p99) and one for the fleet
+     (routed connections a worker, restarts, spawn/ready/drain times);
+     zero client errors, K1 at least once a bucket in every worker that
+     exited by SIGTERM, every reply within the bf16 bound of its frame's
+     per-frame logits (labels where the margin allows).
+     ``sanitized_main``: the main path in a child under ``NNS_DEBUG=1``,
+     no findings, the unsanitized labels.  ``check_jit``: ``launch.py
+     --check --jit`` exits 0;
 
    Each training path runs as CUDA graphs (step 1 is the capture's eager
    warm-up, every later step a replay of the one graph: launches count as
@@ -4808,6 +4825,463 @@ def run_observability(args, card: str, main_fps: float,
 
 
 # ---------------------------------------------------------------------------
+# the serving fleet and the analysis tier
+# ---------------------------------------------------------------------------
+
+#: the fleet phase: FLEET_WORKERS workers of query_serve's batched server
+#: string behind the port's router (one more at the scale-up leg)
+FLEET_WORKERS = 3
+FLEET_SID = 9300
+FLEET_TEMPLATE = QUERY_SERVER.replace("port=0", "port={{port}}").format(
+    sid=FLEET_SID, batch=QUERY_BATCH)
+#: the legs' lengths, seconds
+FLEET_KILL_S = 14.0
+FLEET_SCALE_S = 12.0
+#: a worker on the card is ready once its warm bucket came back (graphs
+#: captured at open and at the first cross-stream bucket): the pool's
+#: ready timeout for it, and the client and router timeouts
+FLEET_READY_S = 150.0
+FLEET_TIMEOUT_S = 30.0
+FLEET_DRAIN_S = 5.0
+#: frames of the main path run under the sanitizer
+SANITIZED_FRAMES = 64
+
+
+def _fleet_warm(port: int, marker: str, buckets) -> None:
+    """A fleet worker's warm-up (a thread of the worker): once its server
+    answers, QUERY_CLIENTS connections send one frame each together, so
+    the first cross-stream bucket captures the pad set before any routed
+    client arrives; then the ready marker, which the pool's readiness
+    test reads."""
+    import threading
+
+    import numpy as np
+
+    from nnstreamer_tpu_torch.query import QueryConnection
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(port)
+    frames = [rng.integers(0, 256, (QUERY_SIZE, QUERY_SIZE, 3),
+                           dtype=np.uint8) for _ in range(QUERY_CLIENTS)]
+    conns = []
+    while len(conns) < QUERY_CLIENTS:
+        try:
+            conn = QueryConnection("127.0.0.1", port, timeout=120.0)
+            conn.connect()
+            conns.append(conn)
+        except OSError:
+            if time.perf_counter() - t0 > FLEET_READY_S:
+                return
+            time.sleep(0.2)
+    outs, barrier = [None] * len(conns), threading.Barrier(len(conns))
+
+    def one(i):
+        barrier.wait()
+        out = conns[i].query(TensorBuffer(tensors=[frames[i]]))
+        outs[i] = None if out is None else tuple(out.np(0).shape)
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(conns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=FLEET_READY_S)
+    for conn in conns:
+        conn.close()
+    if outs != [(1001,)] * len(conns):
+        return
+    with open(marker, "w", encoding="utf-8") as fh:
+        json.dump({"warm_s": time.perf_counter() - t0,
+                   "warm_buckets": buckets[0]}, fh)
+
+
+def fleet_worker(log: str, port: int, argv) -> int:
+    """A fleet worker (``chip_smoke.py --fleet-worker LOG PORT --
+    <launch.py argv>``): the port's ``launch.main`` on ``argv``, its
+    server's buckets counted at the serversrc's ``push``, the warm-up in
+    a thread; at exit (the SIGTERM drain included) the worker's kernel
+    launches, graphs and buckets into ``LOG``."""
+    import threading
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    if not torch.cuda.is_available():
+        print("fleet worker: no CUDA device", file=sys.stderr)
+        return 1
+    from nnstreamer_tpu_torch import _cuda, launch
+    from nnstreamer_tpu_torch.query.server import TensorQueryServerSrc
+
+    buckets = [0]
+    push = TensorQueryServerSrc.push
+
+    def counted(self, buf, pad=None):
+        buckets[0] += 1
+        return push(self, buf, pad)
+
+    TensorQueryServerSrc.push = counted
+    threading.Thread(target=_fleet_warm, args=(port, log + ".ready",
+                                               buckets),
+                     daemon=True).start()
+    rc = 1
+    try:
+        rc = launch.main(argv)
+    except SystemExit as exc:     # the SIGTERM drain exits through here
+        rc = exc.code
+    finally:
+        with open(log, "w", encoding="utf-8") as fh:
+            json.dump({"rc": rc, "pid": os.getpid(),
+                       "launches": dict(_cuda.launches),
+                       "graphs": dict(_cuda.graphs),
+                       "buckets": buckets[0],
+                       "device": torch.cuda.get_device_name(0)}, fh)
+    return rc if isinstance(rc, int) else 1
+
+
+def fleet_spawner(log_dir: str):
+    """The pool's spawn function for a collector port: a worker is this
+    script's ``--fleet-worker`` around the port's ``launch.main`` on
+    FLEET_TEMPLATE with ``--soak --push-metrics --drain-grace`` (the
+    arguments ``fleet.launch_spawn_fn`` gives ``launch.py``), on the
+    card."""
+    def make(collector_port: int):
+        def spawn(host: str, port: int):
+            log = os.path.join(log_dir, f"worker-{port}")
+            argv = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                    "--fleet-worker", log, str(port), "--",
+                    FLEET_TEMPLATE.format(port=port), "--soak", "3600",
+                    "--quiet", "--drain-grace", str(FLEET_DRAIN_S),
+                    "--push-metrics", f"127.0.0.1:{collector_port}",
+                    "--push-interval", "0.5"]
+            with open(log + ".err", "w", encoding="utf-8") as err:
+                return subprocess.Popen(
+                    argv, cwd=HERE, stdout=err, stderr=err,
+                    env=dict(os.environ, PYTHONPATH=HERE,
+                             NNS_FLEET_ROLE="worker"))
+        return spawn
+    return make
+
+
+class _RoutedSampler:
+    """The dashboard's fleet rows (``obs.dashboard.build_view`` over the
+    router's live ``nns_fleet_*`` gauges) sampled every half second: the
+    most connections each worker held, and whether it was seen
+    draining."""
+
+    def __init__(self):
+        import threading
+
+        self.rows, self._stop = {}, threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        from nnstreamer_tpu_torch.obs.dashboard import build_view
+        from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+        from nnstreamer_tpu_torch.obs.timeseries import flatten_state
+
+        while not self._stop.wait(0.5):
+            view = build_view([(0.0, flatten_state(REGISTRY.snapshot_state(
+                prefix="nns_fleet")))])
+            for w in view["fleet"]:
+                row = self.rows.setdefault(w["worker"], {
+                    "max_routed": 0, "seen_draining": False})
+                row["max_routed"] = max(row["max_routed"],
+                                        int(w.get("routed", 0)))
+                row["seen_draining"] |= bool(w.get("draining"))
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        return self.rows
+
+
+def _leg_row(name: str, summary: dict) -> dict:
+    """One leg's line: replies/s over the leg, round trip (send to reply)
+    and schedule-anchored latency quantiles, sheds and errors."""
+    return {"phase": "fleet_leg", "leg": name,
+            "replies": summary["ok"], "sent": summary["sent"],
+            "replies_per_s": (summary["ok"] / summary["duration_s"]
+                              if summary["duration_s"] else 0.0),
+            "offered_rps": summary["offered_rate_hz"],
+            "rtt_p50_ms": summary["service_us"].get("p50", 0.0) / 1e3,
+            "rtt_p99_ms": summary["service_us"].get("p99", 0.0) / 1e3,
+            "latency_p99_ms": summary["latency_us"].get("p99", 0.0) / 1e3,
+            "shed": summary["shed"], "errors": summary["errors"]}
+
+
+def per_frame_logits(frames) -> dict:
+    """``{(client, request): logits}`` of query_serve's frames, each
+    through the served model one frame at a time in this process (the
+    filter's per-frame graph)."""
+    from nnstreamer_tpu_torch.filter import FilterSingle
+
+    ref = {}
+    with FilterSingle(framework="xla", model="mobilenet_v2",
+                      custom="seed:0,use_pallas:1") as single:
+        for c, row in enumerate(frames):
+            for k, frame in enumerate(row):
+                ref[c, k] = single.fw.invoke([frame])[0].float(
+                    ).cpu().numpy()
+    return ref
+
+
+def run_fleet_phase(args, card: str) -> dict:
+    """The serving fleet on the card: the port's router in this process
+    over FLEET_WORKERS ``launch.py --soak`` workers of query_serve's
+    batched MobileNetV2 server string, spawned by the port's
+    ``WorkerPool`` through this script's spawn function; the three legs
+    of ``nnstreamer_tpu_torch.fleet.soak.run_fleet`` (kill, scale-up,
+    idle) with the autoscaler's thresholds from a capacity probe through
+    the router (query_serve's 32 clients, ``drive_query_clients``), the
+    legs' load the soak's open-loop generator over the same 32 clients
+    and frames.  The clients send no model token: the router keys each
+    connection by itself.  Checks: zero client errors in every leg; the
+    killed worker restarted and serving; the serving count at 4, then
+    one worker drained (route-away, SIGTERM, reap); every worker that
+    exited by SIGTERM launched K1 at least once a bucket it served;
+    every reply within the bf16 bound of its frame's per-frame logits
+    from this process, and its label equal to the per-frame label
+    wherever that label's top-2 margin exceeds twice the largest reply
+    difference.  Returns the workers' summed launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from nnstreamer_tpu_torch.fleet import soak
+
+    t_phase = time.perf_counter()
+    frames = query_frames(args.seed)
+    replies, probe = [], {}
+
+    def on_reply(c, i, out):
+        replies.append((c % QUERY_CLIENTS, i % QUERY_FRAMES,
+                        np.array(out.np(0))))
+
+    def capacity(port):
+        run = drive_query_clients(port, frames)
+        probe.update(run)
+        return run["replies_per_s"]
+
+    log_dir = tempfile.mkdtemp(prefix="nns-fleet-")
+    sampler = _RoutedSampler()
+    t0 = time.perf_counter()
+    try:
+        rc = soak.run_fleet(
+            out_dir=log_dir, template=FLEET_TEMPLATE,
+            workers=FLEET_WORKERS, clients=QUERY_CLIENTS, seed=args.seed,
+            timeout_s=FLEET_TIMEOUT_S, drain_grace_s=FLEET_DRAIN_S,
+            make_spawn=fleet_spawner(log_dir),
+            ready_fn=lambda w: os.path.exists(os.path.join(
+                log_dir, f"worker-{w.port}.ready")),
+            ready_timeout_s=FLEET_READY_S, up_timeout_s=2 * FLEET_READY_S,
+            router_timeout_s=FLEET_TIMEOUT_S, capacity_fn=capacity,
+            payload_fn=lambda c, i: frames[c % QUERY_CLIENTS][
+                i % QUERY_FRAMES],
+            on_reply=on_reply, kill_leg_s=FLEET_KILL_S,
+            scale_leg_s=FLEET_SCALE_S, recover_s=FLEET_READY_S,
+            spawn_wait_s=FLEET_READY_S, stop_drain=True)
+        wall = time.perf_counter() - t0
+        routed = sampler.stop()
+        verdict = os.path.join(log_dir, "verdict.json")
+        v = None
+        if os.path.exists(verdict):
+            with open(verdict, encoding="utf-8") as fh:
+                v = json.load(fh)
+        # each worker's files: the exit log, the ready marker, its output
+        logs, warm, errs = {}, {}, {}
+        for name in sorted(os.listdir(log_dir)):
+            stem, _, ext = name.partition(".")
+            if not stem.startswith("worker-"):
+                continue
+            with open(os.path.join(log_dir, name), encoding="utf-8") as fh:
+                text = fh.read()
+            port = int(stem.split("-")[1])
+            if ext == "err":
+                errs[port] = text[-600:]
+            else:
+                (warm if ext == "ready" else logs)[port] = json.loads(text)
+    finally:
+        sampler.stop()
+        shutil.rmtree(log_dir, ignore_errors=True)
+    if v is None:
+        raise AssertionError(f"fleet: the soak ended with {rc} before its "
+                             f"verdict; worker logs: {errs}")
+    for name, summary in (("capacity_probe", None),
+                          ("kill", v["kill_leg"]["loadgen"]),
+                          ("scale_up", v["autoscale_leg"]["loadgen"])):
+        if summary is None:
+            emit({"phase": "fleet_leg", "leg": name,
+                  "replies": probe["replies"],
+                  "replies_per_s": probe["replies_per_s"],
+                  "rtt_p50_ms": probe["rtt_p50_ms"],
+                  "rtt_p99_ms": probe["rtt_p99_ms"],
+                  "errors": len(probe["errors"]), "card": card})
+        else:
+            emit({**_leg_row(name, summary), "card": card})
+    events = v["pool_events"]
+    spawned = {e["worker"] for e in events if e["event"] == "spawned"}
+    killed = v["kill"].get("worker")
+    launches = collections.Counter()
+    k1_short = []
+    for port, log in logs.items():
+        launches.update(log["launches"])
+        k1 = log["launches"].get("normalize_frame", 0)
+        if log["rc"] != 0 or not log["buckets"] or k1 < log["buckets"]:
+            k1_short.append((port, log["rc"], log["buckets"], k1))
+    clean = {f"127.0.0.1:{p}" for p, log in logs.items() if log["rc"] == 0}
+    emit({"phase": "fleet", "workers": FLEET_WORKERS,
+          "template": "query_serve batch=32 (MobileNetV2 1.0, bf16)",
+          "keying": "per connection (no model token)",
+          "soak_verdict": v["verdict"], "soak_checks": v["checks"],
+          "capacity_routed_rps": v["fleet"]["capacity_routed_rps"],
+          "rate_kill_leg_rps": v["fleet"]["rate_kill_leg_rps"],
+          "rate_autoscale_leg_rps": v["fleet"]["rate_autoscale_leg_rps"],
+          "spawn_watermark_rps": v["fleet"]["spawn_watermark_rps"],
+          "peak_serving": v["fleet"]["peak_serving"],
+          "routed_max_per_worker": routed, "kill": v["kill"],
+          "restarted": v["restarted"],
+          "restarts": sum(e["event"] == "crashed" for e in events),
+          "spawns": v["autoscaler"]["spawns"],
+          "drains": v["autoscaler"]["drains"],
+          "times_s": {**v["times"],
+                      "idle_to_reaped": v["idle_leg"]["idle_to_reaped_s"],
+                      "warm": {p: round(d["warm_s"], 3)
+                               for p, d in warm.items()}},
+          "worker_exits": {p: log["rc"] for p, log in logs.items()},
+          "worker_buckets": {p: log["buckets"] for p, log in logs.items()},
+          "worker_k1": {p: log["launches"].get("normalize_frame", 0)
+                        for p, log in logs.items()},
+          "launches": dict(launches), "wall_s": wall, "card": card})
+    checks = v["checks"]
+    errors = (v["kill_leg"]["loadgen"]["errors"]
+              + v["autoscale_leg"]["loadgen"]["errors"]
+              + len(probe["errors"]))
+    if errors or not (checks["zero_client_errors"]
+                      and checks["worker_killed_mid_run"]
+                      and checks["pool_recovered"] and v["restarted"]
+                      and checks["spawn_on_sustained_load"]
+                      and v["fleet"]["peak_serving"] >= FLEET_WORKERS + 1
+                      and checks["drain_on_idle"]):
+        raise AssertionError(f"fleet: {errors} client errors, checks "
+                             f"{checks}, restarted {v['restarted']}, "
+                             f"events {events[-12:]}, logs {errs}")
+    if k1_short or clean != spawned - {killed}:
+        raise AssertionError(f"fleet: workers that did not exit by SIGTERM "
+                             f"with K1 >= buckets: {k1_short}; spawned "
+                             f"{sorted(spawned)}, killed {killed}, clean "
+                             f"{sorted(clean)}; logs {errs}")
+    # every reply against its frame's per-frame logits from this process
+    ref = per_frame_logits(frames)
+    got = [(c, k, out) for c, k, out in replies]
+    got += [(c, k, out) for c, row in enumerate(probe["outs"])
+            for k, out in enumerate(row)]
+    worst, over = 0.0, 0
+    for c, k, out in got:
+        want = ref[c, k]
+        if out.shape != want.shape or not np.isfinite(out).all():
+            raise AssertionError(f"fleet: reply ({c}, {k}) is {out.shape}")
+        diff = np.abs(out - want)
+        worst = max(worst, float(diff.max()))
+        over += int((diff > LOGITS_ATOL + LOGITS_RTOL * np.abs(want)).sum())
+    margin, compared, differ = 2 * worst, 0, []
+    for c, k, out in got:
+        top2 = np.sort(ref[c, k])[-2:]
+        if top2[1] - top2[0] > margin:
+            compared += 1
+            if int(np.argmax(out)) != int(np.argmax(ref[c, k])):
+                differ.append((c, k))
+    emit({"phase": "fleet_outputs", "replies": len(got),
+          "vs_per_frame_max_abs_diff": worst, "atol": LOGITS_ATOL,
+          "rtol": LOGITS_RTOL, "logits_over_tolerance": over,
+          "label_margin": margin, "labels_compared": compared,
+          "labels_differ": differ[:16],
+          "phase_s": time.perf_counter() - t_phase, "card": card})
+    if over or differ or not compared:
+        raise AssertionError(f"fleet: {over} logits beyond the bf16 bound of "
+                             f"the per-frame forward, labels differ on "
+                             f"{differ[:8]}, {compared} compared")
+    return {"launches": dict(launches)}
+
+
+def sanitized_main(out: str, frames: int, seed: int) -> int:
+    """The main path under ``NNS_DEBUG=1`` (``chip_smoke.py
+    --sanitized-main OUT``, a child process): labels, K1 launches and the
+    sanitizer's findings into ``OUT``."""
+    sys.path.insert(0, HERE)
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.analysis import sanitizer
+
+    p = parse_launch(LAUNCH.format(frames=frames, seed=seed))
+    p.run(timeout=600)
+    with open(out, "w", encoding="utf-8") as fh:
+        json.dump({"enabled": sanitizer.enabled(),
+                   "labels": [b.extra.get("index")
+                              for b in p.get("out").results],
+                   "launches": dict(_cuda.launches),
+                   "findings": [str(f) for f in sanitizer.findings()]}, fh)
+    return 0
+
+
+def run_sanitized_main(args, card: str, labels) -> None:
+    """``sanitized_main``: the main path at SANITIZED_FRAMES frames in a
+    child with ``NNS_DEBUG=1`` (every lock instrumented from import on):
+    no findings, and the labels of the unsanitized run's first
+    SANITIZED_FRAMES frames."""
+    import shutil
+    import tempfile
+
+    n = min(SANITIZED_FRAMES, len(labels))
+    tmp = tempfile.mkdtemp(prefix="nns-san-")
+    try:
+        out = os.path.join(tmp, "out.json")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--sanitized-main", out, str(n), str(args.seed)], capture_output=True, text=True, timeout=900,
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE, NNS_DEBUG="1"))
+        wall = time.perf_counter() - t0
+        got = {}
+        if child.returncode == 0:
+            with open(out, encoding="utf-8") as fh:
+                got = json.load(fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = got.get("labels") == list(labels[:n])
+    emit({"phase": "sanitized_main", "frames": n,
+          "rc": child.returncode, "sanitizer_on": got.get("enabled"),
+          "findings": len(got.get("findings", ())),
+          "labels_equal_unsanitized": same,
+          "launches": got.get("launches"), "wall_s": wall, "card": card})
+    if child.returncode or not got.get("enabled") or got["findings"] \
+            or not same:
+        raise AssertionError(f"sanitized_main: rc {child.returncode}, "
+                             f"findings {got.get('findings', [])[:2]}, "
+                             f"labels equal {same}: "
+                             f"{child.stderr[-800:]}")
+
+
+def run_check_jit(card: str) -> None:
+    """``check_jit``: ``python -m nnstreamer_tpu_torch.launch --check
+    --jit`` on the committed tree exits 0 (the graph-capture boundary
+    audit clean) and prints the compile budgets."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "nnstreamer_tpu_torch.launch", "--check",
+         "--jit"], capture_output=True, text=True, timeout=300, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE))
+    lines = [ln for ln in r.stderr.splitlines() if ln.startswith("check:")]
+    emit({"phase": "check_jit", "rc": r.returncode, "lines": lines,
+          "wall_s": time.perf_counter() - t0, "card": card})
+    if r.returncode or "check: jit: OK" not in lines \
+            or not any(" budget " in ln for ln in lines):
+        raise AssertionError(f"check_jit: rc {r.returncode}: "
+                             f"{r.stderr[-800:]}")
+
+
+# ---------------------------------------------------------------------------
 # the training paths
 # ---------------------------------------------------------------------------
 
@@ -5699,6 +6173,13 @@ def profile_train(name: str, launch: str, samples, out_dir: str,
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    # the processes this script starts of itself: a fleet worker, the
+    # sanitized main path
+    if argv[:1] == ["--fleet-worker"] and argv[3:4] == ["--"]:
+        return fleet_worker(argv[1], int(argv[2]), argv[4:])
+    if argv[:1] == ["--sanitized-main"] and len(argv) == 4:
+        return sanitized_main(argv[1], int(argv[2]), int(argv[3]))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=64,
                     help="frames of the MobileNetV2 main path")
@@ -5823,6 +6304,9 @@ def main(argv=None) -> int:
         stream = run_llm_stream(args.seed, card)
         obs = run_observability(args, card, main_path["fps"],
                                 query["replies_per_s"])
+        fleet = run_fleet_phase(args, card)
+        run_sanitized_main(args, card, main_path["labels"])
+        run_check_jit(card)
         trains = train_runs(args)
         train_rows = {}
         for name, (launch, samples, unit) in trains.items():
@@ -5839,7 +6323,7 @@ def main(argv=None) -> int:
             # launches summed over every path's own run (graph mode)
             k["launches"] = sum(path["launches"].get(k["name"], 0)
                                 for path in (main_path, vit, lm, serve,
-                                             stream, query,
+                                             stream, query, fleet,
                                              *obs.values(),
                                              *fuse.values(),
                                              *offload.values(),

@@ -360,6 +360,7 @@ class TensorFilter(Element):
         # micro-batching state (double-buffered: one batch collecting, one
         # dispatched-in-flight — see FilterFramework.invoke_batched);
         # batch=0 and unset both mean no micro-batching
+        # 0/unset alike clamp to 1  # nnslint: allow(falsy-zero-default)
         self._batch = max(1, int(self.batch or 1))
         if self._batch > 1 and not getattr(self.fw, "SUPPORTS_BATCHING",
                                            False):
@@ -373,6 +374,7 @@ class TensorFilter(Element):
         # FIFO of dispatched (bufs, handle, t0) batches; stream order is
         # the queue order
         self._inflight: deque = deque()
+        # 0/unset alike clamp to 1  # nnslint: allow(falsy-zero-default)
         self._inflight_depth = max(1, int(self.inflight or 1))
         if self._inflight_depth > 1 and self._batch <= 1:
             ml_logw("%s: inflight=%d needs micro-batching (batch>1); "
@@ -398,6 +400,7 @@ class TensorFilter(Element):
         # parallel invoke workers: a pool of N invoke threads fed from
         # chain(), with a pusher reassembling results in strict sequence
         # order; batch>1 already overlaps dispatch, so workers is 1 there
+        # 0/unset alike clamp to 1  # nnslint: allow(falsy-zero-default)
         self._workers_n = max(1, int(self.workers or 1))
         if self._workers_n > 1 and self._batch > 1:
             ml_logw("%s: workers=%d with batch>1: micro-batching already "
@@ -636,8 +639,10 @@ class TensorFilter(Element):
 
     def lower_reason(self):
         # 0/unset alike collapse to 1
+        # 0/unset alike clamp to 1  # nnslint: allow(falsy-zero-default)
         if max(1, int(self.batch or 1)) > 1:
             return "batch>1: the micro-batch coalescer owns dispatch"
+        # 0/unset alike clamp to 1  # nnslint: allow(falsy-zero-default)
         if max(1, int(self.workers or 1)) > 1:
             return "workers>1: the invoke pool owns dispatch"
         fw = getattr(self, "fw", None)

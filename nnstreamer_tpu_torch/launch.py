@@ -10,14 +10,14 @@ Usage::
         [--timeout SECONDS] [--print-sink NAME] [--check] [--profile] \
         [--metrics-port PORT] [--push-metrics HOST:PORT] [--top] \
         [--soak SECONDS] [--slo FILE|demo]
+    python -m nnstreamer_tpu_torch.launch --check --jit   # capture audit
 
     python -m nnstreamer_tpu_torch.launch --inspect          # all factories
     python -m nnstreamer_tpu_torch.launch --inspect tensor_filter
 
-The port of ``nnstreamer_tpu/launch.py``, with its exit codes: 1 for
-errors (``--check`` findings included), 3 for an SLO FAIL.  The options
-that need a module the port does not have yet exit with code 2 and name
-that module (:data:`UNPORTED`).
+The port of ``nnstreamer_tpu/launch.py``, with its options and exit
+codes: 1 for errors (``--check`` and ``--check --jit`` findings
+included), 3 for an SLO FAIL.
 """
 
 from __future__ import annotations
@@ -26,10 +26,6 @@ import argparse
 import json
 import sys
 import time
-
-#: option -> the module of the JAX package it waits for
-UNPORTED = {"--jit": "analysis/jitaudit.py"}
-
 
 def inspect(name=None, out=None) -> int:
     """List element factories, or one factory's properties."""
@@ -83,6 +79,16 @@ def main(argv=None) -> int:
                          "and scheduler misconfigurations are reported "
                          "with element paths (analysis/verify.py); exit "
                          "1 on errors")
+    ap.add_argument("--jit", action="store_true",
+                    help="with --check: also run the static graph-capture "
+                         "boundary audit (analysis/jitaudit.py) over the "
+                         "package — unquantized shapes at capture "
+                         "signatures, out-of-place pool updates, host "
+                         "syncs and tensor-value branches in the capture "
+                         "call graph, unbounded cache keys — and print "
+                         "the declared compile budgets; a pipeline string "
+                         "is optional (audit-only mode); exit 1 on "
+                         "findings")
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--print-sink", default=None,
                     help="tensor_sink name whose outputs to print")
@@ -169,20 +175,11 @@ def main(argv=None) -> int:
     ap.add_argument("--no-fuse", action="store_true",
                     help="disable the segment compiler: interpreted "
                          "per-pad dispatch; same as --fuse interpret")
-    for opt, module in UNPORTED.items():
-        ap.add_argument(opt, action="store_true",
-                        dest="unported_" + opt[2:].replace("-", "_"),
-                        help=f"not ported yet (waits for {module})")
     args = ap.parse_args(argv)
 
-    for opt, module in UNPORTED.items():
-        if getattr(args, "unported_" + opt[2:].replace("-", "_")):
-            print(f"ERROR: {opt} needs {module} of the JAX package, which "
-                  "nnstreamer_tpu_torch does not have yet", file=sys.stderr)
-            return 2
     if args.inspect is not None:
         return inspect(args.inspect or args.pipeline)
-    if not args.pipeline:
+    if not args.pipeline and not (args.check and args.jit):
         ap.error("pipeline launch string required (or use --inspect)")
     if args.no_fuse:
         args.fuse = "interpret"
@@ -194,7 +191,10 @@ def main(argv=None) -> int:
         os.environ["NNS_FUSE"] = {"interpret": "0", "python": "1",
                                   "xla": "xla"}[args.fuse]
     if args.check:
-        return check(args.pipeline)
+        rc = check(args.pipeline) if args.pipeline else 0
+        if args.jit:
+            rc = max(rc, check_jit())
+        return rc
 
     import os
 
@@ -292,12 +292,12 @@ def main(argv=None) -> int:
                 top_loop.start()
             if args.soak is not None:
                 try:
-                    p.wait(args.soak)
+                    _wait(p, args.soak)
                 except TimeoutError:
                     pass    # soak: surviving until the deadline IS the
                     #         success condition; the SLO verdict judges
             else:
-                p.wait(args.timeout)
+                _wait(p, args.timeout)
             if tracer is not None and p.planner is not None:
                 plans = p.planner.plans()   # before stop() drops it
             if tracer is not None:
@@ -393,6 +393,23 @@ def _write_trace(tracer, metrics, plans, profiler, prof_report,
         print(json.dumps(report, indent=2), file=sys.stderr)
 
 
+def _wait(pipeline, timeout: float) -> None:
+    """``pipeline.wait(timeout)`` in half-second slices.  Python runs a
+    signal's handler in the main thread only, once that thread is back
+    in the interpreter; where the kernel hands the signal to another
+    thread (one of the CUDA runtime's, as seen on a GPU host), a main
+    thread blocked in one long wait would leave the SIGTERM drain
+    pending until the wait ended."""
+    deadline = time.monotonic() + timeout
+    while True:
+        left = deadline - time.monotonic()
+        try:
+            return pipeline.wait(max(0.0, min(0.5, left)))
+        except TimeoutError:
+            if left <= 0.5:
+                raise
+
+
 def _install_sigterm_drain(pipeline, grace_s: float) -> None:
     """SIGTERM -> graceful drain: serving elements answer new requests
     with explicit sheds while in-flight replies finish, then the process
@@ -446,6 +463,34 @@ def check(description: str, out=None) -> int:
         members = " -> ".join(seg["elements"]) or "(boundary only)"
         print(f"check: thread {seg['thread']}: {members}", file=out)
     return _verdict(findings, out)
+
+
+def check_jit(out=None) -> int:
+    """``--check --jit``: the static graph-capture boundary audit
+    (analysis/jitaudit.py) over the installed package, plus the declared
+    compile budgets — the same pass ``python -m
+    nnstreamer_tpu_torch.analysis.jitaudit`` runs, surfaced through the
+    launcher's front door."""
+    import os
+
+    out = out or sys.stderr
+    from .analysis import compileledger
+    from .analysis.jitaudit import audit_paths
+
+    pkg = os.path.dirname(os.path.abspath(__file__))
+    findings = audit_paths([pkg], root=os.path.dirname(pkg))
+    for f in findings:
+        print(f"check: jit: {f}", file=out)
+    # importing the engine registers its @compile_budget sites
+    from .llm import engine as _engine  # noqa: F401
+
+    for site, n in sorted(compileledger.budgets().items()):
+        print(f"check: jit: budget {site} = {n} executables", file=out)
+    if findings:
+        print(f"check: jit: FAIL ({len(findings)} finding(s))", file=out)
+        return 1
+    print("check: jit: OK", file=out)
+    return 0
 
 
 def check_fleet(path: str, out=None) -> int:

@@ -258,20 +258,23 @@ class TokenObs:
         """Mirror the PhaseClock's per-cause totals into the monotone
         ``nns_llm_blame_ns_total{cause=}`` counters (the federable
         aggregate: per-phase totals only grow, so the deltas are
-        always >= 0).  Serialized under the leaf lock: the decode
-        thread syncs periodically and a snapshotting reader may force
-        one — an unlocked race would double-publish a delta."""
+        always >= 0).  The deltas are claimed under the leaf lock: the
+        decode thread syncs periodically and a snapshotting reader may
+        force one — an unlocked race would double-publish a delta.  They
+        are published after it (the registry's lock ranks below leaf)."""
         causes: Dict[str, int] = {}
         for phase, ns in self._phases.totals_ns().items():
             cause = PHASE_BLAME.get(phase, phase)
             causes[cause] = causes.get(cause, 0) + ns
+        deltas = []
         with self._lock:
             for cause, ns in causes.items():
                 prev = self._blame_pub.get(cause, 0)
                 if ns > prev:
-                    self._ctr(BLAME_NS_TOTAL,
-                              cause=cause).inc(ns - prev)
+                    deltas.append((cause, ns - prev))
                     self._blame_pub[cause] = ns
+        for cause, delta in deltas:
+            self._ctr(BLAME_NS_TOTAL, cause=cause).inc(delta)
 
     def blame_report(self) -> Dict[str, Any]:
         """Decode-thread wall-time blame shares.  These fold the

@@ -237,7 +237,8 @@ def flash_attention_version(q, k, v, version: int, causal: bool = False,
     return _launch_forward(q, k, v, causal, q_offset, k_offset, version)
 
 
-def _launch_forward(q, k, v, causal, q_offset, k_offset, version):
+def _launch_forward(q, k, v, causal: bool, q_offset: int, k_offset: int,
+                    version: int):
     _require_card("flash_attention", q, k, v)
     q4, k4, v4 = _batched(q), _batched(k), _batched(v)
     b, tq, h, d = q4.shape

@@ -189,7 +189,10 @@ class SegmentExec:
 
     @staticmethod
     def _sig(arrays, extra: tuple = ()) -> tuple:
-        # the reference's key: (shape, dtype, weak_type) of each input
+        # the reference's key: (shape, dtype, weak_type) of each input;
+        # arity is fixed: `arrays` is the segment's input tuple, whose
+        # length the compiled plan pins at build time
+        # nnsjit: allow(unbounded-signature)
         return extra + tuple((tuple(a.shape), _dtype_name(a), False)
                              for a in arrays)
 

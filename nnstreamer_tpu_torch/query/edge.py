@@ -223,9 +223,11 @@ def get_broker(port: int = 0, host: str = "127.0.0.1") -> EdgeBroker:
 
 def shutdown_brokers() -> None:
     with _BROKERS_LOCK:
-        for b in _BROKERS.values():
-            b.close()
+        brokers = list(_BROKERS.values())
         _BROKERS.clear()
+    # outside the leaf lock: a broker's close takes its registry lock
+    for b in brokers:
+        b.close()
 
 
 

@@ -331,13 +331,17 @@ def decode_tensors(payload) -> List[np.ndarray]:
     shared (tee contract); attach the message's lease to the
     TensorBuffer that carries them.  ``writeable=False`` survives numpy
     view/reshape derivation, so downstream transform/decoder reshapes
-    stay non-writable."""
+    stay non-writable; under the sanitizer (``NNS_DEBUG=1``) a write
+    attempt raises a contract-naming AliasingError instead of numpy's
+    bare read-only ValueError (analysis/sanitizer.py guard_readonly)."""
     t0 = time.monotonic_ns() if annotation_active() else 0
     (n,) = struct.unpack_from("<I", payload, 0)
     off = 4
     tensors = []
+    from ..analysis import sanitizer as _san
     from ..tensor.types import dim_to_np_shape
 
+    guard = _san._ENABLED
     for _ in range(n):
         meta = TensorMetaInfo.from_bytes(payload[off:off + META_HEADER_SIZE])
         off += META_HEADER_SIZE
@@ -348,6 +352,8 @@ def decode_tensors(payload) -> List[np.ndarray]:
                .reshape(dim_to_np_shape(meta.dims)))
         if arr.flags.writeable:
             arr.flags.writeable = False
+        if guard:
+            arr = _san.guard_readonly(arr)
         tensors.append(arr)
     if t0:
         annotate("serialize", t0, time.monotonic_ns())

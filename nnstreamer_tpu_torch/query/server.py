@@ -515,6 +515,10 @@ class QueryServer:
 #: server table: id → QueryServer (pairs serversrc/serversink)
 _SERVERS: Dict[int, QueryServer] = {}
 _SERVERS_LOCK = make_lock("leaf")
+#: serializes server CREATION: a new QueryServer registers its metrics
+#: (obs.metrics ranks below leaf), so it is built under this lock, not
+#: under the table's leaf lock
+_CREATE_LOCK = make_lock("query.registry")
 
 
 def get_server(server_id: int, host: str = "127.0.0.1",
@@ -526,13 +530,15 @@ def get_server(server_id: int, host: str = "127.0.0.1",
     """Server-table lookup; overload-protection kwargs apply only when
     this call CREATES the server (the serversink's bare lookup must not
     reconfigure the serversrc's server)."""
-    with _SERVERS_LOCK:
-        if server_id not in _SERVERS:
+    with _CREATE_LOCK:
+        with _SERVERS_LOCK:
+            srv = _SERVERS.get(server_id)
+        if srv is None:
             admission = None
             if capacity_rps and float(capacity_rps) > 0:
                 admission = AdmissionController(
                     bucket=TokenBucket(float(capacity_rps)))
-            _SERVERS[server_id] = QueryServer(
+            srv = QueryServer(
                 host, port,
                 queue_depth=(DEFAULT_QUEUE_DEPTH if queue_depth is None
                              else int(queue_depth)),
@@ -540,7 +546,9 @@ def get_server(server_id: int, host: str = "127.0.0.1",
                 shed=(True if shed is None else bool(shed)),
                 send_timeout=(DEFAULT_SEND_TIMEOUT if send_timeout is None
                               else float(send_timeout)))
-        return _SERVERS[server_id]
+            with _SERVERS_LOCK:
+                _SERVERS[server_id] = srv
+        return srv
 
 
 def peek_server(server_id: int) -> Optional[QueryServer]:
@@ -664,6 +672,7 @@ class TensorQueryServerSrc(Source):
         # negotiated caps and model) coalescing admitted frames ACROSS
         # client connections, reusing tensor_filter's bucket core
         # batch=0 and unset both clamp to 1 under max()
+        # nnslint: allow(falsy-zero-default)
         self._xbatch = max(1, int(self.batch or 1))
         self._xb_timeout = max(0.0, float(self.batch_timeout_ms or 0)) / 1e3
         self._xb_hold = None          # shape-mismatch holdover frame

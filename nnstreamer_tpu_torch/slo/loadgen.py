@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import random
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -98,7 +98,11 @@ class LoadGenerator:
                  timeout: float = 2.0,
                  payload: Optional[np.ndarray] = None,
                  registry: MetricsRegistry = REGISTRY,
-                 qos: bool = False) -> None:
+                 qos: bool = False,
+                 payload_fn: Optional[Callable[[int, int],
+                                               np.ndarray]] = None,
+                 on_reply: Optional[Callable[[int, int, Any],
+                                             None]] = None) -> None:
         if schedule not in ("poisson", "constant"):
             raise ValueError(f"schedule {schedule!r} "
                              "(want poisson | constant)")
@@ -114,6 +118,12 @@ class LoadGenerator:
         self.timeout = float(timeout)
         self.payload = (payload if payload is not None
                         else np.arange(4, dtype=np.float32))
+        #: per-request payload ``payload_fn(client, request)`` instead
+        #: of the one ``payload``, and ``on_reply(client, request,
+        #: reply)`` for every answered request: a run whose replies are
+        #: checked frame by frame
+        self.payload_fn = payload_fn
+        self.on_reply = on_reply
         self.registry = registry
         #: QoS mode: each WORKER is assigned one class from the mix
         #: (largest-remainder apportionment over the weights) and
@@ -211,13 +221,17 @@ class LoadGenerator:
                 if self._stop.is_set():
                     break
                 cls = cls_picks[i]
-                buf = TensorBuffer(tensors=[self.payload])
+                buf = TensorBuffer(tensors=[
+                    self.payload if self.payload_fn is None
+                    else self.payload_fn(idx, i)])
                 buf.extra["nns_class"] = cls
                 sent += 1
                 shed = False
                 try:
                     out = conn.query(buf)
                     good = out is not None
+                    if good and self.on_reply is not None:
+                        self.on_reply(idx, i, out)
                 except ShedError:
                     # explicit server-side refusal: counted in its own
                     # family — neither an error (the overload layer

@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis import sanitizer as _san
 from ..analysis.sanitizer import make_lock
 
 #: Sentinel for "no timestamp" (GStreamer GST_CLOCK_TIME_NONE analogue).
@@ -100,6 +101,10 @@ class BufferLease:
         slab = self._slab
         if slab is None:
             raise RuntimeError("BufferLease used after release")
+        if _san._ENABLED:
+            # writable grant while decoded views are alive = the
+            # aliasing bug the pool exists to prevent (sanitizer)
+            _san.check_writable_grant(slab, "BufferLease.memory")
         return memoryview(slab)[:self.size]
 
     def view(self, dtype, shape, offset: int = 0) -> np.ndarray:
@@ -187,6 +192,10 @@ class TensorBufferPool:
                 hit = False
         if slab is None:
             slab = bytearray(nbytes)
+        elif _san._ENABLED:
+            # a recycled slab must have NO live views (sanitizer cross-
+            # checks the refcount reclaim invariant independently)
+            _san.check_slab_reissue(slab)
         from ..pipeline import tracing
 
         tracing.record_pool(hit)
@@ -277,10 +286,13 @@ def default_pool() -> TensorBufferPool:
     """Process-wide pool shared by the query transports."""
     global _DEFAULT_POOL
     if _DEFAULT_POOL is None:
+        made = None
         with _DEFAULT_POOL_LOCK:
             if _DEFAULT_POOL is None:
-                _DEFAULT_POOL = TensorBufferPool()
-                _register_pool_gauges(_DEFAULT_POOL)
+                _DEFAULT_POOL = made = TensorBufferPool()
+        if made is not None:
+            # outside the leaf lock: the registry's lock ranks below it
+            _register_pool_gauges(made)
     return _DEFAULT_POOL
 
 
@@ -444,6 +456,15 @@ class TensorBuffer:
     #: :class:`BufferLease` slab (the slab recycles when the last holder
     #: of the frame drops it)
     lease: Any = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        # sanitizer hook (one branch per buffer when off): a leased
+        # buffer's ndarray payloads are zero-copy views over the pooled
+        # slab — register them so writable grants / pool re-issues with
+        # live views are caught (analysis/sanitizer.py aliasing checker)
+        if _san._ENABLED and self.lease is not None:
+            _san.note_views(getattr(self.lease, "_slab", None),
+                            self.tensors)
 
     @property
     def num_tensors(self) -> int:

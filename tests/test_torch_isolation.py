@@ -79,7 +79,8 @@ ZOO_MODULES = ["nnstreamer_tpu_torch.models.ssd",
 
 #: the observability and SLO tier: the metrics endpoint, attribution,
 #: the profiler, federation, the dashboard, the SLO harness, the fleet
-#: config and the static verifier
+#: (config, ring, router, pool, autoscaler, soak) and the analysis tier
+#: (verifier, lock hierarchy, sanitizer, capture audit, lint)
 OBS_MODULES = ["nnstreamer_tpu_torch.obs.httpd",
                "nnstreamer_tpu_torch.obs.attrib",
                "nnstreamer_tpu_torch.obs.profile",
@@ -91,7 +92,17 @@ OBS_MODULES = ["nnstreamer_tpu_torch.obs.httpd",
                "nnstreamer_tpu_torch.slo.flightrec",
                "nnstreamer_tpu_torch.slo.loadgen",
                "nnstreamer_tpu_torch.fleet.config",
-               "nnstreamer_tpu_torch.analysis.verify"]
+               "nnstreamer_tpu_torch.analysis.verify",
+               "nnstreamer_tpu_torch.fleet",
+               "nnstreamer_tpu_torch.fleet.ring",
+               "nnstreamer_tpu_torch.fleet.router",
+               "nnstreamer_tpu_torch.fleet.pool",
+               "nnstreamer_tpu_torch.fleet.autoscaler",
+               "nnstreamer_tpu_torch.fleet.soak",
+               "nnstreamer_tpu_torch.analysis.lockorder",
+               "nnstreamer_tpu_torch.analysis.sanitizer",
+               "nnstreamer_tpu_torch.analysis.jitaudit",
+               "nnstreamer_tpu_torch.analysis.lint"]
 
 LAUNCH = ("videotestsrc num-buffers=2 ! "
           "video/x-raw,format=RGB,width=32,height=32,framerate=30/1 ! "

@@ -1,8 +1,8 @@
 """The port's CLI (``python -m nnstreamer_tpu_torch.launch``, the
 gst-launch / gst-inspect roles) driven as real child processes: the
-inspector lists the query factories, a launch line prints its sink, the
-one option that needs an unported module (``--jit``) exits 2 naming it,
-and a client
+inspector lists the query factories, a launch line prints its sink,
+``--check --jit`` (the last option that waited for a module of the JAX
+package) runs the graph-capture audit in the JAX layout, and a client
 pipeline started through the CLI offloads to a port server running in
 this process, with no module of JAX loaded in the child."""
 
@@ -14,7 +14,8 @@ import sys
 import pytest
 
 from nnstreamer_tpu_torch import parse_launch
-from nnstreamer_tpu_torch.launch import UNPORTED, main
+from nnstreamer_tpu_torch import launch
+from nnstreamer_tpu_torch.launch import main
 from nnstreamer_tpu_torch.query.server import shutdown_server
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,19 +59,27 @@ def test_launch_line_runs_and_prints_sink(tmp_path):
 
 
 def test_unported_option_exits_2_naming_its_module():
-    """``--jit`` is the one option left: it waits for the JIT-boundary
-    audit."""
-    assert sorted(UNPORTED) == ["--jit"]
-    r = _run_cli("--jit", FRAMES.format(n=1) + "tensor_sink")
-    assert r.returncode == 2, r.stderr[-1500:]
-    assert UNPORTED["--jit"] in r.stderr
+    """No option waits for a module any more: ``--jit`` (the last one,
+    formerly exit 2) now runs the graph-capture audit, with no pipeline
+    string needed, and exits 0 on the port's tree with the JAX
+    package's output layout."""
+    assert not hasattr(launch, "UNPORTED")
+    r = _run_cli("--check", "--jit")
+    assert r.returncode == 0, r.stderr[-1500:]
+    assert "check: jit: OK" in r.stderr
+    assert "check: jit: budget llm.engine.step = 16 executables" \
+        in r.stderr
 
 
-@pytest.mark.parametrize("option", sorted(UNPORTED))
+@pytest.mark.parametrize("option", ["--jit"])
 def test_every_unported_option_exits_2(option, capsys):
-    """The same exit, in-process, for each option of the table."""
-    assert main([option, FRAMES.format(n=1) + "tensor_sink"]) == 2
-    assert UNPORTED[option] in capsys.readouterr().err
+    """The same, in-process, for each formerly unported option: with a
+    pipeline string ``--check`` verifies the graph and the option's
+    audit runs beside it."""
+    assert main(["--check", option, FRAMES.format(n=1) + "tensor_sink"]) \
+        == 0
+    err = capsys.readouterr().err
+    assert "check: OK" in err and "check: jit: OK" in err
 
 
 def test_cli_client_offloads_to_port_server_without_jax():

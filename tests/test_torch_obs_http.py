@@ -62,6 +62,28 @@ def endpoints():
     jax_httpd.stop_metrics_server()
 
 
+@pytest.fixture
+def quiet_resilience_stats():
+    """Both packages' process-wide query resilience counters, emptied
+    for the test and restored after it: every non-zero ``STATS``
+    counter rides any registry's exposition, so one left by an earlier
+    test in the same process (a refused connect) would show in one
+    package's text only."""
+    from nnstreamer_tpu.query import resilience as jax_resilience
+    from nnstreamer_tpu_torch.query import resilience
+
+    saved = [(s, s.snapshot()) for s in (resilience.STATS,
+                                         jax_resilience.STATS)]
+    for s, _ in saved:
+        with s._lock:
+            s._counts.clear()
+    yield
+    for s, counts in saved:
+        with s._lock:
+            s._counts.clear()
+            s._counts.update(counts)
+
+
 def _get(url):
     try:
         with urllib.request.urlopen(url, timeout=10) as r:
@@ -71,7 +93,7 @@ def _get(url):
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_metrics_text_equals_jax(seed, endpoints):
+def test_metrics_text_equals_jax(seed, endpoints, quiet_resilience_stats):
     preg, jreg = fill_registry(metrics, seed), fill_registry(jax_metrics,
                                                               seed)
     assert preg.render_prometheus() == jreg.render_prometheus()

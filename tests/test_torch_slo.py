@@ -192,7 +192,30 @@ def _bundle(pkg: str, out_dir: str):
     return os.path.basename(bundle), files, docs
 
 
-def test_flight_recorder_bundle_layout_equals_jax(tmp_path):
+@pytest.fixture
+def quiet_resilience_stats():
+    """Both packages' process-wide query resilience counters, emptied
+    for the test and restored after it.  ``MetricsRegistry.report()``
+    appends every non-zero ``STATS`` counter to any registry's report,
+    so a counter left by an earlier test in the same process (the gRPC
+    reconnect retries) would show in one package's timeline only."""
+    from nnstreamer_tpu.query import resilience as jax_resilience
+    from nnstreamer_tpu_torch.query import resilience
+
+    saved = [(s, s.snapshot()) for s in (resilience.STATS,
+                                         jax_resilience.STATS)]
+    for s, _ in saved:
+        with s._lock:
+            s._counts.clear()
+    yield
+    for s, counts in saved:
+        with s._lock:
+            s._counts.clear()
+            s._counts.update(counts)
+
+
+def test_flight_recorder_bundle_layout_equals_jax(tmp_path,
+                                                  quiet_resilience_stats):
     name, files, docs = _bundle("torch", str(tmp_path / "port"))
     jname, jfiles, jdocs = _bundle("jax", str(tmp_path / "jax"))
     assert name == jname and files == jfiles
