@@ -634,6 +634,11 @@ FLASH_ROWS = [
     ("lm_train", 4, 2048, 2048, 8, 64, True, "bfloat16", 0, 0),
     # a vit-batched bucket: the training layer's shape, served without lse
     ("vit_batched", 32, 197, 197, 6, 64, False, "bfloat16", 0, 0),
+    # train_dist's sp2 ring steps (f32, a rank's half of (4, 2048)): a
+    # key block from the past (every key visible) and one from the future
+    # (no row sees a key: out 0, lse -inf)
+    ("ring_past", 4, 1024, 1024, 8, 64, True, "float32", 1024, 0),
+    ("ring_future", 4, 1024, 1024, 8, 64, True, "float32", 0, 1024),
 ]
 #: FLASH_ROWS whose call returns no lse (its bytes leave the bound)
 FLASH_NO_LSE = ("vit_batched",)
@@ -825,6 +830,10 @@ BWD_ROWS = [
     # 0..64 see no key), with a nonzero lse cotangent
     ("offset_ragged_lse", 2, 100, 150, 3, 64, True, "bfloat16", 10, 75,
      True),
+    # train_dist's sp2 ring steps, as in FLASH_ROWS; the future block's
+    # lse cotangent is 0 (the ring's merge weighs it 0)
+    ("ring_past", 4, 1024, 1024, 8, 64, True, "float32", 1024, 0, True),
+    ("ring_future", 4, 1024, 1024, 8, 64, True, "float32", 0, 1024, False),
 ]
 #: |kernel - plain| <= tol * max(max |plain|, 1) on dq, dk and dv: f32
 #: differs in summation order; bf16 rounds each gradient once from f32
@@ -5722,6 +5731,489 @@ def check_train_outputs(seed: int) -> None:
                              f"plain attention at {failures}")
 
 
+# ---------------------------------------------------------------------------
+# train, save, serve: MobileNetV2's training form through the flagship
+# ---------------------------------------------------------------------------
+
+#: mobilenet-train: MobileNetV2 1.0 at 224x224, 1001 classes, in its
+#: training form (f32 parameters, bf16 compute; K1 normalizes each batch,
+#: ``use_pallas:1``), batches of 32, Adam lr 1e-3 (the element's
+#: default); the trainer writes its checkpoint at EOS
+MNV2_TRAIN_BATCH = 32
+MNV2_TRAIN_LAUNCH = (
+    "appsrc name=src caps=other/tensors,format=static,num_tensors=2,"
+    f"dimensions=3:224:224:{MNV2_TRAIN_BATCH}.{MNV2_TRAIN_BATCH},"
+    "types=uint8.int32,framerate=0/1 ! "
+    "tensor_trainer name=tr framework=mesh-vision model-save-path={path} "
+    "custom=model:mobilenet_v2,seed:{seed},use_pallas:1,dp:1 ! "
+    "tensor_sink name=out")
+#: frames the flagship string serves from the trained checkpoint, and the
+#: reload stream's frames (the second checkpoint swapped in at half)
+SERVE_CKPT_FRAMES = 64
+RELOAD_FRAMES = 16
+RELOAD_CAPS = ("other/tensors,format=static,num_tensors=1,"
+               "dimensions=3:224:224,types=uint8,framerate=0/1")
+
+
+def mnv2_train_samples(steps: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, (MNV2_TRAIN_BATCH, 224, 224, 3),
+                          dtype=np.uint8),
+             rng.integers(0, 1001, MNV2_TRAIN_BATCH).astype(np.int32))
+            for _ in range(steps)]
+
+
+def checkpoint_launch(path: str) -> str:
+    """The flagship string, serving ``path``'s weights."""
+    return LAUNCH.replace("custom=seed:{seed},use_pallas:1",
+                          f"custom=seed:{{seed}},use_pallas:1,"
+                          f"checkpoint:{path}")
+
+
+def run_mobilenet_train(path: str, samples, seed: int, card: str):
+    """The timed graph-mode run: one capture (step 1's eager warm-up) and
+    a replay a later step, K1 once a step; the checkpoint at ``path``.
+    Returns the row and the trainer."""
+    import math
+
+    from nnstreamer_tpu_torch import _cuda
+
+    _cuda.reset_launches()
+    trainer = drive_trainer(MNV2_TRAIN_LAUNCH.format(path=path, seed=seed),
+                            samples)
+    launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
+    steps = len(trainer.losses)
+    step_ms = [t * 1e3 for t in trainer.step_s]
+    p50 = statistics.median(step_ms)
+    row = {"phase": "mobilenet_train", "mode": "graph", "steps": steps,
+           "batch": MNV2_TRAIN_BATCH, "launches": launches,
+           "graphs": graphs, "step_ms": step_ms, "step_ms_p50": p50,
+           "images_per_s": MNV2_TRAIN_BATCH / (p50 / 1e3),
+           "losses": trainer.losses, "checkpoint_bytes":
+           os.path.getsize(path) if os.path.exists(path) else None,
+           "card": card}
+    emit(row)
+    if steps != len(samples) or not all(map(math.isfinite,
+                                            trainer.losses)):
+        raise AssertionError(f"mobilenet_train: {steps} steps of "
+                             f"{len(samples)}, losses {trainer.losses}")
+    if launches.get("normalize_frame", 0) != steps or any(
+            launches.get(k, 0) for k in TRAIN_KERNELS):
+        raise AssertionError(f"mobilenet_train: launches {launches}, "
+                             f"expected normalize_frame once a step")
+    if graphs != graph_counts(False, 1, steps - 1):
+        raise AssertionError(f"mobilenet_train: graphs {graphs}")
+    if row["checkpoint_bytes"] is None:
+        raise AssertionError(f"mobilenet_train: no checkpoint at {path}")
+    return row, trainer
+
+
+def served_logits(path: str, frames) -> list:
+    """The filter's logits for ``frames`` from ``path``'s weights (graph
+    mode), as host arrays."""
+    import torch
+
+    from nnstreamer_tpu_torch.filter import FilterSingle
+
+    with FilterSingle(framework="xla", model="mobilenet_v2",
+                      custom=f"use_pallas:1,checkpoint:{path}") as single:
+        outs = [single.fw.invoke([img])[0] for img in frames]
+        torch.cuda.synchronize()
+    return [o.float().cpu() for o in outs]
+
+
+def check_served_checkpoint(labels, module, path: str, seed: int) -> dict:
+    """The flagship's labels and the filter's logits from the trained
+    checkpoint against the trained module's own forward (training form:
+    f32 parameters, bf16 compute) on the same frames: logits within
+    LOGITS_ATOL + LOGITS_RTOL * |module|; labels equal where the module's
+    top-2 margin exceeds twice the largest logit difference (a random
+    model a few steps trained is near-uniform over 1001 classes: its
+    margins sit far below MARGIN), at least one frame compared."""
+    import torch
+
+    imgs = source_frames(len(labels), seed)
+    served = served_logits(path, imgs)
+    worst, beyond, wants = 0.0, 0, []
+    with torch.no_grad():
+        for img, got in zip(imgs, served):
+            want = module(torch.from_numpy(img).cuda())[0].float().cpu()
+            if got.shape != (1001,) or not torch.isfinite(got).all():
+                raise AssertionError("served logits not finite (1001,)")
+            diff = (got - want).abs()
+            worst = max(worst, diff.max().item())
+            beyond += int((diff > LOGITS_ATOL
+                           + LOGITS_RTOL * want.abs()).any())
+            wants.append(want)
+    margin = 2 * worst
+    pairs = [(label, want) for label, want in zip(labels, wants)
+             if top2_margin(want).item() > margin]
+    compared = len(pairs)
+    equal = sum(label == int(want.argmax()) for label, want in pairs)
+    row = {"phase": "train_save_serve_outputs", "frames": len(labels),
+           "logits_max_abs_diff": worst, "frames_beyond_bound": beyond,
+           "atol": LOGITS_ATOL, "rtol": LOGITS_RTOL,
+           "labels_compared": compared, "labels_equal": equal,
+           "margin": margin}
+    emit(row)
+    if beyond or not compared or equal != compared:
+        raise AssertionError(f"served checkpoint vs the trained module: "
+                             f"{row}")
+    return row
+
+
+def check_reload(path_a: str, path_b: str, seed: int, card: str) -> dict:
+    """``RELOAD_MODEL`` with a second checkpoint mid-stream: the frames
+    before the event answer with the first checkpoint's weights, those
+    after with the second's — each frame's logits bit-equal to a filter
+    opened on its checkpoint (graph mode both)."""
+    import torch
+
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.pipeline.element import CustomEvent
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    imgs = source_frames(RELOAD_FRAMES, seed + 7)
+    half = RELOAD_FRAMES // 2
+    _cuda.reset_launches()
+    p = parse_launch(
+        f"appsrc name=src caps={RELOAD_CAPS} ! tensor_filter name=f "
+        "framework=xla model=mobilenet_v2 "
+        f"custom=use_pallas:1,checkpoint:{path_a} is-updatable=true ! "
+        "tensor_sink name=out")
+    got = []
+    p.get("out").connect("new-data",
+                         lambda b: got.append(b.tensors[0].float().cpu()
+                                              if isinstance(b.tensors[0],
+                                                            torch.Tensor)
+                                              else torch.from_numpy(
+                                                  b.np(0).copy())))
+    p.play()
+    try:
+        src = p.get("src")
+        for i, img in enumerate(imgs):
+            if i == half:
+                src.push_event(CustomEvent("tensor_filter_update_model",
+                                           {"checkpoint": path_b}))
+            src.push_buffer(TensorBuffer(tensors=[img], pts=i))
+        src.end_of_stream()
+        p.wait(timeout=300)
+    finally:
+        p.stop()
+    launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
+    want_a, want_b = served_logits(path_a, imgs), served_logits(path_b,
+                                                                imgs)
+    if len(got) != RELOAD_FRAMES:
+        raise AssertionError(f"reload: {len(got)} frames of "
+                             f"{RELOAD_FRAMES}")
+    right = [torch.equal(g, (want_a if i < half else want_b)[i])
+             for i, g in enumerate(got)]
+    other = [torch.equal(g, (want_b if i < half else want_a)[i])
+             for i, g in enumerate(got)]
+    row = {"phase": "train_save_serve_reload", "frames": len(got),
+           "swap_at": half, "bit_equal_own_checkpoint": sum(right),
+           "equal_other_checkpoint": sum(other), "launches": launches,
+           "graphs": graphs, "card": card}
+    emit(row)
+    if not all(right) or any(other):
+        raise AssertionError(f"reload: {row}")
+    # one capture at open, a replay a frame; the swap captures nothing
+    if graphs != graph_counts(False, 1, RELOAD_FRAMES):
+        raise AssertionError(f"reload: graphs {graphs}")
+    return {"launches": launches}
+
+
+def check_round_trips(seed: int) -> None:
+    """ViT-S/16's and the LM's parameters through ``save_checkpoint`` and
+    ``restore_params`` into templates of another seed: every tensor bit
+    for bit."""
+    import tempfile
+
+    import torch
+
+    from nnstreamer_tpu_torch.models.registry import (get_model,
+                                                      named_tensors,
+                                                      restore_params,
+                                                      save_checkpoint)
+    from nnstreamer_tpu_torch.models.streamformer_lm import \
+        config_from_custom
+    from nnstreamer_tpu_torch.parallel.train_step import init_params
+
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config_from_custom({**LM_CUSTOM, "max_seq": str(LM_SEQ)})
+        cases = {
+            "vit": (get_model("vit", {"seed": str(seed)}, trainable=True),
+                    get_model("vit", {"seed": str(seed + 1)},
+                              trainable=True)),
+            "streamformer_lm": (
+                {k: v for k, v in init_params(cfg, seed).items()},
+                init_params(cfg, seed + 1)),
+        }
+        for name, (src, dst) in cases.items():
+            if isinstance(src, dict):
+                src = {k: (v.cuda() if isinstance(v, torch.Tensor) else
+                           [{n: w.cuda() for n, w in lyr.items()}
+                            for lyr in v]) for k, v in src.items()}
+            path = os.path.join(tmp, f"{name}.pt")
+            save_checkpoint(src, path)
+            back = restore_params(dst, path)
+            want, got = named_tensors(src), named_tensors(back)
+            same = sum(torch.equal(got[k].cuda(), t) for k, t in want.items())
+            rows.append({"model": name, "tensors": len(want),
+                         "bit_equal": same,
+                         "bytes": os.path.getsize(path)})
+    emit({"phase": "checkpoint_round_trips", "rows": rows})
+    for r in rows:
+        if r["bit_equal"] != r["tensors"]:
+            raise AssertionError(f"checkpoint round trip: {r}")
+
+
+def run_train_save_serve(args, card: str) -> dict:
+    """mobilenet-train in graph mode (timed) and held graph vs eager; its
+    checkpoint served by the flagship string; a reload to a second
+    checkpoint mid-stream; ViT's and the LM's round trips."""
+    import tempfile
+
+    from nnstreamer_tpu_torch.models.registry import (get_model,
+                                                      save_checkpoint)
+
+    samples = mnv2_train_samples(args.mnv2_train_steps, args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        path_a = os.path.join(tmp, "mobilenet_v2_trained.pt")
+        row, trainer = run_mobilenet_train(path_a, samples, args.seed, card)
+        module = trainer._model.module
+        served = run_labeling("train_save_serve", checkpoint_launch(path_a),
+                              SERVE_CKPT_FRAMES, args.seed, card,
+                              "normalize_frame", 1)
+        check_served_checkpoint(served["labels"], module, path_a, args.seed)
+        del trainer, module
+        # the second checkpoint: the training form at another seed
+        path_b = os.path.join(tmp, "mobilenet_v2_other.pt")
+        save_checkpoint(get_model("mobilenet_v2",
+                                  {"seed": str(args.seed + 1)},
+                                  trainable=True), path_b)
+        reload = check_reload(path_a, path_b, args.seed, card)
+        check_train_graph_vs_eager(
+            "mobilenet_train", MNV2_TRAIN_LAUNCH.format(
+                path=os.path.join(tmp, "graph_vs_eager.pt"),
+                seed=args.seed), samples)
+    check_round_trips(args.seed)
+    return {"train": {"launches": row["launches"]}, "serve": served,
+            "reload": reload, "step_ms_p50": row["step_ms_p50"]}
+
+
+# ---------------------------------------------------------------------------
+# train-dist: two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+#: the multi-rank checks' steps (each rank's step is eager: a gloo
+#: collective cannot be captured) and their tolerances against the
+#: one-rank step on the same global batches, both in f32 with TF32 off:
+#: the first step's gradients within DIST_GRAD_RTOL relative L2 a tensor
+#: and every step's loss within DIST_LOSS_RTOL (the ranks' halves sum in
+#: another order than the whole batch); the parameters after the steps
+#: within 2·lr a step of each other — Adam's m/sqrt(v) turns that rounding
+#: on a gradient near 0 into a step of up to lr either way
+DIST_STEPS = 3
+DIST_LOSS_RTOL = 1e-4
+DIST_GRAD_RTOL = 1e-3
+DIST_LR = 1e-3
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max((a[n].double() - b[n].double()).abs().max().item()
+               for n in b)
+
+
+def _f32_off_tf32():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def dist_vision_task(seed: int, steps: int) -> dict:
+    """On every rank: mesh-vision MobileNetV2 (f32) data parallel over the
+    2-rank group, each rank its half of each global batch of 32; rank 0
+    then runs the one-rank step on the same global batches from the same
+    start (eagerly) and compares (the first step's gradients, as the
+    step left them in ``.grad``: averaged over dp on the ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.models.registry import get_model
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.vision_train import \
+        make_vision_train_step
+
+    _f32_off_tf32()
+    props = {"seed": str(seed), "use_pallas": "1", "dtype": "float32"}
+    batches = mnv2_train_samples(steps, seed + 3)
+
+    def run(mesh):
+        model = get_model("mobilenet_v2", props, device="cuda:0",
+                          trainable=True)
+        step, module, opt, _ = make_vision_train_step(mesh, model,
+                                                      lr=DIST_LR)
+        # eager, so each step's gradients are in .grad after it (a graph
+        # keeps them in its pool until a replay)
+        step.graphed._eager = True
+        losses, grads = [], None
+        t0 = time.perf_counter()
+        for f, l in batches:
+            losses.append(float(step(module, opt, f, l)[2]))
+            if grads is None:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in module.named_parameters()}
+        wall = time.perf_counter() - t0
+        state = {n: p.detach().clone() for n, p in module.named_parameters()}
+        return losses, grads, state, wall
+
+    mesh = make_mesh(n_devices=2, axis_sizes={"dp": 2}, devices=["cuda:0"])
+    _cuda.reset_launches()
+    losses, grads, state, wall = run(mesh)
+    out = {"rank": dist.get_rank(), "mesh": mesh.shape, "losses": losses,
+           "launches": dict(_cuda.launches), "step_s": wall / steps}
+    if dist.get_rank() == 0:
+        ref_losses, ref_grads, ref_state, _ = run(
+            make_mesh(devices=["cuda:0"]))
+        gap, where = _grad_gap(grads, ref_grads)
+        out.update(one_rank_losses=ref_losses, grad_rel_l2=gap,
+                   worst_tensor=where,
+                   param_max_abs_diff=_max_abs(state, ref_state))
+    return out
+
+
+def dist_lm_task(seed: int, steps: int) -> dict:
+    """On every rank: the LM (f32) sequence parallel over the 2-rank
+    group through the flash ring (a K2 launch with offsets a ring step,
+    K3/K4 in the backward), each rank half of every sequence: the first
+    batch's gradients (synced as the step syncs them), then the steps;
+    rank 0 then does the same with the one-rank step on the whole
+    sequences from the same start and compares.  The JAX package's
+    sharded gradient is the one-device gradient times the (dp, sp) size
+    (its loss psum transposes to a psum; ROADMAP §C), and the port's
+    follows it: the one-rank gradients are scaled by it before the
+    comparison (Adam's update does not see the scale)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.models.streamformer_lm import \
+        config_from_custom
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.mesh import shard
+    from nnstreamer_tpu_torch.parallel.train_step import (init_params,
+                                                          leaves,
+                                                          make_train_step,
+                                                          value_and_grad)
+
+    _f32_off_tf32()
+    # capacity_factor = experts: no expert drops a token, on a rank's
+    # half or on the whole batch (the capacity counts the member's own
+    # tokens, as in the JAX package, so a binding capacity would route
+    # the two steps differently)
+    cfg = dataclasses.replace(
+        config_from_custom({**LM_CUSTOM, "max_seq": str(LM_SEQ)}),
+        dtype=torch.float32, lr=DIST_LR,
+        capacity_factor=float(LM_CUSTOM["experts"]))
+    start = init_params(cfg, seed)
+    batches = lm_train_samples(steps, seed + 3)
+
+    def run(mesh, ranks):
+        step, params, opt, _ = make_train_step(mesh, cfg, params=start,
+                                               flash=True)
+        toks, labs = (torch.from_numpy(shard(x, mesh, ("dp", "sp")))
+                      .cuda() for x in batches[0])
+        _, grads = value_and_grad(params, toks, labs, cfg, True, ranks)
+        t0 = time.perf_counter()
+        losses = [float(step(params, opt, t, l)[2]) for t, l in batches]
+        wall = time.perf_counter() - t0
+        return losses, grads, {n: x.detach().clone()
+                               for n, x in leaves(params)}, wall
+
+    mesh = make_mesh(axis_sizes={"sp": 2}, devices=["cuda:0"])
+    _cuda.reset_launches()
+    losses, grads, state, wall = run(mesh, mesh)
+    out = {"rank": dist.get_rank(), "mesh": mesh.shape, "losses": losses,
+           "launches": dict(_cuda.launches), "step_s": wall / steps}
+    if dist.get_rank() == 0:
+        ref_losses, ref_grads, ref_state, _ = run(
+            make_mesh(devices=["cuda:0"]), None)
+        scale = mesh.axis_size(("dp", "sp"))
+        gap, where = _grad_gap(grads, {n: g * scale
+                                       for n, g in ref_grads.items()})
+        out.update(one_rank_losses=ref_losses, grad_rel_l2=gap,
+                   worst_tensor=where, grad_scale=scale,
+                   param_max_abs_diff=_max_abs(state, ref_state))
+    return out
+
+
+def run_train_dist(args, card: str) -> dict:
+    """dp=2 (mesh-vision MobileNetV2) and sp=2 (the LM through the flash
+    ring) as two processes on the one card over gloo (NCCL refuses two
+    ranks on one device), each held to the one-rank step on the same
+    global batches in f32.  Each rank's K1 (dp) or K2/K3/K4 (sp)
+    launches: a count a step, the batch's first gradients' included
+    (sp: one more forward and backward)."""
+    from nnstreamer_tpu_torch.parallel.multihost import LocalWorld
+
+    t0 = time.perf_counter()
+    totals = {}
+    layers = int(LM_CUSTOM["layers"])
+    with LocalWorld(2, backend="gloo", threads=2, timeout_s=600) as world:
+        start_s = time.perf_counter() - t0
+        for name, task, want in (
+                ("dp2_mobilenet", dist_vision_task,
+                 {"normalize_frame": DIST_STEPS}),
+                ("sp2_lm_flash_ring", dist_lm_task,
+                 {k: 2 * layers * (DIST_STEPS + 1) for k in TRAIN_KERNELS})):
+            results = world.run(task, args.seed, DIST_STEPS)
+            r0 = results[0]
+            bound = 2 * DIST_LR * DIST_STEPS
+            row = {"phase": "train_dist", "path": name,
+                   "ranks": len(results), "backend": "gloo",
+                   "mesh": r0["mesh"], "steps": DIST_STEPS,
+                   "losses": r0["losses"],
+                   "one_rank_losses": r0["one_rank_losses"],
+                   "grad_rel_l2": r0["grad_rel_l2"],
+                   "worst_tensor": r0["worst_tensor"],
+                   "param_max_abs_diff": r0["param_max_abs_diff"],
+                   "launches_per_rank": [r["launches"] for r in results],
+                   "step_s_per_rank": [r["step_s"] for r in results],
+                   "loss_rtol": DIST_LOSS_RTOL, "grad_rtol": DIST_GRAD_RTOL,
+                   "param_atol": bound, "card": card}
+            emit(row)
+            loss_ok = all(abs(a - b) <= DIST_LOSS_RTOL * abs(b)
+                          for a, b in zip(r0["losses"],
+                                          r0["one_rank_losses"]))
+            same = all(r["losses"] == r0["losses"] for r in results)
+            if not (loss_ok and same
+                    and r0["grad_rel_l2"] <= DIST_GRAD_RTOL
+                    and r0["param_max_abs_diff"] <= bound):
+                raise AssertionError(f"train_dist {name}: {row}")
+            for r in results:
+                for k, n in want.items():
+                    if r["launches"].get(k, 0) != n:
+                        raise AssertionError(
+                            f"train_dist {name}: rank {r['rank']} launched "
+                            f"{k} {r['launches'].get(k, 0)} times, "
+                            f"expected {n}")
+                for k, n in r["launches"].items():
+                    totals[k] = totals.get(k, 0) + n
+    emit({"phase": "train_dist_summary", "world_start_s": start_s,
+          "wall_s": time.perf_counter() - t0, "card": card})
+    return {"launches": totals}
+
+
 #: host calls that put work on the card: kernel launches (eager), graph
 #: launches (a replay) and asynchronous copies
 KERNEL_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel",
@@ -5973,7 +6465,7 @@ def train_runs(args) -> dict:
 
 def profiled_paths(args) -> dict:
     """name -> ``run(eager, turn)`` tracing that path in one mode: the
-    seven serving paths, then the three training paths."""
+    serving paths, then the training paths."""
     paths = {
         "main_path": functools.partial(
             profile_path, "main_path", LAUNCH, args.frames, args.seed,
@@ -6007,6 +6499,12 @@ def profiled_paths(args) -> dict:
         paths[name] = functools.partial(
             profile_train, name, launch, samples, args.profile,
             TRAIN_PER_STEP[name])
+    paths["mobilenet_train"] = functools.partial(
+        profile_train, "mobilenet_train", MNV2_TRAIN_LAUNCH.format(
+            path=os.path.join(args.profile or ".", "mobilenet_v2.pt"),
+            seed=args.seed),
+        mnv2_train_samples(args.mnv2_train_steps, args.seed), args.profile,
+        0)
     paths["query_serve"] = functools.partial(
         profile_query_serve, args.seed, args.profile)
     paths["hybrid_query"] = functools.partial(
@@ -6148,6 +6646,7 @@ def profile_train(name: str, launch: str, samples, out_dir: str,
 
     mode = "eager" if eager else "graph"
     pinned = torch.backends.cudnn.deterministic
+    os.makedirs(out_dir, exist_ok=True)     # mobilenet_train saves there
     with eager_steps(eager):
         trainer = drive_trainer(launch, samples)
         batches = trainer._batches()
@@ -6192,6 +6691,9 @@ def main(argv=None) -> int:
                     help="timed decode steps of the LLM engine")
     ap.add_argument("--vit-train-steps", type=int, default=8)
     ap.add_argument("--lm-train-steps", type=int, default=6)
+    ap.add_argument("--mnv2-train-steps", type=int, default=8,
+                    help="steps of the MobileNetV2 trainer (batches of "
+                         f"{MNV2_TRAIN_BATCH})")
     ap.add_argument("--mlp-train-samples", type=int, default=64,
                     help="samples of the MLP trainer (2 epochs of batches "
                          "of 8)")
@@ -6319,6 +6821,8 @@ def main(argv=None) -> int:
         check_mlp_learns(train_rows["mlp_train"]["losses"], MLP_EPOCHS)
         time_batch_copies(args.seed, card)
         check_train_outputs(args.seed)
+        tss = run_train_save_serve(args, card)
+        dist = run_train_dist(args, card)
         for k in kernels:
             # launches summed over every path's own run (graph mode)
             k["launches"] = sum(path["launches"].get(k["name"], 0)
@@ -6329,7 +6833,9 @@ def main(argv=None) -> int:
                                              *offload.values(),
                                              *batched.values(),
                                              *zoo.values(),
-                                             *train_rows.values()))
+                                             *train_rows.values(),
+                                             tss["train"], tss["serve"],
+                                             tss["reload"], dist))
             if k["launches"] == 0:
                 raise AssertionError(f"{k['name']} never launched on the "
                                      "paths")

@@ -31,7 +31,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Any, Callable, Dict, Iterable, List, Sequence
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -218,18 +218,26 @@ class GraphedStep:
     step runs eagerly on the same static buffers.
 
     A capture that fails raises ``RuntimeError`` (after the warm-up's step
-    has run); nothing falls back to eager execution."""
+    has run); nothing falls back to eager execution.
+
+    ``eager``: always run eagerly (a step of a multi-rank process group,
+    whose collectives a graph cannot hold).  ``shard``: maps a call's
+    global batch to this process's block of it before the copy in."""
 
     #: private: run the step eagerly on the card as well, for a reference
     #: run to hold the graphs to (set on the class or an instance by tests
     #: and chip_smoke.py; not a launch property)
     _eager = False
 
-    def __init__(self, fn: Callable[..., Any], device) -> None:
+    def __init__(self, fn: Callable[..., Any], device, eager: bool = False,
+                 shard: Optional[Callable[[list], list]] = None) -> None:
         import torch
 
         self.fn = fn
         self.device = torch.device(device)
+        if eager:
+            self._eager = True
+        self._shard = shard
         #: signature -> the static batch buffers on the step's device
         self.statics: Dict[tuple, list] = {}
         #: signature -> its CapturedGraph
@@ -276,6 +284,8 @@ class GraphedStep:
         if torch.is_inference_mode_enabled():
             raise RuntimeError("a training step needs autograd: it cannot "
                                "run under torch.inference_mode()")
+        if self._shard is not None:
+            batch = self._shard(list(batch))
         batch = [host_tensor(x) for x in batch]
         key = tuple((tuple(x.shape), x.dtype) for x in batch)
         statics = self._copy_in(key, batch)

@@ -621,6 +621,7 @@ class TensorFilter(Element):
                 # the deadline watcher dispatches/flushes concurrently, so
                 # collection and dispatch serialize on the coalesce lock
                 # (stream order is the lock order)
+                self._prepare_downstream()
                 with self._coalesce_lock:
                     return self._collect_frame(tensors, buf)
             return self._collect_frame(tensors, buf)
@@ -1015,6 +1016,7 @@ class TensorFilter(Element):
         to = self._batch_deadline
         while not self._deadline_stop.is_set():
             try:
+                self._prepare_downstream()
                 with self._coalesce_lock:
                     now = time.monotonic()
                     oldest = self._oldest_t0()
@@ -1028,6 +1030,18 @@ class TensorFilter(Element):
                     self.pipeline.post_error(self, exc)
                 return
             self._deadline_stop.wait(max(0.001, min(wait, to / 2)))
+
+    def _prepare_downstream(self) -> None:
+        """Build the fused plan this filter pushes into (if the planner
+        has only armed its compile stub) BEFORE taking the coalesce lock:
+        the compile takes the planner lock (rank 10), which must never be
+        acquired under ``filter.coalesce`` (rank 30).  The JAX package
+        compiles at the first push, under the coalesce lock."""
+        pl = self.pipeline
+        planner = getattr(pl, "planner", None) if pl is not None else None
+        if planner is not None:
+            for pad in self.src_pads:
+                planner.prepare(pad)
 
     def _oldest_t0(self):
         """Arrival time of the oldest un-pushed frame (None when idle).
@@ -1066,6 +1080,7 @@ class TensorFilter(Element):
         if self._batch <= 1:
             return
         if self._batch_deadline > 0:
+            self._prepare_downstream()
             with self._coalesce_lock:
                 self._drain_batches_locked()
         else:

@@ -12,7 +12,8 @@ Frameworks, by the JAX package's names:
   keeps ``framework=xla``): Adam on batches of float samples;
 - ``mesh``: the StreamFormer LM, one :func:`~..parallel.make_train_step`
   step per (tokens, labels) frame;
-- ``mesh-vision``: a registry vision model (ViT) in its training form,
+- ``mesh-vision``: a registry vision model (ViT, MobileNetV2) in its
+  training form,
   one :func:`~..parallel.vision_train.make_vision_train_step` step per
   (frames, labels) frame.
 
@@ -23,10 +24,18 @@ replays one CUDA graph per batch signature (:class:`~.._cuda.GraphedStep`,
 the JAX package's jitted step with donated state); each batch is copied
 into the graph's static buffers through pinned staging, and the loss read
 that ends a step is its one sync.
-Training is on one card: a mesh axis above 1 raises "multi-card training
-is not yet ported".  ``model-save-path`` (an orbax checkpoint in the JAX
-package) is not yet ported either: setting it raises at start, before any
-frame is trained on.
+A mesh axis above 1 needs a process group of the mesh's size
+(:func:`~..parallel.multihost.initialize`), else it raises "multi-card":
+every rank runs the same pipeline on the same stream (the JAX package's
+multi-host model, every host running the same program), each rank's step
+takes its block of each batch, and the steps run eagerly.
+``model-save-path`` writes the trained parameters at EOS, before EOS goes
+downstream, in the port's checkpoint format
+(:func:`~..models.registry.save_checkpoint`; the JAX package writes
+orbax): the MLP's tree, the LM's global tree (gathered from its tp/ep
+blocks) or the vision model's state, BatchNorm statistics included, which
+``tensor_filter framework=xla custom=checkpoint:<path>`` serves.  Only
+rank 0 writes; a trainer that saw no samples writes nothing.
 """
 
 from __future__ import annotations
@@ -63,6 +72,9 @@ class TrainerFramework:
 
     def finish(self) -> Dict[str, Any]:
         """Complete training; return summary stats (epochs, final loss)."""
+        raise NotImplementedError
+
+    def save(self, path: str) -> None:
         raise NotImplementedError
 
 
@@ -257,6 +269,20 @@ class JaxTrainer(_GraphedTrainer):
                                     torch.from_numpy(xs).to(self.device),
                                     torch.from_numpy(ys).to(self.device)))
 
+    def save(self, path: str) -> None:
+        """The trained ``{w1, b1, w2, b2}``; nothing when no sample came,
+        and nothing from a rank other than 0 of a process group (every
+        rank trains the same MLP on the same stream)."""
+        import torch.distributed as dist
+
+        from ..models.registry import save_checkpoint
+
+        if self._state is None or (dist.is_available()
+                                   and dist.is_initialized()
+                                   and dist.get_rank() != 0):
+            return
+        save_checkpoint(self._state[0], path)
+
 
 class _MeshStreamTrainer(_GraphedTrainer):
     """Shared skeleton of the mesh trainers: accumulate (inputs, labels)
@@ -271,18 +297,29 @@ class _MeshStreamTrainer(_GraphedTrainer):
     """
 
     def create(self, props: Dict[str, Any]) -> None:
+        from ..parallel.mesh import world_size
+
         self.props = props
         self.epochs = int(props.get("num-epochs", 1))
         self.device = _device(props)
-        wide = {a: props[a] for a in _MESH_AXES
+        wide = {a: int(props[a]) for a in _MESH_AXES
                 if a in props and int(props[a]) != 1}
-        if wide:
+        if wide and int(np.prod(list(wide.values()))) != world_size():
             raise NotImplementedError(
-                f"{self.NAME}: multi-card training is not yet ported "
-                f"({wide}); every mesh axis must be 1")
+                f"{self.NAME}: multi-card training needs a process group "
+                f"of the mesh's size ({wide}; parallel.multihost."
+                "initialize, one process a rank): without one every mesh "
+                "axis must be 1")
         self._samples: List[Tuple[List[np.ndarray], List[np.ndarray]]] = []
         self._init_stats()
         self._built = False
+        self._carry: Optional[Any] = None
+
+    def load_params(self, tree: Any) -> None:
+        """Start from ``tree`` — the JAX package's parameters for the same
+        model (its LM tree, or its vision model's flax variables) — instead
+        of the port's seeded init."""
+        self._carry = tree
 
     def push_data(self, inputs, labels) -> None:
         self._samples.append((inputs, labels))
@@ -299,6 +336,22 @@ class _MeshStreamTrainer(_GraphedTrainer):
     def _batches(self) -> List[Tuple[np.ndarray, np.ndarray]]:
         """One epoch's (inputs, labels) host batches, one a sample."""
         return [self._host_convert(i, l) for i, l in self._samples]
+
+    def _global_tensors(self) -> Dict[str, torch.Tensor]:
+        """The trained parameters, whole, by checkpoint name (on a process
+        mesh every rank takes part in gathering them)."""
+        raise NotImplementedError
+
+    def save(self, path: str) -> None:
+        """Rank 0 writes the global parameters; nothing when no sample
+        came."""
+        from ..models.registry import save_checkpoint
+
+        if not self._built:
+            return
+        tensors = self._global_tensors()
+        if self._mesh.procs is None or self._mesh.procs.rank == 0:
+            save_checkpoint(tensors, path)
 
     def finish(self) -> Dict[str, Any]:
         from ..parallel import mesh_info
@@ -323,7 +376,9 @@ class MeshTrainer(_MeshStreamTrainer):
     :func:`~..parallel.make_train_step`, with causal attention through the
     flash kernels on the card.
 
-    props (via ``custom=``): mesh axes ``dp/sp/tp/ep`` (each 1), model
+    props (via ``custom=``): mesh axes ``dp/sp/tp/ep`` (default: the
+    process group's ranks auto-factorized, as the JAX package's devices
+    are; above 1 only over a process group of that size), model
     hyperparams ``vocab/dim/heads/head_dim/mlp/layers/experts/max_seq``,
     ``lr``, ``capacity_factor``, ``aux_coef``, ``seq_parallel``, ``seed``,
     ``dtype`` (default: bf16 on the card, f32 on the CPU), ``device``.
@@ -336,12 +391,16 @@ class MeshTrainer(_MeshStreamTrainer):
     def _build(self) -> None:
         from ..device import parse_dtype
         from ..parallel import make_mesh
+        from ..parallel.mesh import world_size
         from ..parallel.train_step import (StreamFormerConfig,
                                            make_train_step)
 
         p = self.props
         axes = {a: int(p[a]) for a in _MESH_AXES if a in p}
-        self._mesh = make_mesh(axis_sizes=axes or None,
+        # no axes: the process group's ranks, auto-factorized (the JAX
+        # package's mesh over every device)
+        self._mesh = make_mesh(n_devices=None if axes else world_size(),
+                               axis_sizes=axes or None,
                                devices=[self.device])
         cfg_kw: Dict[str, Any] = {
             k: int(p[k]) for k in ("vocab", "dim", "heads", "head_dim",
@@ -353,9 +412,9 @@ class MeshTrainer(_MeshStreamTrainer):
         if "seq_parallel" in p:
             cfg_kw["seq_parallel"] = str(p["seq_parallel"])
         cfg_kw["dtype"] = parse_dtype(p.get("dtype"), self.device)
-        cfg = StreamFormerConfig(**cfg_kw)
+        cfg = self._cfg = StreamFormerConfig(**cfg_kw)
         step, self._params, self._opt, _ = make_train_step(
-            self._mesh, cfg, seed=int(p.get("seed", 0)))
+            self._mesh, cfg, seed=int(p.get("seed", 0)), params=self._carry)
         self.graphed = step.graphed
         self._built = True
 
@@ -371,6 +430,14 @@ class MeshTrainer(_MeshStreamTrainer):
         return (np.asarray(inputs[0], np.int32),
                 np.asarray(labels[0], np.int32))
 
+    def _global_tensors(self) -> Dict[str, torch.Tensor]:
+        from ..parallel.collectives import unshard
+        from ..parallel.train_step import _param_specs, leaves
+
+        specs = dict(leaves(_param_specs(self._cfg)))
+        return {n: unshard(x, self._mesh, specs[n])
+                for n, x in leaves(self._params)}
+
 
 @register_trainer
 class MeshVisionTrainer(_MeshStreamTrainer):
@@ -379,11 +446,13 @@ class MeshVisionTrainer(_MeshStreamTrainer):
     every (frames, labels) frame is one step of
     :func:`~..parallel.vision_train.make_vision_train_step`.  With
     ``model:vit`` each attention layer runs the flash kernels forward and
-    backward with the batch in their grid.
+    backward with the batch in their grid; with ``model:mobilenet_v2``
+    and ``use_pallas:1`` the frames are normalized by K1.
 
     props (via ``custom=``): ``model`` (registry name, default vit),
-    ``dp`` (1), ``lr``, ``device``, plus the model's custom props
-    (``dim/depth/heads/patch/input_size/num_classes/seed/dtype/attn``).
+    ``dp`` (default: the process group's size, 1 without one), ``lr``,
+    ``device``, plus the model's custom props (``dim/depth/heads/patch/
+    input_size/num_classes/seed/dtype/attn/width/use_pallas``).
     Samples: tensor 0 = frames (B, H, W, 3) uint8, tensor 1 = labels (B,)
     int32.
     """
@@ -391,20 +460,27 @@ class MeshVisionTrainer(_MeshStreamTrainer):
     NAME = "mesh-vision"
 
     _MODEL_KEYS = ("seed", "num_classes", "input_size", "patch", "dim",
-                   "depth", "heads", "dtype", "attn", "width")
+                   "depth", "heads", "dtype", "attn", "width", "use_pallas")
 
     def _build(self) -> None:
         from ..models.registry import get_model
         from ..parallel import make_mesh
+        from ..parallel.mesh import world_size
         from ..parallel.vision_train import make_vision_train_step
 
         p = self.props
-        dp = int(p.get("dp", 1))
+        dp = int(p.get("dp", world_size()))
         self._mesh = make_mesh(n_devices=dp, axis_sizes={"dp": dp},
                                devices=[self.device])
         model_props = {k: str(p[k]) for k in self._MODEL_KEYS if k in p}
         self._model = get_model(str(p.get("model", "vit")), model_props,
                                 device=self.device, trainable=True)
+        if self._carry is not None:
+            from ..models import mobilenet_v2, vit
+
+            loaders = {"vit": vit.load_flax,
+                       "mobilenet_v2": mobilenet_v2.load_flax}
+            loaders[self._model.name](self._model.module, self._carry)
         step, self._params, self._opt, _ = make_vision_train_step(
             self._mesh, self._model, lr=float(p.get("lr", 1e-3)))
         self.graphed = step.graphed
@@ -427,6 +503,11 @@ class MeshVisionTrainer(_MeshStreamTrainer):
                 pad_to_multiple(np.asarray(labels[0], np.int32)
                                 .reshape(-1), self._dp))
 
+    def _global_tensors(self) -> Dict[str, torch.Tensor]:
+        from ..models.registry import named_tensors
+
+        return named_tensors(self._model)
+
     def _summary_extra(self) -> Dict[str, Any]:
         return {"model": self._model.name}
 
@@ -436,8 +517,7 @@ class TensorTrainer(Element):
     FACTORY = "tensor_trainer"
     PROPERTIES = {
         "framework": ("jax", "trainer framework name"),
-        "model-save-path": (None, "checkpoint path written at EOS (not "
-                                  "yet ported: setting it raises)"),
+        "model-save-path": (None, "checkpoint path written at EOS"),
         "model-config": (None, "framework model-config path (reference "
                                "property; forwarded to the trainer's "
                                "props)"),
@@ -464,10 +544,6 @@ class TensorTrainer(Element):
     def start(self):
         from ..filter.framework import FilterProperties
 
-        if self.model_save_path not in (None, ""):
-            raise NotImplementedError(
-                f"{self.name}: model-save-path is not yet ported (the port "
-                "has no checkpoint format; save and restore come together)")
         cls = find_trainer(str(self.framework))
         self.trainer = cls()
         props = {"num-epochs": self.num_epochs, "batch-size": self.batch_size,
@@ -514,7 +590,7 @@ class TensorTrainer(Element):
 
     def on_event(self, pad, event):
         if isinstance(event, EOSEvent):
-            # train before propagating EOS (reference blocks on
+            # train + save before propagating EOS (reference blocks on
             # training_complete_cond at EOS)
             self.summary = self.trainer.finish()
             if self._val_data:
@@ -524,6 +600,8 @@ class TensorTrainer(Element):
                     self.summary["validation_loss"] = float(
                         evaluate(self._val_data))
                 self._val_data = []    # release the held-out frames
+            if self.model_save_path:
+                self.trainer.save(str(self.model_save_path))
             self._done.set()
         super().on_event(pad, event)
 

@@ -8,15 +8,26 @@ port; what runs is a model from the port's registry, in PyTorch, on
 
 It serves micro-batches (``tensor_filter batch=N``) through the model's
 batched forward (``Model.batched``) as one CUDA graph per pad shape.
-The JAX package's persistent compilation cache, ``custom=mesh:dp=N``
-sharding and ``checkpoint`` restore are not ported yet.
+
+``custom=checkpoint:<path>`` serves the weights of a checkpoint in the
+port's format (``models.registry.save_checkpoint``, what ``tensor_trainer
+model-save-path`` writes): at open, and on ``RELOAD_MODEL`` with a new
+``checkpoint`` (or other custom props) for the same model.  A reload
+builds and restores the new weights while the old ones keep serving,
+then copies them into the served model's own tensors, which every CUDA
+graph of the filter (and of a fused segment around it) reads: no graph
+replays the old weights after the swap, and none is captured anew.  The
+JAX package's persistent compilation cache and ``custom=mesh:dp=N``
+sharding are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ...tensor.info import TensorsInfo
 from ..framework import (Accelerator, FilterError, FilterFramework,
@@ -40,19 +51,18 @@ class XLAFilter(TorchExecMixin, FilterFramework):
 
     # -- lifecycle -----------------------------------------------------------
     def open(self, props: FilterProperties) -> None:
-        from ...models.registry import get_model, has_model, list_models
+        from ...models.registry import has_model, list_models
 
         model_name = str(props.model)
         custom = dict(props.custom_properties)
-        for key in ("checkpoint", "mesh"):
-            if custom.get(key):
-                raise FilterError(f"xla: custom={key}:... is not yet ported "
-                                  "to the PyTorch package")
+        if custom.get("mesh"):
+            raise FilterError("xla: custom=mesh:... is not yet ported to "
+                              "the PyTorch package")
         if not has_model(model_name):
             raise FilterError(f"xla: unknown model {model_name!r}; "
                               f"known: {list_models()}")
         device = self._pick_device(props.accelerators)
-        self._model = get_model(model_name, custom, device)
+        self._model = self._build(model_name, custom, device)
         zeros = [np.zeros(i.np_shape, i.np_dtype)
                  for i in self._model.in_info]
         # the warm-up invoke captures the open signature's graph
@@ -64,6 +74,69 @@ class XLAFilter(TorchExecMixin, FilterFramework):
         self._model = None
         self._teardown_exec()         # frees the graphs
         super().close()
+
+    @staticmethod
+    def _build(model_name: str, custom: Dict[str, str], device):
+        """The registry model, with ``custom``'s checkpoint restored
+        (the role of loading the reference's .tflite/.pb weights)."""
+        from ...models.registry import get_model, restore_params
+
+        model = get_model(model_name, custom, device)
+        ckpt = custom.get("checkpoint")
+        if ckpt:
+            try:
+                restore_params(model, str(ckpt))
+            except (OSError, RuntimeError, ValueError) as exc:
+                raise FilterError(f"xla: checkpoint {ckpt}: {exc}") from exc
+        return model
+
+    # -- events --------------------------------------------------------------
+    def handle_event(self, name: str,
+                     data: Optional[Dict[str, Any]] = None) -> None:
+        if name != "reload_model" or (
+                data and "model" in data
+                and str(data["model"]) != str(self.props.model)):
+            # a DIFFERENT model name changes the forward, not just the
+            # weights: the generic close+open swap (interface check +
+            # rollback)
+            return super().handle_event(name, data)
+        # hot reload: build the new weights (a new checkpoint path in
+        # data) while the old ones keep serving, then swap them in
+        # (reference RELOAD_MODEL holds the old model,
+        # nnstreamer_plugin_api_filter.h:377-383)
+        props = self.props
+        if data:
+            merged = dict(props.custom_properties)
+            merged.update({k: str(v) for k, v in data.items()})
+            props = dataclasses.replace(props, custom_properties=merged)
+        new_model = self._build(str(props.model), props.custom_properties,
+                                self._device)
+        self._swap_weights(new_model)
+        self.props = props
+
+    def _swap_weights(self, new_model) -> None:
+        """Copy ``new_model``'s tensors into the served model's, which
+        every graph reads in place.  The device finishes the frames
+        dispatched before the swap first (they answer with the old
+        weights) and the copy before the next dispatch."""
+        from ...models.registry import named_tensors
+
+        old, new = named_tensors(self._model), named_tensors(new_model)
+        for n in sorted(set(old) | set(new)):
+            if n not in old or n not in new or \
+                    old[n].shape != new[n].shape or \
+                    old[n].dtype != new[n].dtype:
+                raise FilterError(f"xla: reload changes the model's tensor "
+                                  f"{n!r}: only weights of the same model "
+                                  "can be swapped in")
+        cuda = self._device.type == "cuda"
+        with self._exec_lock, torch.no_grad():
+            if cuda:
+                torch.cuda.synchronize(self._device)
+            for n, t in old.items():
+                t.copy_(new[n])
+            if cuda:
+                torch.cuda.synchronize(self._device)
 
     # -- model meta ----------------------------------------------------------
     def get_model_info(self) -> Tuple[TensorsInfo, TensorsInfo]:

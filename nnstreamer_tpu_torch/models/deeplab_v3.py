@@ -28,7 +28,7 @@ from ..tensor.types import TensorType
 from .mobilenet_v2 import (_INVERTED_RESIDUAL_CFG, _ConvBN, conv_bias_targets,
                            convbn_targets, frames_nchw, init_weights,
                            inverted_residuals, ir_targets)
-from .registry import Model, register_model
+from .registry import Model, loss_misfit, register_model
 
 NUM_SEG_CLASSES = 21  # PASCAL VOC, same as the tflite fixture
 
@@ -89,4 +89,5 @@ def build_deeplab_v3(custom_props: Dict[str, str],
                  in_info=in_info, out_info=out_info, batched=module)
 
 
-register_model("deeplab_v3")(build_deeplab_v3)
+register_model("deeplab_v3", untrainable=loss_misfit(
+    "its one output is the (H, W, classes) score map"))(build_deeplab_v3)

@@ -12,7 +12,12 @@ The PyTorch counterpart of ``nnstreamer_tpu/models/mobilenet_v2.py``:
   preprocessing through the hand-written normalize kernel
   (ops/preprocess.py); without it the frame is cast before it is scaled,
   the order of the JAX package's plain path;
-- 1001-way logits (background + 1000 ImageNet classes).
+- 1001-way logits (background + 1000 ImageNet classes);
+- a training form (``trainable``): f32 parameters (flax's) with the
+  compute dtype applied per call, BatchNorm's running statistics frozen
+  buffers (the JAX train step freezes ``batch_stats``) and the module in
+  eval mode.  Its state has the serving form's names, so a checkpoint of
+  the one loads into the other.
 
 Weights are deterministic random from ``custom=seed:N``, drawn from an
 explicit ``torch.Generator`` (torch and JAX draw different numbers from
@@ -55,7 +60,10 @@ _BN_EPS = 1e-5
 class _SameConv2d(nn.Conv2d):
     """Bias-free convolution with TensorFlow/flax ``SAME`` padding: the
     output is ``ceil(n / stride)`` and the odd pixel of padding goes at
-    the end (bottom/right)."""
+    the end (bottom/right).  The kernel is cast to the input's dtype at
+    each call (flax ``Conv(dtype=...)``): a no-op for the serving form,
+    whose weights already have it; the training form's f32 kernel trains
+    through the cast."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  groups: int = 1) -> None:
@@ -69,13 +77,22 @@ class _SameConv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
+        w = self.weight.to(x.dtype)
         top, bottom = self._pads(x.shape[-2], k, s)
         left, right = self._pads(x.shape[-1], k, s)
         if top == bottom and left == right:
-            return F.conv2d(x, self.weight, None, self.stride, (top, left),
-                            1, self.groups)
+            return F.conv2d(x, w, None, self.stride, (top, left), 1,
+                            self.groups)
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, None, self.stride, 0, 1, self.groups)
+        return F.conv2d(x, w, None, self.stride, 0, 1, self.groups)
+
+
+class _Dense(nn.Linear):
+    """flax ``Dense(dtype=...)``: the kernel and bias cast to the input's
+    dtype at each call, as :class:`_SameConv2d` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class _ConvBN(nn.Module):
@@ -150,7 +167,7 @@ class MobileNetV2(nn.Module):
         self.blocks = nn.Sequential(*blocks)
         last = c(1280) if width > 1.0 else 1280
         self.head = _ConvBN(cin, last, 1)
-        self.classifier = nn.Linear(last, num_classes)
+        self.classifier = _Dense(last, num_classes)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """x: NCHW in [-1, 1] in the model dtype → f32 logits (N, classes)."""
@@ -313,7 +330,13 @@ def load_flax(model: nn.Module, variables: Mapping) -> nn.Module:
 # ---------------------------------------------------------------------------
 
 def build_mobilenet_v2(custom_props: Dict[str, str],
-                       device: DeviceLike = None) -> Model:
+                       device: DeviceLike = None,
+                       trainable: bool = False) -> Model:
+    """The registry model.  Serving (default): every tensor cast once to
+    the compute dtype.  ``trainable``: the training form — f32 parameters
+    and statistics, the compute dtype applied per call (BatchNorm takes
+    the activations in that dtype with its f32 statistics, as flax's
+    does)."""
     from ..utils.conf import parse_bool
 
     device = resolve_device(device)
@@ -325,7 +348,7 @@ def build_mobilenet_v2(custom_props: Dict[str, str],
     module = MobileNetV2(num_classes=num_classes, dtype=dtype,
                          use_pallas=use_pallas)
     init_weights(module, torch.Generator().manual_seed(seed))
-    module = module.to(device=device, dtype=dtype,
+    module = module.to(device=device, dtype=None if trainable else dtype,
                        memory_format=torch.channels_last).eval()
     in_info = TensorsInfo([TensorInfo(TensorType.UINT8, (3, size, size))])
     out_info = TensorsInfo([TensorInfo(TensorType.FLOAT32, (num_classes,))])
@@ -333,4 +356,4 @@ def build_mobilenet_v2(custom_props: Dict[str, str],
                  in_info=in_info, out_info=out_info, batched=module)
 
 
-register_model("mobilenet_v2")(build_mobilenet_v2)
+register_model("mobilenet_v2", trainable=True)(build_mobilenet_v2)

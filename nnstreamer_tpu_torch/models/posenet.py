@@ -23,7 +23,7 @@ from ..tensor.types import TensorType
 from .mobilenet_v2 import (_ConvBN, conv_bias_targets,
                            convbn_targets, frames_nchw, init_weights,
                            inverted_residuals, ir_targets)
-from .registry import Model, register_model
+from .registry import Model, loss_misfit, register_model
 
 NUM_KEYPOINTS = 17  # COCO
 
@@ -90,4 +90,5 @@ def build_posenet(custom_props: Dict[str, str],
                  in_info=in_info, out_info=out_info, batched=module)
 
 
-register_model("posenet")(build_posenet)
+register_model("posenet", untrainable=loss_misfit(
+    "its first output is the (H, W, 17) heatmap"))(build_posenet)

@@ -33,7 +33,7 @@ from .mobilenet_v2 import (_INVERTED_RESIDUAL_CFG, _ConvBN,
                            conv_bias_targets, convbn_targets, frames_nchw,
                            init_weights, inverted_residuals, ir_targets,
                            load_flax, params_from_flax)
-from .registry import Model, register_model
+from .registry import Model, loss_misfit, register_model
 
 __all__ = ["SSDMobileNetV2", "anchor_count", "build_ssd_mobilenet_v2",
            "load_flax", "params_from_flax"]
@@ -144,4 +144,6 @@ def build_ssd_mobilenet_v2(custom_props: Dict[str, str],
                  in_info=in_info, out_info=out_info, batched=module)
 
 
-register_model("ssd_mobilenet_v2")(build_ssd_mobilenet_v2)
+register_model("ssd_mobilenet_v2", untrainable=loss_misfit(
+    "its first output is the (anchors, 4) box tensor"))(
+        build_ssd_mobilenet_v2)

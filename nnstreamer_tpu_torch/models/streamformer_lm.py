@@ -436,6 +436,13 @@ class StreamFormerLM(nn.Module):
     def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor]:
         return (forward_logits(self.params, tokens, self.cfg).float(),)
 
+    def checkpoint_tensors(self) -> Dict[str, torch.Tensor]:
+        """The tree's leaves by dotted path (``layers.<i>.<name>``), the
+        names a ``framework=mesh`` trainer's checkpoint carries."""
+        from .registry import named_tensors
+
+        return named_tensors(self.params)
+
 
 def _build_registry_model(custom_props: Dict[str, str],
                           device: DeviceLike = None):

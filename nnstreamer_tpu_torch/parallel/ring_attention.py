@@ -1,24 +1,28 @@
 """Ring attention over a sequence axis, and single-device attention.
 
 The PyTorch counterpart of ``nnstreamer_tpu/parallel/ring_attention.py``.
-The JAX package runs it inside ``shard_map``: each device holds a sequence
-block and K/V blocks rotate around the ``sp`` ring while a streaming
-softmax accumulates exact attention.  The port trains on one card, so the
-ring has one member (``axis_size=1``): the block loop runs once, over the
-diagonal block, through the same code as the JAX package's —
+Each member of the mesh's ``sp`` axis holds a sequence block; K/V blocks
+rotate around the ring (:func:`~.collectives.ppermute`) while a streaming
+softmax accumulates exact attention over global positions —
 
 - the plain route (``flash=False``): the streaming-softmax scan in f32,
-  one (T, T) score block at a time;
-- the flash route (``flash=True``): each block through
-  :func:`~..ops.flash_attention.flash_attention` with its logsumexp, the
-  diagonal/past/future relation deciding the block's mask, and blocks
-  merged through their lse — whose cotangent reaches the backward kernels,
-  as in the JAX package.
+  one (T_local, T_local) score block at a time, with the JAX package's
+  guards for fully-masked rows;
+- the flash route (``flash=True``): each step one call of
+  :func:`~..ops.flash_attention.flash_attention` (K2 on the card) with
+  ``q_offset``/``k_offset`` at the two blocks' global positions, whose
+  causal mask gives a past block every key, the diagonal block the causal
+  triangle and a future block none (``out`` 0, ``lse`` −inf); blocks
+  merge through their lse, whose cotangent reaches the backward kernels
+  (K3/K4) as in the JAX package.
 
-Inputs take an optional leading batch axis, ``(B, T, H, D)``, which the
-kernels run as a grid axis (the JAX package vmaps the call).  A ring of
-more than one member (multi-card sequence parallelism over
-``torch.distributed``) is not yet ported and raises.
+The backward is autograd's: dK/dV rotate back around the ring through
+``ppermute``'s inverse.  Every member runs every step, a future block too,
+so the ring's collectives pair up across members forward and backward.
+With no mesh (or an ``sp`` axis of 1) the ring has one member and the
+loop runs once, over the diagonal block.  Inputs take an optional leading
+batch axis, ``(B, T, H, D)``, which the kernels run as a grid axis (the
+JAX package vmaps the call).
 """
 
 from __future__ import annotations
@@ -28,44 +32,37 @@ from typing import Optional
 
 import torch
 
-
-def _ring_size(axis_size: int) -> int:
-    if axis_size != 1:
-        raise NotImplementedError(
-            f"ring_attention over {axis_size} sequence shards: multi-card "
-            "training is not yet ported (the sp axis must have size 1)")
-    return 1
+from .collectives import ppermute
+from .mesh import Mesh
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    axis_name: str = "sp", causal: bool = False,
                    flash: Optional[bool] = None,
-                   axis_size: int = 1) -> torch.Tensor:
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Exact multi-head attention over a ring of sequence shards.
 
     Args:
       q, k, v: ``([B,] T_local, n_heads, head_dim)`` — this member's block
-      axis_name: the mesh axis carrying the sequence shards (kept for
-        signature parity; the ring has ``axis_size`` members)
+      axis_name: the mesh axis carrying the sequence shards
       causal: apply causal masking using global positions
       flash: run each ring step's block through the flash kernels and
         combine blocks via their logsumexp.  ``None``: the kernels for
         tensors on the card, the plain scan off it.
-      axis_size: the ring's size (the ``shard_map`` context of the JAX
-        package); only a ring of one is ported, so this member is member
-        0 of it.
+      mesh: the mesh whose ``axis_name`` members form the ring (the
+        ``shard_map`` context of the JAX package); ``None``: a ring of
+        one.
 
     Returns: ``([B,] T_local, n_heads, head_dim)`` in q's dtype.
     """
-    del axis_name
-    n = _ring_size(axis_size)
-    my_idx = 0
+    n = 1 if mesh is None else mesh.axis_size(axis_name)
+    my_idx = 0 if mesh is None else mesh.axis_index(axis_name)
     if flash is None:
         from ..ops.flash_attention import flash_is_default
 
         flash = flash_is_default(q)
     if flash:
-        return _ring_flash(q, k, v, causal, n, my_idx)
+        return _ring_flash(q, k, v, causal, n, my_idx, mesh, axis_name)
     t_local, n_heads, head_dim = q.shape[-3:]
     scale = 1.0 / math.sqrt(head_dim)
     dev = q.device
@@ -101,17 +98,29 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "...hqk,...khd->...hqd", p, v_blk.float())
         row_sum = row_sum * corr + p.sum(dim=-1)
         row_max = new_max
+        if step < n - 1:
+            k_blk, v_blk = _rotate(k_blk, v_blk, n, mesh, axis_name)
     out = acc / row_sum[..., None].clamp_min(1e-20)
     return out.transpose(-3, -2).to(q.dtype)          # ([B,] Tq, h, d)
 
 
-def _ring_flash(q, k, v, causal: bool, n: int, my_idx: int):
-    """Ring steps through the flash kernels: each K/V block runs the
-    streaming-softmax forward with its logsumexp, and blocks combine
-    through the lse merge — no (T_local, T_local) score matrix is ever
-    kept.  Causality decomposes per block relation: a block from the
-    ring's past is fully visible, the diagonal block is causal at equal
-    offsets, a future block contributes nothing."""
+def _rotate(k_blk, v_blk, n: int, mesh, axis_name: str):
+    """K/V to the next member of the ring (the JAX package's ``ppermute``
+    over ``(i, i + 1 mod n)``); the blocks' sequence axis leads after the
+    batch, so a batched block moves as one tensor."""
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    return (ppermute(k_blk, mesh, axis_name, perm),
+            ppermute(v_blk, mesh, axis_name, perm))
+
+
+def _ring_flash(q, k, v, causal: bool, n: int, my_idx: int, mesh,
+                axis_name: str):
+    """Ring steps through the flash kernels: each K/V block is one K2
+    launch at the blocks' global offsets, with its logsumexp, and blocks
+    combine through the lse merge — no (T_local, T_local) score matrix
+    is ever kept.  A future block's rows see no key: K2 gives them
+    ``out`` 0 and ``lse`` −inf, which the merge's guards weigh 0 (and
+    whose backward gives 0)."""
     from ..ops.flash_attention import flash_attention
 
     t_local, n_heads, head_dim = q.shape[-3:]
@@ -123,13 +132,10 @@ def _ring_flash(q, k, v, causal: bool, n: int, my_idx: int):
     k_blk, v_blk = k, v
     for step in range(n):
         src = (my_idx - step) % n
-        if causal and src > my_idx:           # a future block: skip
-            o_blk = torch.zeros_like(q)
-            lse = torch.full_like(m, float("-inf"))
-        else:
-            o_blk, lse = flash_attention(q, k_blk, v_blk,
-                                         causal=causal and src == my_idx,
-                                         return_lse=True)
+        o_blk, lse = flash_attention(q, k_blk, v_blk, causal=causal,
+                                     q_offset=my_idx * t_local,
+                                     k_offset=src * t_local,
+                                     return_lse=True)
         new_m = torch.maximum(m, lse)
         safe = torch.where(torch.isfinite(new_m), new_m,
                            torch.zeros_like(new_m))
@@ -141,6 +147,8 @@ def _ring_flash(q, k, v, causal: bool, n: int, my_idx: int):
                + o_blk.float() * w.transpose(-1, -2)[..., None])
         den = den * corr + w
         m = new_m
+        if step < n - 1:
+            k_blk, v_blk = _rotate(k_blk, v_blk, n, mesh, axis_name)
     denq = den.transpose(-1, -2)[..., None].clamp_min(1e-20)
     return (acc / denq).to(q.dtype)
 

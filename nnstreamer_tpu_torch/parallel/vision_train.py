@@ -1,14 +1,19 @@
-"""Training step for registry vision models on one card.
+"""Training step for registry vision models, data parallel over ``dp``.
 
 The PyTorch counterpart of ``nnstreamer_tpu/parallel/vision_train.py``.
 The JAX package replicates the parameters over a ``dp`` mesh, shards the
 batch, vmaps the model's per-frame forward and lets XLA insert the
-gradient psum.  The port trains on the mesh's one device
-(:func:`~.mesh.require_single_card`) and runs the model's batched forward:
-for ViT every attention layer is one launch of the flash kernels with the
-batch in their grid, forward and backward.  On the card the whole step —
+gradient reduction.  The port runs the model's batched forward on this
+process's device: on a process mesh (:mod:`.multihost`) each member takes
+its dp block of the global batch, and the gradients and the loss are
+averaged over dp before the update, so the step equals the one-member
+step on the global batch; parameters and Adam state stay replicated.
+For ViT every attention layer is one launch of the flash kernels with
+the batch in their grid, forward and backward; for MobileNetV2 the frame
+normalization is K1 (``use_pallas:1``).  On one card the whole step —
 forward, backward and the Adam update — is one CUDA graph per batch
-signature (:class:`~.._cuda.GraphedStep`).
+signature (:class:`~.._cuda.GraphedStep`); a multi-rank step runs
+eagerly.
 
 Kept from the JAX package:
 
@@ -31,7 +36,8 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
-from .mesh import Mesh, require_single_card
+from .collectives import psum_
+from .mesh import Mesh, local_device, shard
 
 
 def _param_labels(variables) -> Any:
@@ -63,15 +69,18 @@ def make_vision_train_step(mesh: Mesh, model, lr: float = 1e-3
 
     ``step(module, opt, frames, labels) -> (module, opt, loss)`` where
     ``frames`` is a uint8 ``(B, H, W, 3)`` batch and ``labels`` int
-    ``(B,)`` class ids (host or device); the module's parameters and the
-    optimizer state update in place (the JAX package donates them), and
-    the step is bound to the module and optimizer it returns.  ``loss`` is
-    a 0-d f32 tensor on the device, on the card the graph's static output:
-    read it before the next step.  ``model``: a registry model in its
-    training form, on the mesh's device."""
+    ``(B,)`` class ids (host or device; B divides by the dp size, and each
+    member takes its block); the module's parameters and the optimizer
+    state update in place (the JAX package donates them), and the step is
+    bound to the module and optimizer it returns.  ``loss`` is the global
+    batch's, a 0-d f32 tensor on the device, on the card the graph's
+    static output: read it before the next step.  ``model``: a registry
+    model in its training form, on this process's device."""
     from .._cuda import GraphedStep
 
-    device = require_single_card(mesh)
+    device = local_device(mesh)
+    ranks = mesh if mesh.procs is not None else None
+    dp = mesh.axis_size("dp")
     module = model.module
     params = list(module.parameters())
     if any(p.dtype != torch.float32 for p in params):
@@ -91,10 +100,20 @@ def make_vision_train_step(mesh: Mesh, model, lr: float = 1e-3
         with torch.enable_grad():
             loss = _nll(module(frames)[0], labels)
             loss.backward()
+        loss = loss.detach()
+        if ranks is not None:
+            # the global batch's mean: the members' means averaged
+            grads = [p.grad for p in params] + [loss]
+            psum_(grads, mesh, "dp")
+            for g in grads:
+                g.div_(dp)
         opt.step()
-        return loss.detach()
+        return loss
 
-    graphed = GraphedStep(body, device)
+    graphed = GraphedStep(body, device, eager=ranks is not None,
+                          shard=None if ranks is None else
+                          lambda batch: [shard(x, mesh, ("dp",))
+                                         for x in batch])
 
     def step(module_, opt_, frames, labels):
         if module_ is not module or opt_ is not opt:

@@ -480,7 +480,20 @@ class SegmentPlanner:
         def compile_and_push(buf, _head=head):
             return self._compile(_head)(buf)
 
+        compile_and_push.nns_stub = True
         head.push = compile_and_push
+
+    def prepare(self, head: Pad) -> None:
+        """Build ``head``'s plan now if its lazy compile stub is armed (a
+        no-op otherwise).  A pusher that pushes while holding a lock
+        ranked above ``planner`` — a micro-batching filter under its
+        coalesce lock — calls this first, outside that lock, so the
+        compile never takes the planner lock inside it."""
+        if not getattr(head.__dict__.get("push"), "nns_stub", False):
+            return
+        with self._lock:
+            if getattr(head.__dict__.get("push"), "nns_stub", False):
+                self._compile(head)
 
     def _compile(self, head: Pad) -> Callable:
         """Build (and install) the executor for ``head``.  Runs on the

@@ -353,3 +353,55 @@ def test_filter_on_cpu_request_runs(no_gpu):
                       custom="input_size:32,num_classes:10") as single:
         logits, = single.invoke([np.zeros((32, 32, 3), np.uint8)])
     assert logits.shape == (10,) and logits.dtype == np.float32
+
+
+#: the training tier: checkpoints, the multi-rank layer and the trainer
+TRAIN_MODULES = ["nnstreamer_tpu_torch.parallel",
+                 "nnstreamer_tpu_torch.parallel.multihost",
+                 "nnstreamer_tpu_torch.parallel.mesh",
+                 "nnstreamer_tpu_torch.parallel.collectives",
+                 "nnstreamer_tpu_torch.parallel.ring_attention",
+                 "nnstreamer_tpu_torch.parallel.ulysses",
+                 "nnstreamer_tpu_torch.parallel.pipeline_parallel",
+                 "nnstreamer_tpu_torch.parallel.train_step",
+                 "nnstreamer_tpu_torch.parallel.vision_train",
+                 "nnstreamer_tpu_torch.models.registry",
+                 "nnstreamer_tpu_torch.elements.trainer"]
+
+
+def test_training_modules_load_without_jax(tmp_path):
+    """The training tier's modules, imported in a fresh interpreter, then
+    MobileNetV2 trained a step with ``model-save-path`` and its checkpoint
+    served by the flagship string on the CPU, load no module of JAX or of
+    the JAX package."""
+    ckpt = str(tmp_path / "mnv2.pt")
+    served = LAUNCH.format(accel="accelerator=true:cpu ").replace(
+        "use_pallas:1", f"use_pallas:1,checkpoint:{ckpt}")
+    code = (
+        "import importlib, sys\n"
+        "import numpy as np\n"
+        f"bad = {sorted(FORBIDDEN)!r}\n"
+        f"for name in {TRAIN_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import nnstreamer_tpu_torch as n\n"
+        "from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer\n"
+        "p = n.parse_launch('appsrc name=src caps=other/tensors,"
+        "format=static,num_tensors=2,dimensions=3:32:32:2.2,"
+        "types=uint8.int32,framerate=0/1 ! tensor_trainer "
+        f"framework=mesh-vision model-save-path={ckpt} "
+        "custom=model:mobilenet_v2,input_size:32,use_pallas:1,"
+        "device:cpu ! tensor_sink name=out')\n"
+        "p.play()\n"
+        "p.get('src').push_buffer(TensorBuffer(tensors=["
+        "np.zeros((2, 32, 32, 3), np.uint8), np.zeros(2, np.int32)]))\n"
+        "p.get('src').end_of_stream()\n"
+        "p.wait(timeout=120)\n"
+        "p.stop()\n"
+        f"q = n.parse_launch({served!r})\n"
+        "q.run(timeout=120)\n"
+        "assert len(q.get('out').results) == 2\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -211,10 +211,30 @@ def test_ring_attention_matches_jax(flash, causal):
                                    rtol=1e-4)
 
 
-def test_ring_of_more_than_one_raises():
-    q = torch.zeros(8, 2, 8)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ring_attention(q, q, q, "sp", axis_size=2)
+@pytest.mark.parametrize("q_offset,k_offset", [(0, 8), (8, 16), (0, 9)],
+                         ids=["next", "far", "one-past"])
+def test_future_block_sees_no_key(q_offset, k_offset):
+    """A ring step whose key block lies wholly after its query block: the
+    flash forward (K2's plain version here) gives out 0 and lse -inf, not
+    NaN, and its backward, fed the merge's zero cotangents, gives zero
+    gradients — so every member can run every step of the ring."""
+    from nnstreamer_tpu_torch.ops.flash_attention import flash_attention
+
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((8, 2, 8))
+                                .astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    out, lse = flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                               k_offset=k_offset, return_lse=True)
+    assert torch.equal(out, torch.zeros_like(out))
+    assert torch.isneginf(lse).all()
+    m = torch.zeros_like(lse)
+    w = torch.where(torch.isfinite(lse), torch.exp(lse - m),
+                    torch.zeros_like(lse))
+    merged = out * w.transpose(-1, -2)[..., None]
+    grads = torch.autograd.grad(merged.sum() + w.sum(), (q, k, v))
+    for g in grads:
+        assert torch.equal(g, torch.zeros_like(g))
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,10 @@ package on the CPU.
 - the ``jax`` MLP trainer from the JAX trainer's own initial weights:
   per-step losses within 1e-5 rel.
 - ``tensor_trainer`` with each framework as a CPU pipeline: the loss
-  falls, as the JAX package's tests require; the validation split;
-  ``model-save-path`` raises.
+  falls, as the JAX package's tests require; the validation split
+  (``model-save-path``: ``tests/test_torch_checkpoint.py``).
+- SSD, DeepLabV3 and PoseNet have no training form, as the JAX step
+  cannot train them.
 """
 
 import math
@@ -109,10 +111,22 @@ def test_vision_train_step_needs_the_training_form():
         make_vision_train_step(make_mesh(devices=[CPU]), model)
 
 
-def test_models_without_a_training_form_refuse():
-    with pytest.raises(ValueError, match="no training form"):
-        get_model("mobilenet_v2", {"input_size": "32"}, device="cpu",
-                  trainable=True)
+@pytest.mark.parametrize("name", ["ssd_mobilenet_v2", "deeplab_v3",
+                                  "posenet"])
+def test_models_without_a_training_form_refuse(jax_cpu_devices, name):
+    """SSD, DeepLabV3 and PoseNet: the JAX vision step's loss (log_softmax
+    of the first output at one label a frame) does not fit their outputs,
+    and the JAX package raises on them (a reference limit); the port
+    refuses them with the reason, at build."""
+    jmodel = jax_get_model(name, {"input_size": "33", "dtype": "float32"})
+    jstep, jparams, jopt, _ = jax_vision_step(
+        jax_make_mesh(n_devices=1, axis_sizes={"dp": 1}), jmodel)
+    with pytest.raises(ValueError, match="same number of dimensions"):
+        jstep(jparams, jopt, np.zeros((2, 33, 33, 3), np.uint8),
+              np.zeros((2,), np.int32))
+    with pytest.raises(ValueError, match="no training form: the vision "
+                                         "train step's loss needs"):
+        get_model(name, {"input_size": "33"}, device="cpu", trainable=True)
 
 
 def test_batched_vit_logits_equal_per_frame():
@@ -264,15 +278,6 @@ def test_validation_without_training_split_is_loud():
                                "custom": "device:cpu"})
     with pytest.raises(ValueError, match="num-training-samples"):
         el.start()
-
-
-@pytest.mark.parametrize("framework", ["jax", "mesh", "mesh-vision"])
-def test_model_save_path_is_not_yet_ported(framework, tmp_path):
-    el = TensorTrainer("t", framework=framework, **{
-        "model-save-path": str(tmp_path / "ckpt"), "custom": "device:cpu"})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        el.start()
-    assert not (tmp_path / "ckpt").exists()
 
 
 def test_trainers_need_a_card_unless_asked(monkeypatch):
