@@ -102,6 +102,24 @@ Phases, each of which must pass:
      cross-stream bucket and none after, K1 once a replay, every reply
      bit for bit against its bucket through the filter's own graphs (the
      python tier's path), zero sheds and errors;
+   - ``model_files``: the model-file backends (``tests/torch_model_files
+     .py`` writes the files from the seed into ``_model_files/``): the
+     flagship string with ``tensor_filter framework=tensorflow-lite`` on
+     MobileNetV2 1.0 (224, 1001 classes) as a uint8 file under
+     ``compute:int8``, ``w8`` and ``float32`` and as a float file under
+     ``auto`` (bf16) and ``float32``, and ``framework=pytorch`` on its
+     TorchScript trace, each per frame (graph, then eager: labels equal)
+     and at ``batch=32``; through ``FilterSingle`` each mode's outputs
+     graph against eager bit for bit (frames and a bucket), the card
+     (TF32 off) against the CPU (f32 within MF_F32_ATOL, uint8 within one
+     step, the differing elements counted), bf16 against f32 within
+     0.05 + 0.05|x|, labels against the f32 run (and TorchScript's
+     against the xla MobileNetV2 in f32) where the margin exceeds twice
+     the frame's difference; LeNet-5 through tensorflow, caffe2 and mxnet
+     (graph vs eager, card vs CPU, formats agree); python, lua,
+     custom-easy and dummy once each.  No K1-K4 launch on it; a row a
+     mode with fps, event-timed busy ms a frame and a bucket, idle share,
+     and the int8 products' routes;
    - ``llm_stream``: the LLM serving tier, ``tensor_query_serversrc !
      tensor_llm ! tensor_query_serversink`` at the LM's full width
      (max_seq 2048, bf16) in this process, 16 gold ``TokenStreamClient``
@@ -1419,19 +1437,22 @@ def batched_launch(path: str, frames: int, batch: int = BATCH,
 
 
 def run_batched(path: str, frames: int, card: str, batch: int = BATCH,
-                eager: bool = False) -> dict:
+                eager: bool = False, launch: str = None,
+                phase: str = "batched_path") -> dict:
     """Drive one batched labeling path (``batch=1``: the same string per
     frame, the reference) in one mode.  Checks: every frame labelled;
     in graph mode every capture made before the first frame reached the
     sink, none after; ``kernel`` launched as often as the captures' eager
     runs plus the replays each launch (its count a replay); the compile
-    ledger's events."""
+    ledger's events.  ``launch``: a string of another path, whose filter
+    holds no kernel of the table: then none may launch."""
     from nnstreamer_tpu_torch import _cuda, parse_launch
     from nnstreamer_tpu_torch.analysis import compileledger
 
     # a replay of the batched graph launches the kernel as often as one
     # frame's forward does
-    *_, kernel, per_replay = BATCHED_PATHS[path]
+    *_, kernel, per_replay = BATCHED_PATHS.get(path, (None, 0))
+    launch = launch or batched_launch(path, frames, batch)
     stamps, captures_at = [], []
 
     def on_data(buf):
@@ -1440,7 +1461,7 @@ def run_batched(path: str, frames: int, card: str, batch: int = BATCH,
 
     _cuda.reset_launches()
     compileledger.reset()
-    p = parse_launch(batched_launch(path, frames, batch))
+    p = parse_launch(launch)
     p.get("out").connect("new-data", on_data)
     t0 = time.perf_counter()
     with eager_filters(eager):
@@ -1454,7 +1475,7 @@ def run_batched(path: str, frames: int, card: str, batch: int = BATCH,
                              f"{frames}")
     gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
     buckets = -(-frames // batch)
-    row = {"phase": "batched_path", "path": path, "batch": batch,
+    row = {"phase": phase, "path": path, "batch": batch,
            "mode": "eager" if eager else "graph", "frames": frames,
            "launches": launches, "graphs": graphs,
            "compile_ledger": compileledger.snapshot(),
@@ -1469,13 +1490,16 @@ def run_batched(path: str, frames: int, card: str, batch: int = BATCH,
         # eager: the open's warm-up invoke, then one forward a bucket
         want = per_replay * (runs if not eager else 1 + buckets)
         row["launches_per_replay"] = (launches.get(kernel, 0) / runs
-                                      if runs else None)
+                                      if runs and kernel else None)
     else:
         want_ledger = {"filter.jitexec.invoke": 2}
         want_graphs = graph_counts(eager, PUSHDOWN_CAPTURES, frames)
         want = per_replay * (runs if not eager else 1 + frames)
     emit(row)
-    if launches.get(kernel, 0) != want:
+    if kernel is None and launches:
+        raise AssertionError(f"{path}: kernels {launches} launched on a "
+                             "path that holds none")
+    if kernel is not None and launches.get(kernel, 0) != want:
         raise AssertionError(f"{path} (batch {batch}, {row['mode']}): "
                              f"{kernel} launched {launches.get(kernel, 0)} "
                              f"times, expected {want}")
@@ -2272,6 +2296,525 @@ TRANSFORM_LAUNCH = (
     "option=typecast:float32,add:-127.5,div:127.5 acceleration={acc} ! "
     "tensor_transform mode=transpose option=1:2:0:3 acceleration={acc} ! "
     "tensor_sink name=out")
+
+
+# ---------------------------------------------------------------------------
+# the model-file backends (model_files)
+# ---------------------------------------------------------------------------
+
+#: where the phase writes its seeded model files (gitignored)
+MF_DIR = os.path.join(HERE, "_model_files")
+#: frames of the FilterSingle checks (graph vs eager, card vs CPU)
+MF_CHECK_FRAMES = 8
+#: frames of each LeNet-5 string, and of each host backend's string
+MF_LENET_FRAMES = 256
+MF_HOST_FRAMES = 64
+#: the TFLite modes: (file, compute)
+MF_TFLITE_MODES = (("quant", "int8"), ("quant", "w8"), ("quant", "float32"),
+                   ("float", "auto"), ("float", "float32"))
+#: f32 on the card (TF32 off) against the CPU: softmax probabilities
+#: within the CPU tests' bound (F32_ATOL of tests/test_torch_model_files.py),
+#: logits within the port's f32 bound on its other paths (F32_ZOO_ATOL)
+MF_F32_PROB_ATOL = 2e-5
+MF_F32_LOGIT_ATOL = F32_ZOO_ATOL
+#: bf16 against f32 on the probabilities the reference gives the classes
+#: of its top 5 (those of at least one uint8 output step): at most this
+#: share of the reference apart (and one output step for uint8 outputs)
+MF_BF16_TOP5_RTOL = 0.1
+MF_TOP_K = 5
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off in cuDNN and in matmuls for the block, the flags as they
+    were after it (matmul TF32 is off by default, cuDNN's on)."""
+    import torch
+
+    was = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = was
+
+
+def build_model_files(seed: int) -> dict:
+    """The phase's files, written from ``seed`` by the test suite's fixture
+    writers: MobileNetV2 1.0 at 224x224, 1001 classes as a uint8-quantized
+    and a float32 ``.tflite`` and as a TorchScript trace of the port's own
+    model, and a LeNet-5 as TensorFlow, Caffe2 and MXNet files."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_model_files as mf
+
+    os.makedirs(MF_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    files = {
+        "quant": mf.mobilenet_v2_tflite(os.path.join(MF_DIR, "mnv2_q.tflite"),
+                                        True, seed=seed),
+        "float": mf.mobilenet_v2_tflite(os.path.join(MF_DIR, "mnv2_f.tflite"),
+                                        False, seed=seed),
+        "pt": mf.mobilenet_v2_torchscript(os.path.join(MF_DIR, "mnv2.pt"),
+                                          seed=seed),
+        "pb": mf.lenet_graphdef(os.path.join(MF_DIR, "lenet.pb"), seed),
+        "caffe2": mf.lenet_caffe2(MF_DIR, seed),
+        "mxnet": mf.lenet_mxnet(MF_DIR, seed),
+    }
+    emit({"phase": "model_files_build", "s": time.perf_counter() - t0,
+          "bytes": {k: sum(os.path.getsize(p) for p in v.split(","))
+                    for k, v in files.items()}})
+    return files
+
+
+def mf_filter(framework: str, model: str, custom: str = "") -> str:
+    props = f"framework={framework} model={model}"
+    if framework == "pytorch":
+        props += " input=3:224:224 inputtype=uint8"
+    return props + (f" custom={custom}" if custom else "")
+
+
+def mf_launch(filt: str, frames: int, seed: int, batch: int = 1) -> str:
+    stage = (f"tensor_filter name=f {filt}" if batch == 1 else
+             f"tensor_filter name=f {filt} batch={batch} inflight=1 ! queue")
+    return (f"videotestsrc num-buffers={frames} pattern=random seed={seed} ! "
+            "video/x-raw,format=RGB,width=224,height=224,framerate=30/1 ! "
+            f"tensor_converter ! {stage} ! "
+            "tensor_decoder mode=image_labeling ! tensor_sink name=out")
+
+
+def run_mf_strings(name: str, filt: str, args, card: str) -> dict:
+    """One model file in one mode through the flagship string: per frame
+    (graph, then eager: labels equal) over the main path's frames, and
+    at batch=32 over the batched paths' frames; no kernel of the table
+    may launch (none lies on this path)."""
+    per, eager = (run_batched(name, args.frames, card, 1, e, phase=
+                              "model_files", launch=mf_launch(
+                                  filt, args.frames, args.seed))
+                  for e in (False, True))
+    labels_equal_eager(name, per, eager)
+    bat = run_batched(name, args.batched_frames, card, BATCH,
+                      phase="model_files", launch=mf_launch(
+                          filt, args.batched_frames, args.seed, BATCH))
+    return {"per_frame": per, "batched": bat}
+
+
+def mf_outputs(filt: dict, imgs, cpu: bool = False, eager: bool = False,
+               batched: bool = False) -> dict:
+    """The filter's own outputs on ``imgs`` through ``FilterSingle``: per
+    frame (and, ``batched``, one padded 32-frame bucket through the
+    batched forward), as host arrays."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.filter import FilterSingle
+
+    out = {}
+    with eager_filters(eager):
+        with FilterSingle(accelerator="true:cpu" if cpu else None,
+                          **filt) as single:
+            fw = single.fw
+            frames = [fw.invoke([img]) for img in imgs]
+            out["frames"] = [[o.cpu().numpy() for o in f] for f in frames]
+            if batched:
+                stacked = [torch.as_tensor(np.stack(
+                    list(imgs) * (BATCH // len(imgs))))]
+                outs = fw.invoke_stacked(stacked, BATCH, BATCH)
+                out["bucket"] = [o.cpu().numpy() for o in outs]
+            if hasattr(fw, "routes"):
+                out["routes"] = fw.routes
+    return out
+
+
+def mf_busy(filt: dict, frame, fps: dict) -> dict:
+    """The card's busy time for one frame's invoke (and, where ``fps``
+    has a batched rate, one 32-frame bucket's) in graph mode, from
+    ``time_ms`` with a backlog; the device's idle share at each rate of
+    ``fps`` (1 - busy x rate)."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.filter import FilterSingle
+
+    row = {}
+    with FilterSingle(**filt) as single:
+        fw = single.fw
+        x = torch.as_tensor(frame).cuda()
+        row["frame_device_ms"] = time_ms(lambda: fw.invoke([x]), reps=100)
+        row["per_frame_fps"] = fps["per_frame"]
+        row["idle_share_per_frame"] = \
+            1 - row["frame_device_ms"] * fps["per_frame"] / 1e3
+        if "batched" in fps:
+            xb = torch.as_tensor(np.stack([frame] * BATCH)).cuda()
+            row["bucket_device_ms"] = time_ms(
+                lambda: fw.invoke_stacked([xb], BATCH, BATCH), reps=60)
+            row["batched_fps"] = fps["batched"]
+            row["idle_share_batched"] = \
+                1 - row["bucket_device_ms"] * fps["batched"] / BATCH / 1e3
+    return row
+
+
+def mf_bits_equal(name: str, graph: dict, eager: dict) -> None:
+    import numpy as np
+
+    pairs = list(zip(graph["frames"], eager["frames"]))
+    if "bucket" in graph:
+        pairs.append((graph["bucket"], eager["bucket"]))
+    differ = [i for i, (g, e) in enumerate(pairs)
+              if not all(np.array_equal(a, b) for a, b in zip(g, e))]
+    emit({"phase": "graph_vs_eager", "path": name,
+          "outputs_bit_equal": len(pairs) - len(differ),
+          "compared": len(pairs)})
+    if differ:
+        raise AssertionError(f"{name}: graph outputs differ from eager on "
+                             f"{differ}")
+
+
+def mf_quant_vs(name: str, what: str, a, b, max_steps=1, **extra) -> dict:
+    """Two uint8 outputs: the elements that differ and the largest
+    difference in quantization steps (at most ``max_steps``; None:
+    reported only)."""
+    import numpy as np
+
+    d = np.abs(np.stack(a).astype(np.int32) - np.stack(b).astype(np.int32))
+    row = {"phase": "model_files_outputs", "path": name, "vs": what,
+           "elements_differing": int((d > 0).sum()), "elements": d.size,
+           "max_steps": int(d.max()), "bound_steps": max_steps, **extra}
+    emit(row)
+    if max_steps is not None and row["max_steps"] > max_steps:
+        raise AssertionError(f"{name} vs {what}: {row}")
+    return row
+
+
+def mf_f32_vs(name: str, what: str, got, ref, atol: float) -> None:
+    """Two f32 outputs, element by element, within ``atol``."""
+    import numpy as np
+
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+    emit({"phase": "model_files_outputs", "path": name, "vs": what,
+          "max_abs_diff": diff, "atol": atol})
+    if diff > atol:
+        raise AssertionError(f"{name} vs {what}: {diff} > {atol}")
+
+
+def mf_bf16_vs(name: str, got, ref, step: float) -> None:
+    """bf16 probabilities against f32 ones (``step``: the uint8 output's
+    scale, 0 for float outputs): element by element within the port's
+    bf16 logit bound 0.05 + 0.05|x|, and on the reference's top-5
+    classes within ``MF_BF16_TOP5_RTOL`` of the reference plus one step;
+    the ranks of those classes (top-1 and top-5 membership) equal."""
+    import numpy as np
+
+    got = np.stack(got).reshape(len(got), -1).astype(np.float64) * \
+        (step or 1)
+    ref = np.stack(ref).reshape(len(ref), -1).astype(np.float64) * \
+        (step or 1)
+    over = float((np.abs(got - ref) - (0.05 + 0.05 * np.abs(ref))).max())
+    top = np.argsort(-ref, axis=1, kind="stable")[:, :MF_TOP_K]
+    r_top = np.take_along_axis(ref, top, 1)
+    g_top = np.take_along_axis(got, top, 1)
+    held = r_top >= max(step, 1 / 256)
+    rel = np.maximum(np.abs(g_top - r_top)[held] - step, 0)
+    worst = float((rel / r_top[held]).max()) if held.any() else None
+    got_top = np.argsort(-got, axis=1, kind="stable")[:, :MF_TOP_K]
+    top1 = int((got.argmax(1) == ref.argmax(1)).sum())
+    top5 = int(sum(len(set(a) & set(b)) for a, b in zip(top, got_top)))
+    row = {"phase": "model_files_outputs", "path": name, "vs": "f32",
+           "max_abs_diff": float(np.abs(got - ref).max()),
+           "bf16_bound": "0.05 + 0.05|x|", "worst_over_bound": over,
+           "top5_classes_held": int(held.sum()),
+           "top5_worst_rel_diff": worst, "top5_rtol": MF_BF16_TOP5_RTOL,
+           "top5_ref_got": [[[float(r), float(g)] for r, g in zip(rr, gg)]
+                            for rr, gg in zip(r_top, g_top)],
+           "top1_equal": top1, "top5_overlap": top5, "frames": len(ref)}
+    emit(row)
+    if over > 0 or worst is None or worst > MF_BF16_TOP5_RTOL:
+        raise AssertionError(f"{name} beyond its bf16 bounds: {row}")
+
+
+def mf_labels_vs(name: str, what: str, got, ref) -> None:
+    """argmax of ``got`` against ``ref``, frame by frame, where ``ref``'s
+    top-2 margin exceeds twice the frame's largest difference between
+    the two; the count compared is printed, and at least one frame must
+    be."""
+    import numpy as np
+
+    got = np.stack(got).reshape(len(got), -1).astype(np.float64)
+    ref = np.stack(ref).reshape(len(ref), -1).astype(np.float64)
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    sure = margin > 2 * np.abs(got - ref).max(axis=1)
+    differ = int((got.argmax(1) != ref.argmax(1))[sure].sum())
+    emit({"phase": "model_files_labels", "path": name, "vs": what,
+          "compared": int(sure.sum()), "of": len(ref), "differ": differ})
+    if differ or not sure.any():
+        raise AssertionError(f"{name} vs {what}: {differ} labels differ, "
+                             f"{int(sure.sum())} compared")
+
+
+def run_model_files(args, card: str) -> dict:
+    """The model-file backends' path: the flagship string with
+    ``tensor_filter framework=tensorflow-lite`` on MobileNetV2 1.0 (uint8
+    file under int8, w8 and f32 emulation; float file under auto = bf16
+    and f32), per frame and at batch=32, ``framework=pytorch`` on the
+    traced MobileNetV2, graph then eager; LeNet-5 through tensorflow,
+    caffe2 and mxnet; python, lua, custom-easy and dummy once each.
+    Returns the rows whose launches the kernel table sums (all empty)."""
+    import torch
+
+    files = build_model_files(args.seed)
+    imgs = source_frames(MF_CHECK_FRAMES, args.seed)
+    rows, res, busy = {}, {}, {}
+    for kind, compute in MF_TFLITE_MODES:
+        name = f"tflite_{kind}_{compute}"
+        filt = {"framework": "tensorflow-lite", "model": files[kind],
+                "custom": f"compute:{compute}"}
+        runs = run_mf_strings(name, mf_filter(**filt), args, card)
+        rows[name] = runs["per_frame"]
+        rows[name + "_batched"] = runs["batched"]
+        # cuDNN's flags as the pipeline leaves them (TF32 on)
+        res[name] = mf_outputs(filt, imgs, batched=True)
+        mf_bits_equal(name, res[name],
+                      mf_outputs(filt, imgs, eager=True, batched=True))
+        busy[name] = mf_busy(filt, imgs[0], {
+            "per_frame": runs["per_frame"]["fps"],
+            "batched": runs["batched"]["fps"]})
+        if compute == "int8":
+            emit({"phase": "model_files_routes", "path": name,
+                  "routes": {f"{i}:{k}": r for i, k, r in
+                             res[name]["routes"]},
+                  "count": {r: sum(1 for *_, x in res[name]["routes"]
+                                   if x == r)
+                            for r in ("int_mm", "f32", "f64")}})
+    # native int8 on the card, as served, against the CPU: one float op
+    # (the average pool) sits between the int ops and the softmax, so at
+    # most one step
+    q_cpu = mf_outputs({"framework": "tensorflow-lite",
+                        "model": files["quant"], "custom": "compute:int8"},
+                       imgs, cpu=True)
+    mf_quant_vs("tflite_quant_int8", "cpu",
+                [f[0] for f in res["tflite_quant_int8"]["frames"]],
+                [f[0] for f in q_cpu["frames"]],
+                cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    # the float modes against the CPU, TF32 off on the card
+    with no_tf32():
+        card32 = {}
+        # (w8 computes in bf16 on the card: it is held to f32 below)
+        for kind in ("quant", "float"):
+            name = f"tflite_{kind}_float32"
+            filt = {"framework": "tensorflow-lite", "model": files[kind],
+                    "custom": "compute:float32"}
+            card32[name] = [f[0] for f in mf_outputs(filt, imgs)["frames"]]
+            cpu = [f[0] for f in mf_outputs(filt, imgs, cpu=True)["frames"]]
+            if kind == "quant":
+                mf_quant_vs(name, "cpu", card32[name], cpu)
+            else:
+                mf_f32_vs(name, "cpu", card32[name], cpu, MF_F32_PROB_ATOL)
+        pt_filt = {"framework": "pytorch", "model": files["pt"]}
+        from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsInfo
+        from nnstreamer_tpu_torch.tensor.types import TensorType
+
+        pt_filt["input_info"] = TensorsInfo(
+            [TensorInfo(TensorType.UINT8, (3, 224, 224))])
+        pt_card = [f[0] for f in mf_outputs(pt_filt, imgs)["frames"]]
+        mf_f32_vs("torchscript", "cpu", pt_card,
+                  [f[0] for f in mf_outputs(pt_filt, imgs, cpu=True)
+                   ["frames"]], MF_F32_LOGIT_ATOL)
+        xla32 = mf_outputs({"framework": "xla", "model": "mobilenet_v2",
+                            "custom": f"seed:{args.seed},dtype:float32,"
+                                      "use_pallas:1"}, imgs)
+        mf_labels_vs("torchscript", "xla mobilenet_v2 f32", pt_card,
+                     [f[0] for f in xla32["frames"]])
+    # each mode against its file's f32 run on the card
+    f32q = card32["tflite_quant_float32"]
+    for name in ("tflite_quant_int8", "tflite_quant_w8"):
+        got = [f[0] for f in res[name]["frames"]]
+        mf_quant_vs(name, "f32 emulation", got, f32q, max_steps=None)
+        mf_labels_vs(name, "f32 emulation", got, f32q)
+    # bf16 against f32: w8 in real units (the softmax's scale 1/256)
+    mf_bf16_vs("tflite_quant_w8", [f[0] for f in res["tflite_quant_w8"]
+                                   ["frames"]], f32q, 1 / 256)
+    got = [f[0] for f in res["tflite_float_auto"]["frames"]]
+    mf_bf16_vs("tflite_float_auto", got, card32["tflite_float_float32"], 0)
+    mf_labels_vs("tflite_float_auto", "f32", got,
+                 card32["tflite_float_float32"])
+    # TorchScript through the string, graph and eager, per frame and batched
+    runs = run_mf_strings("torchscript", mf_filter("pytorch", files["pt"]),
+                          args, card)
+    rows["torchscript"] = runs["per_frame"]
+    rows["torchscript_batched"] = runs["batched"]
+    mf_bits_equal("torchscript", mf_outputs(pt_filt, imgs, batched=True),
+                  mf_outputs(pt_filt, imgs, eager=True, batched=True))
+    busy["torchscript"] = mf_busy(pt_filt, imgs[0], {
+        "per_frame": runs["per_frame"]["fps"],
+        "batched": runs["batched"]["fps"]})
+    lenet_rows, lenet_busy = run_lenet_formats(files, args.seed, card)
+    rows.update(lenet_rows)
+    busy.update(lenet_busy)
+    busy.update(run_host_backends(args.seed, card))
+    emit({"phase": "model_files_fps", "card": card, "fps": busy})
+    return rows
+
+
+def run_lenet_formats(files: dict, seed: int, card: str):
+    """LeNet-5 as a TensorFlow, Caffe2 and MXNet file through ``appsrc !
+    tensor_filter ! tensor_sink`` on the card, graph then eager (outputs
+    bit for bit), and the card's f32 (TF32 off) against the CPU's; the
+    three formats compute the same function.  Returns the rows whose
+    launches the kernel table sums, and each format's rate and busy
+    time."""
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.filter import FilterSingle
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+    from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsInfo
+    from nnstreamer_tpu_torch.tensor.types import TensorType
+
+    rng = np.random.default_rng(seed)
+    xs = [rng.random((1, 28, 28, 1), np.float32)
+          for _ in range(MF_LENET_FRAMES)]
+    specs = {"tensorflow": (files["pb"], False),
+             "caffe2": (files["caffe2"], True),
+             "mxnet": (files["mxnet"], True)}
+    rows, firsts, busy = {}, {}, {}
+    for fw, (model, nchw) in specs.items():
+        dims = "28:28:1:1" if nchw else "1:28:28:1"
+        launch = ("appsrc name=src caps=other/tensors,format=static,"
+                  f"num_tensors=1,dimensions={dims},types=float32,"
+                  "framerate=0/1 ! tensor_filter name=f "
+                  f"framework={fw} model={model} custom=compute:float32"
+                  + (f" input={dims} inputtype=float32" if nchw else "")
+                  + " ! tensor_sink name=out")
+        frames = [x.transpose(0, 3, 1, 2).copy() if nchw else x for x in xs]
+        outs, fps = {}, {}
+        for eager in (False, True):
+            with no_tf32():
+                _cuda.reset_launches()
+                p = parse_launch(launch)
+                with eager_filters(eager):
+                    p.play()
+                    t0 = time.perf_counter()
+                    for x in frames:
+                        p.get("src").push_buffer(TensorBuffer(tensors=[x]))
+                    p.get("src").end_of_stream()
+                    p.wait(timeout=120)
+                    # no host read of the outputs on this string: the
+                    # rate counts a frame once the card has computed it
+                    torch.cuda.synchronize()
+                    fps[eager] = len(frames) / (time.perf_counter() - t0)
+                    p.stop()
+                graphs = dict(_cuda.graphs)
+            outs[eager] = [b.np(0).copy() for b in p.get("out").results]
+            emit({"phase": "model_files", "path": f"lenet_{fw}",
+                  "mode": "eager" if eager else "graph", "frames": len(xs),
+                  "fps": fps[eager], "graphs": graphs,
+                  "launches": dict(_cuda.launches), "card": card})
+            if len(outs[eager]) != len(xs):
+                raise AssertionError(f"lenet_{fw}: {len(outs[eager])} of "
+                                     f"{len(xs)} frames")
+            # the open's capture, then a replay a frame
+            if graphs != graph_counts(eager, 1, len(xs)):
+                raise AssertionError(f"lenet_{fw}: graphs {graphs}")
+        if not all(np.array_equal(a, b) for a, b in zip(outs[False],
+                                                         outs[True])):
+            raise AssertionError(f"lenet_{fw}: graph outputs differ from "
+                                 "eager")
+        kw = {"input_info": TensorsInfo([TensorInfo(
+            TensorType.FLOAT32, (28, 28, 1, 1))])} if nchw else {}
+        filt = {"framework": fw, "model": model, "custom": "compute:float32",
+                **kw}
+        with FilterSingle(accelerator="true:cpu", **filt) as single:
+            cpu = single.invoke([frames[0]])[0]
+        mf_f32_vs(f"lenet_{fw}", "cpu", [outs[False][0].reshape(-1)],
+                  [cpu.reshape(-1)], MF_F32_PROB_ATOL)
+        busy[f"lenet_{fw}"] = mf_busy(filt, frames[0],
+                                      {"per_frame": fps[False]})
+        firsts[fw] = outs[False][0].reshape(-1)
+        rows[f"lenet_{fw}"] = {"launches": dict(_cuda.launches)}
+    mf_f32_vs("lenet", "formats", list(firsts.values()),
+              [firsts["tensorflow"]] * len(firsts), MF_F32_PROB_ATOL)
+    return rows, busy
+
+
+def run_host_backends(seed: int, card: str) -> dict:
+    """python, lua, custom-easy and dummy, each in a string after the
+    flagship's converter (host backends: numpy payloads, no graph on the
+    card).  Returns each one's rate."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.filter.backends.custom import (
+        register_custom_easy, unregister_custom_easy)
+    from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsInfo
+    from nnstreamer_tpu_torch.tensor.types import TensorType
+
+    py = os.path.join(MF_DIR, "invert.py")
+    with open(py, "w") as f:
+        f.write("class CustomFilter:\n"
+                "    def getInputDim(self):\n"
+                "        return [((3, 16, 16, 1), 'uint8')]\n"
+                "    def getOutputDim(self):\n"
+                "        return [((3, 16, 16, 1), 'uint8')]\n"
+                "    def invoke(self, inputs):\n"
+                "        return [255 - inputs[0]]\n")
+    lua = os.path.join(MF_DIR, "invert.lua")
+    with open(lua, "w") as f:
+        f.write("inputTensorsInfo = {num=1, dim={{3, 16, 16, 1}}, "
+                "type={'uint8'}}\n"
+                "outputTensorsInfo = {num=1, dim={{3, 16, 16, 1}}, "
+                "type={'uint8'}}\n"
+                "function nnstreamer_invoke()\n"
+                "  local i, o = input_tensor(1), output_tensor(1)\n"
+                "  for k=1,768 do o[k] = 255 - i[k] end\n"
+                "end\n")
+    info = TensorsInfo([TensorInfo(TensorType.UINT8, (3, 16, 16, 1))])
+    register_custom_easy("mf_invert", lambda ins: [255 - ins[0]], info, info)
+    src = (f"videotestsrc num-buffers={MF_HOST_FRAMES} pattern=random "
+           f"seed={seed} ! "
+           "video/x-raw,format=RGB,width=16,height=16,framerate=30/1 ! "
+           "tensor_converter ! ")
+    rates = {}
+    try:
+        ref = parse_launch(src + "tensor_sink name=out")
+        ref.run(timeout=60)
+        frames = [b.np(0).copy() for b in ref.get("out").results]
+        for name, filt in (("python", f"framework=python model={py}"),
+                           ("lua", f"framework=lua model={lua}"),
+                           ("custom-easy",
+                            "framework=custom-easy model=mf_invert"),
+                           ("dummy", "framework=dummy input=3:16:16:1 "
+                            "inputtype=uint8 output=3:16:16:1 "
+                            "outputtype=uint8")):
+            stamps = []
+            _cuda.reset_launches()
+            p = parse_launch(src + f"tensor_filter {filt} ! "
+                             "tensor_sink name=out")
+            p.get("out").connect("new-data", lambda buf: stamps.append(
+                time.perf_counter()))
+            p.run(timeout=60)
+            got = [b.np(0) for b in p.get("out").results]
+            want = [np.zeros_like(x) if name == "dummy" else 255 - x
+                    for x in frames]
+            ok = len(got) == len(want) and all(
+                np.array_equal(a.reshape(-1), b.reshape(-1))
+                for a, b in zip(got, want))
+            rates[name] = {"per_frame_fps": (len(stamps) - 1)
+                           / (stamps[-1] - stamps[0]),
+                           "graphs": dict(_cuda.graphs),
+                           "launches": dict(_cuda.launches)}
+            emit({"phase": "model_files", "path": name, "frames": len(got),
+                  "outputs_equal": ok, **rates[name], "card": card})
+            if not ok:
+                raise AssertionError(f"{name}: outputs differ")
+            if rates[name]["graphs"] or rates[name]["launches"]:
+                raise AssertionError(f"{name}: a host backend ran work on "
+                                     f"the card: {rates[name]}")
+    finally:
+        unregister_custom_easy("mf_invert")
+    return rates
 
 
 def run_transform_path(frames: int, card: str) -> None:
@@ -6795,6 +7338,7 @@ def main(argv=None) -> int:
         batched = run_batched_paths(args, card)
         zoo = run_zoo_paths(args, card)
         run_transform_path(args.frames, card)
+        model_files = run_model_files(args, card)
         query = run_query_serve(args, card)
         if args.profile:
             run_query_pace(args.seed, card)
@@ -6833,6 +7377,7 @@ def main(argv=None) -> int:
                                              *offload.values(),
                                              *batched.values(),
                                              *zoo.values(),
+                                             *model_files.values(),
                                              *train_rows.values(),
                                              tss["train"], tss["serve"],
                                              tss["reload"], dist))

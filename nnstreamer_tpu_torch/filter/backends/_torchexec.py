@@ -46,8 +46,10 @@ discipline —
   the fused graphs with :meth:`warmup_batched` before its next
   dispatch.
 
-The mesh (``custom=mesh:dp=N``) and the compute-dtype wrapper are not
-ported yet.
+:func:`_wrap_compute_dtype` and :meth:`TorchExecMixin._resolve_compute`
+are the JAX package's compute-dtype policy for lowered-graph backends
+(``custom=compute:auto|float32|bfloat16``).  The mesh
+(``custom=mesh:dp=N``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -70,6 +72,53 @@ from ..framework import Accelerator, FilterError, start_output_transfers
 #: batched forward
 INVOKE_SITE = "filter.jitexec.invoke"
 VMAP_SITE = "filter.jitexec.vmap"
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype (a torch dtype passes through)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def _wrap_compute_dtype(forward_fn, params, dtype, example_inputs=None):
+    """Cast the float32 entries of ``params`` (name -> tensor) to ``dtype``
+    and wrap ``forward_fn(params, *inputs)`` so float inputs enter in
+    ``dtype`` and every float output leaves in its ORIGINAL dtype: the
+    external tensor meta is unchanged, native f16/bf16 outputs included,
+    which a run of the unwrapped forward on the meta device recovers when
+    example inputs are given.  Returns ``(wrapped, params)``."""
+    out_dtypes = None
+    if example_inputs is not None:
+        try:
+            meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                    for k, v in params.items()}
+            outs = forward_fn(meta, *[
+                torch.empty(tuple(x.shape), dtype=torch_dtype(x.dtype),
+                            device="meta") for x in example_inputs])
+            out_dtypes = [o.dtype for o in outs]
+        except (RuntimeError, NotImplementedError, TypeError, ValueError,
+                IndexError):
+            out_dtypes = None
+    params = {k: v.to(dtype) if v.dtype == torch.float32 else v
+              for k, v in params.items()}
+
+    def _restore(o, want):
+        if not isinstance(o, torch.Tensor) or not o.is_floating_point():
+            return o
+        if want is not None:
+            return o.to(want) if want.is_floating_point and o.dtype != want \
+                else o
+        # no probe: at least undo the compute-dtype leak
+        return o.float() if o.dtype == dtype else o
+
+    def wrapped(p, *xs):
+        xs = [x.to(dtype) if x.is_floating_point() else x for x in xs]
+        outs = forward_fn(p, *xs)
+        wants = out_dtypes or [None] * len(outs)
+        return tuple(_restore(o, w) for o, w in zip(outs, wants))
+
+    return wrapped, params
 
 
 def _signature(inputs) -> tuple:
@@ -211,6 +260,23 @@ class TorchExecMixin:
             return resolve_device(None)
         except RuntimeError as exc:
             raise FilterError(str(exc)) from exc
+
+    @staticmethod
+    def _resolve_compute(props, device: torch.device):
+        """``custom=compute:{auto,float32,bfloat16}`` for lowered-graph
+        backends: auto is bfloat16 on the card and float32 on the CPU
+        (None stands for float32: no cast)."""
+        choice = str(getattr(props, "custom_properties", {}).get(
+            "compute", "auto")).lower()
+        if choice in ("float32", "fp32", "f32"):
+            return None
+        if choice in ("bfloat16", "bf16"):
+            return torch.bfloat16
+        if choice != "auto":
+            raise FilterError(
+                f"unknown compute dtype {choice!r} "
+                "(auto | float32 | bfloat16)")
+        return torch.bfloat16 if device.type == "cuda" else None
 
     @staticmethod
     def pad_rows(n: int, capacity: int = 0) -> int:

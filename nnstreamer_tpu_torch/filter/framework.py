@@ -306,7 +306,7 @@ _FILTERS: Dict[str, Type[FilterFramework]] = {}
 
 #: auto-detect priority, mirrors ini ``framework_priority_*``
 #: (reference nnstreamer_conf.c framework_priority handling)
-_AUTO_PRIORITY: List[str] = ["xla"]
+_AUTO_PRIORITY: List[str] = ["xla", "tensorflow-lite", "python", "custom"]
 
 
 def register_filter(cls: Type[FilterFramework]) -> Type[FilterFramework]:

@@ -117,6 +117,8 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the fixture writers chip_smoke.py imports
+    yield os.path.join(ROOT, "tests", "torch_model_files.py")
 
 
 def _imported_roots(path):
@@ -400,6 +402,62 @@ def test_training_modules_load_without_jax(tmp_path):
         f"q = n.parse_launch({served!r})\n"
         "q.run(timeout=120)\n"
         "assert len(q.get('out').results) == 2\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+#: the model-file filter backends and what they stand on
+BACKEND_MODULES = ["nnstreamer_tpu_torch.filter.backends.tflite",
+                   "nnstreamer_tpu_torch.filter.backends.pytorch",
+                   "nnstreamer_tpu_torch.filter.backends.tensorflow",
+                   "nnstreamer_tpu_torch.filter.backends.caffe2",
+                   "nnstreamer_tpu_torch.filter.backends.mxnet",
+                   "nnstreamer_tpu_torch.filter.backends.python",
+                   "nnstreamer_tpu_torch.filter.backends.lua",
+                   "nnstreamer_tpu_torch.filter.backends.custom",
+                   "nnstreamer_tpu_torch.filter.torchscript",
+                   "nnstreamer_tpu_torch.utils.minilua",
+                   "nnstreamer_tpu_torch.ops.audio"]
+
+#: the JAX package's thirteen filter names (its filter/backends/)
+FILTER_NAMES = ["caffe2", "custom", "custom-easy", "dummy", "lua", "mxnet",
+                "python", "pytorch", "tensorflow", "tensorflow-lite",
+                "tensorflow2-lite", "tflite", "xla"]
+
+
+def test_port_registers_the_thirteen_filter_names():
+    from nnstreamer_tpu_torch.filter.framework import list_filters
+
+    assert list_filters() == FILTER_NAMES
+
+
+def test_backend_modules_load_without_jax(tmp_path):
+    """The model-file backends' modules, imported in a fresh interpreter,
+    then the flagship string with ``tensor_filter
+    framework=tensorflow-lite`` on a quantized MobileNetV2 file run on the
+    CPU in native int8, load no module of JAX or of the JAX package."""
+    model = str(tmp_path / "mnv2_quant.tflite")
+    launch = ("videotestsrc num-buffers=2 ! "
+              "video/x-raw,format=RGB,width=32,height=32,framerate=30/1 ! "
+              "tensor_converter ! tensor_filter framework=tensorflow-lite "
+              f"model={model} accelerator=true:cpu custom=compute:int8 ! "
+              "tensor_decoder mode=image_labeling ! tensor_sink name=out")
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        f"bad = {sorted(FORBIDDEN)!r}\n"
+        f"for name in {BACKEND_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import torch_model_files as mf\n"
+        f"mf.mobilenet_v2_tflite({model!r}, True, width=0.35, size=32,\n"
+        "                       classes=11, stages=2)\n"
+        "import nnstreamer_tpu_torch as n\n"
+        f"p = n.parse_launch({launch!r})\n"
+        "p.run(timeout=120)\n"
+        "assert len(p.get('out').results) == 2\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
