@@ -120,6 +120,35 @@ Phases, each of which must pass:
      custom-easy and dummy once each.  No K1-K4 launch on it; a row a
      mode with fps, event-timed busy ms a frame and a bucket, idle share,
      and the int8 products' routes;
+   - ``compose_path``: stream composition around the card's models, a
+     ``compose_path`` row a string (fps, graphs, launches, ledger) and a
+     ``compose_path_checks`` row a group.  The ensemble: MobileNetV2 and
+     ViT-S/16 on one stream (``tee`` → the two filters → ``tensor_mux
+     sync-mode=slowest`` → ``tensor_demux``, the label decoder on one
+     side), again with logits on both sides, and through
+     ``tensor_merge mode=linear option=0 ! tensor_split
+     tensorseg=1001,1000``: every frame once and in pts order on both
+     sides, each side's logits bit-equal to its model alone on the same
+     frames (two more strings), the labels equal flagship-b1's, K1 and
+     K2 (12 a frame) counted.  Routing and windows on the flagship's
+     logits, tee'd from one filter: ``tensor_if`` on the mean logit
+     against the median (numpy's evaluation), ``tensor_aggregator
+     frames-out=4`` (numpy's stacks), ``tensor_rate framerate=15/1``
+     (the JAX element's rule), ``tensor_sparse_enc ! tensor_sparse_dec``
+     (byte-equal).  Ingest: the seeded frames written as PNG and PPM
+     files and one raw file into ``nnstreamer_tpu_torch/_build/compose/``,
+     through ``multifilesrc ! pngdec`` / ``pnmdec`` and ``filesrc !
+     application/octet-stream`` into MobileNetV2: logits bit-equal to
+     the same frames through ``appsrc``, and ``filesink``'s file
+     byte-equal to them; ``datareposrc`` of 4 batches of 32 frames and
+     labels into ``tensor_trainer framework=mesh-vision`` (K1 once a
+     step): losses and parameters bit-equal to the same batches through
+     ``appsrc`` (deterministic algorithms).  Crop: SSD-MobileNetV2 300's
+     device-NMS detections (the zoo's string) as ``tensor_crop`` regions
+     over the tee'd raw frames: every crop byte-equal to its numpy slice.
+     Mesh: ``custom=mesh:dp=1`` at batch 32 bit-equal to the plain
+     filter, ``mesh:dp=2`` refused at open with the JAX package's message
+     on a host with one card;
    - ``llm_stream``: the LLM serving tier, ``tensor_query_serversrc !
      tensor_llm ! tensor_query_serversink`` at the LM's full width
      (max_seq 2048, bf16) in this process, 16 gold ``TokenStreamClient``
@@ -2852,6 +2881,639 @@ def run_transform_path(frames: int, card: str) -> None:
         raise AssertionError(f"transform_path: the device transform differs "
                              f"from numpy on frames {differ} (on the card: "
                              f"{out['true']['on_card']})")
+
+
+# ---------------------------------------------------------------------------
+# compose_path: stream composition around the card's models
+# ---------------------------------------------------------------------------
+
+#: frame size and class counts of the composed models (MobileNetV2 1.0 and
+#: ViT-S/16 at their registry defaults)
+COMPOSE_SIZE = 224
+COMPOSE_CLASSES = (1001, VIT_CLASSES)
+COMPOSE_SRC = ("videotestsrc num-buffers={frames} pattern=random seed={seed} "
+               "! video/x-raw,format=RGB,width={size},height={size},"
+               "framerate=30/1 ! tensor_converter")
+COMPOSE_MNV2 = ("tensor_filter framework=xla model=mobilenet_v2 "
+                "custom=seed:{seed},use_pallas:1{extra}")
+COMPOSE_VIT = "tensor_filter framework=xla model=vit custom=seed:{seed}"
+COMPOSE_SSD = "tensor_filter framework=xla model={model} custom=seed:0"
+COMPOSE_TRAIN_CUSTOM = "model:mobilenet_v2,seed:{seed},use_pallas:1,dp:1"
+#: the two models on one stream, joined by ``{join}`` and parted again
+ENSEMBLE = ("{src} ! tee name=t t. ! queue name=q0 ! {mnv2} name=f0 ! "
+            "{join}.sink_0 t. ! queue name=q1 ! {vit} name=f1 ! "
+            "{join}.sink_1 {combine} {tail}")
+COMPOSE_CAPS = ("other/tensors,format=static,num_tensors=1,"
+                "dimensions=3:{size}:{size},types=uint8,framerate=0/1")
+#: the window of tensor_aggregator and the rate of tensor_rate on the
+#: flagship's logits (30 fps in)
+COMPOSE_WINDOW = 4
+COMPOSE_RATE = "15/1"
+#: the trainer's batches through datareposrc, and the crop path's frames
+COMPOSE_TRAIN_STEPS = 4
+COMPOSE_CROP_FRAMES = 16
+COMPOSE_CROP_REGIONS = 4
+COMPOSE_DIR = os.path.join(HERE, "nnstreamer_tpu_torch", "_build",
+                           "compose")
+
+
+def compose_strings(frames: int, seed: int) -> dict:
+    """name -> (launch, sink names) of the strings the phase drives."""
+    src = COMPOSE_SRC.format(frames=frames, seed=seed, size=COMPOSE_SIZE)
+    mnv2 = COMPOSE_MNV2.format(seed=seed, extra="")
+    vit = COMPOSE_VIT.format(seed=seed)
+    demux = ("tensor_mux name=mux sync-mode=slowest ! "
+             "tensor_demux name=d")
+    label = "tensor_decoder mode=image_labeling ! tensor_sink name=a"
+    merge = ("tensor_merge name=merge mode=linear option=0 "
+             "sync-mode=slowest ! tensor_split name=s "
+             f"tensorseg={COMPOSE_CLASSES[0]},{COMPOSE_CLASSES[1]}")
+    return {
+        "ensemble": (ENSEMBLE.format(
+            src=src, mnv2=mnv2, vit=vit, join="mux", combine=demux,
+            tail=f"d.src_0 ! queue name=qa ! {label} d.src_1 ! "
+                 "queue name=qb ! tensor_sink name=b"), ("a", "b")),
+        "ensemble_logits": (ENSEMBLE.format(
+            src=src, mnv2=mnv2, vit=vit, join="mux", combine=demux,
+            tail="d.src_0 ! queue name=qa ! tensor_sink name=a "
+                 "d.src_1 ! queue name=qb ! tensor_sink name=b"),
+            ("a", "b")),
+        "merge_split": (ENSEMBLE.format(
+            src=src, mnv2=mnv2, vit=vit, join="merge", combine=merge,
+            tail="s.src_0 ! queue name=qa ! tensor_sink name=a "
+                 "s.src_1 ! queue name=qb ! tensor_sink name=b"),
+            ("a", "b")),
+        "mobilenet_v2_alone": (f"{src} ! {mnv2} ! tensor_sink name=out",
+                               ("out",)),
+        "vit_alone": (f"{src} ! {vit} ! tensor_sink name=out", ("out",)),
+    }
+
+
+def expect_launches(name: str, launches: dict, want: dict) -> None:
+    """Each kernel of ``want`` launched exactly that often on ``name``
+    (a replay counts its captured launches, a capture its eager run)."""
+    for kernel, n in want.items():
+        if launches.get(kernel, 0) != n:
+            raise AssertionError(f"compose_path {name}: {kernel} launched "
+                                 f"{launches.get(kernel, 0)} times, "
+                                 f"expected {n}")
+
+
+def expect_captures(name: str, graphs: dict, captures: int) -> None:
+    """``captures`` CUDA graphs captured on ``name`` (the filters' at
+    open), none inside the stream."""
+    if graphs.get("captures") != captures:
+        raise AssertionError(f"compose_path {name}: graphs {graphs}, "
+                             f"expected {captures} captures at open")
+
+
+def run_compose(name: str, launch: str, sinks, card: str,
+                feed=None, frames: int = 0) -> dict:
+    """Drive one string of the phase (graph mode, the default tier):
+    counters set to 0 before it, read after it; ``feed(p)`` pushes an
+    appsrc's buffers after play.  Emits the string's row; returns its
+    sinks' buffers, launches, graphs and rate."""
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+    from nnstreamer_tpu_torch.analysis import compileledger
+
+    stamps = {s: [] for s in sinks}
+    _cuda.reset_launches()
+    compileledger.reset()
+    p = parse_launch(launch)
+    for s in sinks:
+        p.get(s).connect("new-data", lambda buf, s=s: stamps[s].append(
+            time.perf_counter()))
+    t0 = time.perf_counter()
+    p.play()
+    try:
+        played = time.perf_counter()
+        if feed is not None:
+            feed(p)
+        p.wait(timeout=600)
+    finally:
+        p.stop()
+    wall = time.perf_counter() - t0
+    busiest = max(sinks, key=lambda s: len(stamps[s]))
+    st = stamps[busiest]
+    # fps: first to last arrival at the busiest sink (a batched string's
+    # buckets arrive in bursts: fps_from_play, from the end of play()
+    # to the last arrival, is its rate)
+    row = {"phase": "compose_path", "string": name,
+           "frames": {s: len(stamps[s]) for s in sinks},
+           "fps": ((len(st) - 1) / (st[-1] - st[0]) if len(st) > 1
+                   else None),
+           "fps_from_play": len(st) / (st[-1] - played) if st else None,
+           "wall_s_incl_open": wall, "graphs": dict(_cuda.graphs),
+           "launches": dict(_cuda.launches),
+           "compile_ledger": compileledger.snapshot(), "card": card}
+    emit(row)
+    if frames and any(len(stamps[s]) == 0 for s in sinks):
+        raise AssertionError(f"compose_path {name}: no buffer reached "
+                             f"{[s for s in sinks if not stamps[s]]}")
+    return {"results": {s: p.get(s).results for s in sinks},
+            "launches": row["launches"], "graphs": row["graphs"],
+            "fps": row["fps"]}
+
+
+def host_tensor(buf, i: int = 0):
+    import numpy as np
+
+    return np.ascontiguousarray(buf.np(i))
+
+
+def same_bits(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def hold_bits(what: str, got, want) -> None:
+    """``got`` (arrays) against ``want`` bit for bit, in order."""
+    differ = [i for i, (a, b) in enumerate(zip(got, want))
+              if not same_bits(a, b)]
+    if differ or len(got) != len(want):
+        raise AssertionError(f"compose_path: {what} differ on "
+                             f"{differ[:8]} ({len(got)} vs {len(want)})")
+
+
+def rate_rule(stamps, target: str):
+    """``tensor_rate throttle=true``'s rule (``nnstreamer_tpu/elements/
+    rate.py``) over ``(pts, duration)`` stamps: the (index, pts) of each
+    buffer it passes."""
+    from fractions import Fraction
+
+    SECOND = 1_000_000_000
+    rate = Fraction(target)
+    interval = SECOND * rate.denominator // rate.numerator
+    out, nxt = [], 0
+    for i, (pts, dur) in enumerate(stamps):
+        pts = pts or 0
+        if pts + (dur or 0) < nxt:
+            continue
+        if pts + (dur or interval) >= nxt:
+            out.append((i, nxt))
+            nxt += interval
+    return out
+
+
+def run_ensemble(args, card: str, labels) -> dict:
+    """MobileNetV2 and ViT-S/16 on one stream through tee, tensor_mux
+    and tensor_demux (with the label decoder on one side, then without),
+    and through tensor_merge and tensor_split; each model alone on the
+    same frames is the reference."""
+    strings = compose_strings(args.frames, args.seed)
+    runs = {name: run_compose(name, launch, sinks, card,
+                              frames=args.frames)
+            for name, (launch, sinks) in strings.items()}
+    n = args.frames
+    k1 = {"normalize_frame": n + 1}
+    k2 = {"flash_attention": 12 * (n + 1)}
+    expect_launches("mobilenet_v2_alone",
+                    runs["mobilenet_v2_alone"]["launches"], k1)
+    expect_launches("vit_alone", runs["vit_alone"]["launches"], k2)
+    alone = {m: runs[f"{m}_alone"]["results"]["out"]
+             for m in ("mobilenet_v2", "vit")}
+    pts = [b.pts for b in alone["mobilenet_v2"]]
+    if len(set(pts)) != n or pts != sorted(pts) or \
+            pts != [b.pts for b in alone["vit"]]:
+        raise AssertionError(f"compose_path: the models alone saw pts {pts}")
+    ref = {m: [host_tensor(b) for b in bufs] for m, bufs in alone.items()}
+    for name in ("ensemble", "ensemble_logits", "merge_split"):
+        run = runs[name]
+        expect_launches(name, run["launches"], {**k1, **k2})
+        expect_captures(name, run["graphs"], 2)
+        for side in ("a", "b"):
+            got = [b.pts for b in run["results"][side]]
+            if got != pts:
+                raise AssertionError(f"compose_path {name}: side {side} "
+                                     f"saw pts {got}, expected each frame "
+                                     "once in order")
+    ens = runs["ensemble"]["results"]
+    got_labels = [b.extra.get("index") for b in ens["a"]]
+    if got_labels != list(labels):
+        differ = [i for i, (x, y) in enumerate(zip(got_labels, labels))
+                  if x != y]
+        raise AssertionError(f"compose_path ensemble: labels differ from "
+                             f"flagship-b1's on frames {differ} "
+                             f"({len(got_labels)} of {len(labels)})")
+    hold_bits("the ensemble's ViT logits",
+              [host_tensor(b) for b in ens["b"]], ref["vit"])
+    for name in ("ensemble_logits", "merge_split"):
+        res = runs[name]["results"]
+        hold_bits(f"{name}'s MobileNetV2 logits",
+                  [host_tensor(b) for b in res["a"]], ref["mobilenet_v2"])
+        hold_bits(f"{name}'s ViT logits",
+                  [host_tensor(b) for b in res["b"]], ref["vit"])
+    emit({"phase": "compose_path_checks", "what": "ensemble",
+          "frames": n, "labels_equal_flagship": len(got_labels),
+          "logits_bit_equal_alone": {"mobilenet_v2": n, "vit": n},
+          "merge_split_equal_demux": True})
+    return {"runs": runs, "logits": ref["mobilenet_v2"],
+            "stamps": [(b.pts, b.duration)
+                       for b in alone["mobilenet_v2"]]}
+
+
+def run_routing(args, card: str, logits, stamps) -> dict:
+    """tensor_if, tensor_aggregator, tensor_rate and the sparse codec on
+    the flagship's logits, tee'd from one filter; the reference is numpy
+    on the logits of MobileNetV2 alone (bit-equal to these: ensemble)."""
+    import numpy as np
+
+    means = [float(np.mean(x)) for x in logits]
+    median = float(np.median(means))
+    src = COMPOSE_SRC.format(frames=args.frames, seed=args.seed,
+                             size=COMPOSE_SIZE)
+    launch = (
+        f"{src} ! {COMPOSE_MNV2.format(seed=args.seed, extra='')} ! "
+        "tee name=t t. ! queue name=q0 ! tensor_sink name=logits "
+        "t. ! queue name=q1 ! tensor_if compared-value=TENSOR_AVERAGE_VALUE "
+        f"operator=GT supplied-value={median!r} then=PASSTHROUGH "
+        "else=SKIP ! tensor_sink name=if "
+        f"t. ! queue name=q2 ! tensor_aggregator "
+        f"frames-out={COMPOSE_WINDOW} ! "
+        "tensor_sink name=agg "
+        f"t. ! queue name=q3 ! tensor_rate framerate={COMPOSE_RATE} ! "
+        "tensor_sink name=rate "
+        "t. ! queue name=q4 ! tensor_sparse_enc ! tensor_sparse_dec ! "
+        "tensor_sink name=sparse")
+    run = run_compose("routing", launch,
+                      ("logits", "if", "agg", "rate", "sparse"), card,
+                      frames=args.frames)
+    expect_launches("routing", run["launches"],
+                    {"normalize_frame": args.frames + 1})
+    res = run["results"]
+    hold_bits("the routing string's logits",
+              [host_tensor(b) for b in res["logits"]], logits)
+    pts = [p for p, _ in stamps]
+    want_if = [p for p, m in zip(pts, means) if m > median]
+    got_if = [b.pts for b in res["if"]]
+    if got_if != want_if:
+        raise AssertionError(f"compose_path routing: tensor_if passed "
+                             f"{len(got_if)} frames, numpy {len(want_if)}")
+    hold_bits("tensor_if's frames", [host_tensor(b) for b in res["if"]],
+              [x for x, m in zip(logits, means) if m > median])
+    w = COMPOSE_WINDOW
+    windows = [np.stack(logits[i:i + w])
+               for i in range(0, len(logits) - w + 1, w)]
+    hold_bits("tensor_aggregator's windows",
+              [host_tensor(b) for b in res["agg"]], windows)
+    if [b.pts for b in res["agg"]] != pts[::w][:len(windows)]:
+        raise AssertionError("compose_path routing: window pts differ")
+    kept = rate_rule(stamps, COMPOSE_RATE)
+    if [(b.pts) for b in res["rate"]] != [p for _, p in kept]:
+        raise AssertionError(f"compose_path routing: tensor_rate pts "
+                             f"{[b.pts for b in res['rate']]}, the rule's "
+                             f"{[p for _, p in kept]}")
+    hold_bits("tensor_rate's frames", [host_tensor(b) for b in res["rate"]],
+              [logits[i] for i, _ in kept])
+    hold_bits("the sparse codec's frames",
+              [host_tensor(b) for b in res["sparse"]], logits)
+    emit({"phase": "compose_path_checks", "what": "routing",
+          "median_mean_logit": median, "if_passed": len(got_if),
+          "windows": len(windows), "rate_kept": len(kept),
+          "sparse_bit_equal": len(res["sparse"]), "card": card})
+    return run
+
+
+def png_bytes(img) -> bytes:
+    """An 8-bit RGB PNG of ``img`` (stdlib ``zlib``): rows filtered in
+    turn with None, Sub and Up."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, c = img.shape
+    rows, prev = [], np.zeros(w * c, np.int16)
+    for y in range(h):
+        line = img[y].reshape(-1).astype(np.int16)
+        kind = y % 3
+        if kind == 1:
+            line_f = line - np.concatenate([np.zeros(c, np.int16),
+                                            line[:-c]])
+        elif kind == 2:
+            line_f = line - prev
+        else:
+            line_f = line
+        rows.append(bytes([kind]) + (line_f & 0xFF).astype(
+            np.uint8).tobytes())
+        prev = line
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(rows), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_ingest_files(frames, out_dir: str) -> dict:
+    os.makedirs(out_dir, exist_ok=True)
+    for i, img in enumerate(frames):
+        with open(os.path.join(out_dir, f"f_{i:03d}.png"), "wb") as f:
+            f.write(png_bytes(img))
+        h, w, _ = img.shape
+        with open(os.path.join(out_dir, f"f_{i:03d}.ppm"), "wb") as f:
+            f.write(f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
+    raw = os.path.join(out_dir, "frames.raw")
+    with open(raw, "wb") as f:
+        for img in frames:
+            f.write(img.tobytes())
+    return {"png": os.path.join(out_dir, "f_%03d.png"),
+            "ppm": os.path.join(out_dir, "f_%03d.ppm"), "raw": raw,
+            "logits": os.path.join(out_dir, "logits.raw")}
+
+
+def run_ingest(args, card: str) -> dict:
+    """64 seeded frames written as PNG and PPM files and as one raw file,
+    read back through multifilesrc ! pngdec / pnmdec and filesrc !
+    application/octet-stream into MobileNetV2: logits bit-equal to the
+    same frames through appsrc, and filesink's file byte-equal to them."""
+    n, size = args.frames, COMPOSE_SIZE
+    frames = source_frames(n, args.seed, size)
+    files = write_ingest_files(frames, COMPOSE_DIR)
+    mnv2 = COMPOSE_MNV2.format(seed=args.seed, extra="")
+
+    def feed(p):
+        from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+        for i, img in enumerate(frames):
+            p.get("src").push_buffer(TensorBuffer(tensors=[img], pts=i))
+        p.get("src").end_of_stream()
+
+    runs = {"appsrc": run_compose(
+        "ingest_appsrc", f"appsrc name=src caps="
+        f"{COMPOSE_CAPS.format(size=size)} ! {mnv2} ! tensor_sink name=out",
+        ("out",), card, feed=feed, frames=n)}
+    for kind, dec in (("png", "pngdec"), ("ppm", "pnmdec")):
+        runs[kind] = run_compose(
+            f"ingest_{kind}", f"multifilesrc location={files[kind]} "
+            f"start-index=0 stop-index={n - 1} ! {dec} ! tensor_converter "
+            f"! {mnv2} ! tensor_sink name=out", ("out",), card, frames=n)
+    runs["octet"] = run_compose(
+        "ingest_octet", f"filesrc location={files['raw']} "
+        f"blocksize={3 * size * size} ! application/octet-stream ! "
+        f"tensor_converter input-dim=3:{size}:{size} input-type=uint8 ! "
+        f"{mnv2} ! tee name=t t. ! queue name=q0 ! tensor_sink name=out "
+        f"t. ! queue name=q1 ! filesink location={files['logits']}",
+        ("out",),
+        card, frames=n)
+    want = [host_tensor(b) for b in runs["appsrc"]["results"]["out"]]
+    if len(want) != n:
+        raise AssertionError(f"compose_path ingest: appsrc gave {len(want)} "
+                             f"of {n} frames")
+    for kind, run in runs.items():
+        expect_launches(f"ingest_{kind}", run["launches"],
+                        {"normalize_frame": n + 1})
+        hold_bits(f"ingest {kind}'s logits",
+                  [host_tensor(b) for b in run["results"]["out"]], want)
+    with open(files["logits"], "rb") as f:
+        written = f.read()
+    if written != b"".join(x.tobytes() for x in want):
+        raise AssertionError(f"compose_path ingest: filesink wrote "
+                             f"{len(written)} bytes that differ from the "
+                             "logits")
+    emit({"phase": "compose_path_checks", "what": "ingest", "frames": n,
+          "logits_bit_equal_appsrc": sorted(runs), "filesink_bytes":
+          len(written), "card": card})
+    return runs
+
+
+def run_datarepo_train(args, card: str) -> dict:
+    """4 batches of 32 frames and labels through datareposrc into
+    tensor_trainer (MobileNetV2's training form, K1 once a step), held
+    to the same batches through appsrc: losses and every parameter and
+    Adam tensor bit for bit (deterministic algorithms; where an op has
+    none and a second appsrc run differs too, held to that gap)."""
+    import torch
+
+    from nnstreamer_tpu_torch import _cuda, parse_launch
+
+    samples = mnv2_train_samples(COMPOSE_TRAIN_STEPS, args.seed)
+    os.makedirs(COMPOSE_DIR, exist_ok=True)
+    path = os.path.join(COMPOSE_DIR, "train.dat")
+    with open(path, "wb") as f:
+        for x, y in samples:
+            f.write(x.tobytes())
+            f.write(y.tobytes())
+    b, h, w, _ = samples[0][0].shape
+    dims = f"3:{w}:{h}:{b}"
+    trainer = ("tensor_trainer name=tr framework=mesh-vision custom="
+               f"{COMPOSE_TRAIN_CUSTOM.format(seed=args.seed)} ! "
+               "tensor_sink name=out")
+    launch = (f"datareposrc location={path} input-dim={dims},{b} "
+              f"input-type=uint8,int32 ! {trainer}")
+    appsrc = ("appsrc name=src caps=other/tensors,format=static,"
+              f"num_tensors=2,dimensions={dims}.{b},types=uint8.int32,"
+              f"framerate=0/1 ! {trainer}")
+
+    def state(trainer):
+        return (list(trainer.losses),
+                {k: x.detach().clone()
+                 for k, x in trainer.state_tensors().items()})
+
+    runs = {}
+    with deterministic_algorithms() as caught:
+        _cuda.reset_launches()
+        p = parse_launch(launch)
+        t0 = time.perf_counter()
+        p.run(timeout=900)
+        wall = time.perf_counter() - t0
+        trainer = p.get("tr").trainer
+        runs["datareposrc"] = state(trainer)
+        row = {"phase": "compose_path", "string": "datarepo_train",
+               "steps": len(trainer.losses), "losses": trainer.losses,
+               "graphs": dict(_cuda.graphs),
+               "launches": dict(_cuda.launches),
+               "wall_s_incl_build": wall, "card": card}
+        emit(row)
+        del trainer, p
+        expect_launches("datarepo_train", row["launches"],
+                        {"normalize_frame": COMPOSE_TRAIN_STEPS})
+        runs["appsrc"] = state(drive_trainer(appsrc, samples,
+                                             defaults=False))
+        gap = _train_gap(runs["datareposrc"], runs["appsrc"])
+        bit_equal = gap["loss"] == 0 and not gap["tensors_differ"]
+        again = None
+        if not bit_equal:
+            runs["appsrc_again"] = state(drive_trainer(appsrc, samples,
+                                                       defaults=False))
+            again = _train_gap(runs["appsrc_again"], runs["appsrc"])
+        torch.cuda.empty_cache()
+    warned = sorted({str(w.message).splitlines()[0][:200] for w in caught})
+    emit({"phase": "compose_path_checks", "what": "datarepo_train",
+          "steps": len(runs["datareposrc"][0]), "bit_equal": bit_equal,
+          "datarepo_vs_appsrc": gap, "appsrc_vs_appsrc": again,
+          "nondeterministic_warnings": warned, "card": card})
+    if len(runs["datareposrc"][0]) != COMPOSE_TRAIN_STEPS:
+        raise AssertionError(f"compose_path datarepo_train: "
+                             f"{len(runs['datareposrc'][0])} steps")
+    if not bit_equal and not (
+            warned and again["tensors_differ"]
+            and gap["loss"] <= again["loss"]
+            and gap["state"] <= again["state"]):
+        raise AssertionError(f"compose_path datarepo_train: the trainer "
+                             f"fed by datareposrc differs from appsrc: "
+                             f"{gap} (appsrc vs appsrc {again})")
+    return row
+
+
+def crop_regions(objects, size: int):
+    """``examples/detect_crop_classify.py``'s regions: the first
+    COMPOSE_CROP_REGIONS detections as [x, y, w, h] in pixels, padded to
+    that count with 8x8 corners."""
+    import numpy as np
+
+    regions = []
+    for o in objects[:COMPOSE_CROP_REGIONS]:
+        x = int(np.clip(o.xmin, 0, 1) * (size - 1))
+        y = int(np.clip(o.ymin, 0, 1) * (size - 1))
+        w = max(8, int((np.clip(o.xmax, 0, 1) - np.clip(o.xmin, 0, 1))
+                       * size))
+        h = max(8, int((np.clip(o.ymax, 0, 1) - np.clip(o.ymin, 0, 1))
+                       * size))
+        regions.append([x, y, min(w, size - x), min(h, size - y)])
+    while len(regions) < COMPOSE_CROP_REGIONS:
+        regions.append([0, 0, 8, 8])
+    return np.asarray(regions, np.int32)
+
+
+def run_crop(args, card: str) -> dict:
+    """SSD-MobileNetV2 300's device-NMS detections (the zoo's string)
+    become tensor_crop regions over the tee'd raw frames, as in
+    ``examples/detect_crop_classify.py``: every crop byte-equal to the
+    numpy slice of its frame."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch import Pipeline
+    from nnstreamer_tpu_torch.elements import TensorCrop, TensorSink
+    from nnstreamer_tpu_torch.pipeline.graph import AppSrc
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    model, size, _ = ZOO_PATHS["detect"]
+    n = COMPOSE_CROP_FRAMES
+    stage1 = run_compose("crop_detect", (
+        f"videotestsrc num-buffers={n} pattern=random seed={args.seed} ! "
+        f"video/x-raw,format=RGB,width={size},height={size},"
+        "framerate=30/1 ! tensor_converter ! tee name=t t. ! "
+        "queue name=q0 ! "
+        f"{COMPOSE_SSD.format(model=model)} ! "
+        f"tensor_decoder {zoo_decoder('detect')} ! tensor_sink name=det "
+        "t. ! queue name=q1 ! tensor_sink name=raw"), ("det", "raw"), card,
+        frames=n)
+    expect_launches("crop_detect", stage1["launches"],
+                    {"normalize_frame": 0, "flash_attention": 0})
+    frames = [host_tensor(b) for b in stage1["results"]["raw"]]
+    objects = [b.extra["objects"] for b in stage1["results"]["det"]]
+    regions = [crop_regions(o, size) for o in objects]
+    p = Pipeline()
+    raw = AppSrc("raw", caps=COMPOSE_CAPS.format(size=size))
+    info = AppSrc("info", caps=(
+        "other/tensors,format=static,num_tensors=1,"
+        f"dimensions=4:{COMPOSE_CROP_REGIONS},types=int32,framerate=0/1"))
+    crop, sink = TensorCrop("c"), TensorSink("crops")
+    p.add(raw, info, crop, sink)
+    raw.src_pad.link(crop.sink_pads[0])
+    info.src_pad.link(crop.sink_pads[1])
+    p.link(crop, sink)
+    p.play()
+    try:
+        for i, (frame, reg) in enumerate(zip(frames, regions)):
+            raw.push_buffer(TensorBuffer(tensors=[frame], pts=i))
+            info.push_buffer(TensorBuffer(tensors=[reg], pts=i))
+        raw.end_of_stream()
+        info.end_of_stream()
+        p.wait(timeout=120)
+    finally:
+        p.stop()
+    got = sink.results
+    differ = [(i, j) for i, (buf, frame, reg) in enumerate(
+        zip(got, frames, regions)) for j, (x, y, w, h) in enumerate(reg)
+        if not same_bits(host_tensor(buf, j),
+                         np.ascontiguousarray(frame[y:y + h, x:x + w]))]
+    emit({"phase": "compose_path_checks", "what": "crop", "frames": n,
+          "detections": sum(len(o) for o in objects),
+          "crops": sum(b.num_tensors for b in got),
+          "crops_byte_equal": sum(b.num_tensors for b in got) - len(differ),
+          "card": card})
+    if len(got) != n or differ or any(b.num_tensors != COMPOSE_CROP_REGIONS
+                                      for b in got):
+        raise AssertionError(f"compose_path crop: {len(got)} crop sets of "
+                             f"{n}, differing crops {differ[:8]}")
+    return stage1
+
+
+def run_mesh(args, card: str) -> dict:
+    """``custom=mesh:dp=1`` against the plain filter at batch=32, bit for
+    bit; ``mesh:dp=2`` refused at open with the JAX package's message
+    (this host has fewer cards)."""
+    import torch
+
+    from nnstreamer_tpu_torch.filter import FilterError, FilterSingle
+
+    src = COMPOSE_SRC.format(frames=args.frames, seed=args.seed,
+                             size=COMPOSE_SIZE)
+    runs = {}
+    for name, extra in (("mesh_plain", ""), ("mesh_dp1", ",mesh:dp=1")):
+        mnv2 = COMPOSE_MNV2.format(seed=args.seed, extra=extra)
+        runs[name] = run_compose(name, f"{src} ! {mnv2} batch={BATCH} ! "
+                                 "tensor_sink name=out", ("out",), card,
+                                 frames=args.frames)
+    got = [host_tensor(b) for b in runs["mesh_dp1"]["results"]["out"]]
+    want = [host_tensor(b) for b in runs["mesh_plain"]["results"]["out"]]
+    hold_bits("mesh:dp=1's logits against the plain filter's", got, want)
+    if len(got) != args.frames:
+        raise AssertionError(f"compose_path mesh: {len(got)} frames of "
+                             f"{args.frames}")
+    if args.frames % BATCH == 0:
+        # the per-frame and the batched captures' eager runs, then a
+        # replay a bucket
+        for name in runs:
+            expect_launches(name, runs[name]["launches"], {
+                "normalize_frame": 2 + args.frames // BATCH})
+    expect_launches("mesh_dp1", runs["mesh_dp1"]["launches"],
+                    runs["mesh_plain"]["launches"])
+    cards = torch.cuda.device_count()
+    refused = None
+    if cards < 2:
+        single = FilterSingle(framework="xla", model="mobilenet_v2",
+                              custom=f"seed:{args.seed},mesh:dp=2")
+        try:
+            single.start()
+        except FilterError as exc:
+            refused = str(exc)
+        else:
+            single.stop()
+        want_msg = f"mesh:dp=2 but only {cards} gpu device(s) visible"
+        if refused != want_msg:
+            raise AssertionError(f"compose_path mesh: dp=2 gave "
+                                 f"{refused!r}, expected {want_msg!r}")
+    emit({"phase": "compose_path_checks", "what": "mesh",
+          "dp1_bit_equal_plain": len(got), "dp2_refused": refused,
+          "cards": cards, "card": card})
+    return runs
+
+
+def run_compose_path(args, card: str, labels) -> dict:
+    """The phase: each string a row (fps, graphs, launches, ledger) and
+    its checks; returns name -> {"launches": ...} for the kernel table."""
+    t0 = time.perf_counter()
+    ens = run_ensemble(args, card, labels)
+    out = {name: {"launches": run["launches"]}
+           for name, run in ens["runs"].items()}
+    out["routing"] = {"launches": run_routing(
+        args, card, ens["logits"], ens["stamps"])["launches"]}
+    for name, run in run_ingest(args, card).items():
+        out[f"ingest_{name}"] = {"launches": run["launches"]}
+    out["datarepo_train"] = {"launches": run_datarepo_train(
+        args, card)["launches"]}
+    out["crop"] = {"launches": run_crop(args, card)["launches"]}
+    for name, run in run_mesh(args, card).items():
+        out[name] = {"launches": run["launches"]}
+    emit({"phase": "compose_path_done", "strings": sorted(out),
+          "wall_s": time.perf_counter() - t0, "card": card})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7339,6 +8001,7 @@ def main(argv=None) -> int:
         zoo = run_zoo_paths(args, card)
         run_transform_path(args.frames, card)
         model_files = run_model_files(args, card)
+        compose = run_compose_path(args, card, main_path["labels"])
         query = run_query_serve(args, card)
         if args.profile:
             run_query_pace(args.seed, card)
@@ -7378,6 +8041,7 @@ def main(argv=None) -> int:
                                              *batched.values(),
                                              *zoo.values(),
                                              *model_files.values(),
+                                             *compose.values(),
                                              *train_rows.values(),
                                              tss["train"], tss["serve"],
                                              tss["reload"], dist))

@@ -30,8 +30,10 @@ property/lifecycle logic of tensor_filter_common.c):
   segment's CUDA graph); micro-batching, the worker pool, an active QoS
   throttle and a backend without a torch forward opt out.
 
-The JAX package's metrics gauges and trace spans are not ported: the
-filter publishes nothing to the metrics registry yet.
+The filter registers the JAX package's scheduler and device gauges with
+the metrics registry (read at scrape time).  ``custom=mesh:dp=N`` needs
+micro-batching, as in the JAX element: only a batched dispatch splits
+over the mesh.
 """
 
 from __future__ import annotations
@@ -366,6 +368,14 @@ class TensorFilter(Element):
                                            False):
             self._batch = 1
         self._emit_device = bool(self.output_device)
+        if self._batch <= 1 and getattr(self.fw, "_mesh", None) is not None:
+            # only the BATCHED dispatch spans the mesh; per-frame dispatch
+            # would serve on one device while holding replicated weights
+            # on all of them
+            raise FilterError(
+                f"{self.name}: custom=mesh:dp=N requires micro-batching "
+                f"(set batch= to a multiple of dp); per-frame dispatch "
+                "cannot shard")
         # cross-stream batch accounting: invokes/frames served through
         # pre-batched buffers
         self._xb_invokes = 0

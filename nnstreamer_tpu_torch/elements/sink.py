@@ -1,10 +1,12 @@
-"""Sink elements: tensor_sink (signal emitter) and fakesink.
+"""Sink elements: tensor_sink (signal emitter), fakesink, filesink and
+multifilesink.
 
 Parity with gst/nnstreamer/elements/gsttensor_sink.c: an appsink-like
 element emitting a ``new-data`` callback per buffer, which is how
 applications and all the reference's sink unit tests consume pipeline
-output (tests/nnstreamer_sink/unittest_sink.cc).  The JAX package's
-filesink and multifilesink are not ported yet.
+output (tests/nnstreamer_sink/unittest_sink.cc).  The file sinks write a
+device tensor's bytes after one read to the host (:meth:`TensorBuffer.np`),
+as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import threading
 import time
 from fractions import Fraction
 from typing import Callable, List, Optional
+
+import numpy as np
 
 from ..pipeline.caps import Caps
 from ..pipeline.element import Element, EOSEvent, FlowReturn, QoSEvent
@@ -141,6 +145,82 @@ class FakeSink(Element):
         pass
 
     def chain(self, pad, buf):
+        return FlowReturn.OK
+
+    def on_event(self, pad, event):
+        if isinstance(event, EOSEvent):
+            self.post_eos_reached()
+
+
+@register_element
+class FileSink(Element):
+    """Appends raw tensor bytes to a file (multifilesink/filesink role used
+    by the reference golden tests to byte-compare outputs)."""
+
+    FACTORY = "filesink"
+    PROPERTIES = {"location": (None, "output path")}
+
+    def _make_pads(self):
+        self.add_sink_pad(Caps.any(), "sink")
+
+    def start(self):
+        if not self.location:
+            raise ValueError(f"{self.name}: location required")
+        self._f = open(str(self.location), "wb")
+
+    def stop(self):
+        f = getattr(self, "_f", None)
+        if f is not None and not f.closed:
+            f.close()
+
+    def set_caps(self, pad, caps):
+        pass
+
+    def chain(self, pad, buf):
+        for i in range(buf.num_tensors):
+            self._f.write(np.ascontiguousarray(buf.np(i)).tobytes())
+        return FlowReturn.OK
+
+    def on_event(self, pad, event):
+        if isinstance(event, EOSEvent):
+            self._f.flush()
+            self.post_eos_reached()
+
+
+@register_element
+class MultiFileSink(Element):
+    """One file PER BUFFER at ``location % index`` (GStreamer
+    multifilesink role — the ssat harness tees processed streams into
+    indexed files and byte-compares them against goldens, e.g.
+    ``multifilesink location=result_%1d.log``)."""
+
+    FACTORY = "multifilesink"
+    PROPERTIES = {
+        "location": (None, "printf pattern, e.g. result_%1d.log"),
+        "index": (0, "first file index"),
+    }
+
+    def _make_pads(self):
+        self.add_sink_pad(Caps.any(), "sink")
+
+    def start(self):
+        from .src import _indexed_path
+
+        if not self.location:
+            raise ValueError(f"{self.name}: location required")
+        self._idx = int(self.index)
+        self._indexed_path = _indexed_path
+        self._indexed_path(self.location, self._idx, self.name)
+
+    def set_caps(self, pad, caps):
+        pass
+
+    def chain(self, pad, buf):
+        path = self._indexed_path(self.location, self._idx, self.name)
+        with open(path, "wb") as fh:
+            for i in range(buf.num_tensors):
+                fh.write(np.ascontiguousarray(buf.np(i)).tobytes())
+        self._idx += 1
         return FlowReturn.OK
 
     def on_event(self, pad, event):

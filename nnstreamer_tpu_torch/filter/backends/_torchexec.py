@@ -48,8 +48,16 @@ discipline —
 
 :func:`_wrap_compute_dtype` and :meth:`TorchExecMixin._resolve_compute`
 are the JAX package's compute-dtype policy for lowered-graph backends
-(``custom=compute:auto|float32|bfloat16``).  The mesh
-(``custom=mesh:dp=N``) is not ported yet.
+(``custom=compute:auto|float32|bfloat16``).
+
+:meth:`TorchExecMixin._resolve_mesh` is ``custom=mesh:dp=N``, with the JAX
+package's spec parsing and messages (``_jitexec.py:197-225``): ``dp=1`` is
+the plain filter; ``dp=N>1`` needs N devices of the filter's kind
+(``cuda:0..N-1``), holds a replica of the weights on each and splits each
+batched dispatch along its batch axis into N equal parts (a bucket that N
+does not divide is refused), one a device, gathered back on the filter's
+device.  The split dispatch runs eagerly on each device; the per-frame
+forward stays on the filter's device.
 """
 
 from __future__ import annotations
@@ -127,6 +135,14 @@ def _signature(inputs) -> tuple:
     alike (the name ``str`` gives a JAX array's dtype)."""
     return tuple((tuple(x.shape), str(x.dtype).rpartition(".")[2])
                  for x in inputs)
+
+
+def _record(key) -> None:
+    """A new ``(site, signature)``: its compile-ledger event."""
+    if compileledger.ENABLED:
+        site, sig = key
+        compileledger.record(site, tuple(
+            (f"arg[{i}]", k) for i, k in enumerate(sig)))
 
 
 class BatchHandle:
@@ -210,11 +226,14 @@ class TorchExecMixin:
     _eager = False
 
     def _setup_exec(self, forward_fn, device: torch.device,
-                    warmup_inputs=None, batched_fn=None):
+                    warmup_inputs=None, batched_fn=None, mesh=None):
         """Stage the forwards and run the optional warm-up invoke, which
         captures the open signature on the card.  ``batched_fn``: the
         forward over a leading batch axis (``None``: ``torch.func.vmap``
-        of ``forward_fn``).  Returns the warm-up outputs."""
+        of ``forward_fn``).  ``mesh`` (from :meth:`_resolve_mesh`): a
+        list of ``(device, batched forward)``, one a replica, the first
+        this filter's own.  Returns the warm-up outputs."""
+        self._mesh = mesh
         self._device = device
         self._exec_lock = threading.RLock()
         self._forward_fn = forward_fn
@@ -231,6 +250,7 @@ class TorchExecMixin:
         return outs
 
     def _teardown_exec(self) -> None:
+        self._mesh = None
         self._forward_fn = None
         self._batched_fn = None
         self._postprocess_fn = None
@@ -260,6 +280,41 @@ class TorchExecMixin:
             return resolve_device(None)
         except RuntimeError as exc:
             raise FilterError(str(exc)) from exc
+
+    @staticmethod
+    def _resolve_mesh(props, device: torch.device):
+        """``custom=mesh:dp=N``: the N devices of a data-parallel serving
+        mesh of ``device``'s kind, ``device`` first.  None when the prop
+        is absent or N == 1; FilterError on bad syntax or too few
+        devices (the JAX package's messages, with its platform names)."""
+        spec = str(getattr(props, "custom_properties", {}).get(
+            "mesh", "")).strip()
+        if not spec:
+            return None
+        if not spec.startswith("dp="):
+            raise FilterError(
+                f"mesh spec {spec!r} not understood (expected mesh:dp=N; "
+                "tp/pp serving shardings are model-parallel training "
+                "territory — see parallel/)")
+        try:
+            dp = int(spec[3:])
+        except ValueError:
+            raise FilterError(f"mesh:dp={spec[3:]!r} is not an integer")
+        if dp < 1:
+            raise FilterError(f"mesh:dp={dp} must be >= 1")
+        if dp == 1:
+            return None
+        if device.type == "cuda":
+            platform, count = "gpu", torch.cuda.device_count()
+        else:
+            platform, count = device.type, 1
+        if count < dp:
+            raise FilterError(
+                f"mesh:dp={dp} but only {count} {platform} "
+                "device(s) visible")
+        first = device.index or 0
+        return [device] + [torch.device(device.type, i)
+                           for i in range(count) if i != first][:dp - 1]
 
     @staticmethod
     def _resolve_compute(props, device: torch.device):
@@ -328,17 +383,44 @@ class TorchExecMixin:
         return self._run(INVOKE_SITE, inputs)
 
     def _dispatch_batched(self, stacked: List[Any]):
+        if getattr(self, "_mesh", None) is not None:
+            return self._dispatch_mesh(stacked)
         return self._run(VMAP_SITE, stacked)
+
+    def _dispatch_mesh(self, stacked: List[Any]):
+        """The batch split along axis 0 over the mesh: part i runs on
+        replica i's device, the outputs gather on this filter's device."""
+        dp = len(self._mesh)
+        bucket = int(stacked[0].shape[0])
+        if bucket % dp:
+            raise FilterError(
+                f"stream batch {bucket} not divisible by mesh dp={dp} "
+                "(set tensor_filter batch= to a multiple)")
+        rows = bucket // dp
+        key = (VMAP_SITE, _signature(stacked))
+        with self._exec_lock, torch.inference_mode():
+            if key not in self._execs:
+                _record(key)
+                self._execs[key] = None
+            parts = []
+            for i, (dev, fn) in enumerate(self._mesh):
+                xs = []
+                for x in stacked:
+                    x = x[i * rows:(i + 1) * rows]
+                    if not isinstance(x, torch.Tensor):
+                        x = _cuda.host_tensor(x, dev.type == "cuda")
+                    xs.append(x.to(dev, non_blocking=True))
+                parts.append(fn(*xs))
+            return tuple(torch.cat([p[k].to(self._device, non_blocking=True)
+                                    for p in parts])
+                         for k in range(len(parts[0])))
 
     def _compile(self, key, fn, inputs: List[Any]):
         """A new signature: record it in the compile ledger and, on the
         card, capture ``fn``.  Returns the outputs of the eager run that
         precedes the capture (this dispatch's result), or None where the
         forward stays eager."""
-        site, sig = key
-        if compileledger.ENABLED:
-            compileledger.record(site, tuple(
-                (f"arg[{i}]", k) for i, k in enumerate(sig)))
+        _record(key)
         if not self._graphed():
             self._execs[key] = None
             return None

@@ -16,9 +16,13 @@ model-save-path`` writes): at open, and on ``RELOAD_MODEL`` with a new
 builds and restores the new weights while the old ones keep serving,
 then copies them into the served model's own tensors, which every CUDA
 graph of the filter (and of a fused segment around it) reads: no graph
-replays the old weights after the swap, and none is captured anew.  The
-JAX package's persistent compilation cache and ``custom=mesh:dp=N``
-sharding are not ported yet.
+replays the old weights after the swap, and none is captured anew.
+
+``custom=mesh:dp=N`` (``TorchExecMixin._resolve_mesh``): N > 1 builds a
+replica of the model on each further device of the mesh with the served
+weights copied in, and a batched dispatch splits over them.  A reload
+copies the new weights into every replica.  The JAX package's persistent
+compilation cache is not ported (each capture is built at open).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ class XLAFilter(TorchExecMixin, FilterFramework):
     def __init__(self) -> None:
         super().__init__()
         self._model = None
+        self._replicas = []
         self._forward_fn = None
         self._device = None
         self.stats = FilterStatistics()
@@ -55,23 +60,30 @@ class XLAFilter(TorchExecMixin, FilterFramework):
 
         model_name = str(props.model)
         custom = dict(props.custom_properties)
-        if custom.get("mesh"):
-            raise FilterError("xla: custom=mesh:... is not yet ported to "
-                              "the PyTorch package")
         if not has_model(model_name):
             raise FilterError(f"xla: unknown model {model_name!r}; "
                               f"known: {list_models()}")
         device = self._pick_device(props.accelerators)
+        mesh = self._resolve_mesh(props, device)
         self._model = self._build(model_name, custom, device)
+        self._replicas = [self._build(model_name, custom, dev)
+                          for dev in (mesh or [])[1:]]
+        for replica in self._replicas:
+            self._copy_weights(self._model, replica)
         zeros = [np.zeros(i.np_shape, i.np_dtype)
                  for i in self._model.in_info]
         # the warm-up invoke captures the open signature's graph
-        self._setup_exec(self._model.module, device, warmup_inputs=zeros,
-                         batched_fn=self._model.batched)
+        self._setup_exec(
+            self._model.module, device, warmup_inputs=zeros,
+            batched_fn=self._model.batched,
+            mesh=None if mesh is None else [
+                (m.device, m.batched or torch.func.vmap(m.module))
+                for m in [self._model] + self._replicas])
         super().open(props)
 
     def close(self) -> None:
         self._model = None
+        self._replicas = []
         self._teardown_exec()         # frees the graphs
         super().close()
 
@@ -119,9 +131,17 @@ class XLAFilter(TorchExecMixin, FilterFramework):
         every graph reads in place.  The device finishes the frames
         dispatched before the swap first (they answer with the old
         weights) and the copy before the next dispatch."""
+        with self._exec_lock:
+            for served in [self._model] + self._replicas:
+                self._copy_weights(new_model, served)
+
+    @staticmethod
+    def _copy_weights(src, dst) -> None:
+        """Copy ``src``'s tensors into ``dst``'s (the same model), after
+        the work queued on ``dst``'s device and before the next."""
         from ...models.registry import named_tensors
 
-        old, new = named_tensors(self._model), named_tensors(new_model)
+        old, new = named_tensors(dst), named_tensors(src)
         for n in sorted(set(old) | set(new)):
             if n not in old or n not in new or \
                     old[n].shape != new[n].shape or \
@@ -129,14 +149,15 @@ class XLAFilter(TorchExecMixin, FilterFramework):
                 raise FilterError(f"xla: reload changes the model's tensor "
                                   f"{n!r}: only weights of the same model "
                                   "can be swapped in")
-        cuda = self._device.type == "cuda"
-        with self._exec_lock, torch.no_grad():
+        device = next(iter(old.values())).device if old else None
+        cuda = device is not None and device.type == "cuda"
+        with torch.no_grad():
             if cuda:
-                torch.cuda.synchronize(self._device)
+                torch.cuda.synchronize(device)
             for n, t in old.items():
                 t.copy_(new[n])
             if cuda:
-                torch.cuda.synchronize(self._device)
+                torch.cuda.synchronize(device)
 
     # -- model meta ----------------------------------------------------------
     def get_model_info(self) -> Tuple[TensorsInfo, TensorsInfo]:

@@ -1,9 +1,9 @@
 """The PyTorch port stands alone.
 
 It imports nothing of JAX or of the JAX package (the observability and
-SLO tier included), its element registry
-holds only the elements of the ported pipeline, and its entry points
-refuse to run on the CPU unless the caller asks for it.
+SLO tier included), its element registry holds the JAX package's
+factories (every element is ported), and its entry points refuse to run
+on the CPU unless the caller asks for it.
 """
 
 import ast
@@ -24,23 +24,27 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.dirname(nnstreamer_tpu_torch.__file__)
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "nnstreamer_tpu"}
 
-#: the flagship pipeline's elements, plus appsrc (the pipeline module's
-#: programmatic source), fakesink, the training slice's tensor_trainer,
-#: the query plane's three elements, the LLM tier's tensor_llm, the
-#: vision zoo's tensor_transform, the scheduling slice's tee, identity
-#: and tensor_debug, and the among-device transports (shm, edge with
-#: its reference spellings, MQTT, gRPC)
-SLICE_ELEMENTS = ["appsrc", "capsfilter", "edge_sink", "edge_src",
-                  "edgesink", "edgesrc", "fakesink", "identity",
-                  "mqttsink", "mqttsrc", "queue",
-                  "tee", "tensor_converter", "tensor_debug",
-                  "tensor_decoder", "tensor_filter",
-                  "tensor_llm", "tensor_query_client",
-                  "tensor_query_serversink",
-                  "tensor_query_serversrc", "tensor_shm_sink",
+#: every factory of the JAX package's registry (nnstreamer_tpu/elements/
+#: and the query, transport and LLM elements): the flagship pipeline's
+#: elements, appsrc, fakesink, tee and queue, identity and tensor_debug,
+#: tensor_trainer, the query plane, the among-device transports (shm,
+#: edge with its reference spellings, MQTT, gRPC), tensor_llm,
+#: tensor_transform, and the composition, media and file elements
+SLICE_ELEMENTS = ["appsrc", "audiotestsrc", "capsfilter", "datareposrc",
+                  "edge_sink", "edge_src", "edgesink", "edgesrc",
+                  "fakesink", "filesink", "filesrc", "identity", "join",
+                  "mqttsink", "mqttsrc", "multifilesink", "multifilesrc",
+                  "pngdec", "pnmdec", "queue", "tee", "tensor_aggregator",
+                  "tensor_converter", "tensor_crop", "tensor_debug",
+                  "tensor_decoder", "tensor_demux", "tensor_filter",
+                  "tensor_if", "tensor_llm", "tensor_merge", "tensor_mux",
+                  "tensor_query_client", "tensor_query_serversink",
+                  "tensor_query_serversrc", "tensor_rate",
+                  "tensor_reposink", "tensor_reposrc", "tensor_shm_sink",
                   "tensor_shm_src", "tensor_sink", "tensor_sink_grpc",
-                  "tensor_src_grpc", "tensor_trainer",
-                  "tensor_transform", "videotestsrc"]
+                  "tensor_sparse_dec", "tensor_sparse_enc", "tensor_split",
+                  "tensor_src_grpc", "tensor_src_iio", "tensor_trainer",
+                  "tensor_transform", "videotestsrc", "wavparse"]
 #: the query plane's modules (the among-device transports and their wire
 #: codecs too), the CLI, the native binding and the LLM serving tier,
 #: imported in a fresh interpreter
@@ -458,6 +462,95 @@ def test_backend_modules_load_without_jax(tmp_path):
         f"p = n.parse_launch({launch!r})\n"
         "p.run(timeout=120)\n"
         "assert len(p.get('out').results) == 2\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+
+#: the stream-composition, media, file and sensor modules, the converter
+#: subplugins and the sync engine
+COMPOSE_MODULES = ["nnstreamer_tpu_torch.pipeline.clock",
+                   "nnstreamer_tpu_torch.elements.mux",
+                   "nnstreamer_tpu_torch.elements.merge_split",
+                   "nnstreamer_tpu_torch.elements.aggregator",
+                   "nnstreamer_tpu_torch.tensor.data",
+                   "nnstreamer_tpu_torch.elements.tensor_if",
+                   "nnstreamer_tpu_torch.elements.rate",
+                   "nnstreamer_tpu_torch.elements.sparse",
+                   "nnstreamer_tpu_torch.elements.repo",
+                   "nnstreamer_tpu_torch.elements.misc",
+                   "nnstreamer_tpu_torch.utils.mediadec",
+                   "nnstreamer_tpu_torch.elements.mediadec",
+                   "nnstreamer_tpu_torch.elements.src",
+                   "nnstreamer_tpu_torch.elements.sink",
+                   "nnstreamer_tpu_torch.elements.converter",
+                   "nnstreamer_tpu_torch.converters",
+                   "nnstreamer_tpu_torch.converters.flatbuf",
+                   "nnstreamer_tpu_torch.converters.flexbuf",
+                   "nnstreamer_tpu_torch.converters.protobuf",
+                   "nnstreamer_tpu_torch.converters.python",
+                   "nnstreamer_tpu_torch.elements.srciio"]
+
+
+def test_registry_equals_the_jax_packages():
+    from nnstreamer_tpu.pipeline import list_factories as jax_factories
+
+    assert list_factories() == jax_factories()
+
+
+def test_compose_modules_load_without_jax(tmp_path):
+    """The composition and media modules, imported in a fresh
+    interpreter, then an ensemble of two filters through tee, mux and
+    demux, a merge/split, tensor_if, the aggregator, tensor_rate, the
+    sparse codec and a PNG file through multifilesrc and pngdec, load no
+    module of JAX or of the JAX package."""
+    img = tmp_path / "f_000.png"
+    launch = (
+        "videotestsrc num-buffers=4 pattern=random ! "
+        "video/x-raw,format=RGB,width=16,height=16,framerate=30/1 ! "
+        "tensor_converter ! tee name=t "
+        "t. ! queue name=q1 ! tensor_filter name=f1 framework=xla "
+        "model=mobilenet_v2 accelerator=true:cpu "
+        "custom=input_size:16,use_pallas:1 ! m.sink_0 "
+        "t. ! queue name=q2 ! tensor_filter name=f2 framework=xla "
+        "model=mobilenet_v2 "
+        "accelerator=true:cpu custom=input_size:16,seed:1 ! m.sink_1 "
+        "tensor_mux name=m sync-mode=slowest ! tensor_demux name=d "
+        "d.src_0 ! queue name=q3 ! tensor_if "
+        "compared-value=TENSOR_AVERAGE_VALUE "
+        "operator=GT supplied-value=-100 then=PASSTHROUGH else=SKIP ! "
+        "tensor_aggregator frames-out=2 ! tensor_sink name=a "
+        "d.src_1 ! queue name=q4 ! tensor_rate framerate=15/1 ! "
+        "tensor_sparse_enc "
+        "! tensor_sparse_dec ! tensor_sink name=b")
+    code = (
+        "import importlib, sys\n"
+        f"bad = {sorted(FORBIDDEN)!r}\n"
+        f"for name in {COMPOSE_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import numpy as np, zlib, struct\n"
+        "img = np.zeros((4, 4, 3), np.uint8)\n"
+        "raw = b''.join(b'\\0' + img[r].tobytes() for r in range(4))\n"
+        "def chunk(t, d):\n"
+        "    c = zlib.crc32(t + d)\n"
+        "    return struct.pack('>I', len(d)) + t + d + struct.pack('>I', c)\n"
+        "png = (b'\\x89PNG\\r\\n\\x1a\\n'\n"
+        "       + chunk(b'IHDR', struct.pack('>IIBBBBB', 4, 4, 8, 2, 0, 0, 0))\n"
+        "       + chunk(b'IDAT', zlib.compress(raw)) + chunk(b'IEND', b''))\n"
+        f"open({str(img)!r}, 'wb').write(png)\n"
+        "import nnstreamer_tpu_torch as n\n"
+        f"p = n.parse_launch({launch!r})\n"
+        "p.run(timeout=120)\n"
+        "assert len(p.get('a').results) == 2, len(p.get('a').results)\n"
+        "assert len(p.get('b').results) in (2, 3)\n"
+        f"loc = {str(tmp_path / 'f_%03d.png')!r}\n"
+        "q = n.parse_launch(f'multifilesrc location={loc} ! pngdec ! '\n"
+        "                   'tensor_converter ! tensor_sink name=o')\n"
+        "q.run(timeout=60)\n"
+        "assert q.get('o').results[0].np(0).shape == (4, 4, 3)\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
