@@ -10,12 +10,14 @@ Phases, each of which must pass:
    (one ``nvcc`` per source, all started together) and report each kernel
    function's registers, shared memory, spill bytes and ptxas notes from
    ``-Xptxas -v``; a tensor-core K2/K3/K4 (f16, bf16) that spills at a
-   padded head dim of 16, 32 or 64 fails;
+   padded head dim of 16, 32, 64 or 256 fails;
 2. hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and a few others, and time both, plus the one PyTorch
    call that computes the same function where there is one; K2's
    tensor-core versions are checked and timed against each other in
-   turns at the four attention paths' shapes; K1's floor is traced inside
+   turns at the six attention paths' shapes (``wide_routes``: a traced
+   bf16 call at a head dim of 256 launches the tensor-core K2, K3 and K4
+   at that width, by kernel name); K1's floor is traced inside
    CUDA graph replays: an empty kernel (the card's per-kernel floor), K1
    on a 1-element frame, on the main path's and on a 32-frame bucket
    (beside that bucket's event-timed call and its bytes bound);
@@ -48,6 +50,14 @@ Phases, each of which must pass:
      step, the batch in their grid;
    - ``lm_train``: ``tensor_trainer framework=mesh`` on that LM, (4, 2048)
      tokens, 6 steps: 4 launches each of K2, K3 and K4 a step;
+   - the wide-head LM (``LM_WIDE_CUSTOM``: the same model with its
+     512-wide attention as 2 heads of 256, Gemma's head width):
+     ``lm_wide_filter`` (lm_filter's checks, K2 at (2048, 2, 256) on the
+     tensor cores; f32 on the card against the CPU), ``llm_wide``
+     (``tensor_llm`` dense between the query pair, LLM_WIDE_CLIENTS
+     requests of 32 tokens with prompts of 7 to 300 tokens: 4 K2
+     launches a prefill) and ``lm_wide_train`` (lm_train's string on it:
+     4 launches each of K2, K3 and K4 a step, at (4, 2048, 2, 256));
    - ``mlp_train``: ``tensor_trainer framework=jax``, the MLP trainer at
      the JAX package's example size (8 features, 4 classes, batches of
      8), 16 steps;
@@ -323,6 +333,10 @@ VIT_LAUNCH = ("videotestsrc num-buffers={frames} pattern=random seed={seed} ! "
 #: the LM shape of the JAX package's benchmark (bench.py ``lm``)
 LM_CUSTOM = {"vocab": "8192", "dim": "512", "heads": "8", "head_dim": "64",
              "mlp": "2048", "layers": "4", "experts": "2"}
+#: the wide-head LM: the same model with its 512-wide attention laid out
+#: as 2 heads of 256 (the head width of Gemma's 2B and 7B configs); every
+#: projection width unchanged
+LM_WIDE_CUSTOM = {**LM_CUSTOM, "heads": "2", "head_dim": "256"}
 LM_SEQ = 2048
 LM_LAUNCH = ("appsrc name=src caps=other/tensors,format=static,num_tensors=1,"
              "dimensions={seq},types=int32,framerate=0/1 ! "
@@ -372,11 +386,13 @@ def card_line() -> str:
 
 
 #: the tensor-core K2/K3/K4 specialisations, by mangled name: (kernel,
-#: type, DP); K2's f32 and 256-wide kernel (flash_forward_kernel) is not one
+#: type, DP), DP up to 256; the CUDA-core kernels (flash_forward_kernel,
+#: flash_bwd_dq_kernel, flash_bwd_dkv_kernel: f32, and every dtype in
+#: head-dim chunks past the tensor cores' widths) are not ones
 TC_KERNEL = re.compile(r"(flash_(?:forward|bwd_d(?:q|kv))_tc_kernel)I\d+"
                        r"(__nv_bfloat16|__half)Li(\d+)E")
 #: padded head dims at which a tensor-core K2/K3/K4 must not spill
-NO_SPILL_WIDTHS = (16, 32, 64)
+NO_SPILL_WIDTHS = (16, 32, 64, 256)
 #: a name every K2 specialisation carries (the profile counts frames by it)
 K2_MARKER = "flash_forward"
 
@@ -686,6 +702,12 @@ FLASH_ROWS = [
     # (no row sees a key: out 0, lse -inf)
     ("ring_past", 4, 1024, 1024, 8, 64, True, "float32", 1024, 0),
     ("ring_future", 4, 1024, 1024, 8, 64, True, "float32", 0, 1024),
+    # the wide-head LM (2 heads x 256): its filter's and trainer's layers
+    # on the tensor cores; f32 at 256 and bf16 at 320 on the CUDA cores
+    ("lm_wide", None, 2048, 2048, 2, 256, True, "bfloat16", 0, 0),
+    ("lm_wide_train", 4, 2048, 2048, 2, 256, True, "bfloat16", 0, 0),
+    ("wide_f32", 2, 512, 512, 2, 256, True, "float32", 0, 0),
+    ("wide_320", 2, 512, 512, 2, 320, True, "bfloat16", 0, 0),
 ]
 #: FLASH_ROWS whose call returns no lse (its bytes leave the bound)
 FLASH_NO_LSE = ("vit_batched",)
@@ -815,7 +837,8 @@ def check_flash_attention(reps: int) -> dict:
 
 
 #: FLASH_ROWS whose shapes the paths give K2
-K2_PATH_ROWS = ("vit", "lm", "vit_train", "lm_train")
+K2_PATH_ROWS = ("vit", "lm", "vit_train", "lm_train", "lm_wide",
+                "lm_wide_train")
 
 
 def time_flash_versions(reps: int) -> None:
@@ -881,6 +904,12 @@ BWD_ROWS = [
     # lse cotangent is 0 (the ring's merge weighs it 0)
     ("ring_past", 4, 1024, 1024, 8, 64, True, "float32", 1024, 0, True),
     ("ring_future", 4, 1024, 1024, 8, 64, True, "float32", 0, 1024, False),
+    # the wide-head LM's layers and the CUDA-core wide routes, as in
+    # FLASH_ROWS
+    ("lm_wide", None, 2048, 2048, 2, 256, True, "bfloat16", 0, 0, False),
+    ("lm_wide_train", 4, 2048, 2048, 2, 256, True, "bfloat16", 0, 0, False),
+    ("wide_f32", 2, 512, 512, 2, 256, True, "float32", 0, 0, False),
+    ("wide_320", 2, 512, 512, 2, 320, True, "bfloat16", 0, 0, False),
 ]
 #: |kernel - plain| <= tol * max(max |plain|, 1) on dq, dk and dv: f32
 #: differs in summation order; bf16 rounds each gradient once from f32
@@ -4597,27 +4626,35 @@ def profile_hybrid_query(seed: int, out_dir: str, eager: bool,
         broker.close()
 
 
-def lm_f32_diff(custom: dict, tokens) -> float:
-    """Logits max |kernel - plain| of the LM filter's model built in f32,
-    on one frame's tokens."""
+def lm_f32_diff(custom: dict, tokens):
+    """Logits max |kernel - plain| of the LM filter's model built in f32
+    (TF32 off), on one frame's tokens, on the card, and max |card - CPU|:
+    the kernels' forward on the card against the same parameters' plain
+    forward on the CPU."""
     import torch
 
     from nnstreamer_tpu_torch.models.registry import get_model
-    from nnstreamer_tpu_torch.models.streamformer_lm import forward_logits
+    from nnstreamer_tpu_torch.models.streamformer_lm import (forward_logits,
+                                                             place_params)
 
     model = get_model("streamformer_lm", {**custom, "dtype": "float32"}
                       ).module
-    t = torch.from_numpy(tokens).cuda()
-    with torch.inference_mode():
-        kern = forward_logits(model.params, t, model.cfg, flash=True)
-        plain = forward_logits(model.params, t, model.cfg, flash=False)
-    return (kern - plain).abs().max().item()
+    t = torch.from_numpy(tokens)
+    with torch.inference_mode(), no_tf32():
+        kern = forward_logits(model.params, t.cuda(), model.cfg, flash=True)
+        plain = forward_logits(model.params, t.cuda(), model.cfg,
+                               flash=False)
+        cpu = forward_logits(place_params(model.params, model.cfg, "cpu"), t,
+                             model.cfg, flash=False)
+    return ((kern - plain).abs().max().item(),
+            (kern.cpu() - cpu).abs().max().item())
 
 
-def stream_lm_filter(frames: int, seed: int, card: str, eager: bool):
-    """Push ``frames`` token frames of seq 2048 through the LM filter in
-    one mode; returns the row, the tokens and each frame's logits (device
-    tensors, all held to the end)."""
+def stream_lm_filter(frames: int, seed: int, card: str, eager: bool,
+                     lm: dict = LM_CUSTOM, phase: str = "lm_filter"):
+    """Push ``frames`` token frames of seq 2048 through the LM filter
+    (the model ``lm``) in one mode; returns the row, the tokens and each
+    frame's logits (device tensors, all held to the end)."""
     import numpy as np
     import torch
 
@@ -4625,8 +4662,8 @@ def stream_lm_filter(frames: int, seed: int, card: str, eager: bool):
     from nnstreamer_tpu_torch.analysis import compileledger
     from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 
-    custom = {**LM_CUSTOM, "seq": str(LM_SEQ), "seed": str(seed)}
-    vocab = int(LM_CUSTOM["vocab"])
+    custom = {**lm, "seq": str(LM_SEQ), "seed": str(seed)}
+    vocab = int(lm["vocab"])
     rng = np.random.default_rng(seed)
     toks = [rng.integers(0, vocab, LM_SEQ).astype(np.int32)
             for _ in range(frames)]
@@ -4654,19 +4691,20 @@ def stream_lm_filter(frames: int, seed: int, card: str, eager: bool):
             p.stop()
     launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
     gaps = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
-    row = {"phase": "lm_filter", "mode": "eager" if eager else "graph",
+    row = {"phase": phase, "mode": "eager" if eager else "graph",
+           "heads": int(lm["heads"]), "head_dim": int(lm["head_dim"]),
            "frames": frames, "seq": LM_SEQ, "launches": launches,
            "graphs": graphs, "compile_ledger": compileledger.snapshot(),
            "prefill_tok_s": frames * LM_SEQ / (stamps[-1] - t0),
            "frame_ms": gaps, "card": card}
     # the open's eager run (before its capture, or its warm-up invoke),
     # then one a frame; no pushdown, so one capture
-    want = int(LM_CUSTOM["layers"]) * (frames + 1)
+    want = int(lm["layers"]) * (frames + 1)
     if (len(outs) != frames or launches.get("flash_attention", 0) != want
             or graphs != graph_counts(eager, 1, frames)
             or row["compile_ledger"] != {"filter.jitexec.invoke": 1}):
         emit(row)
-        raise AssertionError(f"lm_filter ({row['mode']}): {len(outs)} "
+        raise AssertionError(f"{phase} ({row['mode']}): {len(outs)} "
                              f"frames of {frames}, flash_attention launched "
                              f"{launches.get('flash_attention', 0)} times, "
                              f"expected {want}; graphs {graphs}; ledger "
@@ -4674,21 +4712,24 @@ def stream_lm_filter(frames: int, seed: int, card: str, eager: bool):
     return row, toks, outs
 
 
-def run_lm_filter(frames: int, seed: int, card: str) -> dict:
-    """StreamFormer LM logits as a stream filter at seq 2048: ``frames``
-    token frames through appsrc, each answered with (2048, 8192) logits,
-    as graph replays that must equal an eager run bit for bit and the
-    plain-attention forward of the same model within the bf16 bounds."""
+def run_lm_filter(frames: int, seed: int, card: str, lm: dict = LM_CUSTOM,
+                  phase: str = "lm_filter") -> dict:
+    """StreamFormer LM (the model ``lm``) logits as a stream filter at
+    seq 2048: ``frames`` token frames through appsrc, each answered with
+    (2048, 8192) logits, as graph replays that must equal an eager run bit
+    for bit and the plain-attention forward of the same model within the
+    bf16 bounds; in f32 the kernels' forward equals the plain one on the
+    card and on the CPU within F32_LOGITS_ATOL."""
     import torch
 
     from nnstreamer_tpu_torch.models.registry import get_model
     from nnstreamer_tpu_torch.models.streamformer_lm import forward_logits
 
-    custom = {**LM_CUSTOM, "seq": str(LM_SEQ), "seed": str(seed)}
-    vocab = int(LM_CUSTOM["vocab"])
-    row, toks, outs = stream_lm_filter(frames, seed, card, eager=False)
-    eager_row, _, eager_outs = stream_lm_filter(frames, seed, card,
-                                                eager=True)
+    custom = {**lm, "seq": str(LM_SEQ), "seed": str(seed)}
+    vocab = int(lm["vocab"])
+    row, toks, outs = stream_lm_filter(frames, seed, card, False, lm, phase)
+    eager_row, _, eager_outs = stream_lm_filter(frames, seed, card, True, lm,
+                                                phase)
     differ = [i for i, (a, b) in enumerate(zip(outs, eager_outs))
               if not torch.equal(a, b)]
     emit(eager_row)
@@ -4696,7 +4737,7 @@ def run_lm_filter(frames: int, seed: int, card: str) -> dict:
     row["eager_prefill_tok_s"] = eager_row["prefill_tok_s"]
     if differ:
         emit(row)
-        raise AssertionError(f"lm_filter: graph logits differ from eager "
+        raise AssertionError(f"{phase}: graph logits differ from eager "
                              f"on frames {differ}")
     launches = row["launches"]
 
@@ -4717,20 +4758,22 @@ def run_lm_filter(frames: int, seed: int, card: str) -> dict:
             sure = top2_margin(plain) > MARGIN
             compared += int(sure.sum())
             agree += int((got.argmax(-1) == plain.argmax(-1))[sure].sum())
-        f32_diff = lm_f32_diff(custom, toks[0])
+        f32_diff, f32_cpu_diff = lm_f32_diff(custom, toks[0])
     row.update({"logits_max_abs_diff_vs_plain": worst, "atol": LOGITS_ATOL,
                 "rows_over_atol": rows_over, "rows": frames * LM_SEQ,
                 "positions_compared": compared, "argmax_equal": agree,
                 "f32_logits_max_abs_diff_vs_plain": f32_diff,
+                "f32_logits_max_abs_diff_card_vs_cpu": f32_cpu_diff,
                 "f32_atol": F32_LOGITS_ATOL})
     emit(row)
     if (rows_over > BF16_LM_SHARE * frames * LM_SEQ
             or compared - agree > BF16_LM_SHARE * compared
-            or f32_diff > F32_LOGITS_ATOL):
-        raise AssertionError(f"lm_filter differs from plain attention: "
+            or f32_diff > F32_LOGITS_ATOL or f32_cpu_diff > F32_LOGITS_ATOL):
+        raise AssertionError(f"{phase} differs from plain attention: "
                              f"{rows_over} rows beyond {LOGITS_ATOL}, "
                              f"argmax on {compared - agree} positions, "
-                             f"f32 logits by {f32_diff}")
+                             f"f32 logits by {f32_diff} (card vs CPU "
+                             f"{f32_cpu_diff})")
     return {"launches": launches}
 
 
@@ -4986,8 +5029,8 @@ LLM_WARM = {"dense": {"llm.engine.step": 4, "llm.engine.prefill": 9},
             "paged": {"llm.engine.pstep": 32, "llm.engine.chunk": 7}}
 
 
-def llm_custom(dtype=None) -> str:
-    custom = {**LM_CUSTOM, "max_seq": str(LM_SEQ)}
+def llm_custom(dtype=None, lm: dict = LM_CUSTOM) -> str:
+    custom = {**lm, "max_seq": str(LM_SEQ)}
     if dtype:
         custom["dtype"] = dtype
     return ",".join(f"{k}:{v}" for k, v in custom.items())
@@ -5461,6 +5504,123 @@ def run_llm_stream(seed: int, card: str) -> dict:
     if problems:
         raise AssertionError("llm_stream: " + "; ".join(problems))
     return {"launches": dense["launches"]}
+
+
+#: the wide-head LM's tensor_llm: 8 gold clients, one request each, the
+#: prompts of SERVE_PROMPTS (7 to 300 tokens), LLM_NEW tokens a request
+LLM_WIDE_CLIENTS = 8
+
+
+def run_lm_wide(args, card: str) -> dict:
+    """The wide-head LM (LM_WIDE_CUSTOM: 2 heads of 256) through the
+    filter and ``tensor_llm`` (its trainer runs with the other training
+    paths, ``lm_wide_train``).  ``lm_wide_filter``: lm_filter's checks on
+    this model, K2 at (2048, 2, 256) causal on the tensor cores.
+    ``llm_wide``: the dense ``tensor_llm`` string between the query pair
+    at this model's width, LLM_WIDE_CLIENTS requests of LLM_NEW tokens:
+    prefill through K2 (``layers`` launches a prompt), decode the plain
+    dense step; every stream whole, 0 sheds, no capture after warm-up, the
+    warm-up ledger of LLM_WARM, and the served streams teacher-forced
+    through the plain forward (bf16, BF16_LM_SHARE)."""
+    lm = run_lm_filter(args.lm_frames, args.seed, card, LM_WIDE_CUSTOM,
+                       "lm_wide_filter")
+    jobs = llm_jobs(args.seed, LLM_WIDE_CLIENTS, 1, system=False)
+    run = serve_llm("dense", LLM_DENSE, [("wide", jobs)], args.seed, card,
+                    9304, custom=llm_custom(lm=LM_WIDE_CUSTOM))
+    compared, differ = teacher_forced(run["params"], run["cfg"],
+                                      run["prompts"], run["streams"])
+    k2 = run["launches"].get("flash_attention", 0)
+    want_k2 = len(run["prompts"]) * run["cfg"].layers
+    row = {"phase": "llm_wide_checks", "card": card,
+           "heads": run["cfg"].heads, "head_dim": run["cfg"].head_dim,
+           "prompts": len(run["prompts"]),
+           "prompt_lengths": [len(x) for x in run["prompts"]],
+           "k2_launches": k2, "graphs": run["graphs"],
+           "compile_ledger": run["compile_ledger"],
+           "window_ledger": run["window_ledger"],
+           "sheds": [run["shed"], run["wire_shed"]],
+           "bf16_compared_differ": [compared, differ],
+           "bf16_share": BF16_LM_SHARE, "engine": run["engine"]}
+    emit(row)
+    problems = []
+    if run["shed"] or run["wire_shed"] or run["evicted"] or run["rejected"]:
+        problems.append(f"{run['shed']} + {run['wire_shed']} sheds, "
+                        f"{run['evicted']} evicted, {run['rejected']} "
+                        f"rejected")
+    if len(run["streams"]) != LLM_WIDE_CLIENTS or any(
+            len(x) != LLM_NEW for x in run["streams"]):
+        problems.append("a stream is incomplete")
+    if run["graphs"].get("captures") or not run["graphs"].get("replays") \
+            or run["window_ledger"]:
+        problems.append(f"captured after warmup: graphs {run['graphs']}, "
+                        f"ledger {run['window_ledger']}")
+    if run["compile_ledger"] != LLM_WARM["dense"]:
+        problems.append(f"warm-up ledger {run['compile_ledger']}, want "
+                        f"{LLM_WARM['dense']}")
+    if not compared or differ > BF16_LM_SHARE * compared:
+        problems.append(f"bf16 served tokens differ from the plain forward "
+                        f"at {differ} of {compared}")
+    if k2 != want_k2:
+        problems.append(f"flash_attention launched {k2} times, want "
+                        f"{want_k2}")
+    if problems:
+        raise AssertionError("llm_wide: " + "; ".join(problems))
+    return {"lm_wide_filter": lm, "llm_wide": {"launches": run["launches"]}}
+
+
+#: the tensor-core specialisation of a K2/K3/K4 kernel as the profiler
+#: names it (demangled): (kernel, type, padded head dim)
+TC_KERNEL_TRACED = re.compile(r"(flash_(?:forward|bwd_d(?:q|kv))_tc_kernel)"
+                              r"<(__nv_bfloat16|__half), (\d+)[,>]")
+
+
+def tc_specialisation(name: str):
+    """(kernel, type, padded head dim) of a tensor-core K2/K3/K4 kernel
+    name, mangled (the build's report) or demangled (a trace); None for
+    any other kernel."""
+    m = TC_KERNEL.search(name) or TC_KERNEL_TRACED.search(name)
+    return (m.group(1), m.group(2), int(m.group(3))) if m else None
+
+
+def check_wide_routes(card: str) -> None:
+    """A bf16 call at D = 256 (lm_wide_train's shape), forward and
+    backward, traced: K2, K3 and K4 each launch their tensor-core
+    specialisation at a padded head dim of 256, found by kernel name.
+    The call runs three times in the trace, after a warm-up operation: a
+    later trace in a process that has traced before (k1_floor) has
+    lost the first kernels of its window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(LM_TRAIN_BATCH, LM_SEQ, 2, 256, generator=gen)
+               .to("cuda", torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            out = flash_attention(q, k, v, causal=True)
+            torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "flash" in e.name})
+    found = {tc_specialisation(n) for n in names} - {None}
+    want = {(kern, "__nv_bfloat16", 256) for kern in (
+        "flash_forward_tc_kernel", "flash_bwd_dq_tc_kernel",
+        "flash_bwd_dkv_tc_kernel")}
+    emit({"phase": "wide_routes", "card": card,
+          "shape": [LM_TRAIN_BATCH, LM_SEQ, 2, 256], "dtype": "bfloat16",
+          "kernels": names, "tensor_core": sorted(map(list, found))})
+    if not want <= found:
+        raise AssertionError(f"wide_routes: a bf16 call at D = 256 launched "
+                             f"{names}, not the tensor-core K2, K3 and K4 "
+                             f"at 256")
 
 
 # ---------------------------------------------------------------------------
@@ -6527,9 +6687,10 @@ MLP_TRAIN_LAUNCH = (
     "framerate=0/1 ! tensor_trainer name=tr framework=jax num-inputs=1 "
     f"num-labels=1 batch-size={MLP_BATCH} num-epochs={MLP_EPOCHS} "
     "lr=0.01 ! tensor_sink name=out")
-#: flash launches per training step: ViT's 12 layers, the LM's 4, the
-#: MLP's none
-TRAIN_PER_STEP = {"vit_train": 12, "lm_train": 4, "mlp_train": 0}
+#: flash launches per training step: ViT's 12 layers, the LM's 4 (and the
+#: wide-head LM's), the MLP's none
+TRAIN_PER_STEP = {"vit_train": 12, "lm_train": 4, "lm_wide_train": 4,
+                  "mlp_train": 0}
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 #: one step with the kernels against the same step with plain attention:
@@ -6539,6 +6700,10 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
 #: LM), so it is held to a loss within 2e-2 and each gradient within 0.1
 #: relative L2
 TRAIN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 0.1)}
+#: the MoE router and experts, whose bf16 gradients move with the routes
+#: a rounding flips: the wide-head LM's bf16 step is gated on every other
+#: gradient (and its loss), these reported beside
+MOE_TENSORS = (".gate", ".we1", ".we2")
 
 
 def vit_train_samples(steps: int, seed: int):
@@ -6576,8 +6741,8 @@ def mlp_train_samples(n: int, seed: int):
     return list(zip(x, y))
 
 
-def lm_train_launch(seed: int) -> str:
-    custom = {**LM_CUSTOM, "max_seq": str(LM_SEQ), "seed": str(seed)}
+def lm_train_launch(seed: int, lm: dict = LM_CUSTOM) -> str:
+    custom = {**lm, "max_seq": str(LM_SEQ), "seed": str(seed)}
     return LM_TRAIN_LAUNCH.format(
         seq=LM_SEQ, b=LM_TRAIN_BATCH,
         custom=",".join(f"{k}:{v}" for k, v in custom.items()))
@@ -6874,7 +7039,11 @@ def _vit_loss_grads(module, frames, labels):
 def check_train_outputs(seed: int) -> None:
     """One training step's loss and gradients with the kernels against
     the same step with plain attention, from the same parameters, for
-    both paths in f32 (TF32 off) and bf16 (TRAIN_TOL)."""
+    the three paths (ViT, the LM and the wide-head LM) in f32 (TF32 off)
+    and bf16 (TRAIN_TOL).  The wide-head LM's bf16 step is gated on its
+    loss and the gradients outside MOE_TENSORS: its MoE gradients' gap
+    is the routes' (at seed 0 the 8 x 64 LM's worst is 0.087, on
+    layers.2.gate), and is reported as ``moe_grad_max_rel_l2``."""
     import dataclasses
 
     import torch
@@ -6904,17 +7073,24 @@ def check_train_outputs(seed: int) -> None:
         loss_k, g_k = _vit_loss_grads(kern, frames, labels)
         loss_p, g_p = _vit_loss_grads(plain, frames, labels)
         vit_gap = _grad_gap(g_k, g_p)
-        cfg = dataclasses.replace(
-            config_from_custom({**LM_CUSTOM, "max_seq": str(LM_SEQ)}),
-            dtype=getattr(torch, dt))
-        _, params, _, _ = make_train_step(mesh, cfg, seed=seed)
-        lm_k, lg_k = value_and_grad(params, toks, labs, cfg, flash=True)
-        lm_p, lg_p = value_and_grad(params, toks, labs, cfg, flash=False)
-        lm_gap = _grad_gap(lg_k, lg_p)
+        steps = [("vit_train", (loss_k, loss_p), vit_gap)]
+        for path, lm in (("lm_train", LM_CUSTOM),
+                         ("lm_wide_train", LM_WIDE_CUSTOM)):
+            cfg = dataclasses.replace(
+                config_from_custom({**lm, "max_seq": str(LM_SEQ)}),
+                dtype=getattr(torch, dt))
+            _, params, _, _ = make_train_step(mesh, cfg, seed=seed)
+            lm_k, lg_k = value_and_grad(params, toks, labs, cfg, flash=True)
+            lm_p, lg_p = value_and_grad(params, toks, labs, cfg, flash=False)
+            moe = {}
+            if path == "lm_wide_train" and dt == "bfloat16":
+                moe = {n: lg_p.pop(n) for n in list(lg_p)
+                       if n.endswith(MOE_TENSORS)}
+                moe = {"moe_grad_max_rel_l2": _grad_gap(lg_k, moe)[0]}
+            steps.append((path, (lm_k, lm_p), _grad_gap(lg_k, lg_p), moe))
+            del params, lg_k, lg_p
         loss_tol, grad_tol = TRAIN_TOL[dt]
-        for path, (lk, lp), (gap, where) in (
-                ("vit_train", (loss_k, loss_p), vit_gap),
-                ("lm_train", (lm_k, lm_p), lm_gap)):
+        for path, (lk, lp), (gap, where), *moe in steps:
             lk, lp = float(lk), float(lp)
             loss_ok = (abs(lk - lp) <= loss_tol * abs(lp) if dt == "float32"
                        else abs(lk - lp) <= loss_tol)
@@ -6923,10 +7099,10 @@ def check_train_outputs(seed: int) -> None:
                          "loss_plain": lp, "loss_abs_diff": abs(lk - lp),
                          "grad_max_rel_l2": gap, "worst_tensor": where,
                          "loss_tol": loss_tol, "grad_tol": grad_tol,
-                         "ok": ok})
+                         **(moe[0] if moe else {}), "ok": ok})
             if not ok:
                 failures.append(f"{path}/{dt}")
-        del kern, plain, params, g_k, g_p, lg_k, lg_p
+        del kern, plain, g_k, g_p
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
     emit({"phase": "train_outputs", "vit_batch": int(frames.shape[0]),
@@ -7662,6 +7838,9 @@ def train_runs(args) -> dict:
         "lm_train": (lm_train_launch(args.seed),
                      lm_train_samples(args.lm_train_steps, args.seed),
                      "tokens"),
+        "lm_wide_train": (lm_train_launch(args.seed, LM_WIDE_CUSTOM),
+                          lm_train_samples(args.lm_train_steps, args.seed),
+                          "tokens"),
         "mlp_train": (MLP_TRAIN_LAUNCH,
                       mlp_train_samples(args.mlp_train_samples, args.seed),
                       "samples"),
@@ -7979,6 +8158,7 @@ def main(argv=None) -> int:
         kernels += [check_flash_attention(args.reps),
                    *check_flash_backward(args.reps)]
         time_flash_versions(args.reps)
+        check_wide_routes(card)
         main_path = run_labeling("main_path", LAUNCH, args.frames,
                                  args.seed, card, "normalize_frame", 1)
         labels_equal_eager("main_path", main_path, run_labeling(
@@ -8011,6 +8191,7 @@ def main(argv=None) -> int:
         lm = run_lm_filter(args.lm_frames, args.seed, card)
         serve = run_llm_serve(args.steps, args.seed, card)
         stream = run_llm_stream(args.seed, card)
+        wide = run_lm_wide(args, card)
         obs = run_observability(args, card, main_path["fps"],
                                 query["replies_per_s"])
         fleet = run_fleet_phase(args, card)
@@ -8042,6 +8223,7 @@ def main(argv=None) -> int:
                                              *zoo.values(),
                                              *model_files.values(),
                                              *compose.values(),
+                                             *wide.values(),
                                              *train_rows.values(),
                                              tss["train"], tss["serve"],
                                              tss["reload"], dist))

@@ -25,7 +25,7 @@
 // What bounds it: at the paths' shapes the work is operations for long causal
 // sequences (LM, T = 2048: 4.3 GFLOP against 8.5 MB) and bytes for ViT's
 // T = 197 (60 MFLOP against 0.61 MB), where launch and latency weigh most.
-// There are two routes, by dtype:
+// There are three routes, by dtype and head dim:
 //
 // f16 and bf16: the tensor cores (flash_wgmma.cuh, shared with the backward).
 // A block has WG warpgroups of 128 threads, each owning 64 query rows (the M
@@ -67,19 +67,38 @@
 // sharing each stage halve the copies a product needs and win on the
 // batched training grids; one warpgroup on 128 keys a stage halves the
 // per-stage overhead of the rows that set a small grid's time, and wins
-// on the serving shapes.  Registers (ptxas, bf16 and f16): 95 / 102 / 125
-// / 158 a thread at padded widths 16 / 32 / 64 / 128 for version 1, 156 /
-// 166 / 177 / 209 for version 2, no spills.
+// on the serving shapes.  Registers (ptxas, bf16 and f16): 95 / 104 / 125
+// / 158 a thread at padded widths 16 / 32 / 64 / 128 for version 1, 155 /
+// 161 / 177 / 211 for version 2, no spills.
+//
+// A padded width of 256 (a wide-head LM's D = 256, Gemma's head width)
+// stays on the tensor cores: the p.v product is one wgmma m64n256k16 a k
+// step, the v tile four 128-byte swizzle atoms a row.  Its accumulator alone
+// is DP / 2 = 128 f32 a thread, so a stage holds 64 keys in both versions
+// (version 2's two 64-key score tiles beside it would pass 255 registers),
+// two stages of 32 KB tiles: 193 KB of shared memory for two warpgroups,
+// 161 KB for one, a block an SM.  Registers 234 (version 1) and 227
+// (version 2), no spills.
 
-// f32, and head dims past 128: the CUDA cores, as first written.  A tensor-
-// core f32 product is TF32, and the f32 kernel is held to the plain version
-// to summation order.  One block of 256 threads per (64-query tile, head,
-// batch element); key/value tiles go through shared memory in f32; each
-// thread holds a 4 x 4 tile of scores and the same 4 rows of the output
-// accumulator, and p passes through shared memory to be read back as the rows
-// of the p.v product.  Its ceiling is the 67 TFLOP/s f32 rate.  The head
-// dimension is a runtime value up to 256 (padded widths 16, 32, 64, 128 and
-// 256), and columns past D load as zeros.
+// f32: the CUDA cores, as first written.  A tensor-core f32 product is TF32,
+// and the f32 kernel is held to the plain version to summation order.  One
+// block of 256 threads per (64-query tile, head, batch element); key/value
+// tiles go through shared memory in f32; each thread holds a 4 x 4 tile of
+// scores and the same 4 rows of the output accumulator, and p passes through
+// shared memory to be read back as the rows of the p.v product.  Its ceiling
+// is the 67 TFLOP/s f32 rate.  The head dimension is a runtime value up to
+// 256 (padded widths 16, 32, 64, 128 and 256), and columns past D load as
+// zeros.
+//
+// Head dims past 256, every dtype: the same CUDA-core kernel in chunks of
+// 64 columns (kChunked).  The scores sum over the chunks of q and k, each
+// loaded in turn; lse comes once from the full sum; a block owns one chunk
+// of out's columns (a grid axis), so it recomputes the scores for it: the
+// score work grows with the number of chunks (5 at D = 320), a simple
+// kernel that is right first.  The last chunk may be partial (D = 320 =
+// 256 + 64 takes five whole ones; D = 600 ends on 24 columns): columns past
+// D load as zeros and are not stored.  f16 and bf16 compute in f32 here,
+// p unrounded, so they hold to the plain version to summation order too.
 
 #include <type_traits>
 
@@ -100,7 +119,10 @@ struct Strides {
 // f32: the CUDA-core kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP>
+// DP is the padded head dim, or with kChunked the width of a head-dim chunk
+// (any D, in chunks of DP columns: a block owns the output columns of chunk
+// blockIdx.x % n_oc, and sums its scores over every chunk of q and k).
+template <typename T, int DP, bool kChunked>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
@@ -121,9 +143,12 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = ks + kBlockK * kKStride;       // kBlockK x kVStride
   float* ps = vs + kBlockK * kVStride;       // kBlockQ x kPStride
 
+  const int n_oc = kChunked ? (d + DP - 1) / DP : 1;  // output chunks
+  const int rank = (int)blockIdx.x / n_oc;
+  const int c_out = ((int)blockIdx.x - rank * n_oc) * DP;  // first column
   const int n_qtiles = (tq + kBlockQ - 1) / kBlockQ;
   // causal: the last query tile sees the most keys, so issue it first
-  const int qt = causal ? n_qtiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int qt = causal ? n_qtiles - 1 - rank : rank;
   const int q0 = qt * kBlockQ;
   const int head = blockIdx.y;
   const long long bat = blockIdx.z;
@@ -136,7 +161,8 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   v += bat * v_sb + head * v_sh;
   out += bat * tq * h * d;
   lse += (bat * h + head) * tq;
-  load_tile<T, DP>(qs, kQStride, q, q_st, q0, tq, d, vec);
+  if constexpr (!kChunked)
+    load_tile<T, DP>(qs, kQStride, q, q_st, q0, tq, d, vec);
 
   // keys [0, k_end) can be visible to some row of this tile
   long long k_end = tkv;
@@ -157,14 +183,31 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's k, v and p are no longer read
-    load_tile<T, DP>(ks, kKStride, k, k_st, k0, tkv, d, vec);
-    load_tile<T, DP>(vs, kVStride, v, v_st, k0, tkv, d, vec);
-    __syncthreads();
-
     // scores: s[i][j] = q[ty + 16i] . k[tx + 16j]
     float s[kRows][kCols];
-    tile_dots<DP, kQStride, kKStride>(qs, ks, ty, tx, s);
+    if constexpr (kChunked) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
+      for (int c0 = 0; c0 < d; c0 += DP) {
+        __syncthreads();  // the last chunk's q and k (and p, v) are read
+        load_tile<T, DP>(qs, kQStride, q + c0, q_st, q0, tq, d - c0, vec);
+        load_tile<T, DP>(ks, kKStride, k + c0, k_st, k0, tkv, d - c0, vec);
+        __syncthreads();
+        tile_dots<DP, kQStride, kKStride, true>(qs, ks, ty, tx, s);
+      }
+      // this block's output columns of v
+      load_tile<T, DP>(vs, kVStride, v + c_out, v_st, k0, tkv, d - c_out,
+                       vec);
+      __syncthreads();
+    } else {
+      __syncthreads();  // the previous tile's k, v and p are no longer read
+      load_tile<T, DP>(ks, kKStride, k, k_st, k0, tkv, d, vec);
+      load_tile<T, DP>(vs, kVStride, v, v_st, k0, tkv, d, vec);
+      __syncthreads();
+      tile_dots<DP, kQStride, kKStride>(qs, ks, ty, tx, s);
+    }
 
     // mask, then the streaming-softmax update of each of this thread's rows
 #pragma unroll
@@ -208,23 +251,19 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // out = acc / max(l, 1e-20); lse = m + log(l), -inf where no key was seen
+  // (written by the blocks of the first output chunk)
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= tq) continue;
     const float denom = fmaxf(l_run[i], 1e-20f);
     const float inv = 1.f / denom;
-    T* orow = out + ((long long)row * h + head) * d;
 #pragma unroll
-    for (int g = 0; g < L::kGroups; ++g)
-#pragma unroll
-      for (int e = 0; e < L::kVec; ++e) {
-        const int col = g * 16 * L::kVec + tx * L::kVec + e;
-        if (col < d) orow[col] = from_f32<T>(acc[i][g * L::kVec + e] * inv);
-      }
-    if (tx == 0)
+    for (int c = 0; c < L::kWidth; ++c) acc[i][c] *= inv;
+    if (tx == 0 && c_out == 0)
       lse[row] = l_run[i] > 0.f ? m_run[i] + logf(denom) : -CUDART_INF_F;
   }
+  store_rows<T, DP>(out, acc, q0, tq, h, head, d, ty, tx, c_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -239,10 +278,12 @@ __host__ __device__ constexpr int tc_stages() {
 
 // Blocks an SM holds by registers: 3 x 128 threads (170 registers a thread)
 // or 2 x 256 (128) at D <= 64 and 64 keys a stage, one fewer where the
-// accumulators are wider.
+// accumulators are wider.  At a padded width of 256 shared memory holds one
+// block (161 KB for one warpgroup, 193 KB for two), whose threads may take
+// 255 registers.
 template <int DP, int WG, int NT>
 __host__ __device__ constexpr int tc_min_blocks() {
-  return (WG == 1 ? 3 : 2) - (DP > 64 || NT > 1 ? 1 : 0);
+  return DP > 128 ? 1 : (WG == 1 ? 3 : 2) - (DP > 64 || NT > 1 ? 1 : 0);
 }
 
 // The q tiles, the ring, and room to align the tiles.
@@ -262,7 +303,7 @@ __device__ __forceinline__ void issue_scores(float (&s)[NT][32], uint64_t qd,
   for (int t = 0; t < NT; ++t)
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      tc::mma_ss_n64<T>(
+      tc::mma_ss<T, 64>(
           s[t], tc::desc_shift(qd, tc::k_step_bytes<DP>(kk)),
           tc::desc_shift(kd,
                          t * tc::tile_bytes<DP>() + tc::k_step_bytes<DP>(kk)),
@@ -570,16 +611,22 @@ int launch_tc(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
+// The CUDA-core kernel: DP the padded head dim, or with kChunked the chunk
+// width, a grid axis of output chunks folded into x.
+template <typename T, int DP, bool kChunked>
 int launch_simt(const Args& a) {
   constexpr int floats = kBlockQ * DP + kBlockK * (DP + 4) + kBlockK * DP +
                          kBlockQ * kPStride;
   constexpr int bytes = floats * (int)sizeof(float);
-  const cudaError_t err = set_smem(flash_forward_kernel<T, DP>, bytes);
+  auto kernel = flash_forward_kernel<T, DP, kChunked>;
+  const cudaError_t err = set_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const Strides& s = a.st;
-  const dim3 grid((a.tq + kBlockQ - 1) / kBlockQ, a.h, a.b);
-  flash_forward_kernel<T, DP><<<grid, kThreads, bytes, a.stream>>>(
+  const long long n_oc = kChunked ? (a.d + DP - 1) / DP : 1;
+  const long long blocks = (long long)((a.tq + kBlockQ - 1) / kBlockQ) * n_oc;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, a.h, a.b);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.tq, a.tkv,
       a.h, a.d, s.q_sb, s.q_st, s.q_sh, s.k_sb, s.k_st, s.k_sh, s.v_sb,
@@ -597,25 +644,27 @@ bool wide_grid(const Args& a) {
   return (long long)((a.tq + 127) / 128) * a.h * a.b >= 2LL * sms;
 }
 
-// f32 and the 256-wide head dim on the CUDA cores; f16 and bf16 up to 128 on
-// the tensor cores, in version
+// f32 on the CUDA cores; f16 and bf16 up to 256 on the tensor cores, in
+// version
 //   1: two warpgroups a block, 64 keys a stage: fewer copies a product,
 //      fastest where the grid fills every SM twice over (the batched
 //      training shapes);
-//   2: one warpgroup a block, 128 keys a stage: less overhead a stage on
-//      the rows of key stages that set a small grid's time (the serving
-//      shapes);
+//   2: one warpgroup a block, 128 keys a stage (64 at a padded width of
+//      256, where the p.v accumulator alone is 128 registers a thread):
+//      less overhead a stage on the rows of key stages that set a small
+//      grid's time (the serving shapes);
 // version 0, what flash_attention launches, picks by the grid.
 // chip_smoke.py times 1 and 2 against each other.
 template <typename T, int DP>
 int launch(const Args& a, int version) {
-  if constexpr (std::is_same<T, float>::value || DP > 128) {
+  if constexpr (std::is_same<T, float>::value) {
     if (version) return (int)cudaErrorInvalidValue;
-    return launch_simt<T, DP>(a);
+    return launch_simt<T, DP, false>(a);
   } else {
+    constexpr int kNT = DP > 128 ? 1 : 2;  // version 2's 64-key tiles
     if (version == 0) version = wide_grid(a) ? 1 : 2;
     if (version == 1) return launch_tc<T, DP, 2, 1>(a);
-    if (version == 2) return launch_tc<T, DP, 1, 2>(a);
+    if (version == 2) return launch_tc<T, DP, 1, kNT>(a);
     return (int)cudaErrorInvalidValue;
   }
 }
@@ -627,12 +676,14 @@ int dispatch_d(const Args& a, int version) {
   if (a.d <= 64) return launch<T, 64>(a, version);
   if (a.d <= 128) return launch<T, 128>(a, version);
   if (a.d <= 256) return launch<T, 256>(a, version);
-  return (int)cudaErrorInvalidValue;
+  // past 256, every dtype: the D-chunked CUDA-core kernel
+  if (version) return (int)cudaErrorInvalidValue;
+  return launch_simt<T, kChunk, true>(a);
 }
 
 int entry(const Args& a, int dtype, int version) {
   if (a.b <= 0 || a.tq <= 0 || a.h <= 0) return 0;
-  if (a.d <= 0 || a.d > 256 || a.b > 65535) return (int)cudaErrorInvalidValue;
+  if (a.d <= 0 || a.b > 65535) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return dispatch_d<float>(a, version);

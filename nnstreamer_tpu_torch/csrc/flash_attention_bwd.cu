@@ -56,8 +56,8 @@
 // mask cuts (the causal diagonal, ragged ends); rows or columns with
 // lse = -inf take lse = +inf, so exp2 gives them p = 0 exactly.
 //
-// Registers (ptxas, sm_90a): K3 129 / 134 / 158 / 202 and K4 136 / 152 /
-// 191 / 254 a thread at padded widths 16 / 32 / 64 / 128, no spills; K4 at
+// Registers (ptxas, sm_90a): K3 115 / 115 / 139 / 168 and K4 118 / 136 /
+// 168 / 232 a thread at padded widths 16 / 32 / 64 / 128, no spills; K4 at
 // D = 64 holds dk and dv (64), s and dp (64) and the packed p and ds (32).
 // Shared memory is 6 tiles (48 KB at D = 64, 96 KB at 128), so 3 K3 blocks
 // and 2 K4 blocks share an SM at D = 64, 2 of each at D = 128.  What bounds
@@ -65,6 +65,23 @@
 // overlap the block's own products (one warpgroup, no producer warp), so
 // the SM's 2-3 blocks must overlap each other; at the LM layer they reach
 // ~22 % of the bf16 tensor rate.
+//
+// A padded width of 256 (a wide-head LM's D = 256) stays on the tensor
+// cores, 6 tiles of 32 KB (one block an SM); registers are what it costs:
+//
+// - K3's dq accumulator is 128 f32 a thread; two 64 x 64 score tiles (s and
+//   dp, 64 more) beside it would not fit, so each stage's 64 keys are taken
+//   32 at a time (wgmma m64n32k16 for s and dp, then dq += ds k as two k
+//   steps of m64n256k16): 205 registers, no spills;
+// - K4's dk and dv are 2 x 128 f32 a thread of one warpgroup, which no
+//   tile order fits.  Two warpgroups share the block's 64 keys: the first
+//   takes s^T and p, the second dp^T and then ds from the first's p, and
+//   they trade p and ds through shared memory (16 KB); each owns a 128-
+//   column half of dk and dv and runs its two products (m64n128k16, p^T and
+//   ds^T rounded to T) on its half of the dO and q tiles.  The other way,
+//   a grid axis over the halves, would recompute p and ds (half again the
+//   products) and leave one warpgroup an SM.  252 registers, no spills;
+//   215 KB of shared memory.
 //
 // Tile height: 64 rows is wgmma's M.  ViT's T = 197 = 3 * 64 + 5 pads the
 // owned axis to 256 rows, 23 % of the work; a last streamed tile of 16 rows
@@ -77,11 +94,15 @@
 // Each thread keeps a 4 x 4 tile of scores and its output rows' accumulators
 // in registers; ds and p pass through shared memory only to be read back, by
 // the half-warp that wrote them, as the rows of the next product.  Its
-// ceiling is the 67 TFLOP/s f32 rate.
+// ceiling is the 67 TFLOP/s f32 rate.  Padded widths 16, 32, 64 and 128
+// (the f32 K4's 128-wide tiles take 174 KB of shared memory); columns past
+// D load as zeros.
 //
-// The head dimension is a runtime value up to 128: the kernels are compiled
-// for padded widths 16, 32, 64 and 128 (the f32 K4's 128-wide tiles take
-// 174 KB of shared memory), and columns past D load as zeros.
+// Past those widths (f32 past 128, every dtype past 256): the same CUDA-core
+// kernels in chunks of 64 columns (kChunked), as the forward's: s and dp sum
+// over the chunks of q, dO, k and v; a block owns one chunk of the output
+// columns (a grid axis folded into x) and recomputes s and dp for it; lse
+// and delta come from the caller, once over the full D.
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -90,8 +111,6 @@ namespace {
 
 using namespace nns_flash;
 namespace tc = nns_flash::tc;
-
-constexpr int kMaxHeadDim = 128;
 
 // Strides of the four (b, t, h, d) inputs, in elements.
 struct Strides {
@@ -104,9 +123,12 @@ constexpr int min_blocks() {
   return DP <= 64 ? 2 : 1;
 }
 
-// K3 in f32: dq.  Shared tiles: q and dO (the rows of the two score
-// products), k and v (their columns, padded rows), ds.
-template <typename T, int DP>
+// K3 on the CUDA cores: dq.  Shared tiles: q and dO (the rows of the two
+// score products), k and v (their columns, padded rows), ds.  DP is the
+// padded head dim, or with kChunked the width of a head-dim chunk: the
+// scores sum over every chunk of q, dO, k and v, and the block owns the dq
+// columns of chunk blockIdx.x % n_oc.
+template <typename T, int DP, bool kChunked>
 __global__ void __launch_bounds__(kThreads, min_blocks<DP>())
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -126,8 +148,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = ks + kBlockK * kBStride;       // kBlockK x kBStride
   float* dss = vs + kBlockK * kBStride;      // kBlockQ x kPStride
 
+  const int n_oc = kChunked ? (d + DP - 1) / DP : 1;  // output chunks
+  const int rank = (int)blockIdx.x / n_oc;
+  const int c_out = ((int)blockIdx.x - rank * n_oc) * DP;  // first column
   const int n_qtiles = (tq + kBlockQ - 1) / kBlockQ;
-  const int qt = causal ? n_qtiles - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int qt = causal ? n_qtiles - 1 - rank : rank;
   const int q0 = qt * kBlockQ;
   const int head = blockIdx.y;
   const long long bat = blockIdx.z;
@@ -142,8 +167,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   delta += (bat * h + head) * tq;
   dq += bat * tq * h * d;
 
-  load_tile<T, DP>(qs, kAStride, q, st.q_st, q0, tq, d, vec);
-  load_tile<T, DP>(dos, kAStride, dout, st.o_st, q0, tq, d, vec);
+  if constexpr (!kChunked) {
+    load_tile<T, DP>(qs, kAStride, q, st.q_st, q0, tq, d, vec);
+    load_tile<T, DP>(dos, kAStride, dout, st.o_st, q0, tq, d, vec);
+  }
 
   // this thread's rows: their lse (-inf past the end of q) and delta
   float lse_r[kRows], delta_r[kRows];
@@ -168,14 +195,38 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < L::kWidth; ++c) acc[i][c] = 0.f;
 
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's k, v and ds are no longer read
-    load_tile<T, DP>(ks, kBStride, k, st.k_st, k0, tkv, d, vec);
-    load_tile<T, DP>(vs, kBStride, v, st.v_st, k0, tkv, d, vec);
-    __syncthreads();
-
     float s[kRows][kCols], dp[kRows][kCols];
-    tile_dots<DP, kAStride, kBStride>(qs, ks, ty, tx, s);
-    tile_dots<DP, kAStride, kBStride>(dos, vs, ty, tx, dp);
+    if constexpr (kChunked) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int c0 = 0; c0 < d; c0 += DP) {
+        __syncthreads();  // the last chunk's tiles (and ds, k) are read
+        load_tile<T, DP>(qs, kAStride, q + c0, st.q_st, q0, tq, d - c0, vec);
+        load_tile<T, DP>(dos, kAStride, dout + c0, st.o_st, q0, tq, d - c0,
+                         vec);
+        load_tile<T, DP>(ks, kBStride, k + c0, st.k_st, k0, tkv, d - c0,
+                         vec);
+        load_tile<T, DP>(vs, kBStride, v + c0, st.v_st, k0, tkv, d - c0,
+                         vec);
+        __syncthreads();
+        tile_dots<DP, kAStride, kBStride, true>(qs, ks, ty, tx, s);
+        tile_dots<DP, kAStride, kBStride, true>(dos, vs, ty, tx, dp);
+      }
+      __syncthreads();  // k's last chunk is read
+      // this block's dq columns of k
+      load_tile<T, DP>(ks, kBStride, k + c_out, st.k_st, k0, tkv, d - c_out,
+                       vec);
+      __syncthreads();
+    } else {
+      __syncthreads();  // the previous tile's k, v and ds are no longer read
+      load_tile<T, DP>(ks, kBStride, k, st.k_st, k0, tkv, d, vec);
+      load_tile<T, DP>(vs, kBStride, v, st.v_st, k0, tkv, d, vec);
+      __syncthreads();
+      tile_dots<DP, kAStride, kBStride>(qs, ks, ty, tx, s);
+      tile_dots<DP, kAStride, kBStride>(dos, vs, ty, tx, dp);
+    }
 
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
@@ -197,15 +248,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_accumulate<DP, kBStride>(dss, ks, ty, tx, acc);
   }
 
-  store_rows<T, DP>(dq, acc, q0, tq, h, head, d, ty, tx);
+  store_rows<T, DP>(dq, acc, q0, tq, h, head, d, ty, tx, c_out);
 }
 
-// K4 in f32: dk and dv.  A thread's score rows are keys and its columns
-// queries.
-// Shared tiles: k and v (the rows of the two transposed score products), q and
-// dO (their columns, padded rows; also the rows of the dk and dv products),
-// p^T and ds^T.
-template <typename T, int DP>
+// K4 on the CUDA cores: dk and dv.  A thread's score rows are keys and its
+// columns queries.  Shared tiles: k and v (the rows of the two transposed
+// score products), q and dO (their columns, padded rows; also the rows of
+// the dk and dv products), p^T and ds^T.  With kChunked, as K3's: the
+// scores sum over every chunk, and the block owns the dk and dv columns of
+// chunk blockIdx.x % n_oc.
+template <typename T, int DP, bool kChunked>
 __global__ void __launch_bounds__(kThreads, min_blocks<DP>())
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -226,7 +278,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* pts = dos + kBlockQ * kBStride;     // kBlockK x kPStride
   float* dsts = pts + kBlockK * kPStride;    // kBlockK x kPStride
 
-  const int k0 = blockIdx.x * kBlockK;
+  const int n_oc = kChunked ? (d + DP - 1) / DP : 1;  // output chunks
+  const int kt = (int)blockIdx.x / n_oc;
+  const int c_out = ((int)blockIdx.x - kt * n_oc) * DP;  // first column
+  const int k0 = kt * kBlockK;
   const int head = blockIdx.y;
   const long long bat = blockIdx.z;
   const int ty = threadIdx.x >> 4;
@@ -241,8 +296,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   dk += bat * tkv * h * d;
   dv += bat * tkv * h * d;
 
-  load_tile<T, DP>(ks, kAStride, k, st.k_st, k0, tkv, d, vec);
-  load_tile<T, DP>(vs, kAStride, v, st.v_st, k0, tkv, d, vec);
+  if constexpr (!kChunked) {
+    load_tile<T, DP>(ks, kAStride, k, st.k_st, k0, tkv, d, vec);
+    load_tile<T, DP>(vs, kAStride, v, st.v_st, k0, tkv, d, vec);
+  }
 
   float dk_acc[kRows][L::kWidth], dv_acc[kRows][L::kWidth];
 #pragma unroll
@@ -262,9 +319,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int q0 = q_start; q0 < tq; q0 += kBlockQ) {
-    __syncthreads();  // the previous tile's q, dO, p^T and ds^T are not read
-    load_tile<T, DP>(qs, kBStride, q, st.q_st, q0, tq, d, vec);
-    load_tile<T, DP>(dos, kBStride, dout, st.o_st, q0, tq, d, vec);
     float lse_c[kCols], delta_c[kCols];
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
@@ -272,12 +326,41 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lse_c[j] = col < tq ? lse[col] : -CUDART_INF_F;
       delta_c[j] = col < tq ? delta[col] : 0.f;
     }
-    __syncthreads();
-
     // s^T[i][j] = k[ty + 16i] . q[tx + 16j]; dp^T likewise from v and dO
     float s[kRows][kCols], dp[kRows][kCols];
-    tile_dots<DP, kAStride, kBStride>(ks, qs, ty, tx, s);
-    tile_dots<DP, kAStride, kBStride>(vs, dos, ty, tx, dp);
+    if constexpr (kChunked) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int c0 = 0; c0 < d; c0 += DP) {
+        __syncthreads();  // the last chunk's tiles (and p^T, ds^T) are read
+        load_tile<T, DP>(ks, kAStride, k + c0, st.k_st, k0, tkv, d - c0,
+                         vec);
+        load_tile<T, DP>(vs, kAStride, v + c0, st.v_st, k0, tkv, d - c0,
+                         vec);
+        load_tile<T, DP>(qs, kBStride, q + c0, st.q_st, q0, tq, d - c0, vec);
+        load_tile<T, DP>(dos, kBStride, dout + c0, st.o_st, q0, tq, d - c0,
+                         vec);
+        __syncthreads();
+        tile_dots<DP, kAStride, kBStride, true>(ks, qs, ty, tx, s);
+        tile_dots<DP, kAStride, kBStride, true>(vs, dos, ty, tx, dp);
+      }
+      __syncthreads();  // q's and dO's last chunks are read
+      // this block's dk and dv columns of q and dO
+      load_tile<T, DP>(qs, kBStride, q + c_out, st.q_st, q0, tq, d - c_out,
+                       vec);
+      load_tile<T, DP>(dos, kBStride, dout + c_out, st.o_st, q0, tq,
+                       d - c_out, vec);
+      __syncthreads();
+    } else {
+      __syncthreads();  // the previous tile's q, dO, p^T and ds^T are not read
+      load_tile<T, DP>(qs, kBStride, q, st.q_st, q0, tq, d, vec);
+      load_tile<T, DP>(dos, kBStride, dout, st.o_st, q0, tq, d, vec);
+      __syncthreads();
+      tile_dots<DP, kAStride, kBStride>(ks, qs, ty, tx, s);
+      tile_dots<DP, kAStride, kBStride>(vs, dos, ty, tx, dp);
+    }
 
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
@@ -300,8 +383,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_accumulate<DP, kBStride>(dsts, qs, ty, tx, dk_acc);
   }
 
-  store_rows<T, DP>(dk, dk_acc, k0, tkv, h, head, d, ty, tx);
-  store_rows<T, DP>(dv, dv_acc, k0, tkv, h, head, d, ty, tx);
+  store_rows<T, DP>(dk, dk_acc, k0, tkv, h, head, d, ty, tx, c_out);
+  store_rows<T, DP>(dv, dv_acc, k0, tkv, h, head, d, ty, tx, c_out);
 }
 
 template <int DP>
@@ -333,7 +416,10 @@ __device__ __forceinline__ int first_visible_query(int kl, int tq, int tkv,
 
 // K3 on the tensor cores.  Shared memory: the q and dO tiles, then two stages
 // of (k, v) tiles; the copy of the next stage is in flight while this one
-// computes.
+// computes.  Each stage's 64 keys are taken KN at a time: s and dp are 64 x
+// KN tiles.  KN is 64, or 32 at a padded width of 256, where the dq
+// accumulator alone is 128 registers a thread and two 64 x 64 score tiles
+// beside it would not fit.
 template <typename T, int DP>
 __global__ void __launch_bounds__(tc::kThreads, min_blocks<DP>())
 flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -344,6 +430,8 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        long long q_offset, long long k_offset, float scale,
                        int vec) {
   constexpr int TB = tc::tile_bytes<DP>();
+  constexpr int KN = DP > 128 ? 32 : 64;  // keys a score tile
+  constexpr int kRowBytes = tc::Swizzle<DP>::kRowBytes;
   extern __shared__ __align__(1024) char smem_tc[];
   char* qs = tc::align_atoms(smem_tc);
   char* dos = qs + TB;
@@ -419,52 +507,59 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tc::fence_async_shared();
     __syncthreads();
 
-    // s = q k^T and dp = dO v^T, 64 x 64 each
-    float s[32], dp[32];
-    tc::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      tc::mma_ss_n64<T>(s, tc::desc_k_major<DP>(qa, kk),
-                        tc::desc_k_major<DP>(ka, kk), kk);
-    tc::wgmma_commit();
+    for (int u = 0; u < tc::kTile / KN; ++u) {
+      const int k1 = k0 + u * KN;  // this score tile's first key
+      // rows u KN .. of the k and v tiles, as K-major Bs
+      const uint32_t rows = u * KN * kRowBytes;
+      // s = q k^T and dp = dO v^T, 64 x KN each
+      float s[KN / 2], dp[KN / 2];
+      tc::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      tc::mma_ss_n64<T>(dp, tc::desc_k_major<DP>(doa, kk),
-                        tc::desc_k_major<DP>(va, kk), kk);
-    tc::wgmma_commit();
-    tc::wgmma_wait<1>();  // s is done; dp may still run
-    tc::fence_acc(s);
-    if (k0 + tc::kTile - 1 > tile_last) {  // a tile the mask cuts
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::mma_ss<T, KN>(s, tc::desc_k_major<DP>(qa, kk),
+                          tc::desc_k_major<DP>(ka + rows, kk), kk);
+      tc::wgmma_commit();
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::mma_ss<T, KN>(dp, tc::desc_k_major<DP>(doa, kk),
+                          tc::desc_k_major<DP>(va + rows, kk), kk);
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();  // s is done; dp may still run
+      tc::fence_acc(s);
+      if (k1 + KN - 1 > tile_last) {  // a tile the mask cuts
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = k0 + 8 * j + col + (e & 1);
-          s[4 * j + e] = kl > last_key[e >> 1]
-                             ? 0.f
-                             : exp2f(s[4 * j + e] * scale2 - lse2[e >> 1]);
-        }
-    } else {
+        for (int j = 0; j < KN / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 32; ++e)
-        s[e] = exp2f(s[e] * scale2 - lse2[(e >> 1) & 1]);
-    }
-    tc::wgmma_wait<0>();
-    tc::fence_acc(dp);
+          for (int e = 0; e < 4; ++e) {
+            const int kl = k1 + 8 * j + col + (e & 1);
+            s[4 * j + e] = kl > last_key[e >> 1]
+                               ? 0.f
+                               : exp2f(s[4 * j + e] * scale2 - lse2[e >> 1]);
+          }
+      } else {
 #pragma unroll
-    for (int e = 0; e < 32; ++e)
-      dp[e] = s[e] * (dp[e] - dlt[(e >> 1) & 1]) * scale;  // ds
+        for (int e = 0; e < KN / 2; ++e)
+          s[e] = exp2f(s[e] * scale2 - lse2[(e >> 1) & 1]);
+      }
+      tc::wgmma_wait<0>();
+      tc::fence_acc(dp);
+#pragma unroll
+      for (int e = 0; e < KN / 2; ++e)
+        dp[e] = s[e] * (dp[e] - dlt[(e >> 1) & 1]) * scale;  // ds
 
-    // dq += ds k: ds rounded to T, k as the MN-major B
-    uint32_t a[4][4];
-    tc::pack_a<T>(dp, a);
-    tc::wgmma_fence();
+      // dq += ds k: ds rounded to T, k rows u KN .. as the MN-major B
+      uint32_t a[KN / 16][4];
+      tc::pack_a<T>(dp, a);
+      tc::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      tc::mma_rs<T, DP>(acc, a[kk], tc::desc_mn_major<DP>(ka, kk), 1);
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tc::fence_acc(acc);
+      for (int kk = 0; kk < KN / 16; ++kk)
+        tc::mma_rs<T, DP>(acc, a[kk],
+                          tc::desc_mn_major<DP>(ka, u * KN / 16 + kk), 1);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_acc(acc);
+    }
     __syncthreads();  // this stage is free for the copy after next
   }
   tc::cp_async_wait<0>();
@@ -476,8 +571,16 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // (s^T = k q^T, dp^T = v dO^T, dv += p^T dO, dk += ds^T q).  Shared memory:
 // the k and v tiles, then two stages of (q tile, dO tile, the query tile's
 // 64 lse and 64 delta values).
-template <typename T, int DP>
-__global__ void __launch_bounds__(tc::kThreads, min_blocks<DP>())
+//
+// WG warpgroups: one, or two at a padded width of 256, where dk and dv
+// together are 256 f32 a thread of one warpgroup.  Two split the work: the
+// first takes s^T and p, the second dp^T and ds, and they trade p and ds
+// through shared memory (xch: a thread's 32 values at a stride of 128
+// floats, so each of its stores and loads is one conflict-free row); each
+// then owns one 128-column half of dk and dv, with p^T and ds^T rounded to
+// T as the A of its two products.
+template <typename T, int DP, int WG>
+__global__ void __launch_bounds__(WG* tc::kThreads, min_blocks<DP>())
 flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
@@ -486,19 +589,25 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         Strides st, int causal, long long q_offset,
                         long long k_offset, float scale, int vec) {
   constexpr int TB = tc::tile_bytes<DP>();
+  constexpr int NO = DP / WG;  // columns of dk and dv a warpgroup owns
   constexpr int kSlices = 2 * tc::kTile * (int)sizeof(float);
   static_assert(tc::kThreads == 2 * tc::kTile, "one lse or delta per thread");
+  static_assert(WG == 1 || (WG == 2 && NO % 64 == 0), "whole column blocks");
   extern __shared__ __align__(1024) char smem_tc[];
   char* ks = tc::align_atoms(smem_tc);
   char* vs = ks + TB;
   char* stages = vs + TB;  // stage s: q at stages + 2 s TB, dO TB after it
   char* slices = stages + 4 * TB;  // stage s: lse, delta at + s kSlices
+  float* xch = reinterpret_cast<float*>(slices + 2 * kSlices);  // WG == 2
 
   const int k0 = blockIdx.x * tc::kTile;
   const int head = blockIdx.y;
   const long long bat = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int row = 16 * (threadIdx.x >> 5) + (lane >> 2);  // and row + 8
+  // with one warpgroup these are constants, and the code is as it was
+  const int wg = WG == 1 ? 0 : threadIdx.x / tc::kThreads;
+  const int tid = WG == 1 ? threadIdx.x : threadIdx.x % tc::kThreads;
+  const int lane = tid & 31;
+  const int row = 16 * (tid >> 5) + (lane >> 2);  // and row + 8
   const int col = 2 * (lane & 3);  // and col + 1, of each 8-column block
 
   q += bat * st.q_sb + head * st.q_sh;
@@ -510,8 +619,9 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   dk += bat * tkv * h * d;
   dv += bat * tkv * h * d;
 
-  tc::load_tile<T, DP>(ks, k, st.k_st, k0, tkv, d, vec);
-  tc::load_tile<T, DP>(vs, v, st.v_st, k0, tkv, d, vec);
+  // with two warpgroups the first copies k and q tiles, the second v and dO
+  if (wg == 0) tc::load_tile<T, DP>(ks, k, st.k_st, k0, tkv, d, vec);
+  if (wg == WG - 1) tc::load_tile<T, DP>(vs, v, st.v_st, k0, tkv, d, vec);
   tc::cp_async_commit();
 
   // causal: query tiles whose last row lies before this key tile's first key
@@ -527,22 +637,25 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   auto load_q = [&](int stage, int q0) {
     char* base = stages + stage * 2 * TB;
-    tc::load_tile<T, DP>(base, q, st.q_st, q0, tq, d, vec);
-    tc::load_tile<T, DP>(base + TB, dout, st.o_st, q0, tq, d, vec);
+    if (wg == 0) tc::load_tile<T, DP>(base, q, st.q_st, q0, tq, d, vec);
+    if (wg == WG - 1)
+      tc::load_tile<T, DP>(base + TB, dout, st.o_st, q0, tq, d, vec);
     // thread t copies lse[q0 + t] (t < 64) or delta[q0 + t - 64]; zeros past
     // the end of q, whose columns the mask drops
-    const int t = threadIdx.x & (tc::kTile - 1);
-    const float* src = threadIdx.x < tc::kTile ? lse : delta;
-    const bool ok = q0 + t < tq;
-    tc::cp_async_4(tc::smem_u32(slices + stage * kSlices) + 4 * threadIdx.x,
-                   ok ? src + q0 + t : src, ok ? 4 : 0);
+    if (wg == 0) {
+      const int t = tid & (tc::kTile - 1);
+      const float* src = tid < tc::kTile ? lse : delta;
+      const bool ok = q0 + t < tq;
+      tc::cp_async_4(tc::smem_u32(slices + stage * kSlices) + 4 * tid,
+                     ok ? src + q0 + t : src, ok ? 4 : 0);
+    }
   };
   if (n_q > 0) load_q(0, q_start);
   tc::cp_async_commit();
 
-  float dk_acc[DP / 2], dv_acc[DP / 2];
+  float dk_acc[NO / 2], dv_acc[NO / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < NO / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   // the first query each of this thread's two keys is seen by (tq for keys
   // past the end of k), and the last such over the tile
   int first_q[2];
@@ -555,6 +668,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool keys_cut = k0 + tc::kTile > tkv;
   const float scale2 = scale * tc::kLog2e;
   const uint32_t ka = tc::smem_u32(ks), va = tc::smem_u32(vs);
+  // this warpgroup's output columns in the q and dO tiles (MN-major Bs)
+  const uint32_t half = wg * (NO / 64) * tc::Swizzle<DP>::kBlockBytes;
 
   for (int it = 0; it < n_q; ++it) {
     const int q0 = q_start + it * tc::kTile;
@@ -568,87 +683,151 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* lse_s =
         reinterpret_cast<const float*>(slices + (it & 1) * kSlices);
     const float* delta_s = lse_s + tc::kTile;
-
-    // s^T = k q^T and dp^T = v dO^T: rows are keys, columns queries
-    float s[32], dp[32];
-    tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      tc::mma_ss_n64<T>(s, tc::desc_k_major<DP>(ka, kk),
-                        tc::desc_k_major<DP>(qa, kk), kk);
-    tc::wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      tc::mma_ss_n64<T>(dp, tc::desc_k_major<DP>(va, kk),
-                        tc::desc_k_major<DP>(doa, kk), kk);
-    tc::wgmma_commit();
-    tc::wgmma_wait<1>();  // s^T is done; dp^T may still run
-    tc::fence_acc(s);
     // a tile the mask cuts: keys or queries past the end, or the diagonal
     const bool cut = keys_cut || q0 + tc::kTile > tq || tile_first > q0;
+
+    // p^T = exp(s^T - lse) from s^T = k q^T, masked (rows are keys,
+    // columns queries)
+    auto probabilities = [&](float (&s)[32]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + col);
-      // lse in base 2, +inf where it is -inf (queries that saw no key)
-      const float l2[2] = {
-          l.x == -CUDART_INF_F ? CUDART_INF_F : l.x * tc::kLog2e,
-          l.y == -CUDART_INF_F ? CUDART_INF_F : l.y * tc::kLog2e};
+      for (int j = 0; j < 8; ++j) {
+        const float2 l =
+            *reinterpret_cast<const float2*>(lse_s + 8 * j + col);
+        // lse in base 2, +inf where it is -inf (queries that saw no key)
+        const float l2[2] = {
+            l.x == -CUDART_INF_F ? CUDART_INF_F : l.x * tc::kLog2e,
+            l.y == -CUDART_INF_F ? CUDART_INF_F : l.y * tc::kLog2e};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[4 * j + e] * scale2 - l2[e & 1]);
-        if (cut) {
-          const int ql = q0 + 8 * j + col + (e & 1);
-          s[4 * j + e] = ql < first_q[e >> 1] || ql >= tq ? 0.f : p;
-        } else {
-          s[4 * j + e] = p;
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[4 * j + e] * scale2 - l2[e & 1]);
+          if (cut) {
+            const int ql = q0 + 8 * j + col + (e & 1);
+            s[4 * j + e] = ql < first_q[e >> 1] || ql >= tq ? 0.f : p;
+          } else {
+            s[4 * j + e] = p;
+          }
         }
       }
-    }
-    tc::wgmma_wait<0>();
-    tc::fence_acc(dp);
+    };
+    // ds^T = p^T (dp^T - delta) / sqrt(D), into dp
+    auto grads = [&](const float (&p)[32], float (&dp)[32]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 dl =
-          *reinterpret_cast<const float2*>(delta_s + 8 * j + col);
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(delta_s + 8 * j + col);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[4 * j + e] = s[4 * j + e] *
-                        (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = p[4 * j + e] *
+                          (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+      }
+    };
+
+    float s[32], dp[32];
+    if constexpr (WG == 1) {
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::mma_ss<T, 64>(s, tc::desc_k_major<DP>(ka, kk),
+                          tc::desc_k_major<DP>(qa, kk), kk);
+      tc::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::mma_ss<T, 64>(dp, tc::desc_k_major<DP>(va, kk),
+                          tc::desc_k_major<DP>(doa, kk), kk);
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();  // s^T is done; dp^T may still run
+      tc::fence_acc(s);
+      probabilities(s);
+      tc::wgmma_wait<0>();
+      tc::fence_acc(dp);
+      grads(s, dp);
+    } else {
+      // warpgroup 0: s^T and p; warpgroup 1: dp^T, then ds from its p
+      if (wg == 0) {
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          tc::mma_ss<T, 64>(s, tc::desc_k_major<DP>(ka, kk),
+                            tc::desc_k_major<DP>(qa, kk), kk);
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        tc::fence_acc(s);
+        probabilities(s);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) xch[e * tc::kThreads + tid] = s[e];
+      } else {
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          tc::mma_ss<T, 64>(dp, tc::desc_k_major<DP>(va, kk),
+                            tc::desc_k_major<DP>(doa, kk), kk);
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        tc::fence_acc(dp);
+      }
+      __syncthreads();  // p is in xch
+      if (wg == 1) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] = xch[e * tc::kThreads + tid];
+        grads(s, dp);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) xch[e * tc::kThreads + tid] = dp[e];
+      }
+      __syncthreads();  // ds is in xch
+      if (wg == 0) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dp[e] = xch[e * tc::kThreads + tid];
+      }
     }
 
-    // dv += p^T dO and dk += ds^T q: p^T and ds^T rounded to T, dO and q as
-    // MN-major Bs
+    // dv += p^T dO and dk += ds^T q: p^T and ds^T rounded to T, this
+    // warpgroup's columns of dO and q as MN-major Bs
     uint32_t pa[4][4], da[4][4];
     tc::pack_a<T>(s, pa);
     tc::pack_a<T>(dp, da);
     tc::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      tc::mma_rs<T, DP>(dv_acc, pa[kk], tc::desc_mn_major<DP>(doa, kk), 1);
+      tc::mma_rs<T, NO>(dv_acc, pa[kk],
+                        tc::desc_mn_major<DP>(doa + half, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      tc::mma_rs<T, DP>(dk_acc, da[kk], tc::desc_mn_major<DP>(qa, kk), 1);
+      tc::mma_rs<T, NO>(dk_acc, da[kk],
+                        tc::desc_mn_major<DP>(qa + half, kk), 1);
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::fence_acc(dv_acc);
     tc::fence_acc(dk_acc);
-    __syncthreads();  // this stage is free for the copy after next
+    __syncthreads();  // this stage (and xch) is free for the copy after next
   }
   tc::cp_async_wait<0>();
 
-  tc::store_acc<T, DP>(dk, dk_acc, k0, tkv, h, head, d);
-  tc::store_acc<T, DP>(dv, dv_acc, k0, tkv, h, head, d);
+  // both warpgroups hold rows k0.. (store_acc counts warps across the block)
+  tc::store_acc<T, NO>(dk, dk_acc, k0 - wg * tc::kTile, tkv, h, head, d,
+                       wg * NO);
+  tc::store_acc<T, NO>(dv, dv_acc, k0 - wg * tc::kTile, tkv, h, head, d,
+                       wg * NO);
 }
 
-// Six tiles, the lse and delta slices (K4), and room to align the tiles.
+// Six tiles, the lse and delta slices (K4), K4's exchange of p and ds
+// between two warpgroups (a padded width of 256), and room to align the
+// tiles.
 template <int DP>
 constexpr int dq_tc_smem_bytes() {
   return 6 * tc::tile_bytes<DP>() + tc::kAtomAlign;
 }
 
+// K4's warpgroups at a padded width DP.
+template <int DP>
+constexpr int dkv_groups() {
+  return DP > 128 ? 2 : 1;
+}
+
 template <int DP>
 constexpr int dkv_tc_smem_bytes() {
   return 6 * tc::tile_bytes<DP>() + 4 * tc::kTile * (int)sizeof(float) +
+         (dkv_groups<DP>() == 2 ? 32 * tc::kThreads * (int)sizeof(float)
+                                : 0) +
          tc::kAtomAlign;
 }
 
@@ -665,100 +844,111 @@ bool vector_ok(const void* q, const void* k, const void* v, const void* dout,
          (uintptr_t)v % 16 == 0 && (uintptr_t)dout % 16 == 0;
 }
 
-// Sets the kernel's dynamic shared memory and launches it on one 64-row tile
-// per block.
-template <typename... Params, typename... Args>
-int launch_kernel(void (*kernel)(Params...), int bytes, int rows, int h,
-                  int b, int threads, cudaStream_t stream, Args... args) {
+// One call of either kernel: which = 0 is K3 (out0 = dq), 1 is K4 (out0 =
+// dk, out1 = dv).
+struct Call {
+  int which;
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *out0, *out1;
+  int b, tq, tkv, h, d;
+  Strides st;
+  int causal;
+  long long q_offset, k_offset;
+  float scale;
+  cudaStream_t stream;
+};
+
+// Sets the kernel's dynamic shared memory and launches `tiles` x h x b
+// blocks of `threads`, each with the call's arguments (K3 takes one output,
+// K4 two).
+template <typename T, typename... Params>
+int launch_kernel(void (*kernel)(Params...), int bytes, long long tiles,
+                  int threads, const Call& c) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((rows + kBlockQ - 1) / kBlockQ, h, b);
-  kernel<<<grid, threads, bytes, stream>>>(args...);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, c.h, c.b);
+  const int vec = vector_ok<T>(c.q, c.k, c.v, c.dout, c.d, c.st);
+  const T* q = static_cast<const T*>(c.q);
+  const T* k = static_cast<const T*>(c.k);
+  const T* v = static_cast<const T*>(c.v);
+  const T* o = static_cast<const T*>(c.dout);
+  T* o0 = static_cast<T*>(c.out0);
+  T* o1 = static_cast<T*>(c.out1);
+  if constexpr (sizeof...(Params) == 17)  // K3
+    kernel<<<grid, threads, bytes, c.stream>>>(
+        q, k, v, o, c.lse, c.delta, o0, c.tq, c.tkv, c.h, c.d, c.st,
+        c.causal, c.q_offset, c.k_offset, c.scale, vec);
+  else  // K4
+    kernel<<<grid, threads, bytes, c.stream>>>(
+        q, k, v, o, c.lse, c.delta, o0, o1, c.tq, c.tkv, c.h, c.d, c.st,
+        c.causal, c.q_offset, c.k_offset, c.scale, vec);
   return (int)cudaGetLastError();
 }
 
-// One launcher for both kernels: which = 0 launches K3 (out0 = dq), 1
-// launches K4 (out0 = dk, out1 = dv); f32 on the CUDA cores, f16 and bf16 on
-// the tensor cores.
+// The CUDA-core kernels: DP the padded head dim, or with kChunked the chunk
+// width, a grid axis of output chunks folded into x.
+template <typename T, int DP, bool kChunked>
+int launch_simt(const Call& c) {
+  const long long n_oc = kChunked ? (c.d + DP - 1) / DP : 1;
+  const long long tiles =
+      ((c.which ? c.tkv : c.tq) + kBlockQ - 1) / kBlockQ * n_oc;
+  if (c.which == 0)
+    return launch_kernel<T>(flash_bwd_dq_kernel<T, DP, kChunked>,
+                            dq_smem_bytes<DP>(), tiles, kThreads, c);
+  return launch_kernel<T>(flash_bwd_dkv_kernel<T, DP, kChunked>,
+                          dkv_smem_bytes<DP>(), tiles, kThreads, c);
+}
+
+// The tensor-core kernels, one 64-row tile a block.
 template <typename T, int DP>
-int launch(int which, const void* q, const void* k, const void* v,
-           const void* dout, const float* lse, const float* delta, void* out0,
-           void* out1, int b, int tq, int tkv, int h, int d,
-           const Strides& st, int causal, long long q_offset,
-           long long k_offset, float scale, cudaStream_t stream) {
+int launch_tc(const Call& c) {
   static_assert(kBlockQ == tc::kTile && kBlockK == tc::kTile, "tile rows");
-  const int vec = vector_ok<T>(q, k, v, dout, d, st);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(dout);
-  T* o0 = static_cast<T*>(out0);
-  T* o1 = static_cast<T*>(out1);
-  if constexpr (std::is_same<T, float>::value) {
-    if (which == 0)
-      return launch_kernel(flash_bwd_dq_kernel<T, DP>, dq_smem_bytes<DP>(),
-                           tq, h, b, kThreads, stream, qt, kt, vt, ot, lse,
-                           delta, o0, tq, tkv, h, d, st, causal, q_offset,
-                           k_offset, scale, vec);
-    return launch_kernel(flash_bwd_dkv_kernel<T, DP>, dkv_smem_bytes<DP>(),
-                         tkv, h, b, kThreads, stream, qt, kt, vt, ot, lse,
-                         delta, o0, o1, tq, tkv, h, d, st, causal, q_offset,
-                         k_offset, scale, vec);
-  } else {
-    if (which == 0)
-      return launch_kernel(flash_bwd_dq_tc_kernel<T, DP>,
-                           dq_tc_smem_bytes<DP>(), tq, h, b, tc::kThreads,
-                           stream, qt, kt, vt, ot, lse, delta, o0, tq, tkv, h,
-                           d, st, causal, q_offset, k_offset, scale, vec);
-    return launch_kernel(flash_bwd_dkv_tc_kernel<T, DP>,
-                         dkv_tc_smem_bytes<DP>(), tkv, h, b, tc::kThreads,
-                         stream, qt, kt, vt, ot, lse, delta, o0, o1, tq, tkv,
-                         h, d, st, causal, q_offset, k_offset, scale, vec);
-  }
+  if (c.which == 0)
+    return launch_kernel<T>(flash_bwd_dq_tc_kernel<T, DP>,
+                            dq_tc_smem_bytes<DP>(),
+                            (c.tq + tc::kTile - 1) / tc::kTile, tc::kThreads,
+                            c);
+  return launch_kernel<T>(
+      flash_bwd_dkv_tc_kernel<T, DP, dkv_groups<DP>()>,
+      dkv_tc_smem_bytes<DP>(), (c.tkv + tc::kTile - 1) / tc::kTile,
+      dkv_groups<DP>() * tc::kThreads, c);
 }
 
+// f32 on the CUDA cores up to 128, f16 and bf16 on the tensor cores up to
+// 256; past those, every dtype in head-dim chunks on the CUDA cores.
 template <typename T>
-int dispatch_d(int which, const void* q, const void* k, const void* v,
-               const void* dout, const float* lse, const float* delta,
-               void* out0, void* out1, int b, int tq, int tkv, int h, int d,
-               const Strides& st, int causal, long long q_offset,
-               long long k_offset, float scale, cudaStream_t s) {
-#define NNS_FLASH_BWD_LAUNCH(DP)                                              \
-  return launch<T, DP>(which, q, k, v, dout, lse, delta, out0, out1, b, tq,   \
-                       tkv, h, d, st, causal, q_offset, k_offset, scale, s)
-  if (d <= 16) NNS_FLASH_BWD_LAUNCH(16);
-  if (d <= 32) NNS_FLASH_BWD_LAUNCH(32);
-  if (d <= 64) NNS_FLASH_BWD_LAUNCH(64);
-  if (d <= kMaxHeadDim) NNS_FLASH_BWD_LAUNCH(128);
-#undef NNS_FLASH_BWD_LAUNCH
-  return (int)cudaErrorInvalidValue;
+int dispatch_d(const Call& c) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (c.d <= 16) return launch_simt<T, 16, false>(c);
+    if (c.d <= 32) return launch_simt<T, 32, false>(c);
+    if (c.d <= 64) return launch_simt<T, 64, false>(c);
+    if (c.d <= 128) return launch_simt<T, 128, false>(c);
+  } else {
+    if (c.d <= 16) return launch_tc<T, 16>(c);
+    if (c.d <= 32) return launch_tc<T, 32>(c);
+    if (c.d <= 64) return launch_tc<T, 64>(c);
+    if (c.d <= 128) return launch_tc<T, 128>(c);
+    if (c.d <= 256) return launch_tc<T, 256>(c);
+  }
+  return launch_simt<T, kChunk, true>(c);
 }
 
-int entry(int which, const void* q, const void* k, const void* v,
-          const void* dout, const void* lse, const void* delta, void* out0,
-          void* out1, int b, int tq, int tkv, int h, int d, const Strides& st,
-          int causal, long long q_offset, long long k_offset, float scale,
-          int dtype, void* stream) {
-  if (b <= 0 || tq <= 0 || tkv <= 0 || h <= 0) return 0;
-  if (d <= 0 || d > kMaxHeadDim || b > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-#define NNS_FLASH_BWD_DISPATCH(T)                                            \
-  return dispatch_d<T>(which, q, k, v, dout, l, dl, out0, out1, b, tq, tkv,  \
-                       h, d, st, causal, q_offset, k_offset, scale, s)
+int entry(const Call& c, int dtype) {
+  if (c.b <= 0 || c.tq <= 0 || c.tkv <= 0 || c.h <= 0) return 0;
+  if (c.d <= 0 || c.b > 65535) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      NNS_FLASH_BWD_DISPATCH(float);
+      return dispatch_d<float>(c);
     case 1:
-      NNS_FLASH_BWD_DISPATCH(__half);
+      return dispatch_d<__half>(c);
     case 2:
-      NNS_FLASH_BWD_DISPATCH(__nv_bfloat16);
+      return dispatch_d<__nv_bfloat16>(c);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef NNS_FLASH_BWD_DISPATCH
 }
 
 }  // namespace
@@ -779,10 +969,13 @@ extern "C" int nns_flash_attention_bwd_dq(
     long long v_st, long long v_sh, long long o_sb, long long o_st,
     long long o_sh, int causal, long long q_offset, long long k_offset,
     float scale, int dtype, void* stream) {
-  const Strides st{q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-                   v_sb, v_st, v_sh, o_sb, o_st, o_sh};
-  return entry(0, q, k, v, dout, lse, delta, dq, nullptr, b, tq, tkv, h, d,
-               st, causal, q_offset, k_offset, scale, dtype, stream);
+  const Call c{0, q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dq, nullptr, b, tq, tkv, h,
+               d, Strides{q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,
+                          v_sh, o_sb, o_st, o_sh},
+               causal, q_offset, k_offset, scale,
+               static_cast<cudaStream_t>(stream)};
+  return entry(c, dtype);
 }
 
 // K4: dk and dv.
@@ -794,10 +987,13 @@ extern "C" int nns_flash_attention_bwd_dkv(
     long long v_st, long long v_sh, long long o_sb, long long o_st,
     long long o_sh, int causal, long long q_offset, long long k_offset,
     float scale, int dtype, void* stream) {
-  const Strides st{q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-                   v_sb, v_st, v_sh, o_sb, o_st, o_sh};
-  return entry(1, q, k, v, dout, lse, delta, dk, dv, b, tq, tkv, h, d, st,
-               causal, q_offset, k_offset, scale, dtype, stream);
+  const Call c{1, q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dk, dv, b, tq, tkv, h, d,
+               Strides{q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
+                       o_sb, o_st, o_sh},
+               causal, q_offset, k_offset, scale,
+               static_cast<cudaStream_t>(stream)};
+  return entry(c, dtype);
 }
 
 extern "C" const char* nns_cuda_error_string(int code) {

@@ -3,6 +3,12 @@
 // dtype conversion, the tile loader, and the two products every kernel is
 // built from, all on the CUDA cores in f32.
 //
+// Head dims past the widest compiled tile (256 in the forward, and 128 in
+// the f32 backward and 256 in the f16/bf16 one) go through the same CUDA-
+// core kernels in D chunks of kChunk columns: the scores are summed over the
+// chunks of q and k (tile_dots with kAdd), and each block owns one chunk of
+// the output columns (a grid axis), recomputing the scores for it.
+//
 // Layout of the work: a block of 256 threads covers a 64 x 64 tile of scores;
 // thread (ty, tx) = (tid / 16, tid % 16) holds rows ty + 16 i and columns
 // tx + 16 j (i, j < 4).  The 16 threads that share a row are one half-warp,
@@ -25,6 +31,7 @@ constexpr int kThreads = 256;
 constexpr int kRows = kBlockQ / 16;     // score rows per thread
 constexpr int kCols = kBlockK / 16;     // score columns per thread
 constexpr int kPStride = kBlockK + 16;  // rows ty and ty+1 land 16 banks apart
+constexpr int kChunk = 64;  // columns of a head-dim chunk (D-chunked route)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
@@ -132,16 +139,19 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
 }
 
 // s[i][j] = a[ty + 16 i] . b[tx + 16 j] over the padded head dim, for two
-// 64-row shared tiles.  `b`'s rows are read 16 at a time by a half-warp, so
-// its stride is DP + 4: the rows fall in distinct banks.
-template <int DP, int AStride, int BStride>
+// 64-row shared tiles (with kAdd, s[i][j] += that: a sum over chunks of the
+// head dim).  `b`'s rows are read 16 at a time by a half-warp, so its stride
+// is DP + 4: the rows fall in distinct banks.
+template <int DP, int AStride, int BStride, bool kAdd = false>
 __device__ __forceinline__ void tile_dots(const float* a_s, const float* b_s,
                                           int ty, int tx,
                                           float (&s)[kRows][kCols]) {
+  if constexpr (!kAdd) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
+  }
 #pragma unroll 4
   for (int c = 0; c < DP; c += 4) {
     float4 a[kRows], b[kCols];
@@ -200,11 +210,13 @@ __device__ __forceinline__ void tile_accumulate(
 }
 
 // Writes this thread's rows ty + 16 i (those below n_rows) of a 64-row f32
-// accumulator into row0.. of a contiguous (T, H, D) output for one head.
+// accumulator, whose columns are c0 .. c0 + DP - 1, into row0.. of a
+// contiguous (T, H, D) output for one head (columns below d).
 template <typename T, int DP>
 __device__ __forceinline__ void store_rows(
     T* __restrict__ out, const float (&acc)[kRows][OutLayout<DP>::kWidth],
-    int row0, int n_rows, int h, int head, int d, int ty, int tx) {
+    int row0, int n_rows, int h, int head, int d, int ty, int tx,
+    int c0 = 0) {
   using L = OutLayout<DP>;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -215,7 +227,7 @@ __device__ __forceinline__ void store_rows(
     for (int g = 0; g < L::kGroups; ++g)
 #pragma unroll
       for (int e = 0; e < L::kVec; ++e) {
-        const int col = g * 16 * L::kVec + tx * L::kVec + e;
+        const int col = c0 + g * 16 * L::kVec + tx * L::kVec + e;
         if (col < d) orow[col] = from_f32<T>(acc[i][g * L::kVec + e]);
       }
   }

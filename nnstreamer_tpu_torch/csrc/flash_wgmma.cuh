@@ -8,14 +8,16 @@
 // dim) of a 16-bit type, stored row after row in rows of W = min(2 DP, 128)
 // bytes, with each 16-byte chunk of a row XOR-swizzled by the row (the
 // 128-, 64- or 32-byte swizzle of wgmma, for W = 128, 64, 32); at DP = 128
-// the columns 64..127 follow as a second such block.  Eight rows form one
+// and 256 the columns past 64 follow as further such blocks of 64 columns
+// (two, or four: a row of four 128-byte swizzle atoms).  Eight rows form one
 // swizzle atom of 8 W bytes.  One tile serves two ways:
 //
 // - K-major (rows are M or N, columns are K), as in S = Q K^T: atoms next
 //   to each other in M or N lie 8 W bytes apart (the descriptor's stride
 //   byte offset); a k step of 16 columns starts 32 bytes further along;
 // - MN-major (rows are K, columns are N), as the B of dQ = dS K: 8 K-rows
-//   lie 8 W bytes apart, the second 64-column block (DP = 128) 64 W bytes;
+//   lie 8 W bytes apart, each further 64-column block (DP = 128, 256) 64 W
+//   bytes after the last (the descriptor's leading byte offset);
 //   a k step of 16 rows starts 16 W bytes further; the instruction
 //   transposes.
 //
@@ -118,30 +120,38 @@ __device__ __forceinline__ void fence_async_shared() {
 // 16-byte cp.async copies of 64-row tiles of one head of a (T, H, D)
 // tensor into the swizzled layout, with each thread's part of the addresses
 // worked out once (per copy they are one add and one compare): thread t of
-// a warpgroup
-// copies chunk column t % (DP / 8) of rows r0 + R i (r0 = t / (DP / 8),
-// R = 128 / (DP / 8)), which land R W bytes apart, since R is a multiple of
-// the swizzle's period in rows.
+// a warpgroup copies chunk column t % C of rows r0 + R i (C = min(DP / 8,
+// 16) chunk columns a pass, r0 = t / C, R = 128 / C), which land R W bytes
+// apart, since R is a multiple of the swizzle's period in rows (8); at DP =
+// 256 a second pass copies chunk column t % C + 16, two 64-column blocks
+// further on.
 template <typename T, int DP>
 struct TileCopy {
   static constexpr int kPerRow = DP / 8;
-  static constexpr int kRowStep = kThreads / kPerRow;  // R
+  static constexpr int kCols = kPerRow < 16 ? kPerRow : 16;  // C
+  static constexpr int kPasses = kPerRow / kCols;
+  static constexpr int kRowStep = kThreads / kCols;  // R
   static constexpr int kCopies = kTile / kRowStep;
-  static_assert(kThreads % kPerRow == 0 && kTile % kRowStep == 0,
-                "whole rows of copies per pass");
+  // bytes from a pass's chunk to the next pass's, in the same row
+  static constexpr int kPassBytes =
+      kCols * 16 / Swizzle<DP>::kRowBytes * Swizzle<DP>::kBlockBytes;
+  static_assert(kThreads % kCols == 0 && kTile % kRowStep == 0 &&
+                    kRowStep % 8 == 0 && kPerRow % kCols == 0,
+                "whole rows of copies per pass, on the swizzle's period");
   const T* head;  // the source of zero-filled copies
   const T* src;
   long long row_stride;
   int r0, soff;
-  bool col_ok;
+  bool col_ok[kPasses];
 
   __device__ __forceinline__ TileCopy(const T* base, long long stride,
                                       int d) {
     const int t = threadIdx.x % kThreads;
-    const int cb = t % kPerRow;
-    r0 = t / kPerRow;
+    const int cb = t % kCols;
+    r0 = t / kCols;
     soff = chunk_offset<DP>(r0, cb);
-    col_ok = cb * 8 < d;
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) col_ok[p] = (cb + p * kCols) * 8 < d;
     row_stride = stride;
     head = base;
     src = base + r0 * stride + cb * 8;
@@ -153,11 +163,25 @@ struct TileCopy {
                                        int n_rows) const {
     const uint32_t dst = smem_u32(tile) + soff;
     const T* g = src + row0 * row_stride;
+    if constexpr (kPasses == 1) {
 #pragma unroll
-    for (int i = 0; i < kCopies; ++i) {
-      const bool ok = col_ok && row0 + r0 + i * kRowStep < n_rows;
-      cp_async_16(dst + i * kRowStep * Swizzle<DP>::kRowBytes,
-                  ok ? g + i * kRowStep * row_stride : head, ok ? 16 : 0);
+      for (int i = 0; i < kCopies; ++i) {
+        const bool ok = col_ok[0] && row0 + r0 + i * kRowStep < n_rows;
+        cp_async_16(dst + i * kRowStep * Swizzle<DP>::kRowBytes,
+                    ok ? g + i * kRowStep * row_stride : head, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p)
+#pragma unroll
+        for (int i = 0; i < kCopies; ++i) {
+          const bool ok = col_ok[p] && row0 + r0 + i * kRowStep < n_rows;
+          cp_async_16(dst + p * kPassBytes +
+                          i * kRowStep * Swizzle<DP>::kRowBytes,
+                      ok ? g + i * kRowStep * row_stride + p * kCols * 8
+                         : head,
+                      ok ? 16 : 0);
+        }
     }
   }
 };
@@ -264,6 +288,20 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+#define NNS_WGMMA_SS_N32(TY)                                                  \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "                              \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                    \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d)                                \
+      : "memory")
+
 #define NNS_WGMMA_SS_N64(TY)                                                  \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
@@ -365,17 +403,78 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
         "r"(scale_d)                                                          \
       : "memory")
 
+#define NNS_WGMMA_RS_N256(TY)                                                 \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                               \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                             \
+      " %24, %25, %26, %27, %28, %29, %30, %31, "                             \
+      " %32, %33, %34, %35, %36, %37, %38, %39, "                             \
+      " %40, %41, %42, %43, %44, %45, %46, %47, "                             \
+      " %48, %49, %50, %51, %52, %53, %54, %55, "                             \
+      " %56, %57, %58, %59, %60, %61, %62, %63, "                             \
+      " %64, %65, %66, %67, %68, %69, %70, %71, "                             \
+      " %72, %73, %74, %75, %76, %77, %78, %79, "                             \
+      " %80, %81, %82, %83, %84, %85, %86, %87, "                             \
+      " %88, %89, %90, %91, %92, %93, %94, %95, "                             \
+      " %96, %97, %98, %99, %100, %101, %102, %103, "                         \
+      " %104, %105, %106, %107, %108, %109, %110, %111, "                     \
+      " %112, %113, %114, %115, %116, %117, %118, %119, "                     \
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "                    \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                   \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                   \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                   \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                   \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                   \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                   \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),                   \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),                   \
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),                   \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),                   \
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),                   \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),                   \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),                   \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),                   \
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),                   \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),                   \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),               \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),               \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),               \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),               \
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),               \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),               \
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),              \
+        "r"(scale_d)                                                          \
+      : "memory")
+
 // d (+)= A B on one warpgroup, f32 accumulators; the product adds to d when
 // scale_d is nonzero and overwrites it otherwise.
 //
-// mma_ss_n64: A (64 x 16) and B (16 x 64) K-major from shared memory.
-template <typename T>
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t desc_a,
-                                           uint64_t desc_b, int scale_d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    NNS_WGMMA_SS_N64("bf16");
+// mma_ss: A (64 x 16) and B (16 x N) K-major from shared memory.
+template <typename T, int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                       uint64_t desc_b, int scale_d) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(N == 32 || N == 64, "wgmma width");
+  if constexpr (N == 32) {
+    if constexpr (kBf16) NNS_WGMMA_SS_N32("bf16");
+    else NNS_WGMMA_SS_N32("f16");
   } else {
-    NNS_WGMMA_SS_N64("f16");
+    if constexpr (kBf16) NNS_WGMMA_SS_N64("bf16");
+    else NNS_WGMMA_SS_N64("f16");
   }
 }
 
@@ -386,7 +485,8 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4],
                                        uint64_t desc_b, int scale_d) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma width");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma width");
   if constexpr (N == 16) {
     if constexpr (kBf16) NNS_WGMMA_RS_N16("bf16");
     else NNS_WGMMA_RS_N16("f16");
@@ -396,17 +496,22 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
   } else if constexpr (N == 64) {
     if constexpr (kBf16) NNS_WGMMA_RS_N64("bf16");
     else NNS_WGMMA_RS_N64("f16");
-  } else {
+  } else if constexpr (N == 128) {
     if constexpr (kBf16) NNS_WGMMA_RS_N128("bf16");
     else NNS_WGMMA_RS_N128("f16");
+  } else {
+    if constexpr (kBf16) NNS_WGMMA_RS_N256("bf16");
+    else NNS_WGMMA_RS_N256("f16");
   }
 }
 
+#undef NNS_WGMMA_SS_N32
 #undef NNS_WGMMA_SS_N64
 #undef NNS_WGMMA_RS_N16
 #undef NNS_WGMMA_RS_N32
 #undef NNS_WGMMA_RS_N64
 #undef NNS_WGMMA_RS_N128
+#undef NNS_WGMMA_RS_N256
 
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -419,25 +524,26 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// A 64 x 64 accumulator rounded to T as four k steps of A operands: a[kk]
-// holds its columns 16 kk .. 16 kk + 15.
-template <typename T>
-__device__ __forceinline__ void pack_a(const float (&x)[32],
-                                       uint32_t (&a)[4][4]) {
+// A 64 x N accumulator (N / 2 values a thread) rounded to T as N / 16 k
+// steps of A operands: a[kk] holds its columns 16 kk .. 16 kk + 15.
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(const float (&x)[N],
+                                       uint32_t (&a)[N / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < N / 8; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       a[kk][i] = pack2<T>(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
-// Writes a 64 x DP accumulator (rows row0.. of one head, those below n_rows
-// and columns below d) into a contiguous (T, H, D) output.
-template <typename T, int DP>
+// Writes a 64 x N accumulator (rows row0 + 16 w.. of one head for warp w of
+// the block, those below n_rows; its columns are c0 .. c0 + N - 1, those
+// below d) into a contiguous (T, H, D) output.
+template <typename T, int N>
 __device__ __forceinline__ void store_acc(T* __restrict__ out,
-                                          const float (&acc)[DP / 2],
+                                          const float (&acc)[N / 2],
                                           int row0, int n_rows, int h,
-                                          int head, int d) {
+                                          int head, int d, int c0 = 0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -445,10 +551,10 @@ __device__ __forceinline__ void store_acc(T* __restrict__ out,
     if (row >= n_rows) continue;
     T* orow = out + ((long long)row * h + head) * d;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = 8 * j + 2 * (lane & 3) + e;
+        const int col = c0 + 8 * j + 2 * (lane & 3) + e;
         if (col < d) orow[col] = from_f32<T>(acc[4 * j + 2 * half + e]);
       }
   }

@@ -5,12 +5,17 @@ forward and two backward kernels are Pallas TPU kernels.  Here each is a
 hand-written CUDA kernel for tensors on the card, built by :mod:`.._cuda`:
 
 - K2, the forward (``csrc/flash_attention.cu``), plain version
-  :func:`flash_attention_reference`: f16 and bf16 on the tensor cores,
-  rounding p to the inputs' type before ``p·v`` (so within a tolerance of
-  the plain version, not bit-equal), f32 and head dims past 128 on the
-  CUDA cores;
+  :func:`flash_attention_reference`: f16 and bf16 on the tensor cores up
+  to a head dim of 256, rounding p to the inputs' type before ``p·v`` (so
+  within a tolerance of the plain version, not bit-equal), f32 on the CUDA
+  cores;
 - K3 (dq) and K4 (dk, dv), the backward (``csrc/flash_attention_bwd.cu``),
-  plain version :func:`flash_attention_backward_reference`.
+  plain version :func:`flash_attention_backward_reference`: f16 and bf16
+  on the tensor cores up to 256, f32 on the CUDA cores;
+- past those head dims (256, and 128 for the f32 backward), every dtype on
+  the CUDA cores in head-dim chunks of 64: the scores summed over the
+  chunks, a block for each chunk of output columns.  Every head dim the
+  JAX package takes is taken here too.
 
 For ``q (Tq, H, D)`` and ``k, v (Tkv, H, D)`` — or the same with a leading
 batch axis, ``(B, T, H, D)``, which the kernels take as a grid axis, as
@@ -50,11 +55,6 @@ from .. import _cuda
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
-#: the forward kernel's widest head dimension
-MAX_HEAD_DIM = 256
-#: the backward kernels' widest head dimension (K4's 128-wide tiles fill
-#: most of an SM's shared memory)
-MAX_BWD_HEAD_DIM = 128
 #: the kernels' largest batch (their grid's z extent)
 MAX_BATCH = 65535
 
@@ -103,9 +103,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} differ in batch, heads or "
                          f"head dim")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {q.shape[-1]} > "
-                         f"{MAX_HEAD_DIM}")
     if q.dim() == 4 and q.shape[0] > MAX_BATCH:
         raise ValueError(f"flash_attention: batch {q.shape[0]} > "
                          f"{MAX_BATCH}")
@@ -214,12 +211,13 @@ def _require_card(what: str, *xs: torch.Tensor) -> None:
                          f"contiguous")
 
 
-#: K2's tensor-core versions (f16/bf16), which ``flash_attention_version``
-#: launches and chip_smoke.py times against each other;
-#: ``flash_attention`` launches 1 where blocks of 128 query rows fill every
-#: SM twice over, else 2
+#: K2's tensor-core versions (f16/bf16, head dims up to 256), which
+#: ``flash_attention_version`` launches and chip_smoke.py times against
+#: each other; ``flash_attention`` launches 1 where blocks of 128 query rows
+#: fill every SM twice over, else 2
 FORWARD_VERSIONS = {1: "two warpgroups a block, 64 keys a stage",
-                    2: "one warpgroup a block, 128 keys a stage"}
+                    2: "one warpgroup a block, 128 keys a stage (64 at a "
+                       "head dim past 128)"}
 
 
 def _kernel_forward(q, k, v, causal, q_offset, k_offset):
@@ -379,16 +377,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kept for signature parity with the JAX package and never change the
     result: the kernels' tiles are their own.  ``return_lse`` also returns
     the per-row logsumexp ``([B,] H, Tq)`` f32; both outputs are
-    differentiable.  Float32, float16 and bfloat16; head dim up to 256
-    forward, up to 128 when a gradient is needed."""
+    differentiable.  Float32, float16 and bfloat16, at any head dim."""
     del block_q, block_k
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.shape[-1] > MAX_BWD_HEAD_DIM:
-            raise ValueError(f"flash_attention: head dim {q.shape[-1]} > "
-                             f"{MAX_BWD_HEAD_DIM}, the backward kernels' "
-                             f"widest")
         out, lse = _FlashFn.apply(q, k, v, bool(causal), int(q_offset),
                                   int(k_offset))
     else:

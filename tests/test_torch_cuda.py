@@ -124,8 +124,13 @@ FLASH_CASES = [
     (130, 2, 8, None, True, torch.float32),        # D below every width
     (70, 2, 40, None, False, torch.float32),       # D between widths
     (100, 2, 128, None, True, torch.bfloat16),
-    (65, 2, 256, None, True, torch.float32),       # widest D
+    (65, 2, 256, None, True, torch.float32),       # widest f32 tile
     (50, 3, 6, None, True, torch.bfloat16),        # D of no whole vector
+    (300, 2, 256, None, True, torch.bfloat16),     # the wide LM's heads
+    (130, 2, 136, None, False, torch.float16),     # D between 128 and 256
+    (200, 2, 320, None, True, torch.float32),      # past 256: D chunks
+    (77, 3, 320, 130, False, torch.bfloat16),      # a partial last chunk
+    (40, 2, 600, None, True, torch.bfloat16),      # ten chunks
 ]
 
 
@@ -169,10 +174,11 @@ def test_flash_attention_unaligned_rows(card):
 
 
 def test_flash_attention_refuses_what_it_does_not_take(card):
+    """Any head dim is taken (300: the D-chunked route); mixed dtypes and
+    a head dim that is not contiguous are not."""
     q = torch.zeros(8, 2, 16, device=card)
-    with pytest.raises(ValueError, match="head dim"):
-        z = torch.zeros(8, 2, 300, device=card)
-        flash_attention(z, z, z)
+    z = torch.zeros(8, 2, 300, device=card)
+    assert flash_attention(z, z, z).shape == z.shape
     with pytest.raises(TypeError, match="share"):
         flash_attention(q, q.half(), q)
     with pytest.raises(ValueError, match="contiguous"):
@@ -211,6 +217,9 @@ TC_FLASH_CASES = [
     ((260, 2, 128), None, True),      # D = 128
     ((3, 77, 4, 64), None, True),     # the batch axis
     ((2, 129, 3, 128), 65, False),    # batched, D = 128, ragged
+    ((260, 2, 256), None, True),      # D = 256: four 128-byte atoms a row
+    ((2, 129, 3, 256), 65, False),    # batched, D = 256, ragged
+    ((130, 2, 200), 77, True),        # D = 200, padded to 256
 ]
 
 
@@ -267,7 +276,8 @@ def test_flash_attention_tensor_core_unaligned_rows(card, dtype):
 @pytest.mark.parametrize("shape,causal", [((200, 3, 64), True),
                                           ((2, 197, 6, 64), False),
                                           ((130, 2, 32), True),
-                                          ((2, 77, 2, 128), False)],
+                                          ((2, 77, 2, 128), False),
+                                          ((2, 130, 2, 256), True)],
                          ids=str)
 def test_flash_attention_versions_match_plain(card, version, shape, causal):
     """Every tensor-core version chip_smoke.py times computes the same
@@ -362,6 +372,13 @@ BWD_CASES = [
     ((100, 3, 32), None, False, torch.bfloat16),       # D 32
     ((4, 2048, 8, 64), None, True, torch.float16),     # the LM layer in f16
     ((3, 130, 2, 64), 77, False, torch.bfloat16),      # ragged Tq and Tkv
+    ((4, 2048, 2, 256), None, True, torch.bfloat16),   # the wide LM layer
+    ((2, 130, 2, 256), 77, False, torch.float16),      # D = 256, ragged
+    ((100, 2, 136), None, True, torch.bfloat16),       # D = 136, padded
+    ((100, 2, 136), None, True, torch.float32),        # f32 past 128: chunks
+    ((2, 70, 2, 256), None, False, torch.float32),
+    ((2, 100, 2, 320), 77, True, torch.bfloat16),      # past 256: chunks
+    ((70, 2, 320), None, False, torch.float32),
 ]
 
 
@@ -394,9 +411,14 @@ def test_flash_backward_strided_views(card):
 
 
 def test_flash_backward_refuses_wide_head_dim(card):
-    w = torch.zeros(8, 2, 136, device=card, requires_grad=True)
-    with pytest.raises(ValueError, match="backward"):
-        flash_attention(w, w, w)
+    """No head dim is refused: D = 136 and 320 (f32: the D-chunked
+    route) with offsets, rows that see no key and an lse cotangent."""
+    for d in (136, 320):
+        q, k, v = _qkv(card, 100, 2, d, torch.float32, tkv=150, seed=6)
+        (dq, _, _), lse = _check_backward(q, k, v, causal=True, q_offset=10,
+                                          k_offset=75, lse_cot=True)
+        dead = torch.isinf(lse).all(0)
+        assert int(dead.sum()) == 65 and torch.all(dq[dead] == 0)
 
 
 # ---------------------------------------------------------------------------

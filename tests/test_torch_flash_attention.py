@@ -21,8 +21,8 @@ from nnstreamer_tpu.parallel.ring_attention import \
     local_attention as jax_local
 from nnstreamer_tpu_torch.ops import flash_attention as fa
 from nnstreamer_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_reference, flash_is_default,
-    flash_wins)
+    flash_attention, flash_attention_backward_reference,
+    flash_attention_reference, flash_is_default, flash_wins)
 from nnstreamer_tpu_torch.parallel.ring_attention import local_attention
 
 ATOL = RTOL = 1e-5
@@ -142,24 +142,32 @@ def test_local_attention_matches_jax(causal):
 
 
 def test_needing_a_gradient_raises():
-    """The backward is ported: a call that needs a gradient raises only
-    past the backward kernels' widest head dim (128), which the forward
-    alone takes."""
-    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(5, 2, 16))
-    out = flash_attention(q, k, v)
-    assert out.requires_grad and out.shape == (5, 2, 16)
-    wide = torch.zeros(5, 2, 136, requires_grad=True)
-    with pytest.raises(ValueError, match="backward"):
-        flash_attention(wide, wide, wide)
-    with torch.no_grad():
-        assert flash_attention(wide, wide, wide).shape == (5, 2, 136)
+    """The backward is ported at every head dim: a call that needs a
+    gradient raises nowhere, at D = 16 or past the tensor-core widths (136,
+    320), and its gradient is the plain backward's."""
+    for d in (16, 136, 320):
+        q, k, v = (torch.from_numpy(x).requires_grad_()
+                   for x in _qkv(5, 2, d, seed=d))
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        assert out.requires_grad and out.shape == (5, 2, d)
+        g = torch.ones_like(out)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        delta = (g * out.detach()).sum(-1).t()
+        want = flash_attention_backward_reference(
+            q.detach(), k.detach(), v.detach(), g, lse.detach(), delta,
+            causal=True)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=0.0, rtol=0.0)
 
 
 def test_refuses_what_it_does_not_take():
+    """Mismatched heads and mixed dtypes are refused; no head dim is
+    (D = 257 takes the plain version here, the D-chunked kernel on the
+    card)."""
     z = torch.zeros(4, 2, 16)
-    with pytest.raises(ValueError, match="head dim"):
-        w = torch.zeros(4, 2, 257)
-        flash_attention(w, w, w)
+    w = torch.from_numpy(_qkv(4, 2, 257)[0])
+    torch.testing.assert_close(flash_attention(w, w, w),
+                               flash_attention_reference(w, w, w))
     with pytest.raises(ValueError, match="differ"):
         flash_attention(z, torch.zeros(4, 3, 16), torch.zeros(4, 3, 16))
     with pytest.raises(TypeError, match="share"):
@@ -198,11 +206,22 @@ def test_gate_override(monkeypatch, env, t, want):
 
 
 def test_kernel_is_registered_for_the_build():
-    """The wrapper's kernel is one of the sources the build compiles."""
+    """The wrapper's kernel is one of the sources the build compiles, and
+    a head dim past 128 (D = 136) needing a gradient gets the plain
+    backward's gradient, as the wider kernels give it on the card."""
     from nnstreamer_tpu_torch import _cuda
 
     assert _cuda.SOURCES["flash_attention"] == "flash_attention.cu"
-    assert fa.MAX_HEAD_DIM == 256
+    q, k, v = (torch.from_numpy(x) for x in _qkv(9, 2, 136, seed=2))
+    g = torch.from_numpy(_qkv(9, 2, 136, seed=3)[0])
+    ts = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*ts)
+    got = torch.autograd.grad(out, ts, g)
+    _, lse = flash_attention_reference(q, k, v, return_lse=True)
+    delta = (g * out.detach()).sum(-1).t()
+    want = flash_attention_backward_reference(q, k, v, g, lse, delta)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0.0, rtol=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -245,18 +264,22 @@ def _tensor_core_rounding_forward(q, k, v, causal=False):
     return out.transpose(-3, -2).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("batch,t,h,causal", [((), 2048, 2, True),
-                                              ((2,), 197, 6, False)],
-                         ids=["lm-layer-heads", "vit-layer"])
-def test_tensor_core_rounding_stays_inside_card_tolerance(batch, t, h, causal,
-                                                          record_property):
+@pytest.mark.parametrize("batch,t,h,causal,d",
+                         [((), 2048, 2, True, 64), ((2,), 197, 6, False, 64),
+                          ((), 1024, 2, True, 256),
+                          ((2,), 197, 2, False, 200)],
+                         ids=["lm-layer-heads", "vit-layer", "lm-wide-heads",
+                              "d200-padded-256"])
+def test_tensor_core_rounding_stays_inside_card_tolerance(
+        batch, t, h, causal, d, record_property):
     """Rounding p to bf16 before p·v, with l summed from the f32 p, as the
     card's tensor-core K2 does, keeps out inside the tolerance that holds
     it to the plain version, at the LM layer's per-head shape (T = 2048,
-    causal, D = 64) and ViT's (T = 197, 6 heads, batch 2).  The share of
-    the tolerance used goes into the report as ``tolerance_share``."""
+    causal, D = 64), ViT's (T = 197, 6 heads, batch 2), and at the padded
+    width of 256 (the wide-head LM's D = 256, causal; D = 200).  The share
+    of the tolerance used goes into the report as ``tolerance_share``."""
     rng = np.random.default_rng(16)
-    q, k, v = (torch.from_numpy(rng.standard_normal(batch + (t, h, 64))
+    q, k, v = (torch.from_numpy(rng.standard_normal(batch + (t, h, d))
                                 .astype(np.float32)).to(torch.bfloat16)
                for _ in range(3))
     got = _tensor_core_rounding_forward(q, k, v, causal=causal).float()
@@ -283,7 +306,7 @@ def _smoke_module():
 #: an ``nvcc -Xptxas -v`` report in the form the card's build writes it
 #: (argument lists shortened): K2's tensor-core kernel in bf16 at a padded
 #: width of 64 that spills, in f16 at 128 that spills, and the CUDA-core
-#: kernel in f32 and in bf16 at 256, spilling too
+#: kernel in f32 and in bf16 in 64-column chunks (past 256), spilling too
 FWD_PTXAS_REPORT = """\
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_forward_tc_kernelI13__nv_bfloat16Li64ELi2ELi1EEEvPKT_' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_forward_tc_kernelI13__nv_bfloat16Li64ELi2ELi1EEEvPKT_
@@ -293,12 +316,12 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_forward_tc_ke
 ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_forward_tc_kernelI6__halfLi128ELi1ELi2EEEvPKT_
     16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_forward_kernelIfLi64EEEvPKT_' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_forward_kernelIfLi64EEEvPKT_
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_forward_kernelIfLi64ELb0EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_forward_kernelIfLi64ELb0EEEvPKT_
     256 bytes stack frame, 256 bytes spill stores, 256 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_forward_kernelI13__nv_bfloat16Li256EEEvPKT_' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_forward_kernelI13__nv_bfloat16Li256EEEvPKT_
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_forward_kernelI13__nv_bfloat16Li64ELb1EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_forward_kernelI13__nv_bfloat16Li64ELb1EEEvPKT_
     64 bytes stack frame, 64 bytes spill stores, 64 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
 """
@@ -308,8 +331,8 @@ def test_no_spill_check_picks_the_tensor_core_forward(monkeypatch):
     """chip_smoke.py's build check picks K2's tensor-core specialisations
     out of the mangled names by type and padded width, and fails the
     build on one at a width of NO_SPILL_WIDTHS that spills; the CUDA-core
-    kernel (f32, and bf16 at 256) and the 128-wide one are not held to
-    it."""
+    kernel (f32, and the D-chunked one of every dtype) and the 128-wide
+    one are not held to it."""
     from nnstreamer_tpu_torch import _cuda
 
     smoke = _smoke_module()

@@ -22,8 +22,8 @@ import torch
 
 from nnstreamer_tpu.ops.flash_attention import flash_attention as jax_flash
 from nnstreamer_tpu_torch.ops.flash_attention import (
-    MAX_BWD_HEAD_DIM, _FlashFn, flash_attention,
-    flash_attention_backward_reference, flash_attention_reference)
+    _FlashFn, flash_attention, flash_attention_backward_reference,
+    flash_attention_reference)
 
 ATOL = RTOL = 2e-5
 BF16_TOL = 2e-2
@@ -204,13 +204,21 @@ def test_needs_grad_goes_through_the_function():
 
 
 def test_backward_head_dim_limit():
-    """Forward takes D up to 256; a call needing a gradient refuses D past
-    the backward kernels' widest, on the CPU as on the card."""
-    w = torch.zeros(4, 2, MAX_BWD_HEAD_DIM + 8, requires_grad=True)
-    with pytest.raises(ValueError, match="backward"):
-        flash_attention(w, w, w)
-    with torch.no_grad():
-        assert flash_attention(w, w, w).shape == w.shape
+    """There is no head-dim limit any more: a call needing a gradient at D
+    = 136 (past 128, once the backward's widest) goes through the autograd
+    Function, and its gradient is the plain backward's on the same saved
+    out and lse, on the CPU as on the card (there within the kernels'
+    tolerance)."""
+    q, k, v, g = (torch.from_numpy(x) for x in _case(12, 2, 136, seed=16))
+    ts = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, lse = flash_attention(*ts, causal=True, return_lse=True)
+    assert type(out.grad_fn).__name__ == f"{_FlashFn.__name__}Backward"
+    got = torch.autograd.grad(out, ts, g)
+    delta = (g * out.detach()).sum(-1).t()
+    want = flash_attention_backward_reference(q, k, v, g, lse.detach(),
+                                              delta, causal=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0.0, rtol=0.0)
 
 
 #: test_torch_cuda.py's bf16 GRAD_TOL, which holds the card's K3/K4 to the
@@ -223,7 +231,9 @@ def _tensor_core_rounding_backward(q, k, v, dout, lse, delta, causal=False):
     tensor-core kernels (csrc/flash_attention_bwd.cu): bf16 inputs; s and
     dp in f32; p and ds rounded to bf16 before they enter the three
     accumulating products (dq = ds k, dk = ds^T q, dv = p^T dO), whose sums
-    are f32; each gradient rounded once."""
+    are f32; each gradient rounded once.  At a padded width of 256 K3 takes
+    its keys 32 at a time and K4 trades p and ds between two warpgroups in
+    f32: the same roundings."""
     qf, kf, vf, of = (x.float() for x in (q, k, v, dout))
     scale = 1.0 / np.sqrt(q.shape[-1])
     s = torch.einsum("...qhd,...khd->...hqk", qf, kf) * scale
@@ -241,17 +251,22 @@ def _tensor_core_rounding_backward(q, k, v, dout, lse, delta, causal=False):
     return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
 
 
-@pytest.mark.parametrize("batch,t,h,causal", [((), 2048, 2, True),
-                                              ((2,), 197, 6, False)],
-                         ids=["lm-layer-heads", "vit-layer"])
+@pytest.mark.parametrize("batch,t,h,causal,d",
+                         [((), 2048, 2, True, 64), ((2,), 197, 6, False, 64),
+                          ((), 1024, 2, True, 256),
+                          ((2,), 130, 2, False, 200)],
+                         ids=["lm-layer-heads", "vit-layer", "lm-wide-heads",
+                              "d200-padded-256"])
 def test_tensor_core_rounding_stays_inside_card_tolerance(batch, t, h,
-                                                          causal):
+                                                          causal, d):
     """Rounding p and ds to bf16 before the products, as the card's
     tensor-core kernels do, keeps dq, dk and dv inside the tolerance that
     holds them to the plain backward, at the LM layer's per-head shape
-    (T = 2048, causal, D = 64) and ViT's (T = 197, 6 heads, batch 2)."""
+    (T = 2048, causal, D = 64), ViT's (T = 197, 6 heads, batch 2), and at
+    the padded width of 256 (the wide-head LM's D = 256, causal; D =
+    200)."""
     q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16)
-                  for x in _case(t, h, 64, seed=15, batch=batch))
+                  for x in _case(t, h, d, seed=15, batch=batch))
     out, lse = flash_attention_reference(q, k, v, causal=causal,
                                          return_lse=True)
     delta = (g.float() * out.float()).sum(-1).transpose(-1, -2)

@@ -123,6 +123,8 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     # the fixture writers chip_smoke.py imports
     yield os.path.join(ROOT, "tests", "torch_model_files.py")
+    # the kernels' timing harness (checkouts compared in turns)
+    yield os.path.join(ROOT, "tools", "torch_flash_turns.py")
 
 
 def _imported_roots(path):
