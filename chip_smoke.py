@@ -10,14 +10,17 @@ Phases, each of which must pass:
    (one ``nvcc`` per source, all started together) and report each kernel
    function's registers, shared memory, spill bytes and ptxas notes from
    ``-Xptxas -v``; a tensor-core K2/K3/K4 (f16, bf16) that spills at a
-   padded head dim of 16, 32, 64 or 256 fails;
+   padded head dim of 16, 32, 64 or 256 fails, and so does K2's piece
+   kernel (f32 at every head dim, every dtype past 256) at any width;
 2. hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and a few others, and time both, plus the one PyTorch
    call that computes the same function where there is one; K2's
    tensor-core versions are checked and timed against each other in
-   turns at the six attention paths' shapes (``wide_routes``: a traced
-   bf16 call at a head dim of 256 launches the tensor-core K2, K3 and K4
-   at that width, by kernel name); K1's floor is traced inside
+   turns at the six attention paths' shapes (``k2_routes``: traced calls
+   launch a tensor-core K2 by kernel name in f32 at head dims 64, 256
+   and 320 and in bf16 and f16 at 320, a bf16 call at 256 the
+   tensor-core K2, K3 and K4 at that width, and the build holds no
+   CUDA-core forward); K1's floor is traced inside
    CUDA graph replays: an empty kernel (the card's per-kernel floor), K1
    on a 1-element frame, on the main path's and on a 32-frame bucket
    (beside that bucket's event-timed call and its bytes bound);
@@ -309,6 +312,7 @@ GRAPH_LOGITS_FRAMES = 8
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12        # tensor cores, bf16 and f16
+TF32_FLOPS = 495e12        # tensor cores, TF32
 
 LAUNCH = ("videotestsrc num-buffers={frames} pattern=random seed={seed} ! "
           "video/x-raw,format=RGB,width=224,height=224,framerate=30/1 ! "
@@ -386,13 +390,19 @@ def card_line() -> str:
 
 
 #: the tensor-core K2/K3/K4 specialisations, by mangled name: (kernel,
-#: type, DP), DP up to 256; the CUDA-core kernels (flash_forward_kernel,
-#: flash_bwd_dq_kernel, flash_bwd_dkv_kernel: f32, and every dtype in
-#: head-dim chunks past the tensor cores' widths) are not ones
-TC_KERNEL = re.compile(r"(flash_(?:forward|bwd_d(?:q|kv))_tc_kernel)I\d+"
-                       r"(__nv_bfloat16|__half)Li(\d+)E")
-#: padded head dims at which a tensor-core K2/K3/K4 must not spill
+#: type, width), the type ``f`` for float; the width is DP, the padded head
+#: dim up to 256, or for K2's piece kernel (f32 at every head dim, f16 and
+#: bf16 past 256) the output columns a block owns.  The backward's
+#: CUDA-core kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel: f32, and
+#: every dtype in head-dim chunks past the tensor cores' widths) are not
+#: ones
+TC_KERNEL = re.compile(r"(flash_(?:forward|bwd_d(?:q|kv))_tc(?:_piece)?"
+                       r"_kernel)I(?:\d+)?(__nv_bfloat16|__half|f)Li(\d+)E")
+#: padded head dims at which a tensor-core K2/K3/K4 must not spill; K2's
+#: piece kernel (every f32 K2, and f16 and bf16 past 256) must not spill at
+#: any width
 NO_SPILL_WIDTHS = (16, 32, 64, 256)
+K2_PIECE = "flash_forward_tc_piece_kernel"
 #: a name every K2 specialisation carries (the profile counts frames by it)
 K2_MARKER = "flash_forward"
 
@@ -415,7 +425,8 @@ def demangle(names):
 def build_report():
     """Registers, static shared memory and spill bytes of every kernel
     function from the build's ``-Xptxas -v`` report, and the tensor-core
-    K2/K3/K4 specialisations at a width of NO_SPILL_WIDTHS that spill."""
+    K2/K3/K4 specialisations at a width of NO_SPILL_WIDTHS, or of K2's
+    piece kernel at any width, that spill."""
     from nnstreamer_tpu_torch import _cuda
 
     rows, spills = [], []
@@ -427,7 +438,8 @@ def build_report():
             m = TC_KERNEL.search(f["function"])
             spilled = f.get("spill_store_bytes", 0) + f.get(
                 "spill_load_bytes", 0)
-            if m and int(m.group(3)) in NO_SPILL_WIDTHS and spilled:
+            if m and spilled and (int(m.group(3)) in NO_SPILL_WIDTHS
+                                  or m.group(1) == K2_PIECE):
                 spills.append(f"{label} spills {spilled} bytes")
     return rows, spills
 
@@ -702,12 +714,13 @@ FLASH_ROWS = [
     # (no row sees a key: out 0, lse -inf)
     ("ring_past", 4, 1024, 1024, 8, 64, True, "float32", 1024, 0),
     ("ring_future", 4, 1024, 1024, 8, 64, True, "float32", 0, 1024),
-    # the wide-head LM (2 heads x 256): its filter's and trainer's layers
-    # on the tensor cores; f32 at 256 and bf16 at 320 on the CUDA cores
+    # the wide-head LM (2 heads x 256): its filter's and trainer's layers;
+    # f32 at 256, and bf16 and f32 at 320, in the piece kernel
     ("lm_wide", None, 2048, 2048, 2, 256, True, "bfloat16", 0, 0),
     ("lm_wide_train", 4, 2048, 2048, 2, 256, True, "bfloat16", 0, 0),
     ("wide_f32", 2, 512, 512, 2, 256, True, "float32", 0, 0),
     ("wide_320", 2, 512, 512, 2, 320, True, "bfloat16", 0, 0),
+    ("wide_320_f32", 2, 512, 512, 2, 320, True, "float32", 0, 0),
 ]
 #: FLASH_ROWS whose call returns no lse (its bytes leave the bound)
 FLASH_NO_LSE = ("vit_batched",)
@@ -728,10 +741,14 @@ def visible_pairs(tq, tkv, causal, q_offset, k_offset) -> int:
 
 def bound_ms(nbytes, ops, itemsize):
     """Least time for ``nbytes`` over HBM and ``ops`` over the dtype's
-    peak: (ms, bound_by)."""
-    peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
+    peak: (ms, bound_by).  f32 operations take the lesser time of the
+    CUDA cores' rate and three TF32 products a product on the tensor
+    cores (the least time for the work, whatever implements it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
+    if itemsize == 4:
+        t_ops = min(ops / F32_FLOPS, 3 * ops / TF32_FLOPS) * 1e3
+    else:
+        t_ops = ops / BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -4630,9 +4647,10 @@ def lm_f32_diff(custom: dict, tokens):
     """Logits max |kernel - plain| of the LM filter's model built in f32
     (TF32 off), on one frame's tokens, on the card, and max |card - CPU|:
     the kernels' forward on the card against the same parameters' plain
-    forward on the CPU."""
+    forward on the CPU; and the f32 K2 launches of that forward."""
     import torch
 
+    from nnstreamer_tpu_torch import _cuda
     from nnstreamer_tpu_torch.models.registry import get_model
     from nnstreamer_tpu_torch.models.streamformer_lm import (forward_logits,
                                                              place_params)
@@ -4640,14 +4658,16 @@ def lm_f32_diff(custom: dict, tokens):
     model = get_model("streamformer_lm", {**custom, "dtype": "float32"}
                       ).module
     t = torch.from_numpy(tokens)
+    before = _cuda.launches["flash_attention"]
     with torch.inference_mode(), no_tf32():
         kern = forward_logits(model.params, t.cuda(), model.cfg, flash=True)
+        launches = _cuda.launches["flash_attention"] - before
         plain = forward_logits(model.params, t.cuda(), model.cfg,
                                flash=False)
         cpu = forward_logits(place_params(model.params, model.cfg, "cpu"), t,
                              model.cfg, flash=False)
     return ((kern - plain).abs().max().item(),
-            (kern.cpu() - cpu).abs().max().item())
+            (kern.cpu() - cpu).abs().max().item(), launches)
 
 
 def stream_lm_filter(frames: int, seed: int, card: str, eager: bool,
@@ -4758,13 +4778,13 @@ def run_lm_filter(frames: int, seed: int, card: str, lm: dict = LM_CUSTOM,
             sure = top2_margin(plain) > MARGIN
             compared += int(sure.sum())
             agree += int((got.argmax(-1) == plain.argmax(-1))[sure].sum())
-        f32_diff, f32_cpu_diff = lm_f32_diff(custom, toks[0])
+        f32_diff, f32_cpu_diff, f32_k2 = lm_f32_diff(custom, toks[0])
     row.update({"logits_max_abs_diff_vs_plain": worst, "atol": LOGITS_ATOL,
                 "rows_over_atol": rows_over, "rows": frames * LM_SEQ,
                 "positions_compared": compared, "argmax_equal": agree,
                 "f32_logits_max_abs_diff_vs_plain": f32_diff,
                 "f32_logits_max_abs_diff_card_vs_cpu": f32_cpu_diff,
-                "f32_atol": F32_LOGITS_ATOL})
+                "f32_atol": F32_LOGITS_ATOL, "f32_flash_launches": f32_k2})
     emit(row)
     if (rows_over > BF16_LM_SHARE * frames * LM_SEQ
             or compared - agree > BF16_LM_SHARE * compared
@@ -5569,58 +5589,127 @@ def run_lm_wide(args, card: str) -> dict:
 
 
 #: the tensor-core specialisation of a K2/K3/K4 kernel as the profiler
-#: names it (demangled): (kernel, type, padded head dim)
-TC_KERNEL_TRACED = re.compile(r"(flash_(?:forward|bwd_d(?:q|kv))_tc_kernel)"
-                              r"<(__nv_bfloat16|__half), (\d+)[,>]")
+#: names it (demangled): (kernel, type, width)
+TC_KERNEL_TRACED = re.compile(r"(flash_(?:forward|bwd_d(?:q|kv))_tc(?:_piece)?"
+                              r"_kernel)<(__nv_bfloat16|__half|float), "
+                              r"(\d+)[,>]")
+#: K2's piece kernel as the profiler names it: (type, output columns a
+#: block, keys a stage, padded head dim or 0 past 256)
+K2_PIECE_TRACED = re.compile(r"flash_forward_tc_piece_kernel<(__nv_bfloat16|"
+                             r"__half|float), (\d+), (\d+), (\d+)>")
+#: k2_routes' calls: the FLASH_ROWS row whose shape, mask and offsets it
+#: takes, its dtype, and the piece kernel it must launch: (type, output
+#: columns a block, padded head dim or 0)
+K2_ROUTES = [("ring_past", "float32", ("float", 64, 64)),
+             ("wide_f32", "float32", ("float", 128, 256)),
+             ("wide_320_f32", "float32", ("float", 128, 0)),
+             ("wide_320", "bfloat16", ("__nv_bfloat16", 256, 0)),
+             ("wide_320", "float16", ("__half", 256, 0))]
 
 
 def tc_specialisation(name: str):
-    """(kernel, type, padded head dim) of a tensor-core K2/K3/K4 kernel
-    name, mangled (the build's report) or demangled (a trace); None for
-    any other kernel."""
+    """(kernel, type, width) of a tensor-core K2/K3/K4 kernel name,
+    mangled (the build's report) or demangled (a trace), the type
+    ``float`` for f32; None for any other kernel."""
     m = TC_KERNEL.search(name) or TC_KERNEL_TRACED.search(name)
-    return (m.group(1), m.group(2), int(m.group(3))) if m else None
+    if not m:
+        return None
+    kernel, ty, width = m.groups()
+    return kernel, "float" if ty == "f" else ty, int(width)
 
 
-def check_wide_routes(card: str) -> None:
-    """A bf16 call at D = 256 (lm_wide_train's shape), forward and
-    backward, traced: K2, K3 and K4 each launch their tensor-core
-    specialisation at a padded head dim of 256, found by kernel name.
-    The call runs three times in the trace, after a warm-up operation: a
-    later trace in a process that has traced before (k1_floor) has
-    lost the first kernels of its window."""
+def demangle_traced(name: str) -> str:
+    """A traced kernel name without its return type, namespace and
+    argument list."""
+    return (name.replace("void ", "", 1)
+            .replace("(anonymous namespace)::", "").split("(")[0])
+
+
+def traced_flash_kernels(calls, runs: int = 3) -> dict:
+    """Launches by name of the flash kernels that ``calls`` make, each
+    call run ``runs`` times in one trace.  A trace in a process that has
+    traced before (k1_floor) can lose the first kernels of its window, so
+    the window opens on 128 small kernels of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from nnstreamer_tpu_torch.ops.flash_attention import flash_attention
-
-    gen = torch.Generator().manual_seed(4)
-    q, k, v = (torch.randn(LM_TRAIN_BATCH, LM_SEQ, 2, 256, generator=gen)
-               .to("cuda", torch.bfloat16).requires_grad_()
-               for _ in range(3))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda").add_(1)
+        for _ in range(128):
+            torch.zeros(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-        for _ in range(3):
-            out = flash_attention(q, k, v, causal=True)
-            torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+        for call in calls:
+            for _ in range(runs):
+                call()
         torch.cuda.synchronize()
-    names = sorted({e.name for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and "flash" in e.name})
+    return dict(collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "flash" in e.name))
+
+
+def check_k2_routes(card: str) -> None:
+    """Every route of K2 on the tensor cores, in one trace.  At K2_ROUTES'
+    shapes (f32 at head dims 64, 256 and 320, bf16 and f16 at 320) each
+    call launches the piece kernel it must, found by name; a bf16 call at
+    D = 256 (lm_wide_train's shape), forward and backward, launches the
+    tensor-core K2, K3 and K4 at a padded 256.  No traced forward is a
+    CUDA-core one, and the build's report holds no forward kernel that is
+    not a tensor-core one, so none launched anywhere in the run."""
+    import torch
+
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator().manual_seed(4)
+    rows = {r[0]: r for r in FLASH_ROWS}
+    calls = []
+    for (row, dt, _) in K2_ROUTES:
+        _, b, tq, tkv, h, d, causal, _, qo, ko = rows[row]
+        q, k, v = (torch.randn(b, t, h, d, generator=gen)
+                   .to("cuda", getattr(torch, dt)) for t in (tq, tkv, tkv))
+        calls.append(functools.partial(flash_attention, q, k, v,
+                                       causal=causal, q_offset=qo,
+                                       k_offset=ko))
+    wide = [torch.randn(LM_TRAIN_BATCH, LM_SEQ, 2, 256, generator=gen)
+            .to("cuda", torch.bfloat16).requires_grad_() for _ in range(3)]
+
+    def fwd_bwd():
+        o = flash_attention(*wide, causal=True)
+        torch.autograd.grad(o, wide, torch.ones_like(o))
+
+    counts = traced_flash_kernels(calls + [fwd_bwd])
+    names = sorted(counts)
+    pieces = {(m.group(1), int(m.group(2)), int(m.group(4)))
+              for m in map(K2_PIECE_TRACED.search, names) if m}
     found = {tc_specialisation(n) for n in names} - {None}
-    want = {(kern, "__nv_bfloat16", 256) for kern in (
+    problems = [f"{row} {dt}: no piece kernel {want}"
+                for (row, dt, want) in K2_ROUTES if want not in pieces]
+    want_256 = {(kern, "__nv_bfloat16", 256) for kern in (
         "flash_forward_tc_kernel", "flash_bwd_dq_tc_kernel",
         "flash_bwd_dkv_tc_kernel")}
-    emit({"phase": "wide_routes", "card": card,
-          "shape": [LM_TRAIN_BATCH, LM_SEQ, 2, 256], "dtype": "bfloat16",
-          "kernels": names, "tensor_core": sorted(map(list, found))})
-    if not want <= found:
-        raise AssertionError(f"wide_routes: a bf16 call at D = 256 launched "
-                             f"{names}, not the tensor-core K2, K3 and K4 "
-                             f"at 256")
+    if not want_256 <= found:
+        problems.append("a bf16 call at D = 256 did not launch the "
+                        "tensor-core K2, K3 and K4 at 256")
+    cuda_core = sorted(n for n in names
+                       if K2_MARKER in n and tc_specialisation(n) is None)
+    built = sorted(f["function"] for f in _cuda.ptxas_report().get(
+        "flash_attention", []) if K2_MARKER in f["function"]
+        and tc_specialisation(f["function"]) is None)
+    if cuda_core or built:
+        problems.append(f"CUDA-core forward kernels: traced {cuda_core}, "
+                        f"built {built}")
+    emit({"phase": "k2_routes", "card": card,
+          "routes": [{"row": row, "dtype": dt, "want": list(want),
+                      "found": want in pieces}
+                     for (row, dt, want) in K2_ROUTES],
+          "bf16_256": {"shape": [LM_TRAIN_BATCH, LM_SEQ, 2, 256],
+                       "tensor_core": sorted(map(list, found))},
+          "launches": {demangle_traced(n): c for n, c in counts.items()},
+          "cuda_core_forward": {"traced": cuda_core, "built": built}})
+    if problems:
+        raise AssertionError("k2_routes: " + "; ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -7048,6 +7137,7 @@ def check_train_outputs(seed: int) -> None:
 
     import torch
 
+    from nnstreamer_tpu_torch import _cuda
     from nnstreamer_tpu_torch.models.registry import get_model
     from nnstreamer_tpu_torch.models.streamformer_lm import \
         config_from_custom
@@ -7064,7 +7154,9 @@ def check_train_outputs(seed: int) -> None:
     toks, labs = (torch.from_numpy(x).cuda()
                   for x in lm_train_samples(1, seed + 1)[0])
     mesh = make_mesh(devices=["cuda:0"])
+    k2 = {}    # K2 launches of each dtype's three kernel steps
     for dt in ("float32", "bfloat16"):
+        before = _cuda.launches["flash_attention"]
         custom = {"seed": str(seed), "dtype": dt}
         kern = get_model("vit", {**custom, "attn": "flash"},
                          trainable=True).module
@@ -7089,6 +7181,7 @@ def check_train_outputs(seed: int) -> None:
                 moe = {"moe_grad_max_rel_l2": _grad_gap(lg_k, moe)[0]}
             steps.append((path, (lm_k, lm_p), _grad_gap(lg_k, lg_p), moe))
             del params, lg_k, lg_p
+        k2[dt] = _cuda.launches["flash_attention"] - before
         loss_tol, grad_tol = TRAIN_TOL[dt]
         for path, (lk, lp), (gap, where), *moe in steps:
             lk, lp = float(lk), float(lp)
@@ -7106,7 +7199,8 @@ def check_train_outputs(seed: int) -> None:
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
     emit({"phase": "train_outputs", "vit_batch": int(frames.shape[0]),
-          "lm_tokens": list(toks.shape), "rows": rows})
+          "lm_tokens": list(toks.shape), "rows": rows,
+          "flash_launches": k2})
     if failures:
         raise AssertionError(f"training step with the kernels differs from "
                              f"plain attention at {failures}")
@@ -8158,7 +8252,7 @@ def main(argv=None) -> int:
         kernels += [check_flash_attention(args.reps),
                    *check_flash_backward(args.reps)]
         time_flash_versions(args.reps)
-        check_wide_routes(card)
+        check_k2_routes(card)
         main_path = run_labeling("main_path", LAUNCH, args.frames,
                                  args.seed, card, "normalize_frame", 1)
         labels_equal_eager("main_path", main_path, run_labeling(

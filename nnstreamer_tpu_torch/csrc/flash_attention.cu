@@ -25,9 +25,11 @@
 // What bounds it: at the paths' shapes the work is operations for long causal
 // sequences (LM, T = 2048: 4.3 GFLOP against 8.5 MB) and bytes for ViT's
 // T = 197 (60 MFLOP against 0.61 MB), where launch and latency weigh most.
-// There are three routes, by dtype and head dim:
+// Every dtype at every head dim runs on the tensor cores, in one of two
+// kernels:
 //
-// f16 and bf16: the tensor cores (flash_wgmma.cuh, shared with the backward).
+// f16 and bf16 up to a padded 256: flash_forward_tc_kernel (flash_wgmma.cuh,
+// shared with the backward).
 // A block has WG warpgroups of 128 threads, each owning 64 query rows (the M
 // of one wgmma), and they share the key/value tiles, 64 NT keys a stage:
 //
@@ -80,25 +82,67 @@
 // 161 KB for one, a block an SM.  Registers 234 (version 1) and 227
 // (version 2), no spills.
 
-// f32: the CUDA cores, as first written.  A tensor-core f32 product is TF32,
-// and the f32 kernel is held to the plain version to summation order.  One
-// block of 256 threads per (64-query tile, head, batch element); key/value
-// tiles go through shared memory in f32; each thread holds a 4 x 4 tile of
-// scores and the same 4 rows of the output accumulator, and p passes through
-// shared memory to be read back as the rows of the p.v product.  Its ceiling
-// is the 67 TFLOP/s f32 rate.  The head dimension is a runtime value up to
-// 256 (padded widths 16, 32, 64, 128 and 256), and columns past D load as
-// zeros.
+// f32 at every head dim, and f16 and bf16 past 256:
+// flash_forward_tc_piece_kernel.  Two things bound these on this card.
 //
-// Head dims past 256, every dtype: the same CUDA-core kernel in chunks of
-// 64 columns (kChunked).  The scores sum over the chunks of q and k, each
-// loaded in turn; lse comes once from the full sum; a block owns one chunk
-// of out's columns (a grid axis), so it recomputes the scores for it: the
-// score work grows with the number of chunks (5 at D = 320), a simple
-// kernel that is right first.  The last chunk may be partial (D = 320 =
-// 256 + 64 takes five whole ones; D = 600 ends on 24 columns): columns past
-// D load as zeros and are not stored.  f16 and bf16 compute in f32 here,
-// p unrounded, so they hold to the plain version to summation order too.
+// - The tensor cores take f32 only as TF32 (10 mantissa bits): with one
+//   TF32 product out misses the plain version by ~2e-3 (the CPU emulation,
+//   tests/test_torch_flash_tf32.py), twenty times the f32 tolerance of
+//   1e-4.  So each f32 product is three: a_hi b_hi + a_hi b_lo +
+//   a_lo b_hi, with hi the operand cut to TF32 and lo the rest (tf32_hi,
+//   tf32_lo), which misses by ~2^-20 (lo_a lo_b), the order of an f32
+//   rounding; the f32 kernel is held to the plain version within the f32
+//   tolerance, not to summation order.  Its ceiling is 495 / 3 = 165
+//   TFLOP/s, 2.5 times the CUDA cores' 67.  wgmma takes 32-bit operands
+//   from shared memory only K-major, so v lands there transposed, through
+//   registers.
+// - Past 256 the p.v accumulator of one warpgroup is wgmma's widest N, 256
+//   columns (128 f32 registers a thread), so out's columns go in pieces,
+//   a piece a block (a grid axis).  Each block takes the scores itself over
+//   the whole head dim, so the score work is the number of pieces (2 at D =
+//   320, where the CUDA-core route took it five times, once per 64 output
+//   columns).  Warpgroups of one block that trade p through shared memory
+//   (K4's design at 256) would take the scores once, but one warpgroup
+//   would wait on another's softmax, and a block would need both pieces'
+//   tiles: with a block a piece, two blocks share an SM and overlap each
+//   other.
+//
+// The design, for both:
+//
+// - one warpgroup a block owns 64 query rows and DO output columns: in
+//   f16 and bf16 256 (D = 320: two pieces, D = 600: three); in f32 the
+//   padded head dim up to 128, else 128, so f32 at 256 is two pieces and
+//   takes its scores twice.  With 256 f32 columns (the accumulator, and p
+//   and v^T in hi and lo) the kernel spilled 328 bytes at a padded 256 and
+//   took 0.159 ms against 0.094 at (2, 512, 2, 256) (an H100 80GB HBM3 at
+//   700 W, PERF.md §6);
+// - s = q k^T runs over the head dim padded to a whole k step (16 columns
+//   in f16 and bf16: D = 600 pads to 608; 8 in f32), both operands from
+//   shared memory, in chunks of 256 bytes (8 k steps) a commit.  k goes
+//   through shared memory a chunk at a time (KN keys x 256 bytes; f32 as a
+//   hi and a lo tile, split on the way in).  q is loaded once, whole and
+//   split, where its width is known at compile time (f32 up to 256:
+//   16-128 KB), else a 64-row chunk beside each chunk of k, so shared
+//   memory does not grow with D.  q's A fragments loaded from global
+//   memory into registers instead cost a load's latency every 4 k steps:
+//   K2 at the sp=2 ring's shape took 0.179 ms against 0.137 with q in
+//   shared memory (the same card, PERF.md §6);
+// - o += p v takes p from registers.  In f32, hi and lo come straight from
+//   the score accumulator: its thread holds keys 8 t + col and + 1 where
+//   the TF32 A wants k columns l % 4 and + 4; the product sums over keys,
+//   so v^T's columns are stored in that order (key 8 t + u at column 8 t +
+//   u / 2 + 4 (u % 2)) and p needs no shuffle.  f16 and bf16 round p as
+//   flash_forward_tc_kernel does and read the v tile MN-major;
+// - keys a stage: 64, or 32 in f32 at 128 output columns (a v^T tile of
+//   128 x 64 f32 in hi and lo would take 64 KB).  Shared memory is 57-177
+//   KB a block in f32, 65 KB in f16 and bf16; registers 174-248 in f32,
+//   255 in f16 and bf16, no spills;
+// - copies are synchronous: each thread loads its part of a tile (f32
+//   into registers, split, stored; f16 and bf16 by cp.async, waited at
+//   once), and the products wait for it.  A block's copies do not overlap
+//   its own products; the blocks on an SM (one to three) overlap each
+//   other's.  A simple kernel that is right first; a ring of stages is the
+//   next step.
 
 #include <type_traits>
 
@@ -114,157 +158,6 @@ namespace tc = nns_flash::tc;
 struct Strides {
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
 };
-
-// ---------------------------------------------------------------------------
-// f32: the CUDA-core kernel
-// ---------------------------------------------------------------------------
-
-// DP is the padded head dim, or with kChunked the width of a head-dim chunk
-// (any D, in chunks of DP columns: a block owns the output columns of chunk
-// blockIdx.x % n_oc, and sums its scores over every chunk of q and k).
-template <typename T, int DP, bool kChunked>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int tq, int tkv, int h, int d,
-                     long long q_sb, long long q_st, long long q_sh,
-                     long long k_sb, long long k_st, long long k_sh,
-                     long long v_sb, long long v_st, long long v_sh,
-                     int causal, long long q_offset, long long k_offset,
-                     float scale, int vec) {
-  using L = OutLayout<DP>;
-  constexpr int kQStride = DP;
-  constexpr int kKStride = DP + 4;
-  constexpr int kVStride = DP;
-
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                          // kBlockQ x kQStride
-  float* ks = qs + kBlockQ * kQStride;       // kBlockK x kKStride
-  float* vs = ks + kBlockK * kKStride;       // kBlockK x kVStride
-  float* ps = vs + kBlockK * kVStride;       // kBlockQ x kPStride
-
-  const int n_oc = kChunked ? (d + DP - 1) / DP : 1;  // output chunks
-  const int rank = (int)blockIdx.x / n_oc;
-  const int c_out = ((int)blockIdx.x - rank * n_oc) * DP;  // first column
-  const int n_qtiles = (tq + kBlockQ - 1) / kBlockQ;
-  // causal: the last query tile sees the most keys, so issue it first
-  const int qt = causal ? n_qtiles - 1 - rank : rank;
-  const int q0 = qt * kBlockQ;
-  const int head = blockIdx.y;
-  const long long bat = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-
-  q += bat * q_sb + head * q_sh;
-  k += bat * k_sb + head * k_sh;
-  v += bat * v_sb + head * v_sh;
-  out += bat * tq * h * d;
-  lse += (bat * h + head) * tq;
-  if constexpr (!kChunked)
-    load_tile<T, DP>(qs, kQStride, q, q_st, q0, tq, d, vec);
-
-  // keys [0, k_end) can be visible to some row of this tile
-  long long k_end = tkv;
-  if (causal) {
-    const long long last_q = q_offset + min(q0 + kBlockQ, tq) - 1;
-    const long long visible = last_q - k_offset + 1;
-    k_end = visible < 0 ? 0 : (visible < tkv ? visible : tkv);
-  }
-
-  float m_run[kRows], l_run[kRows];
-  float acc[kRows][L::kWidth];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_run[i] = -CUDART_INF_F;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < L::kWidth; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    // scores: s[i][j] = q[ty + 16i] . k[tx + 16j]
-    float s[kRows][kCols];
-    if constexpr (kChunked) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-      for (int c0 = 0; c0 < d; c0 += DP) {
-        __syncthreads();  // the last chunk's q and k (and p, v) are read
-        load_tile<T, DP>(qs, kQStride, q + c0, q_st, q0, tq, d - c0, vec);
-        load_tile<T, DP>(ks, kKStride, k + c0, k_st, k0, tkv, d - c0, vec);
-        __syncthreads();
-        tile_dots<DP, kQStride, kKStride, true>(qs, ks, ty, tx, s);
-      }
-      // this block's output columns of v
-      load_tile<T, DP>(vs, kVStride, v + c_out, v_st, k0, tkv, d - c_out,
-                       vec);
-      __syncthreads();
-    } else {
-      __syncthreads();  // the previous tile's k, v and p are no longer read
-      load_tile<T, DP>(ks, kKStride, k, k_st, k0, tkv, d, vec);
-      load_tile<T, DP>(vs, kVStride, v, v_st, k0, tkv, d, vec);
-      __syncthreads();
-      tile_dots<DP, kQStride, kKStride>(qs, ks, ty, tx, s);
-    }
-
-    // mask, then the streaming-softmax update of each of this thread's rows
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const long long qpos = q_offset + q0 + ty + 16 * i;
-      float bmax = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kl = k0 + tx + 16 * j;
-        const bool dead = kl >= tkv || (causal && k_offset + kl > qpos);
-        s[i][j] = dead ? -CUDART_INF_F : s[i][j] * scale;
-        bmax = fmaxf(bmax, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, off));
-      const float m_new = fmaxf(m_run[i], bmax);
-      const float m_safe = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float corr =
-          m_run[i] == -CUDART_INF_F ? 0.f : expf(m_run[i] - m_safe);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = s[i][j] == -CUDART_INF_F ? 0.f : expf(s[i][j] - m_safe);
-        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      m_run[i] = m_new;
-      l_run[i] = l_run[i] * corr + psum;
-#pragma unroll
-      for (int c = 0; c < L::kWidth; ++c) acc[i][c] *= corr;
-    }
-    // the rows this thread reads back were written by its own half-warp
-    __syncwarp();
-
-    // acc[i][:] += p[ty + 16i][:] . v[:, this thread's columns]
-    tile_accumulate<DP, kVStride>(ps, vs, ty, tx, acc);
-  }
-
-  // out = acc / max(l, 1e-20); lse = m + log(l), -inf where no key was seen
-  // (written by the blocks of the first output chunk)
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= tq) continue;
-    const float denom = fmaxf(l_run[i], 1e-20f);
-    const float inv = 1.f / denom;
-#pragma unroll
-    for (int c = 0; c < L::kWidth; ++c) acc[i][c] *= inv;
-    if (tx == 0 && c_out == 0)
-      lse[row] = l_run[i] > 0.f ? m_run[i] + logf(denom) : -CUDART_INF_F;
-  }
-  store_rows<T, DP>(out, acc, q0, tq, h, head, d, ty, tx, c_out);
-}
 
 // ---------------------------------------------------------------------------
 // f16 and bf16: the tensor-core kernel
@@ -337,13 +230,14 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// The online softmax of NT score tiles in this thread's two rows (s[t][4 j +
-// e] is row e / 2, key k0 + 64 t + 8 j + col + e % 2): masks keys past each
-// row's last visible key where `cut`; updates the running max m2 (base 2,
-// scaled) and the thread's part of the row sum; leaves p in s (f32) and the
-// factor by which each row's o must be rescaled in corr.
-template <int NT>
-__device__ __forceinline__ void online_softmax(float (&s)[NT][32],
+// The online softmax of NT score tiles of 2 NS keys in this thread's two
+// rows (s[t][4 j + e] is row e / 2, key k0 + 2 NS t + 8 j + col + e % 2):
+// masks keys past each row's last visible key where `cut`; updates the
+// running max m2 (base 2, scaled) and the thread's part of the row sum;
+// leaves p in s (f32) and the factor by which each row's o must be rescaled
+// in corr.
+template <int NT, int NS>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][NS],
                                                float (&m2)[2],
                                                float (&lsum)[2],
                                                float (&corr)[2], bool cut,
@@ -354,10 +248,10 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][32],
 #pragma unroll
     for (int t = 0; t < NT; ++t)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (k0 + 64 * t + 8 * j + col + (e & 1) > last_key[e >> 1])
+          if (k0 + 2 * NS * t + 8 * j + col + (e & 1) > last_key[e >> 1])
             s[t][4 * j + e] = -CUDART_INF_F;
   }
   // each row's values as a tree of 4 partial maxima (then sums)
@@ -367,7 +261,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][32],
 #pragma unroll
   for (int t = 0; t < NT; ++t)
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
+    for (int e = 0; e < NS; ++e) {
       float& p = part[(e >> 1) & 1][((e >> 2) & 1) * 2 + (e & 1)];
       p = fmaxf(p, s[t][e]);
     }
@@ -391,7 +285,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][32],
 #pragma unroll
   for (int t = 0; t < NT; ++t)
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
+    for (int e = 0; e < NS; ++e) {
       s[t][e] = exp2_ftz(fmaf(s[t][e], scale2, neg[(e >> 1) & 1]));
       part[(e >> 1) & 1][((e >> 2) & 1) * 2 + (e & 1)] += s[t][e];
     }
@@ -559,6 +453,298 @@ flash_forward_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// f32 at every head dim, f16 and bf16 past 256: a piece of the output
+// columns a block
+// ---------------------------------------------------------------------------
+
+// Shared memory of the piece kernel, f32 tiles as hi then lo: the k tile
+// of one 256-byte chunk of the head dim (KN keys); the v tile of the block's
+// output columns (f32: v^T, DO rows of KN keys; f16 and bf16: 64 keys x DO
+// columns, read MN-major); the q tile, 64 rows of the whole head dim where
+// it is known at compile time (DPS, f32 up to 256: at least 128 bytes a
+// row) or else of one chunk; and room to align the tiles.
+template <typename T, int DO, int KN, int DPS>
+struct PieceTiles {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kParts = kF32 ? 2 : 1;
+  static constexpr int kKBytes = KN * 256;
+  static constexpr int kVBytes = kF32 ? DO * KN * 4 : tc::tile_bytes<DO>();
+  static constexpr int kRowBytes = DPS * (int)sizeof(T);
+  static constexpr int kQBytes =
+      tc::kTile * (DPS == 0 ? 256 : kRowBytes > 128 ? kRowBytes : 128);
+  static constexpr int kBytes =
+      kParts * (kKBytes + kVBytes + kQBytes) + tc::kAtomAlign;
+  static_assert(kF32 || KN == tc::kTile, "16-bit tiles hold 64 rows");
+};
+
+// Rows [r0, r0 + R) of one head of a (T, H, D) tensor, the element columns
+// of 256-byte chunk c that lie below dp (zeros past d and past n_rows), into
+// the SwzRows<R> tile at `tile`.  f16 and bf16 as 16-byte cp.async copies (R
+// = 64, in flight on return; scalar where !vec); f32 through registers, split
+// into hi at `tile` and lo `lo` bytes after it, done on return.
+template <typename T, int R>
+__device__ __forceinline__ void load_chunk(char* tile, int lo,
+                                           const T* __restrict__ src,
+                                           long long stride, int r0,
+                                           int n_rows, int c, int dp, int d,
+                                           bool vec) {
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int kN = R * 16 / tc::kThreads;  // 16-byte pieces a thread
+    uint4 x[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int p = threadIdx.x + tc::kThreads * i, r = p >> 4;
+      x[i] = tc::load_f32x4(src + (long long)(r0 + r) * stride,
+                            64 * c + 4 * (p & 15), d, r0 + r < n_rows, vec);
+    }
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int p = threadIdx.x + tc::kThreads * i;
+      if (64 * c + 4 * (p & 15) >= dp) continue;  // past the k steps
+      char* dst = tile + tc::SwzRows<R>::chunk(p >> 4, p & 15);
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(tc::tf32_hi(x[i].x), tc::tf32_hi(x[i].y),
+                     tc::tf32_hi(x[i].z), tc::tf32_hi(x[i].w));
+      *reinterpret_cast<uint4*>(dst + lo) =
+          make_uint4(tc::tf32_lo(x[i].x), tc::tf32_lo(x[i].y),
+                     tc::tf32_lo(x[i].z), tc::tf32_lo(x[i].w));
+    }
+  } else {
+    static_assert(R == tc::kTile, "16-bit chunks of 64 rows");
+    tc::load_tile<T, 128>(tile, src + 128 * c, stride, r0, n_rows,
+                          d - 128 * c, vec);
+  }
+}
+
+// K2 on the tensor cores for f32 at every head dim (each product as three
+// TF32 products) and for f16 and bf16 past a padded 256: one warpgroup per
+// (64 query rows, piece of DO output columns, head, batch element), KN keys
+// a stage.  The grid is one axis, query tile outermost, then piece, head and
+// batch element.  Each block takes the scores over the whole head dim, both
+// operands from shared memory, in chunks of 256 bytes of columns (8 k steps):
+// a chunk of k at a time, and q whole, loaded once, where DPS (the padded
+// head dim, known at compile time for f32 up to 256) is not 0, else a chunk
+// of q beside each chunk of k (`dp` the padded head dim).  A row's lse is
+// written by the block of piece 0.
+template <typename T, int DO, int KN, int DPS>
+__global__ void __launch_bounds__(tc::kThreads, 2)
+flash_forward_tc_piece_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v, T* __restrict__ out,
+                              float* __restrict__ lse, int b, int tq,
+                              int tkv, int h, int d, int dp, int pieces,
+                              Strides st, int causal, long long q_offset,
+                              long long k_offset, float scale, int vec) {
+  using Tiles = PieceTiles<T, DO, KN, DPS>;
+  constexpr bool kF32 = Tiles::kF32;
+  constexpr int kE = 32 / (int)sizeof(T);  // elements of a k step
+  extern __shared__ __align__(1024) char smem_pc[];
+  char* ks = tc::align_atoms(smem_pc);  // each tile hi, then lo (f32)
+  char* vs = ks + Tiles::kParts * Tiles::kKBytes;
+  char* qs = vs + Tiles::kParts * Tiles::kVBytes;
+
+  if constexpr (DPS > 0) dp = DPS;
+  const int ksteps = dp / kE;
+  const int n_qtiles = (tq + tc::kTile - 1) / tc::kTile;
+  const int per_rank = pieces * h * b;
+  const int rank = blockIdx.x / per_rank;
+  int rest = blockIdx.x - rank * per_rank;
+  const int piece = rest % pieces;
+  rest /= pieces;
+  const int head = rest % h;
+  const long long bat = rest / h;
+  // causal: the last query tile sees the most keys, so issue it first
+  const int q0 = (causal ? n_qtiles - 1 - rank : rank) * tc::kTile;
+  const int c0 = piece * DO;  // the block's first output column
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int row = 16 * (tid >> 5) + (lane >> 2);  // and row + 8
+  const int col = 2 * (lane & 3);  // and col + 1, of each 8-column block
+
+  q += bat * st.q_sb + head * st.q_sh;
+  k += bat * st.k_sb + head * st.k_sh;
+  v += bat * st.v_sb + head * st.v_sh;
+  out += bat * tq * h * d;
+  lse += (bat * h + head) * tq;
+
+  // stages of keys that some row of the tile sees
+  const int n = (tc::last_visible_key(min(q0 + tc::kTile, tq) - 1, tkv,
+                                      causal, q_offset, k_offset) +
+                 KN) /
+                KN;
+  // this thread's two rows: the last key each sees, running max and sum
+  int last_key[2];
+  float m2[2], lsum[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    last_key[i] = tc::last_visible_key(q0 + row + 8 * i, tkv, causal,
+                                       q_offset, k_offset);
+    m2[i] = -CUDART_INF_F;
+    lsum[i] = 0.f;
+  }
+  // keys past this are masked in some row of the tile
+  const int tile_last =
+      tc::last_visible_key(q0, tkv, causal, q_offset, k_offset);
+  const float scale2 = scale * tc::kLog2e;
+
+  // the v tile of keys [k0, k0 + KN), output columns [c0, c0 + DO).  f32:
+  // transposed, hi and lo, each key at its column of v^T (a warp stores 16
+  // keys x 2 groups of 4 columns at a time, one word to a bank)
+  auto load_v = [&](int k0) {
+    if constexpr (kF32) {
+      constexpr int kN = KN * DO / 4 / tc::kThreads;  // pieces a thread
+      constexpr int kBatch = kN < 8 ? kN : 8;
+      constexpr int kKeyBlocks = KN / 16;
+#pragma unroll
+      for (int i0 = 0; i0 < kN; i0 += kBatch) {
+        uint4 x[kBatch];
+        int key[kBatch], cg[kBatch];
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int p = tid + tc::kThreads * (i0 + i), w = p >> 5;
+          key[i] = (p & 15) + 16 * (w % kKeyBlocks);
+          cg[i] = ((p >> 4) & 1) + 2 * (w / kKeyBlocks);
+          x[i] = tc::load_f32x4(v + (long long)(k0 + key[i]) * st.v_st,
+                                c0 + 4 * cg[i], d, k0 + key[i] < tkv, vec);
+        }
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int u = key[i];
+          const int kc = (u & ~7) | ((u >> 1) & 3) | ((u & 1) << 2);
+          const uint32_t w4[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            char* dst = vs + tc::SwzRows<DO>::chunk(4 * cg[i] + e, kc >> 2) +
+                        (kc & 3) * 4;
+            *reinterpret_cast<uint32_t*>(dst) = tc::tf32_hi(w4[e]);
+            *reinterpret_cast<uint32_t*>(dst + Tiles::kVBytes) =
+                tc::tf32_lo(w4[e]);
+          }
+        }
+      }
+    } else {
+      tc::load_tile<T, DO>(vs, v + c0, st.v_st, k0, tkv, d - c0, vec);
+    }
+  };
+
+  // q whole (DPS), a chunk each 16 KB further on, unless no key is seen
+  // (the sp=2 ring's future block); made visible by the first stage's
+  // fence and barrier
+  if constexpr (DPS > 0) {
+#pragma unroll
+    for (int c = 0; c * 64 < DPS && n > 0; ++c)
+      load_chunk<T, tc::kTile>(qs + c * 2 * tc::kTile * 128, Tiles::kQBytes,
+                               q, st.q_st, q0, tq, c, dp, d, vec);
+  }
+  const uint64_t qd = tc::SwzRows<tc::kTile>::desc(qs);
+  const uint64_t qld = tc::SwzRows<tc::kTile>::desc(qs + Tiles::kQBytes);
+  const uint64_t kd = tc::SwzRows<KN>::desc(ks);
+  const uint64_t kld = tc::SwzRows<KN>::desc(ks + Tiles::kKBytes);
+  uint64_t vd, vld = 0;
+  if constexpr (kF32) {
+    vd = tc::SwzRows<DO>::desc(vs);
+    vld = tc::SwzRows<DO>::desc(vs + Tiles::kVBytes);
+  } else {
+    vd = tc::desc_mn_major<DO>(tc::smem_u32(vs), 0);
+  }
+
+  float acc[DO / 2], s[1][KN / 2], corr[2];
+#pragma unroll
+  for (int i = 0; i < DO / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n; ++j) {
+    const int k0 = j * KN;
+    // s = q k^T over the head dim, a chunk of 8 k steps at a time
+    for (int c = 0; 8 * c < ksteps; ++c) {
+      __syncthreads();  // the last products are done with the tiles
+      load_chunk<T, KN>(ks, Tiles::kKBytes, k, st.k_st, k0, tkv, c, dp, d,
+                        vec);
+      if constexpr (DPS == 0)
+        load_chunk<T, tc::kTile>(qs, Tiles::kQBytes, q, st.q_st, q0, tq, c,
+                                 dp, d, vec);
+      if (c == 0) load_v(k0);
+      if constexpr (!kF32) {
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+      }
+      tc::fence_async_shared();
+      __syncthreads();
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int step = 8 * c + kk;
+        if (step >= ksteps) break;
+        const uint32_t ak = tc::SwzRows<KN>::step(kk);
+        const uint32_t aq = tc::SwzRows<tc::kTile>::step(DPS ? step : kk);
+        if constexpr (kF32) {
+          const uint64_t qh = tc::desc_shift(qd, aq);
+          const uint64_t kh = tc::desc_shift(kd, ak);
+          tc::mma_ss_tf32<KN>(s[0], qh, kh, step);
+          tc::mma_ss_tf32<KN>(s[0], qh, tc::desc_shift(kld, ak), 1);
+          tc::mma_ss_tf32<KN>(s[0], tc::desc_shift(qld, aq), kh, 1);
+        } else {
+          tc::mma_ss<T, KN>(s[0], tc::desc_shift(qd, aq),
+                            tc::desc_shift(kd, ak), step);
+        }
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_acc(s[0]);
+    }
+    online_softmax(s, m2, lsum, corr, k0 + KN - 1 > tile_last, k0, col,
+                   last_key, scale2);
+    // o += p v, p from registers
+    if constexpr (kF32) {
+      // A's k columns l % 4 and l % 4 + 4 of step t hold this thread's keys
+      // 8 t + col and + 1 (v^T's columns are in that order)
+      uint32_t ph[KN / 8][4], pl[KN / 8][4];
+#pragma unroll
+      for (int t = 0; t < KN / 8; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t x =
+              __float_as_uint(s[0][4 * t + ((i & 1) << 1) + (i >> 1)]);
+          ph[t][i] = tc::tf32_hi(x);
+          pl[t][i] = tc::tf32_lo(x);
+        }
+      rescale(acc, corr);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < KN / 8; ++t) {
+        const uint32_t at = tc::SwzRows<DO>::step(t);
+        tc::mma_rs_tf32<DO>(acc, ph[t], tc::desc_shift(vd, at), 1);
+        tc::mma_rs_tf32<DO>(acc, ph[t], tc::desc_shift(vld, at), 1);
+        tc::mma_rs_tf32<DO>(acc, pl[t], tc::desc_shift(vd, at), 1);
+      }
+      tc::wgmma_commit();
+    } else {
+      uint32_t pa[1][4][4];
+      tc::pack_a<T>(s[0], pa[0]);
+      rescale(acc, corr);
+      tc::wgmma_fence();
+      issue_pv<T, DO, 1>(acc, pa, vd);
+    }
+    tc::wgmma_wait<0>();
+    tc::fence_acc(acc);
+  }
+
+  // out = o / max(l, 1e-20); lse = (m2 + log2 l) ln 2, -inf where l = 0
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = lsum[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = 1.f / fmaxf(l, 1e-20f);
+    const int r = q0 + row + 8 * i;
+    if (piece == 0 && (lane & 3) == 0 && r < tq)
+      lse[r] = l > 0.f ? (m2[i] + log2f(l)) * tc::kLn2 : -CUDART_INF_F;
+  }
+  rescale(acc, inv);
+  tc::store_acc<T, DO>(out, acc, q0, tq, h, head, d, c0);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -611,27 +797,25 @@ int launch_tc(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// The CUDA-core kernel: DP the padded head dim, or with kChunked the chunk
-// width, a grid axis of output chunks folded into x.
-template <typename T, int DP, bool kChunked>
-int launch_simt(const Args& a) {
-  constexpr int floats = kBlockQ * DP + kBlockK * (DP + 4) + kBlockK * DP +
-                         kBlockQ * kPStride;
-  constexpr int bytes = floats * (int)sizeof(float);
-  auto kernel = flash_forward_kernel<T, DP, kChunked>;
+// The piece kernel: DO output columns a block, KN keys a stage, DPS the
+// padded head dim if known (else the head dim padded to a whole k step).
+template <typename T, int DO, int KN, int DPS>
+int launch_piece(const Args& a) {
+  constexpr int bytes = PieceTiles<T, DO, KN, DPS>::kBytes;
+  auto kernel = flash_forward_tc_piece_kernel<T, DO, KN, DPS>;
   const cudaError_t err = set_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  const Strides& s = a.st;
-  const long long n_oc = kChunked ? (a.d + DP - 1) / DP : 1;
-  const long long blocks = (long long)((a.tq + kBlockQ - 1) / kBlockQ) * n_oc;
+  constexpr int kE = 32 / (int)sizeof(T);
+  const int dp = DPS ? DPS : (a.d + kE - 1) / kE * kE;
+  const int pieces = (a.d + DO - 1) / DO;
+  const long long blocks =
+      (long long)((a.tq + tc::kTile - 1) / tc::kTile) * pieces * a.h * a.b;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, a.h, a.b);
-  kernel<<<grid, kThreads, bytes, a.stream>>>(
+  kernel<<<(unsigned)blocks, tc::kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.tq, a.tkv,
-      a.h, a.d, s.q_sb, s.q_st, s.q_sh, s.k_sb, s.k_st, s.k_sh, s.v_sb,
-      s.v_st, s.v_sh, a.causal, a.q_offset, a.k_offset, a.scale,
-      (int)vector_ok<T>(a));
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.b, a.tq,
+      a.tkv, a.h, a.d, dp, pieces, a.st, a.causal, a.q_offset, a.k_offset,
+      a.scale, (int)vector_ok<T>(a));
   return (int)cudaGetLastError();
 }
 
@@ -644,8 +828,9 @@ bool wide_grid(const Args& a) {
   return (long long)((a.tq + 127) / 128) * a.h * a.b >= 2LL * sms;
 }
 
-// f32 on the CUDA cores; f16 and bf16 up to 256 on the tensor cores, in
-// version
+// f32 in the piece kernel (64 keys a stage up to 64 columns, 32 above;
+// pieces of 128 columns past 128); f16 and bf16 up to 256 in
+// flash_forward_tc_kernel, in version
 //   1: two warpgroups a block, 64 keys a stage: fewer copies a product,
 //      fastest where the grid fills every SM twice over (the batched
 //      training shapes);
@@ -659,7 +844,8 @@ template <typename T, int DP>
 int launch(const Args& a, int version) {
   if constexpr (std::is_same<T, float>::value) {
     if (version) return (int)cudaErrorInvalidValue;
-    return launch_simt<T, DP, false>(a);
+    return launch_piece<float, DP <= 128 ? DP : 128, DP <= 64 ? 64 : 32,
+                        DP>(a);
   } else {
     constexpr int kNT = DP > 128 ? 1 : 2;  // version 2's 64-key tiles
     if (version == 0) version = wide_grid(a) ? 1 : 2;
@@ -676,9 +862,13 @@ int dispatch_d(const Args& a, int version) {
   if (a.d <= 64) return launch<T, 64>(a, version);
   if (a.d <= 128) return launch<T, 128>(a, version);
   if (a.d <= 256) return launch<T, 256>(a, version);
-  // past 256, every dtype: the D-chunked CUDA-core kernel
+  // past 256, every dtype: the piece kernel, pieces of 256 output columns
+  // (f32: 128), no version choice
   if (version) return (int)cudaErrorInvalidValue;
-  return launch_simt<T, kChunk, true>(a);
+  if constexpr (std::is_same<T, float>::value)
+    return launch_piece<T, 128, 32, 0>(a);
+  else
+    return launch_piece<T, 256, 64, 0>(a);
 }
 
 int entry(const Args& a, int dtype, int version) {

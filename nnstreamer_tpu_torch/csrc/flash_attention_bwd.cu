@@ -99,8 +99,8 @@
 // D load as zeros.
 //
 // Past those widths (f32 past 128, every dtype past 256): the same CUDA-core
-// kernels in chunks of 64 columns (kChunked), as the forward's: s and dp sum
-// over the chunks of q, dO, k and v; a block owns one chunk of the output
+// kernels in chunks of 64 columns (kChunked): s and dp sum over the
+// chunks of q, dO, k and v; a block owns one chunk of the output
 // columns (a grid axis folded into x) and recomputes s and dp for it; lse
 // and delta come from the caller, once over the full D.
 

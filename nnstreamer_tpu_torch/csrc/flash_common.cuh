@@ -1,13 +1,15 @@
-// Pieces shared by the flash-attention kernels (flash_attention.cu, the
-// forward, and flash_attention_bwd.cu, the two backward kernels): tile sizes,
-// dtype conversion, the tile loader, and the two products every kernel is
-// built from, all on the CUDA cores in f32.
+// Pieces shared by the flash-attention kernels: dtype conversion for all of
+// them (flash_attention.cu, the forward, and flash_attention_bwd.cu, the two
+// backward kernels), and for the backward's CUDA-core kernels the tile
+// sizes, the tile loader and the two products they are built from, in f32.
+// The forward runs on the tensor cores at every dtype and head dim and uses
+// none of the CUDA-core pieces.
 //
-// Head dims past the widest compiled tile (256 in the forward, and 128 in
-// the f32 backward and 256 in the f16/bf16 one) go through the same CUDA-
-// core kernels in D chunks of kChunk columns: the scores are summed over the
-// chunks of q and k (tile_dots with kAdd), and each block owns one chunk of
-// the output columns (a grid axis), recomputing the scores for it.
+// Head dims past the backward's widest compiled tile (128 in f32, 256 in
+// f16 and bf16) go through the same CUDA-core kernels in D chunks of kChunk
+// columns: the scores are summed over the chunks of q and k (tile_dots with
+// kAdd), and each block owns one chunk of the output columns (a grid axis),
+// recomputing the scores for it.
 //
 // Layout of the work: a block of 256 threads covers a 64 x 64 tile of scores;
 // thread (ty, tx) = (tid / 16, tid % 16) holds rows ty + 16 i and columns

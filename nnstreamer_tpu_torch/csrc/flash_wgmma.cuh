@@ -1,8 +1,9 @@
-// Tensor-core pieces of the flash-attention kernels for 16-bit inputs on
-// Hopper (sm_90a): the forward (K2, flash_attention.cu) and the two backward
-// kernels (K3 and K4, flash_attention_bwd.cu).  The shared-memory tile
-// layout, its asynchronous and scalar loaders, the warpgroup matrix products
-// (wgmma) that read it, and the mask helpers all three share.
+// Tensor-core pieces of the flash-attention kernels on Hopper (sm_90a): the
+// forward (K2, flash_attention.cu) and the two backward kernels (K3 and K4,
+// flash_attention_bwd.cu).  The shared-memory tile layout, its asynchronous
+// and scalar loaders, the warpgroup matrix products (wgmma) that read it,
+// and the mask helpers all three share; and, for K2 alone, the TF32
+// products and their operand split that take f32 to the tensor cores.
 //
 // Tile layout.  A tile is 64 rows (tokens) x DP columns (the padded head
 // dim) of a 16-bit type, stored row after row in rows of W = min(2 DP, 128)
@@ -33,6 +34,16 @@
 // arrangement, 16 columns (k) at a time, so an accumulator tile rounded to
 // 16 bits is the A of the next product without passing through memory
 // (pack_a).
+//
+// 32-bit elements.  A TF32 product reads 32-bit elements with a k step of 8
+// (still 32 bytes, so the byte layout above serves a tile of DP f32 columns
+// as it serves 2 DP 16-bit ones), both operands K-major from shared
+// memory (the only order wgmma takes for 32-bit types).  Its A from registers
+// holds, in warp w, lane l, rows 16 w + l / 4 and + 8 at k columns l % 4
+// and l % 4 + 4: words at the same bytes of the row (4 (l % 4) and 16 +
+// 4 (l % 4) of each 32-byte step) as the 16-bit A's.  SwzRows gives the
+// layout at any tile height, tf32_hi / tf32_lo split an operand for the
+// three products that stand for one f32 product.
 
 #pragma once
 
@@ -288,13 +299,13 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-#define NNS_WGMMA_SS_N32(TY)                                                  \
+#define NNS_WGMMA_SS_N32(K, TY, IMM)                                          \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "             \
+      "wgmma.mma_async.sync.aligned.m64n32" K ".f32." TY "." TY " "           \
       "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
       " %8, %9, %10, %11, %12, %13, %14, %15}, "                              \
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"                                         \
+      "%16, %17, p, " IMM ";\n}\n"                                            \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
@@ -302,15 +313,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
       : "l"(desc_a), "l"(desc_b), "r"(scale_d)                                \
       : "memory")
 
-#define NNS_WGMMA_SS_N64(TY)                                                  \
+#define NNS_WGMMA_SS_N64(K, TY, IMM)                                          \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "wgmma.mma_async.sync.aligned.m64n64" K ".f32." TY "." TY " "           \
       "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
       " %8, %9, %10, %11, %12, %13, %14, %15, "                               \
       " %16, %17, %18, %19, %20, %21, %22, %23, "                             \
       " %24, %25, %26, %27, %28, %29, %30, %31}, "                            \
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                         \
+      "%32, %33, p, " IMM ";\n}\n"                                            \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
@@ -322,25 +333,25 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
       : "l"(desc_a), "l"(desc_b), "r"(scale_d)                                \
       : "memory")
 
-#define NNS_WGMMA_RS_N16(TY)                                                  \
+#define NNS_WGMMA_RS_N16(K, TY, IMM)                                          \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "             \
+      "wgmma.mma_async.sync.aligned.m64n16" K ".f32." TY "." TY " "           \
       "{%0, %1, %2, %3, %4, %5, %6, %7}, "                                    \
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"                             \
+      "{%8, %9, %10, %11}, %12, p, " IMM ";\n}\n"                             \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                        \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),              \
         "r"(scale_d)                                                          \
       : "memory")
 
-#define NNS_WGMMA_RS_N32(TY)                                                  \
+#define NNS_WGMMA_RS_N32(K, TY, IMM)                                          \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "             \
+      "wgmma.mma_async.sync.aligned.m64n32" K ".f32." TY "." TY " "           \
       "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
       " %8, %9, %10, %11, %12, %13, %14, %15}, "                              \
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                           \
+      "{%16, %17, %18, %19}, %20, p, " IMM ";\n}\n"                           \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
@@ -349,15 +360,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
         "r"(scale_d)                                                          \
       : "memory")
 
-#define NNS_WGMMA_RS_N64(TY)                                                  \
+#define NNS_WGMMA_RS_N64(K, TY, IMM)                                          \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "wgmma.mma_async.sync.aligned.m64n64" K ".f32." TY "." TY " "           \
       "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
       " %8, %9, %10, %11, %12, %13, %14, %15, "                               \
       " %16, %17, %18, %19, %20, %21, %22, %23, "                             \
       " %24, %25, %26, %27, %28, %29, %30, %31}, "                            \
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                           \
+      "{%32, %33, %34, %35}, %36, p, " IMM ";\n}\n"                           \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
@@ -370,10 +381,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
         "r"(scale_d)                                                          \
       : "memory")
 
-#define NNS_WGMMA_RS_N128(TY)                                                 \
+#define NNS_WGMMA_RS_N128(K, TY, IMM)                                         \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
+      "wgmma.mma_async.sync.aligned.m64n128" K ".f32." TY "." TY " "          \
       "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
       " %8, %9, %10, %11, %12, %13, %14, %15, "                               \
       " %16, %17, %18, %19, %20, %21, %22, %23, "                             \
@@ -382,7 +393,7 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
       " %40, %41, %42, %43, %44, %45, %46, %47, "                             \
       " %48, %49, %50, %51, %52, %53, %54, %55, "                             \
       " %56, %57, %58, %59, %60, %61, %62, %63}, "                            \
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                           \
+      "{%64, %65, %66, %67}, %68, p, " IMM ";\n}\n"                           \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
@@ -403,10 +414,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
         "r"(scale_d)                                                          \
       : "memory")
 
-#define NNS_WGMMA_RS_N256(TY)                                                 \
+#define NNS_WGMMA_RS_N256(K, TY, IMM)                                         \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                           \
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "            \
+      "wgmma.mma_async.sync.aligned.m64n256" K ".f32." TY "." TY " "          \
       "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
       " %8, %9, %10, %11, %12, %13, %14, %15, "                               \
       " %16, %17, %18, %19, %20, %21, %22, %23, "                             \
@@ -423,7 +434,7 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
       " %104, %105, %106, %107, %108, %109, %110, %111, "                     \
       " %112, %113, %114, %115, %116, %117, %118, %119, "                     \
       " %120, %121, %122, %123, %124, %125, %126, %127}, "                    \
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                      \
+      "{%128, %129, %130, %131}, %132, p, " IMM ";\n}\n"                      \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
@@ -470,11 +481,11 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t desc_a,
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   static_assert(N == 32 || N == 64, "wgmma width");
   if constexpr (N == 32) {
-    if constexpr (kBf16) NNS_WGMMA_SS_N32("bf16");
-    else NNS_WGMMA_SS_N32("f16");
+    if constexpr (kBf16) NNS_WGMMA_SS_N32("k16", "bf16", "1, 1, 0, 0");
+    else NNS_WGMMA_SS_N32("k16", "f16", "1, 1, 0, 0");
   } else {
-    if constexpr (kBf16) NNS_WGMMA_SS_N64("bf16");
-    else NNS_WGMMA_SS_N64("f16");
+    if constexpr (kBf16) NNS_WGMMA_SS_N64("k16", "bf16", "1, 1, 0, 0");
+    else NNS_WGMMA_SS_N64("k16", "f16", "1, 1, 0, 0");
   }
 }
 
@@ -488,21 +499,48 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
   static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 256,
                 "wgmma width");
   if constexpr (N == 16) {
-    if constexpr (kBf16) NNS_WGMMA_RS_N16("bf16");
-    else NNS_WGMMA_RS_N16("f16");
+    if constexpr (kBf16) NNS_WGMMA_RS_N16("k16", "bf16", "1, 1, 1");
+    else NNS_WGMMA_RS_N16("k16", "f16", "1, 1, 1");
   } else if constexpr (N == 32) {
-    if constexpr (kBf16) NNS_WGMMA_RS_N32("bf16");
-    else NNS_WGMMA_RS_N32("f16");
+    if constexpr (kBf16) NNS_WGMMA_RS_N32("k16", "bf16", "1, 1, 1");
+    else NNS_WGMMA_RS_N32("k16", "f16", "1, 1, 1");
   } else if constexpr (N == 64) {
-    if constexpr (kBf16) NNS_WGMMA_RS_N64("bf16");
-    else NNS_WGMMA_RS_N64("f16");
+    if constexpr (kBf16) NNS_WGMMA_RS_N64("k16", "bf16", "1, 1, 1");
+    else NNS_WGMMA_RS_N64("k16", "f16", "1, 1, 1");
   } else if constexpr (N == 128) {
-    if constexpr (kBf16) NNS_WGMMA_RS_N128("bf16");
-    else NNS_WGMMA_RS_N128("f16");
+    if constexpr (kBf16) NNS_WGMMA_RS_N128("k16", "bf16", "1, 1, 1");
+    else NNS_WGMMA_RS_N128("k16", "f16", "1, 1, 1");
   } else {
-    if constexpr (kBf16) NNS_WGMMA_RS_N256("bf16");
-    else NNS_WGMMA_RS_N256("f16");
+    if constexpr (kBf16) NNS_WGMMA_RS_N256("k16", "bf16", "1, 1, 1");
+    else NNS_WGMMA_RS_N256("k16", "f16", "1, 1, 1");
   }
+}
+
+// mma_ss_tf32: A (64 x 8) and B (8 x N) K-major from shared memory, 32-bit
+// operands taken as TF32.
+template <int N>
+__device__ __forceinline__ void mma_ss_tf32(float (&d)[N / 2],
+                                            uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  static_assert(N == 32 || N == 64, "wgmma width");
+  if constexpr (N == 32) NNS_WGMMA_SS_N32("k8", "tf32", "1, 1");
+  else NNS_WGMMA_SS_N64("k8", "tf32", "1, 1");
+}
+
+// mma_rs_tf32: the same for 32-bit operands taken as TF32 (k steps of 8;
+// B K-major, the only order wgmma takes for 32-bit types), A in registers
+// as the header's "32-bit elements" says.
+template <int N>
+__device__ __forceinline__ void mma_rs_tf32(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma width");
+  if constexpr (N == 16) NNS_WGMMA_RS_N16("k8", "tf32", "1, 1");
+  else if constexpr (N == 32) NNS_WGMMA_RS_N32("k8", "tf32", "1, 1");
+  else if constexpr (N == 64) NNS_WGMMA_RS_N64("k8", "tf32", "1, 1");
+  else if constexpr (N == 128) NNS_WGMMA_RS_N128("k8", "tf32", "1, 1");
+  else NNS_WGMMA_RS_N256("k8", "tf32", "1, 1");
 }
 
 #undef NNS_WGMMA_SS_N32
@@ -558,6 +596,60 @@ __device__ __forceinline__ void store_acc(T* __restrict__ out,
         if (col < d) orow[col] = from_f32<T>(acc[4 * j + 2 * half + e]);
       }
   }
+}
+
+// ---------------------------------------------------------------------------
+// 32-bit operands, tiles of any height, f32 loads through registers
+// ---------------------------------------------------------------------------
+
+// An f32 x as hi + lo, exactly: hi is x with its low 13 mantissa bits
+// cleared (a TF32 value, which the tensor cores read as it is) and lo = x -
+// hi, |lo| < 2^-10 |x|, whose own low bits the tensor cores drop.  Three
+// TF32 products hi_a hi_b + hi_a lo_b + lo_a hi_b then miss a b by ~2^-20
+// of |a b| (lo_a lo_b and the bits lo drops), the order of an f32 rounding.
+__device__ __forceinline__ uint32_t tf32_hi(uint32_t x) {
+  return x & 0xffffe000u;
+}
+__device__ __forceinline__ uint32_t tf32_lo(uint32_t x) {
+  return __float_as_uint(__uint_as_float(x) - __uint_as_float(tf32_hi(x)));
+}
+
+// Tiles of R rows in 128-byte swizzle atoms, laid out as the 64-row tiles
+// above are at widths of 128 bytes or more: each row in blocks of 128
+// bytes, block b of every row R x 128 bytes after block 0, each 16-byte
+// chunk XOR-swizzled by its row.  Read as a K-major operand the R rows are
+// the N of a product (8 of them 1024 bytes apart) and a 32-byte k step (16
+// 16-bit or 8 32-bit elements) starts step(kk) bytes further on; at R = 64
+// and 256-byte rows this is the layout of a 64 x 128 16-bit tile.
+template <int R>
+struct SwzRows {
+  static_assert(R % 8 == 0, "whole swizzle atoms");
+  // byte offset of 16-byte chunk cb of row r
+  __device__ static __forceinline__ int chunk(int r, int cb) {
+    const int lin = r * 128 + (cb & 7) * 16;
+    return (cb >> 3) * (R * 128) + (lin ^ ((r & 7) << 4));
+  }
+  __host__ __device__ static constexpr uint32_t step(int kk) {
+    return (kk >> 2) * (R * 128) + (kk & 3) * 32;
+  }
+  __device__ static __forceinline__ uint64_t desc(const char* tile) {
+    return make_desc<128>(smem_u32(tile), 16, 8 * 128);
+  }
+};
+
+// The f32 elements [col, col + 4) of the row at p: zeros past d, or where
+// the row does not exist (!row_ok).  With `vec` (rows and d 16-byte
+// aligned) one 16-byte load.
+__device__ __forceinline__ uint4 load_f32x4(const float* __restrict__ p,
+                                            int col, int d, bool row_ok,
+                                            bool vec) {
+  if (!row_ok || col >= d) return make_uint4(0u, 0u, 0u, 0u);
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p + col));
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    w[e] = col + e < d ? __float_as_uint(__ldg(p + col + e)) : 0u;
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 }  // namespace tc

@@ -5,17 +5,19 @@ forward and two backward kernels are Pallas TPU kernels.  Here each is a
 hand-written CUDA kernel for tensors on the card, built by :mod:`.._cuda`:
 
 - K2, the forward (``csrc/flash_attention.cu``), plain version
-  :func:`flash_attention_reference`: f16 and bf16 on the tensor cores up
-  to a head dim of 256, rounding p to the inputs' type before ``p·v`` (so
-  within a tolerance of the plain version, not bit-equal), f32 on the CUDA
-  cores;
+  :func:`flash_attention_reference`: every dtype at every head dim on the
+  tensor cores.  f16 and bf16 round p to the inputs' type before ``p·v``
+  (so within a tolerance of the plain version, not bit-equal); past a head
+  dim of 256 a block owns a piece of 256 output columns and takes the
+  scores over the whole head dim.  f32 takes each product as three TF32
+  products (each operand split into a TF32 part and the rest), within the
+  f32 tolerance of the plain version, in pieces of 128 columns past 128;
 - K3 (dq) and K4 (dk, dv), the backward (``csrc/flash_attention_bwd.cu``),
   plain version :func:`flash_attention_backward_reference`: f16 and bf16
-  on the tensor cores up to 256, f32 on the CUDA cores;
-- past those head dims (256, and 128 for the f32 backward), every dtype on
-  the CUDA cores in head-dim chunks of 64: the scores summed over the
-  chunks, a block for each chunk of output columns.  Every head dim the
-  JAX package takes is taken here too.
+  on the tensor cores up to 256, f32 on the CUDA cores up to 128; past
+  those, every dtype on the CUDA cores in head-dim chunks of 64: the
+  scores summed over the chunks, a block for each chunk of output
+  columns.  Every head dim the JAX package takes is taken here too.
 
 For ``q (Tq, H, D)`` and ``k, v (Tkv, H, D)`` — or the same with a leading
 batch axis, ``(B, T, H, D)``, which the kernels take as a grid axis, as
@@ -214,7 +216,8 @@ def _require_card(what: str, *xs: torch.Tensor) -> None:
 #: K2's tensor-core versions (f16/bf16, head dims up to 256), which
 #: ``flash_attention_version`` launches and chip_smoke.py times against
 #: each other; ``flash_attention`` launches 1 where blocks of 128 query rows
-#: fill every SM twice over, else 2
+#: fill every SM twice over, else 2 (f32, and every dtype past 256, have
+#: one kernel and no version)
 FORWARD_VERSIONS = {1: "two warpgroups a block, 64 keys a stage",
                     2: "one warpgroup a block, 128 keys a stage (64 at a "
                        "head dim past 128)"}

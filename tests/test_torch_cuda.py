@@ -128,9 +128,9 @@ FLASH_CASES = [
     (50, 3, 6, None, True, torch.bfloat16),        # D of no whole vector
     (300, 2, 256, None, True, torch.bfloat16),     # the wide LM's heads
     (130, 2, 136, None, False, torch.float16),     # D between 128 and 256
-    (200, 2, 320, None, True, torch.float32),      # past 256: D chunks
-    (77, 3, 320, 130, False, torch.bfloat16),      # a partial last chunk
-    (40, 2, 600, None, True, torch.bfloat16),      # ten chunks
+    (200, 2, 320, None, True, torch.float32),      # past 256: two pieces
+    (77, 3, 320, 130, False, torch.bfloat16),      # a piece of 64 columns
+    (40, 2, 600, None, True, torch.bfloat16),      # three pieces, D 608
 ]
 
 
@@ -174,7 +174,7 @@ def test_flash_attention_unaligned_rows(card):
 
 
 def test_flash_attention_refuses_what_it_does_not_take(card):
-    """Any head dim is taken (300: the D-chunked route); mixed dtypes and
+    """Any head dim is taken (300: the piece kernel); mixed dtypes and
     a head dim that is not contiguous are not."""
     q = torch.zeros(8, 2, 16, device=card)
     z = torch.zeros(8, 2, 300, device=card)
@@ -184,6 +184,35 @@ def test_flash_attention_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros(8, 2, 16, device=card).transpose(0, 2)
         flash_attention(t, t, t)
+
+
+#: K2's piece kernel (f32 at every head dim, every dtype past 256) at its
+#: edges: a last piece of one column, q's fragments over several chunks,
+#: rows or head dims not of whole 16 bytes (scalar loads), 32 keys a stage,
+#: the sp=2 ring's past and future blocks, a last chunk of one k step
+PIECE_CASES = [
+    # (shape of q, tkv, causal, dtype, q_offset, k_offset)
+    ((130, 2, 257), 77, True, torch.float32, 0, 0),
+    ((2, 100, 2, 600), None, True, torch.float32, 0, 0),
+    ((90, 2, 6), None, True, torch.float32, 0, 0),
+    ((2, 129, 3, 100), 65, False, torch.float32, 0, 0),
+    ((2, 256, 4, 64), None, True, torch.float32, 256, 0),
+    ((2, 256, 4, 64), None, True, torch.float32, 0, 256),
+    ((70, 2, 300), 90, True, torch.float16, 0, 0),
+    ((2, 65, 2, 264), None, False, torch.bfloat16, 0, 0),
+]
+
+
+@pytest.mark.parametrize("shape,tkv,causal,dtype,q_offset,k_offset",
+                         PIECE_CASES, ids=str)
+def test_flash_attention_piece_kernel(card, shape, tkv, causal, dtype,
+                                      q_offset, k_offset):
+    rng = np.random.default_rng(8)
+    kshape = shape[:-3] + ((tkv or shape[-3]),) + shape[-2:]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(card, dtype) for s in (shape, kshape, kshape))
+    _check_flash(q, k, v, causal=causal, q_offset=q_offset,
+                 k_offset=k_offset)
 
 
 def test_flash_attention_batch_axis(card):

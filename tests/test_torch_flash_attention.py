@@ -162,7 +162,7 @@ def test_needing_a_gradient_raises():
 
 def test_refuses_what_it_does_not_take():
     """Mismatched heads and mixed dtypes are refused; no head dim is
-    (D = 257 takes the plain version here, the D-chunked kernel on the
+    (D = 257 takes the plain version here, the piece kernel on the
     card)."""
     z = torch.zeros(4, 2, 16)
     w = torch.from_numpy(_qkv(4, 2, 257)[0])
@@ -305,8 +305,8 @@ def _smoke_module():
 
 #: an ``nvcc -Xptxas -v`` report in the form the card's build writes it
 #: (argument lists shortened): K2's tensor-core kernel in bf16 at a padded
-#: width of 64 that spills, in f16 at 128 that spills, and the CUDA-core
-#: kernel in f32 and in bf16 in 64-column chunks (past 256), spilling too
+#: width of 64 that spills, in f16 at 128 that spills, and the piece kernel
+#: in f32 at 64 and in bf16 past 256 (pieces of 256 columns), spilling too
 FWD_PTXAS_REPORT = """\
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_forward_tc_kernelI13__nv_bfloat16Li64ELi2ELi1EEEvPKT_' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_forward_tc_kernelI13__nv_bfloat16Li64ELi2ELi1EEEvPKT_
@@ -316,12 +316,12 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_forward_tc_ke
 ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_forward_tc_kernelI6__halfLi128ELi1ELi2EEEvPKT_
     16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_forward_kernelIfLi64ELb0EEEvPKT_' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_forward_kernelIfLi64ELb0EEEvPKT_
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_129flash_forward_tc_piece_kernelIfLi64ELi64ELi64EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_129flash_forward_tc_piece_kernelIfLi64ELi64ELi64EEEvPKT_
     256 bytes stack frame, 256 bytes spill stores, 256 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_forward_kernelI13__nv_bfloat16Li64ELb1EEEvPKT_' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_forward_kernelI13__nv_bfloat16Li64ELb1EEEvPKT_
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_129flash_forward_tc_piece_kernelI13__nv_bfloat16Li256ELi64ELi0EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_129flash_forward_tc_piece_kernelI13__nv_bfloat16Li256ELi64ELi0EEEvPKT_
     64 bytes stack frame, 64 bytes spill stores, 64 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
 """
@@ -329,10 +329,11 @@ ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
 
 def test_no_spill_check_picks_the_tensor_core_forward(monkeypatch):
     """chip_smoke.py's build check picks K2's tensor-core specialisations
-    out of the mangled names by type and padded width, and fails the
-    build on one at a width of NO_SPILL_WIDTHS that spills; the CUDA-core
-    kernel (f32, and the D-chunked one of every dtype) and the 128-wide
-    one are not held to it."""
+    out of the mangled names by type and width (the padded head dim, or
+    the piece kernel's output columns a block), and fails the build on
+    one at a width of NO_SPILL_WIDTHS that spills: the 16-bit kernel at
+    64, the f32 piece kernel at 64 and the bf16 one past 256 (pieces of
+    256); the 128-wide one is not held to it."""
     from nnstreamer_tpu_torch import _cuda
 
     smoke = _smoke_module()
@@ -341,12 +342,18 @@ def test_no_spill_check_picks_the_tensor_core_forward(monkeypatch):
               (smoke.TC_KERNEL.search(f["function"]) for f in funcs)]
     assert groups == [("flash_forward_tc_kernel", "__nv_bfloat16", "64"),
                       ("flash_forward_tc_kernel", "__half", "128"),
-                      None, None]
+                      ("flash_forward_tc_piece_kernel", "f", "64"),
+                      ("flash_forward_tc_piece_kernel", "__nv_bfloat16",
+                       "256")]
+    assert [smoke.tc_specialisation(f["function"])[1] for f in funcs] == [
+        "__nv_bfloat16", "__half", "float", "__nv_bfloat16"]
     monkeypatch.setattr(_cuda, "ptxas_report",
                         lambda: {"flash_attention": funcs})
     rows, spills = smoke.build_report()
     assert len(rows) == 4
-    assert len(spills) == 1 and "16 bytes" in spills[0]
+    assert len(spills) == 3
+    assert ["16 bytes" in spills[0], "512 bytes" in spills[1],
+            "128 bytes" in spills[2]] == [True] * 3
     # the profile counts ViT frames by a name every K2 kernel carries
     assert all(smoke.K2_MARKER in f["function"] for f in funcs)
 

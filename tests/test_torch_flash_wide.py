@@ -8,8 +8,9 @@ backward kernels, as its own tests run it on the CPU) and through the
 port's ``flash_attention`` on CPU tensors, which take the kernels' plain
 versions (the card holds its kernels to those: tests/test_torch_cuda.py,
 chip_smoke.py).  D = 136 (past 128), 256 (the tensor cores' widest, and
-the head width of Gemma's 2B and 7B configs) and 320 (the D-chunked route
-on the card, with a partial last chunk of 64).
+the head width of Gemma's 2B and 7B configs) and 320 (on the card the
+forward's piece kernel, two pieces of 256 columns, and the backward's
+D-chunked route, with a partial last chunk of 64).
 
 The wide-head LM is StreamFormer with its attention laid out as 2 heads of
 256, at a small depth and width: the JAX package's parameters are carried
@@ -321,9 +322,9 @@ def test_wide_lm_train_step_matches_jax():
 
 def test_chip_smoke_holds_the_wide_rows():
     """chip_smoke.py holds K2, K3 and K4 to their plain versions at the
-    wide-head LM's layers and the CUDA-core wide routes, under the same
-    tolerances as every other row, and times K2's tensor-core versions at
-    the LM's two wide shapes."""
+    wide-head LM's layers and past 256 (f32 past 128 in the backward),
+    under the same tolerances as every other row, and times K2's
+    tensor-core versions at the LM's two wide shapes."""
     import importlib.util
     import os
 

@@ -16,7 +16,10 @@ and K4, on that K2's out and lse), on inputs made from a seed, and times
 each with ``chip_smoke.time_ms`` (CUDA events, calls queued behind a spin
 on the card).  It prints one JSON line a row: the root, the row, the
 card's name and power limit, and the median ms of each kernel, or the
-error that checkout raised at that row.  Exits 1 without a card.
+error that checkout raised at that row.  With ``--sass`` a child first
+prints one JSON line of the SASS instruction count of each tensor-core
+K2/K3/K4 function of its build (``cuobjdump -sass``), so two checkouts'
+code can be compared kernel by kernel.  Exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import argparse
 import importlib.util
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -39,7 +44,30 @@ def _smoke():
     return smoke
 
 
-def child(root: str, names, reps: int) -> int:
+def sass_counts(paths) -> dict:
+    """Instructions of each tensor-core flash kernel function in the
+    libraries at ``paths``, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    counts, func = {}, None
+    for path in paths:
+        text = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, check=True).stdout
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                # the kernel's name and arguments, without the anonymous
+                # namespace's tag (it differs between checkouts)
+                k = re.search(r"\d(flash_(?:forward|bwd)_\w+)", m.group(1))
+                func = k.group(1) if k and "_tc" in k.group(1) else None
+                counts.setdefault(func, 0)
+            elif func and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+                counts[func] += 1
+    counts.pop(None, None)
+    return counts
+
+
+def child(root: str, names, reps: int, sass: bool) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -52,7 +80,10 @@ def child(root: str, names, reps: int) -> int:
 
     smoke = _smoke()
     card = smoke.card_line()
-    _cuda.build(["flash_attention", "flash_attention_bwd"])
+    libs = _cuda.build(["flash_attention", "flash_attention_bwd"])
+    if sass:
+        print(json.dumps({"root": root, "card": card,
+                          "sass": sass_counts(libs.values())}), flush=True)
     rows = {r[0]: r for r in smoke.FLASH_ROWS}
     bwd = {r[0] for r in smoke.BWD_ROWS}
     gen = torch.Generator().manual_seed(1)
@@ -86,16 +117,19 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", required=True,
                     help="comma-separated names of chip_smoke.FLASH_ROWS")
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--sass", action="store_true",
+                    help="print each tensor-core kernel's SASS count")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="*")
     args = ap.parse_args(argv)
     names = args.rows.split(",")
     if args.child:
-        return child(args.child, names, args.reps)
+        return child(args.child, names, args.reps, args.sass)
     rc = 0
     for root in args.roots:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--rows", args.rows, "--reps", str(args.reps),
+                              *(["--sass"] if args.sass else []),
                               "--child", root]).returncode
     return rc
 
