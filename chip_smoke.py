@@ -10,8 +10,9 @@ Phases, each of which must pass:
    (one ``nvcc`` per source, all started together) and report each kernel
    function's registers, shared memory, spill bytes and ptxas notes from
    ``-Xptxas -v``; a tensor-core K2/K3/K4 (f16, bf16) that spills at a
-   padded head dim of 16, 32, 64 or 256 fails, and so does K2's piece
-   kernel (f32 at every head dim, every dtype past 256) at any width;
+   padded head dim of 16, 32, 64 or 256 fails, and so does a piece
+   kernel of K2, K3 or K4 (f32 at every head dim, every dtype past 256)
+   at any width;
 2. hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and a few others, and time both, plus the one PyTorch
    call that computes the same function where there is one; K2's
@@ -20,7 +21,10 @@ Phases, each of which must pass:
    launch a tensor-core K2 by kernel name in f32 at head dims 64, 256
    and 320 and in bf16 and f16 at 320, a bf16 call at 256 the
    tensor-core K2, K3 and K4 at that width, and the build holds no
-   CUDA-core forward); K1's floor is traced inside
+   CUDA-core forward; ``k34_routes``: traced forward-and-backward calls
+   launch K3's and K4's piece kernels by name in f32 at head dims 64,
+   256 and 320 and in bf16 and f16 at 320, and no CUDA-core backward is
+   traced or built); K1's floor is traced inside
    CUDA graph replays: an empty kernel (the card's per-kernel floor), K1
    on a 1-element frame, on the main path's and on a 32-frame bucket
    (beside that bucket's event-timed call and its bytes bound);
@@ -391,16 +395,14 @@ def card_line() -> str:
 
 #: the tensor-core K2/K3/K4 specialisations, by mangled name: (kernel,
 #: type, width), the type ``f`` for float; the width is DP, the padded head
-#: dim up to 256, or for K2's piece kernel (f32 at every head dim, f16 and
-#: bf16 past 256) the output columns a block owns.  The backward's
-#: CUDA-core kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel: f32, and
-#: every dtype in head-dim chunks past the tensor cores' widths) are not
-#: ones
+#: dim up to 256, or for a piece kernel (K2, K3 and K4 in f32 at every head
+#: dim, in f16 and bf16 past 256) the output columns a block owns.  Every
+#: K2-K4 kernel is one: a flash kernel that is not runs on the CUDA cores
 TC_KERNEL = re.compile(r"(flash_(?:forward|bwd_d(?:q|kv))_tc(?:_piece)?"
                        r"_kernel)I(?:\d+)?(__nv_bfloat16|__half|f)Li(\d+)E")
-#: padded head dims at which a tensor-core K2/K3/K4 must not spill; K2's
-#: piece kernel (every f32 K2, and f16 and bf16 past 256) must not spill at
-#: any width
+#: padded head dims at which a tensor-core K2/K3/K4 must not spill; a
+#: piece kernel (every f32 K2/K3/K4, and f16 and bf16 past 256) must not
+#: spill at any width
 NO_SPILL_WIDTHS = (16, 32, 64, 256)
 K2_PIECE = "flash_forward_tc_piece_kernel"
 #: a name every K2 specialisation carries (the profile counts frames by it)
@@ -425,8 +427,8 @@ def demangle(names):
 def build_report():
     """Registers, static shared memory and spill bytes of every kernel
     function from the build's ``-Xptxas -v`` report, and the tensor-core
-    K2/K3/K4 specialisations at a width of NO_SPILL_WIDTHS, or of K2's
-    piece kernel at any width, that spill."""
+    K2/K3/K4 specialisations at a width of NO_SPILL_WIDTHS, or of a piece
+    kernel at any width, that spill."""
     from nnstreamer_tpu_torch import _cuda
 
     rows, spills = [], []
@@ -439,7 +441,7 @@ def build_report():
             spilled = f.get("spill_store_bytes", 0) + f.get(
                 "spill_load_bytes", 0)
             if m and spilled and (int(m.group(3)) in NO_SPILL_WIDTHS
-                                  or m.group(1) == K2_PIECE):
+                                  or m.group(1).endswith("_piece_kernel")):
                 spills.append(f"{label} spills {spilled} bytes")
     return rows, spills
 
@@ -715,12 +717,13 @@ FLASH_ROWS = [
     ("ring_past", 4, 1024, 1024, 8, 64, True, "float32", 1024, 0),
     ("ring_future", 4, 1024, 1024, 8, 64, True, "float32", 0, 1024),
     # the wide-head LM (2 heads x 256): its filter's and trainer's layers;
-    # f32 at 256, and bf16 and f32 at 320, in the piece kernel
+    # f32 at 256, and bf16, f32 and f16 at 320, in the piece kernel
     ("lm_wide", None, 2048, 2048, 2, 256, True, "bfloat16", 0, 0),
     ("lm_wide_train", 4, 2048, 2048, 2, 256, True, "bfloat16", 0, 0),
     ("wide_f32", 2, 512, 512, 2, 256, True, "float32", 0, 0),
     ("wide_320", 2, 512, 512, 2, 320, True, "bfloat16", 0, 0),
     ("wide_320_f32", 2, 512, 512, 2, 320, True, "float32", 0, 0),
+    ("wide_320_f16", 2, 512, 512, 2, 320, True, "float16", 0, 0),
 ]
 #: FLASH_ROWS whose call returns no lse (its bytes leave the bound)
 FLASH_NO_LSE = ("vit_batched",)
@@ -921,16 +924,19 @@ BWD_ROWS = [
     # lse cotangent is 0 (the ring's merge weighs it 0)
     ("ring_past", 4, 1024, 1024, 8, 64, True, "float32", 1024, 0, True),
     ("ring_future", 4, 1024, 1024, 8, 64, True, "float32", 0, 1024, False),
-    # the wide-head LM's layers and the CUDA-core wide routes, as in
+    # the wide-head LM's layers and the piece kernels' wide routes, as in
     # FLASH_ROWS
     ("lm_wide", None, 2048, 2048, 2, 256, True, "bfloat16", 0, 0, False),
     ("lm_wide_train", 4, 2048, 2048, 2, 256, True, "bfloat16", 0, 0, False),
     ("wide_f32", 2, 512, 512, 2, 256, True, "float32", 0, 0, False),
     ("wide_320", 2, 512, 512, 2, 320, True, "bfloat16", 0, 0, False),
+    ("wide_320_f32", 2, 512, 512, 2, 320, True, "float32", 0, 0, False),
+    ("wide_320_f16", 2, 512, 512, 2, 320, True, "float16", 0, 0, False),
 ]
 #: |kernel - plain| <= tol * max(max |plain|, 1) on dq, dk and dv: f32
-#: differs in summation order; bf16 rounds each gradient once from f32
-#: sums taken in another order
+#: differs by the three TF32 products (~2^-20 of each product) and in
+#: summation order; bf16 and f16 round p and ds, and each gradient once
+#: from f32 sums taken in another order
 BWD_TOL = {"float32": 1e-4, "float16": 2e-2, "bfloat16": 2e-2}
 
 
@@ -5625,32 +5631,55 @@ def demangle_traced(name: str) -> str:
             .replace("(anonymous namespace)::", "").split("(")[0])
 
 
-def traced_flash_kernels(calls, runs: int = 3) -> dict:
+#: empty kernels that open a route trace's window, and the traces a route
+#: check takes at most before a kernel it wants counts as not launched
+TRACE_WARMUP = 256
+TRACE_TRIES = 4
+
+
+def traced_flash_kernels(calls, done, runs: int = 3) -> tuple:
     """Launches by name of the flash kernels that ``calls`` make, each
-    call run ``runs`` times in one trace.  A trace in a process that has
-    traced before (k1_floor) can lose the first kernels of its window, so
-    the window opens on 128 small kernels of its own."""
+    call run ``runs`` times in a trace, and a list with, for each trace,
+    how many of its TRACE_WARMUP opening kernels it kept.  A trace in a
+    process that has traced before (k1_floor) can lose the first kernels
+    of its window (on the card it once lost 128 opening kernels and the
+    first two calls), so the window opens on empty kernels spread over
+    about 0.2 s, and the calls are traced again, up to TRACE_TRIES
+    traces, until ``done(counts)`` holds.  ``counts`` is each name's
+    most launches in one trace: a kernel a call does not launch shows in
+    none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(128):
-            torch.zeros(1, device="cuda").add_(1)
+    empty = empty_kernel_launcher()
+    counts, kept = {}, []
+    for _ in range(TRACE_TRIES):
         torch.cuda.synchronize()
-        for call in calls:
-            for _ in range(runs):
-                call()
-        torch.cuda.synchronize()
-    return dict(collections.Counter(
-        e.name for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and "flash" in e.name))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(TRACE_WARMUP):
+                empty()
+                if i % 2:
+                    time.sleep(0.0015)
+            torch.cuda.synchronize()
+            for call in calls:
+                for _ in range(runs):
+                    call()
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kept.append(sum("nns_empty_kernel" in n for n in device))
+        for name, c in collections.Counter(
+                n for n in device if "flash" in n).items():
+            counts[name] = max(counts.get(name, 0), c)
+        if done(counts):
+            break
+    return counts, kept
 
 
 def check_k2_routes(card: str) -> None:
-    """Every route of K2 on the tensor cores, in one trace.  At K2_ROUTES'
+    """Every route of K2 on the tensor cores, in a trace (taken again
+    while one loses a wanted kernel: traced_flash_kernels).  At K2_ROUTES'
     shapes (f32 at head dims 64, 256 and 320, bf16 and f16 at 320) each
     call launches the piece kernel it must, found by name; a bf16 call at
     D = 256 (lm_wide_train's shape), forward and backward, launches the
@@ -5679,16 +5708,25 @@ def check_k2_routes(card: str) -> None:
         o = flash_attention(*wide, causal=True)
         torch.autograd.grad(o, wide, torch.ones_like(o))
 
-    counts = traced_flash_kernels(calls + [fwd_bwd])
-    names = sorted(counts)
-    pieces = {(m.group(1), int(m.group(2)), int(m.group(4)))
-              for m in map(K2_PIECE_TRACED.search, names) if m}
-    found = {tc_specialisation(n) for n in names} - {None}
-    problems = [f"{row} {dt}: no piece kernel {want}"
-                for (row, dt, want) in K2_ROUTES if want not in pieces]
     want_256 = {(kern, "__nv_bfloat16", 256) for kern in (
         "flash_forward_tc_kernel", "flash_bwd_dq_tc_kernel",
         "flash_bwd_dkv_tc_kernel")}
+
+    def pieces_of(names):
+        return {(m.group(1), int(m.group(2)), int(m.group(4)))
+                for m in map(K2_PIECE_TRACED.search, names) if m}
+
+    def done(counts):
+        return ({want for (_, _, want) in K2_ROUTES} <= pieces_of(counts)
+                and want_256 <= {tc_specialisation(n) for n in counts})
+
+    counts, kept = traced_flash_kernels(calls + [fwd_bwd], done)
+    names = sorted(counts)
+    pieces = pieces_of(names)
+    found = {tc_specialisation(n) for n in names} - {None}
+    problems = [f"{row} {dt}: no piece kernel {want} in {len(kept)} "
+                f"traces" for (row, dt, want) in K2_ROUTES
+                if want not in pieces]
     if not want_256 <= found:
         problems.append("a bf16 call at D = 256 did not launch the "
                         "tensor-core K2, K3 and K4 at 256")
@@ -5707,9 +5745,91 @@ def check_k2_routes(card: str) -> None:
           "bf16_256": {"shape": [LM_TRAIN_BATCH, LM_SEQ, 2, 256],
                        "tensor_core": sorted(map(list, found))},
           "launches": {demangle_traced(n): c for n, c in counts.items()},
+          "warmup_kept": kept, "warmup": TRACE_WARMUP,
           "cuda_core_forward": {"traced": cuda_core, "built": built}})
     if problems:
         raise AssertionError("k2_routes: " + "; ".join(problems))
+
+
+#: K3's and K4's piece kernels as the profiler names them: (dq or dkv,
+#: type, output columns a block, streamed rows a stage, padded head dim
+#: or 0 past one chunk)
+K34_PIECE_TRACED = re.compile(r"flash_bwd_(dq|dkv)_tc_piece_kernel<"
+                              r"(__nv_bfloat16|__half|float), (\d+), (\d+), "
+                              r"(\d+)>")
+#: k34_routes' calls: the BWD_ROWS row whose shape, mask and offsets it
+#: takes, its dtype, and the piece kernels (K3 and K4 alike) it must
+#: launch: (type, output columns a block, padded head dim or 0)
+K34_ROUTES = [("ring_past", "float32", ("float", 64, 64)),
+              ("wide_f32", "float32", ("float", 128, 0)),
+              ("wide_320_f32", "float32", ("float", 128, 0)),
+              ("wide_320", "bfloat16", ("__nv_bfloat16", 128, 0)),
+              ("wide_320_f16", "float16", ("__half", 128, 0))]
+#: a name every K3/K4 specialisation carries
+K34_MARKER = "flash_bwd"
+
+
+def check_k34_routes(card: str) -> None:
+    """Every route of K3 and K4 on the tensor cores, in a trace (taken
+    again while one loses a wanted kernel: traced_flash_kernels).  At
+    K34_ROUTES' shapes (f32 at head dims 64, 256 and 320, bf16 and f16 at
+    320), a forward-and-backward call launches K3's and K4's piece
+    kernels, found by name.  No traced backward kernel is a CUDA-core one,
+    and the build's report holds no backward kernel that is not a
+    tensor-core one, so none launched anywhere in the run."""
+    import torch
+
+    from nnstreamer_tpu_torch import _cuda
+    from nnstreamer_tpu_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator().manual_seed(5)
+    rows = {r[0]: r for r in BWD_ROWS}
+    calls = []
+    for (row, dt, _) in K34_ROUTES:
+        _, b, tq, tkv, h, d, causal, _, qo, ko, _ = rows[row]
+        q, k, v = (torch.randn(b, t, h, d, generator=gen)
+                   .to("cuda", getattr(torch, dt)).requires_grad_()
+                   for t in (tq, tkv, tkv))
+
+        def fwd_bwd(q=q, k=k, v=v, causal=causal, qo=qo, ko=ko):
+            o = flash_attention(q, k, v, causal=causal, q_offset=qo,
+                                k_offset=ko)
+            torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+        calls.append(fwd_bwd)
+
+    wanted = {(which, *want) for (_, _, want) in K34_ROUTES
+              for which in ("dq", "dkv")}
+
+    def pieces_of(names):
+        return {(m.group(1), m.group(2), int(m.group(3)), int(m.group(5)))
+                for m in map(K34_PIECE_TRACED.search, names) if m}
+
+    counts, kept = traced_flash_kernels(
+        calls, lambda counts: wanted <= pieces_of(counts))
+    names = sorted(counts)
+    pieces = pieces_of(names)
+    problems = [f"{row} {dt}: no {which} piece kernel {want} in "
+                f"{len(kept)} traces"
+                for (row, dt, want) in K34_ROUTES for which in ("dq", "dkv")
+                if (which, *want) not in pieces]
+    cuda_core = sorted(n for n in names
+                       if K34_MARKER in n and tc_specialisation(n) is None)
+    built = sorted(f["function"] for f in _cuda.ptxas_report().get(
+        "flash_attention_bwd", []) if K34_MARKER in f["function"]
+        and tc_specialisation(f["function"]) is None)
+    if cuda_core or built:
+        problems.append(f"CUDA-core backward kernels: traced {cuda_core}, "
+                        f"built {built}")
+    emit({"phase": "k34_routes", "card": card,
+          "routes": [{"row": row, "dtype": dt, "want": list(want),
+                      "found": {w: (w, *want) in pieces
+                                for w in ("dq", "dkv")}}
+                     for (row, dt, want) in K34_ROUTES],
+          "launches": {demangle_traced(n): c for n, c in counts.items()},
+          "warmup_kept": kept, "warmup": TRACE_WARMUP,
+          "cuda_core_backward": {"traced": cuda_core, "built": built}})
+    if problems:
+        raise AssertionError("k34_routes: " + "; ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -7154,9 +7274,12 @@ def check_train_outputs(seed: int) -> None:
     toks, labs = (torch.from_numpy(x).cuda()
                   for x in lm_train_samples(1, seed + 1)[0])
     mesh = make_mesh(devices=["cuda:0"])
-    k2 = {}    # K2 launches of each dtype's three kernel steps
+    # K2, K3 and K4 launches of each dtype's three kernel steps
+    flash = ("flash_attention", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    launched = {}
     for dt in ("float32", "bfloat16"):
-        before = _cuda.launches["flash_attention"]
+        before = {k: _cuda.launches[k] for k in flash}
         custom = {"seed": str(seed), "dtype": dt}
         kern = get_model("vit", {**custom, "attn": "flash"},
                          trainable=True).module
@@ -7181,7 +7304,7 @@ def check_train_outputs(seed: int) -> None:
                 moe = {"moe_grad_max_rel_l2": _grad_gap(lg_k, moe)[0]}
             steps.append((path, (lm_k, lm_p), _grad_gap(lg_k, lg_p), moe))
             del params, lg_k, lg_p
-        k2[dt] = _cuda.launches["flash_attention"] - before
+        launched[dt] = {k: _cuda.launches[k] - before[k] for k in flash}
         loss_tol, grad_tol = TRAIN_TOL[dt]
         for path, (lk, lp), (gap, where), *moe in steps:
             lk, lp = float(lk), float(lp)
@@ -7200,7 +7323,7 @@ def check_train_outputs(seed: int) -> None:
     torch.backends.cudnn.allow_tf32 = True
     emit({"phase": "train_outputs", "vit_batch": int(frames.shape[0]),
           "lm_tokens": list(toks.shape), "rows": rows,
-          "flash_launches": k2})
+          "flash_launches": launched})
     if failures:
         raise AssertionError(f"training step with the kernels differs from "
                              f"plain attention at {failures}")
@@ -8253,6 +8376,7 @@ def main(argv=None) -> int:
                    *check_flash_backward(args.reps)]
         time_flash_versions(args.reps)
         check_k2_routes(card)
+        check_k34_routes(card)
         main_path = run_labeling("main_path", LAUNCH, args.frames,
                                  args.seed, card, "normalize_frame", 1)
         labels_equal_eager("main_path", main_path, run_labeling(

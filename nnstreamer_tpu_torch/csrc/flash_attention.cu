@@ -477,45 +477,6 @@ struct PieceTiles {
   static_assert(kF32 || KN == tc::kTile, "16-bit tiles hold 64 rows");
 };
 
-// Rows [r0, r0 + R) of one head of a (T, H, D) tensor, the element columns
-// of 256-byte chunk c that lie below dp (zeros past d and past n_rows), into
-// the SwzRows<R> tile at `tile`.  f16 and bf16 as 16-byte cp.async copies (R
-// = 64, in flight on return; scalar where !vec); f32 through registers, split
-// into hi at `tile` and lo `lo` bytes after it, done on return.
-template <typename T, int R>
-__device__ __forceinline__ void load_chunk(char* tile, int lo,
-                                           const T* __restrict__ src,
-                                           long long stride, int r0,
-                                           int n_rows, int c, int dp, int d,
-                                           bool vec) {
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr int kN = R * 16 / tc::kThreads;  // 16-byte pieces a thread
-    uint4 x[kN];
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int p = threadIdx.x + tc::kThreads * i, r = p >> 4;
-      x[i] = tc::load_f32x4(src + (long long)(r0 + r) * stride,
-                            64 * c + 4 * (p & 15), d, r0 + r < n_rows, vec);
-    }
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int p = threadIdx.x + tc::kThreads * i;
-      if (64 * c + 4 * (p & 15) >= dp) continue;  // past the k steps
-      char* dst = tile + tc::SwzRows<R>::chunk(p >> 4, p & 15);
-      *reinterpret_cast<uint4*>(dst) =
-          make_uint4(tc::tf32_hi(x[i].x), tc::tf32_hi(x[i].y),
-                     tc::tf32_hi(x[i].z), tc::tf32_hi(x[i].w));
-      *reinterpret_cast<uint4*>(dst + lo) =
-          make_uint4(tc::tf32_lo(x[i].x), tc::tf32_lo(x[i].y),
-                     tc::tf32_lo(x[i].z), tc::tf32_lo(x[i].w));
-    }
-  } else {
-    static_assert(R == tc::kTile, "16-bit chunks of 64 rows");
-    tc::load_tile<T, 128>(tile, src + 128 * c, stride, r0, n_rows,
-                          d - 128 * c, vec);
-  }
-}
-
 // K2 on the tensor cores for f32 at every head dim (each product as three
 // TF32 products) and for f16 and bf16 past a padded 256: one warpgroup per
 // (64 query rows, piece of DO output columns, head, batch element), KN keys
@@ -588,40 +549,11 @@ flash_forward_tc_piece_kernel(const T* __restrict__ q,
   const float scale2 = scale * tc::kLog2e;
 
   // the v tile of keys [k0, k0 + KN), output columns [c0, c0 + DO).  f32:
-  // transposed, hi and lo, each key at its column of v^T (a warp stores 16
-  // keys x 2 groups of 4 columns at a time, one word to a bank)
+  // transposed, hi and lo, each key at its column of v^T
   auto load_v = [&](int k0) {
     if constexpr (kF32) {
-      constexpr int kN = KN * DO / 4 / tc::kThreads;  // pieces a thread
-      constexpr int kBatch = kN < 8 ? kN : 8;
-      constexpr int kKeyBlocks = KN / 16;
-#pragma unroll
-      for (int i0 = 0; i0 < kN; i0 += kBatch) {
-        uint4 x[kBatch];
-        int key[kBatch], cg[kBatch];
-#pragma unroll
-        for (int i = 0; i < kBatch; ++i) {
-          const int p = tid + tc::kThreads * (i0 + i), w = p >> 5;
-          key[i] = (p & 15) + 16 * (w % kKeyBlocks);
-          cg[i] = ((p >> 4) & 1) + 2 * (w / kKeyBlocks);
-          x[i] = tc::load_f32x4(v + (long long)(k0 + key[i]) * st.v_st,
-                                c0 + 4 * cg[i], d, k0 + key[i] < tkv, vec);
-        }
-#pragma unroll
-        for (int i = 0; i < kBatch; ++i) {
-          const int u = key[i];
-          const int kc = (u & ~7) | ((u >> 1) & 3) | ((u & 1) << 2);
-          const uint32_t w4[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            char* dst = vs + tc::SwzRows<DO>::chunk(4 * cg[i] + e, kc >> 2) +
-                        (kc & 3) * 4;
-            *reinterpret_cast<uint32_t*>(dst) = tc::tf32_hi(w4[e]);
-            *reinterpret_cast<uint32_t*>(dst + Tiles::kVBytes) =
-                tc::tf32_lo(w4[e]);
-          }
-        }
-      }
+      tc::load_f32_transposed<DO, KN>(vs, Tiles::kVBytes, v, st.v_st, k0,
+                                      tkv, c0, d, vec);
     } else {
       tc::load_tile<T, DO>(vs, v + c0, st.v_st, k0, tkv, d - c0, vec);
     }
@@ -633,8 +565,9 @@ flash_forward_tc_piece_kernel(const T* __restrict__ q,
   if constexpr (DPS > 0) {
 #pragma unroll
     for (int c = 0; c * 64 < DPS && n > 0; ++c)
-      load_chunk<T, tc::kTile>(qs + c * 2 * tc::kTile * 128, Tiles::kQBytes,
-                               q, st.q_st, q0, tq, c, dp, d, vec);
+      tc::load_chunk<T, tc::kTile>(qs + c * 2 * tc::kTile * 128,
+                                   Tiles::kQBytes, q, st.q_st, q0, tq, c, dp,
+                                   d, vec);
   }
   const uint64_t qd = tc::SwzRows<tc::kTile>::desc(qs);
   const uint64_t qld = tc::SwzRows<tc::kTile>::desc(qs + Tiles::kQBytes);
@@ -657,11 +590,11 @@ flash_forward_tc_piece_kernel(const T* __restrict__ q,
     // s = q k^T over the head dim, a chunk of 8 k steps at a time
     for (int c = 0; 8 * c < ksteps; ++c) {
       __syncthreads();  // the last products are done with the tiles
-      load_chunk<T, KN>(ks, Tiles::kKBytes, k, st.k_st, k0, tkv, c, dp, d,
-                        vec);
+      tc::load_chunk<T, KN>(ks, Tiles::kKBytes, k, st.k_st, k0, tkv, c, dp,
+                            d, vec);
       if constexpr (DPS == 0)
-        load_chunk<T, tc::kTile>(qs, Tiles::kQBytes, q, st.q_st, q0, tq, c,
-                                 dp, d, vec);
+        tc::load_chunk<T, tc::kTile>(qs, Tiles::kQBytes, q, st.q_st, q0, tq,
+                                     c, dp, d, vec);
       if (c == 0) load_v(k0);
       if constexpr (!kF32) {
         tc::cp_async_commit();

@@ -3,8 +3,8 @@
 // Replaces the two Pallas TPU kernels of nnstreamer_tpu/ops/flash_attention.py
 // launched by _flash_backward: _bwd_dq_kernel (body at :331-370, launched at
 // :466) and _bwd_dkv_kernel (:373-418, launched at :481).  Both recompute each
-// 64 x 64 tile of probabilities from the forward's saved logsumexp, as
-// _recompute_p (:311-328) does:
+// tile of probabilities from the forward's saved logsumexp, as _recompute_p
+// (:311-328) does:
 //
 //   s[i, j]  = (q[i] . k[j]) / sqrt(D), masked where the key lies past the end
 //              of k, or (causal) where k_offset + j > q_offset + i;
@@ -12,32 +12,37 @@
 //              lse = -inf (rows that saw no key, and rows past the end of q);
 //   ds[i, j] = p[i, j] (dO[i] . v[j] - delta[i]) / sqrt(D),
 //
-// where delta = rowsum(dO * O) (less the lse cotangent) comes from the caller.
-// The dq kernel (K3) sums dq[i] = sum_j ds[i, j] k[j]; the dk/dv kernel (K4)
-// sums dv[j] = sum_i p[i, j] dO[i] and dk[j] = sum_i ds[i, j] q[i].  All sums
-// are in f32; the results are cast once to the inputs' type.
+// where delta = rowsum(dO * O) (less the lse cotangent) comes from the caller,
+// once over the full head dim.  The dq kernel (K3) sums dq[i] = sum_j ds[i, j]
+// k[j]; the dk/dv kernel (K4) sums dv[j] = sum_i p[i, j] dO[i] and dk[j] =
+// sum_i ds[i, j] q[i].  All sums are in f32; the results are cast once to the
+// inputs' type.
 //
 // On the TPU each kernel walks its inner axis as a sequential grid dimension
 // with VMEM scratch.  Here blocks run in parallel and in no order, so:
 //
-// - K3 has one block (256 threads in f32, 128 in f16 and bf16) per (64-query
-//   tile, head, batch element) and loops over key tiles; K4 one per (64-key
-//   tile, head, batch element), looping over query tiles.  Each block owns
-//   its output rows outright: no atomics, so the result does not depend on
-//   the order blocks run in;
+// - K3 has one block of 128 threads (one warpgroup, two in K4 at a padded 256)
+//   per (64-query tile, head, batch element, and piece of the output columns
+//   where there are pieces) and loops over key tiles; K4 one per 64-key tile,
+//   looping over query tiles.  Each block owns its output rows and columns
+//   outright: no atomics, so the result does not depend on the order blocks
+//   run in;
 // - under `causal`, K3 never loads key tiles wholly in the future of its query
 //   tile and issues the longest query tiles first; K4 skips query tiles wholly
 //   in the past of its key tile (the first key tiles, which see the most
-//   query tiles, are issued first anyway);
+//   query tiles, are issued first anyway).  A block that sees no (query, key)
+//   pair (the sp=2 ring's future block) loads no tile and writes zeros;
 // - inputs are read in place through their (batch, row, head) strides and the
 //   ragged tails are masked by bounds, as in the forward (flash_attention.cu).
 //
 // What bounds it: per visible (query, key) pair K3 does 6 D operations
 // (q.k, dO.v, ds.k) and K4 8 D (q.k, dO.v, p.dO, ds.q), so at the LM's
 // 2048-token causal layer both are bound by operations, and at ViT's
-// 197-token layers by bytes.  There are two routes, by dtype:
+// 197-token layers by bytes.  Every dtype at every head dim runs on the
+// tensor cores (flash_wgmma.cuh), in one of two pairs of kernels:
 //
-// f16 and bf16: the tensor cores (flash_wgmma.cuh).  One warpgroup of 128
+// f16 and bf16 up to a padded 256: flash_bwd_dq_tc_kernel and
+// flash_bwd_dkv_tc_kernel.  One warpgroup of 128
 // threads per block owns 64 output rows, the M of one wgmma.  All five tile
 // products are wgmma m64nNk16 with f32 accumulators in registers: s and dp
 // (N = 64) read both operands from shared memory; dq += ds k (K3) and
@@ -50,11 +55,12 @@
 // conflicts for the products' reads and the 16-byte copies alike.  The
 // streamed tiles (k and v in K3; q, dO and their lse and delta slices in K4)
 // go through a ring of two stages filled by 16-byte cp.async copies: the
-// next tile's copy is in flight while this one computes.  Inputs whose rows or head dim are not 16-byte aligned
-// (D = 6, say) cannot be copied 16 bytes at a time: a scalar loader fills the
-// same layout, synchronously.  Masks cost a compare per score only in tiles the
-// mask cuts (the causal diagonal, ragged ends); rows or columns with
-// lse = -inf take lse = +inf, so exp2 gives them p = 0 exactly.
+// next tile's copy is in flight while this one computes.  Inputs whose rows
+// or head dim are not 16-byte aligned (D = 6, say) cannot be copied 16 bytes
+// at a time: a scalar loader fills the same layout, synchronously.  Masks
+// cost a compare per score only in tiles the mask cuts (the causal diagonal,
+// ragged ends); rows or columns with lse = -inf take lse = +inf, so exp2
+// gives them p = 0 exactly.
 //
 // Registers (ptxas, sm_90a): K3 115 / 115 / 139 / 168 and K4 118 / 136 /
 // 168 / 232 a thread at padded widths 16 / 32 / 64 / 128, no spills; K4 at
@@ -66,8 +72,8 @@
 // the SM's 2-3 blocks must overlap each other; at the LM layer they reach
 // ~22 % of the bf16 tensor rate.
 //
-// A padded width of 256 (a wide-head LM's D = 256) stays on the tensor
-// cores, 6 tiles of 32 KB (one block an SM); registers are what it costs:
+// A padded width of 256 (a wide-head LM's D = 256) stays on the same
+// kernels, 6 tiles of 32 KB (one block an SM); registers are what it costs:
 //
 // - K3's dq accumulator is 128 f32 a thread; two 64 x 64 score tiles (s and
 //   dp, 64 more) beside it would not fit, so each stage's 64 keys are taken
@@ -89,20 +95,81 @@
 // at ViT's layer a block runs only 4 tile iterations, so its prologue, its
 // store and the partial second wave of 768 blocks weigh as much.
 //
-// f32: the CUDA cores, as first written.  A tensor-core f32 product is TF32,
-// and the f32 kernels are held to the plain backward to summation order.
-// Each thread keeps a 4 x 4 tile of scores and its output rows' accumulators
-// in registers; ds and p pass through shared memory only to be read back, by
-// the half-warp that wrote them, as the rows of the next product.  Its
-// ceiling is the 67 TFLOP/s f32 rate.  Padded widths 16, 32, 64 and 128
-// (the f32 K4's 128-wide tiles take 174 KB of shared memory); columns past
-// D load as zeros.
+// f32 at every head dim, and f16 and bf16 past 256:
+// flash_bwd_dq_tc_piece_kernel and flash_bwd_dkv_tc_piece_kernel, built as
+// K2's piece kernel (flash_attention.cu) is.  Two things bound these on
+// this card.
 //
-// Past those widths (f32 past 128, every dtype past 256): the same CUDA-core
-// kernels in chunks of 64 columns (kChunked): s and dp sum over the
-// chunks of q, dO, k and v; a block owns one chunk of the output
-// columns (a grid axis folded into x) and recomputes s and dp for it; lse
-// and delta come from the caller, once over the full D.
+// - The tensor cores take f32 only as TF32 (10 mantissa bits).  Each of the
+//   five f32 products (s = q k^T and dp = dO v^T, in K4 their transposes;
+//   dq += ds k; dv += p^T dO and dk += ds^T q) is three TF32 products,
+//   a_hi b_hi + a_hi b_lo + a_lo b_hi, with hi the operand cut to TF32 and
+//   lo the rest (tf32_hi, tf32_lo): they miss a b by ~2^-20 of |a b|, the
+//   order of an f32 rounding, where one TF32 product misses the f32
+//   tolerance (tests/test_torch_flash_tf32.py emulates both on the CPU
+//   against the JAX package).  The ceiling is 495 / 3 = 165 TFLOP/s, 2.5
+//   times the CUDA cores' 67.  wgmma reads 32-bit operands from shared
+//   memory only K-major.  The score products are K-major as the tiles lie
+//   (K is the head dim); the output products sum over keys (K3) or queries
+//   (K4), so their B (K3: k; K4: dO and q) lands in shared memory a second
+//   time, transposed (load_f32_transposed), in the order in which a
+//   thread of the score accumulator holds its columns as the TF32 A: p and
+//   ds are split into hi and lo in registers, without a shuffle.
+// - Past the widths (f32 past 64, f16 and bf16 past 256) the output
+//   accumulators outgrow the registers: at D = 320 in bf16, dq alone is 160
+//   f32 a thread and dk + dv 320.  So the output columns go in pieces, a
+//   piece a block (a grid axis), and each block takes s and dp itself over
+//   the whole head dim: the score work is the number of pieces, 3 at D =
+//   320 (pieces of 128), where the CUDA-core route took it 5 times (once
+//   per 64 output columns).  Two warpgroups of one block trading p and ds
+//   through shared memory (K4's design at 256) would take the scores once,
+//   but each would wait on the other's half of the softmax, and a block
+//   would need both pieces' output tiles; with a block a piece, blocks of
+//   80-96 KB (f16, bf16) share an SM and overlap each other.
+//
+// The design, for both:
+//
+// - one warpgroup a block owns 64 rows (K3: queries, K4: keys) and DO output
+//   columns: in f32 the padded head dim up to 64, else 128; in f16 and bf16
+//   128 (D = 320: three pieces).  At 128 columns K4 holds dk and dv (128 f32
+//   a thread) and s and dp beside them, as the 16-bit K4 at a padded 128;
+//   256 columns would not fit;
+// - NS streamed rows a stage (K3: keys, K4: queries): 64 in f16 and bf16; 32
+//   in f32, where each streamed tile is in shared memory twice (a chunk
+//   K-major, the piece transposed), as hi and lo.  Shared memory at D = 64
+//   in f32: K3 112 KB (q and dO 32 KB each as hi and lo; k, v and k^T 16
+//   KB each: two blocks an SM); K4 128 KB (k and v 32 KB each; q, dO, q^T
+//   and dO^T 16 KB each: one block); 64 queries a stage would take K4 to
+//   192 KB.  Past the widths: f32 K3 128 KB, K4 160 KB; f16 and bf16 K3 80
+//   KB, K4 96 KB;
+// - s and dp run over the head dim in chunks of 256 bytes (8 k steps) a
+//   commit, both operands from shared memory: each chunk step loads the
+//   owned rows' chunk and the stage's.  Where the head dim is one chunk (f32
+//   up to 64) the owned rows are loaded once; past that it is padded with
+//   zeros to whole chunks (f16 and bf16: D = 320 to 384, 20 % more score
+//   work), so that no chunk ends early (see chunk_scores), and shared
+//   memory does not grow with D;
+// - the output products take p and ds from registers: in f32 split into hi
+//   and lo (the A of k steps of 8), in f16 and bf16 rounded to T (k steps of
+//   16) and read against the piece's 64 x 128 tile MN-major;
+// - where the head dim is one chunk (f32 up to 64: the sp=2 ring, ViT in
+//   f32), the stage's streamed rows go through registers a stage ahead
+//   (StageRows): their loads are in flight while the last stage computes,
+//   and one load fills both the K-major and the transposed tile.  Past one
+//   chunk, copies are synchronous, as in K2's piece kernel: each thread
+//   loads its part of a tile (f32 into registers, split, stored; f16 and
+//   bf16 by cp.async, waited at once), and the products wait for it; the
+//   blocks on an SM overlap each other's copies;
+// - registers: worked out from threadIdx.x, the f32 loaders' addresses are
+//   hoisted out of the stage loop and held across it, and at 128 columns
+//   the kernels spill; they take the thread's index from tc::thread_index,
+//   read anew at each load.  Every specialisation's registers and spills:
+//   chip_smoke.py's build line (no piece kernel may spill);
+// - a block that sees no (query, key) pair (under `causal`, the sp=2 ring's
+//   future block) writes its zeros with 16-byte stores and returns before
+//   it loads anything.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -123,284 +190,8 @@ constexpr int min_blocks() {
   return DP <= 64 ? 2 : 1;
 }
 
-// K3 on the CUDA cores: dq.  Shared tiles: q and dO (the rows of the two
-// score products), k and v (their columns, padded rows), ds.  DP is the
-// padded head dim, or with kChunked the width of a head-dim chunk: the
-// scores sum over every chunk of q, dO, k and v, and the block owns the dq
-// columns of chunk blockIdx.x % n_oc.
-template <typename T, int DP, bool kChunked>
-__global__ void __launch_bounds__(kThreads, min_blocks<DP>())
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int tq, int tkv, int h, int d, Strides st, int causal,
-                    long long q_offset, long long k_offset, float scale,
-                    int vec) {
-  using L = OutLayout<DP>;
-  constexpr int kAStride = DP;
-  constexpr int kBStride = DP + 4;
-
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                          // kBlockQ x kAStride
-  float* dos = qs + kBlockQ * kAStride;      // kBlockQ x kAStride
-  float* ks = dos + kBlockQ * kAStride;      // kBlockK x kBStride
-  float* vs = ks + kBlockK * kBStride;       // kBlockK x kBStride
-  float* dss = vs + kBlockK * kBStride;      // kBlockQ x kPStride
-
-  const int n_oc = kChunked ? (d + DP - 1) / DP : 1;  // output chunks
-  const int rank = (int)blockIdx.x / n_oc;
-  const int c_out = ((int)blockIdx.x - rank * n_oc) * DP;  // first column
-  const int n_qtiles = (tq + kBlockQ - 1) / kBlockQ;
-  const int qt = causal ? n_qtiles - 1 - rank : rank;
-  const int q0 = qt * kBlockQ;
-  const int head = blockIdx.y;
-  const long long bat = blockIdx.z;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-
-  q += bat * st.q_sb + head * st.q_sh;
-  k += bat * st.k_sb + head * st.k_sh;
-  v += bat * st.v_sb + head * st.v_sh;
-  dout += bat * st.o_sb + head * st.o_sh;
-  lse += (bat * h + head) * tq;
-  delta += (bat * h + head) * tq;
-  dq += bat * tq * h * d;
-
-  if constexpr (!kChunked) {
-    load_tile<T, DP>(qs, kAStride, q, st.q_st, q0, tq, d, vec);
-    load_tile<T, DP>(dos, kAStride, dout, st.o_st, q0, tq, d, vec);
-  }
-
-  // this thread's rows: their lse (-inf past the end of q) and delta
-  float lse_r[kRows], delta_r[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < tq ? lse[row] : -CUDART_INF_F;
-    delta_r[i] = row < tq ? delta[row] : 0.f;
-  }
-
-  long long k_end = tkv;
-  if (causal) {
-    const long long last_q = q_offset + min(q0 + kBlockQ, tq) - 1;
-    const long long visible = last_q - k_offset + 1;
-    k_end = visible < 0 ? 0 : (visible < tkv ? visible : tkv);
-  }
-
-  float acc[kRows][L::kWidth];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < L::kWidth; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    float s[kRows][kCols], dp[kRows][kCols];
-    if constexpr (kChunked) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
-      for (int c0 = 0; c0 < d; c0 += DP) {
-        __syncthreads();  // the last chunk's tiles (and ds, k) are read
-        load_tile<T, DP>(qs, kAStride, q + c0, st.q_st, q0, tq, d - c0, vec);
-        load_tile<T, DP>(dos, kAStride, dout + c0, st.o_st, q0, tq, d - c0,
-                         vec);
-        load_tile<T, DP>(ks, kBStride, k + c0, st.k_st, k0, tkv, d - c0,
-                         vec);
-        load_tile<T, DP>(vs, kBStride, v + c0, st.v_st, k0, tkv, d - c0,
-                         vec);
-        __syncthreads();
-        tile_dots<DP, kAStride, kBStride, true>(qs, ks, ty, tx, s);
-        tile_dots<DP, kAStride, kBStride, true>(dos, vs, ty, tx, dp);
-      }
-      __syncthreads();  // k's last chunk is read
-      // this block's dq columns of k
-      load_tile<T, DP>(ks, kBStride, k + c_out, st.k_st, k0, tkv, d - c_out,
-                       vec);
-      __syncthreads();
-    } else {
-      __syncthreads();  // the previous tile's k, v and ds are no longer read
-      load_tile<T, DP>(ks, kBStride, k, st.k_st, k0, tkv, d, vec);
-      load_tile<T, DP>(vs, kBStride, v, st.v_st, k0, tkv, d, vec);
-      __syncthreads();
-      tile_dots<DP, kAStride, kBStride>(qs, ks, ty, tx, s);
-      tile_dots<DP, kAStride, kBStride>(dos, vs, ty, tx, dp);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const long long qpos = q_offset + q0 + ty + 16 * i;
-      const bool row_dead = lse_r[i] == -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kl = k0 + tx + 16 * j;
-        const bool dead = row_dead || kl >= tkv ||
-                          (causal && k_offset + kl > qpos);
-        const float p = dead ? 0.f : expf(s[i][j] * scale - lse_r[i]);
-        dss[(ty + 16 * i) * kPStride + tx + 16 * j] =
-            p * (dp[i][j] - delta_r[i]) * scale;
-      }
-    }
-    __syncwarp();  // ds rows are read back by the half-warp that wrote them
-
-    // acc[i][:] += ds[ty + 16i][:] . k[:, this thread's columns]
-    tile_accumulate<DP, kBStride>(dss, ks, ty, tx, acc);
-  }
-
-  store_rows<T, DP>(dq, acc, q0, tq, h, head, d, ty, tx, c_out);
-}
-
-// K4 on the CUDA cores: dk and dv.  A thread's score rows are keys and its
-// columns queries.  Shared tiles: k and v (the rows of the two transposed
-// score products), q and dO (their columns, padded rows; also the rows of
-// the dk and dv products), p^T and ds^T.  With kChunked, as K3's: the
-// scores sum over every chunk, and the block owns the dk and dv columns of
-// chunk blockIdx.x % n_oc.
-template <typename T, int DP, bool kChunked>
-__global__ void __launch_bounds__(kThreads, min_blocks<DP>())
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int tq, int tkv, int h, int d,
-                     Strides st, int causal, long long q_offset,
-                     long long k_offset, float scale, int vec) {
-  using L = OutLayout<DP>;
-  constexpr int kAStride = DP;
-  constexpr int kBStride = DP + 4;
-
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                          // kBlockK x kAStride
-  float* vs = ks + kBlockK * kAStride;       // kBlockK x kAStride
-  float* qs = vs + kBlockK * kAStride;       // kBlockQ x kBStride
-  float* dos = qs + kBlockQ * kBStride;      // kBlockQ x kBStride
-  float* pts = dos + kBlockQ * kBStride;     // kBlockK x kPStride
-  float* dsts = pts + kBlockK * kPStride;    // kBlockK x kPStride
-
-  const int n_oc = kChunked ? (d + DP - 1) / DP : 1;  // output chunks
-  const int kt = (int)blockIdx.x / n_oc;
-  const int c_out = ((int)blockIdx.x - kt * n_oc) * DP;  // first column
-  const int k0 = kt * kBlockK;
-  const int head = blockIdx.y;
-  const long long bat = blockIdx.z;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-
-  q += bat * st.q_sb + head * st.q_sh;
-  k += bat * st.k_sb + head * st.k_sh;
-  v += bat * st.v_sb + head * st.v_sh;
-  dout += bat * st.o_sb + head * st.o_sh;
-  lse += (bat * h + head) * tq;
-  delta += (bat * h + head) * tq;
-  dk += bat * tkv * h * d;
-  dv += bat * tkv * h * d;
-
-  if constexpr (!kChunked) {
-    load_tile<T, DP>(ks, kAStride, k, st.k_st, k0, tkv, d, vec);
-    load_tile<T, DP>(vs, kAStride, v, st.v_st, k0, tkv, d, vec);
-  }
-
-  float dk_acc[kRows][L::kWidth], dv_acc[kRows][L::kWidth];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < L::kWidth; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  // causal: query tiles whose last row lies before this key tile's first key
-  // see none of it
-  int q_start = 0;
-  if (causal) {
-    // first query row (local) that can see key k0: q_offset + r >= k_offset + k0
-    const long long first = k_offset + k0 - q_offset;
-    q_start = first <= 0 ? 0
-            : first >= tq ? tq
-                          : (int)(first / kBlockQ) * kBlockQ;
-  }
-
-  for (int q0 = q_start; q0 < tq; q0 += kBlockQ) {
-    float lse_c[kCols], delta_c[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int col = q0 + tx + 16 * j;
-      lse_c[j] = col < tq ? lse[col] : -CUDART_INF_F;
-      delta_c[j] = col < tq ? delta[col] : 0.f;
-    }
-    // s^T[i][j] = k[ty + 16i] . q[tx + 16j]; dp^T likewise from v and dO
-    float s[kRows][kCols], dp[kRows][kCols];
-    if constexpr (kChunked) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
-      for (int c0 = 0; c0 < d; c0 += DP) {
-        __syncthreads();  // the last chunk's tiles (and p^T, ds^T) are read
-        load_tile<T, DP>(ks, kAStride, k + c0, st.k_st, k0, tkv, d - c0,
-                         vec);
-        load_tile<T, DP>(vs, kAStride, v + c0, st.v_st, k0, tkv, d - c0,
-                         vec);
-        load_tile<T, DP>(qs, kBStride, q + c0, st.q_st, q0, tq, d - c0, vec);
-        load_tile<T, DP>(dos, kBStride, dout + c0, st.o_st, q0, tq, d - c0,
-                         vec);
-        __syncthreads();
-        tile_dots<DP, kAStride, kBStride, true>(ks, qs, ty, tx, s);
-        tile_dots<DP, kAStride, kBStride, true>(vs, dos, ty, tx, dp);
-      }
-      __syncthreads();  // q's and dO's last chunks are read
-      // this block's dk and dv columns of q and dO
-      load_tile<T, DP>(qs, kBStride, q + c_out, st.q_st, q0, tq, d - c_out,
-                       vec);
-      load_tile<T, DP>(dos, kBStride, dout + c_out, st.o_st, q0, tq,
-                       d - c_out, vec);
-      __syncthreads();
-    } else {
-      __syncthreads();  // the previous tile's q, dO, p^T and ds^T are not read
-      load_tile<T, DP>(qs, kBStride, q, st.q_st, q0, tq, d, vec);
-      load_tile<T, DP>(dos, kBStride, dout, st.o_st, q0, tq, d, vec);
-      __syncthreads();
-      tile_dots<DP, kAStride, kBStride>(ks, qs, ty, tx, s);
-      tile_dots<DP, kAStride, kBStride>(vs, dos, ty, tx, dp);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int kl = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const long long qpos = q_offset + q0 + tx + 16 * j;
-        const bool dead = lse_c[j] == -CUDART_INF_F || kl >= tkv ||
-                          (causal && k_offset + kl > qpos);
-        const float p = dead ? 0.f : expf(s[i][j] * scale - lse_c[j]);
-        pts[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-        dsts[(ty + 16 * i) * kPStride + tx + 16 * j] =
-            p * (dp[i][j] - delta_c[j]) * scale;
-      }
-    }
-    __syncwarp();  // p^T and ds^T rows are read back by their writers
-
-    // dv[i][:] += p^T[ty + 16i][:] . dO[:, cols]; dk likewise from ds^T and q
-    tile_accumulate<DP, kBStride>(pts, dos, ty, tx, dv_acc);
-    tile_accumulate<DP, kBStride>(dsts, qs, ty, tx, dk_acc);
-  }
-
-  store_rows<T, DP>(dk, dk_acc, k0, tkv, h, head, d, ty, tx, c_out);
-  store_rows<T, DP>(dv, dv_acc, k0, tkv, h, head, d, ty, tx, c_out);
-}
-
-template <int DP>
-constexpr int dq_smem_bytes() {
-  return (2 * kBlockQ * DP + 2 * kBlockK * (DP + 4) + kBlockQ * kPStride) *
-         (int)sizeof(float);
-}
-
-template <int DP>
-constexpr int dkv_smem_bytes() {
-  return (2 * kBlockK * DP + 2 * kBlockQ * (DP + 4) + 2 * kBlockK * kPStride) *
-         (int)sizeof(float);
-}
-
 // ---------------------------------------------------------------------------
-// f16 and bf16: the tensor-core kernels
+// f16 and bf16 up to a padded 256: the tensor-core kernels
 // ---------------------------------------------------------------------------
 
 // The first query (local index) that sees key kl: 0, or more under
@@ -831,6 +622,625 @@ constexpr int dkv_tc_smem_bytes() {
          tc::kAtomAlign;
 }
 
+// ---------------------------------------------------------------------------
+// f32 at every head dim, f16 and bf16 past 256: a piece of the output
+// columns a block
+// ---------------------------------------------------------------------------
+
+// Shared memory of the piece kernels, f32 tiles as hi then lo: the two
+// owned tiles (K3: q, dO; K4: k, v), 64 rows of one 256-byte chunk of the
+// head dim (of the padded head dim DPS where that is known and narrower);
+// the two streamed tiles (K3: k, v; K4: q, dO), NS rows of the same chunk;
+// kX tiles of the streamed rows' piece of output columns for the output
+// products (K3: k; K4: q, dO), in f32 transposed (DO rows of NS words), in
+// f16 and bf16 64 x DO read MN-major; K4's lse and delta slices; and room
+// to align the tiles.
+template <typename T, int DO, int NS, int DPS, int kX>
+struct PieceTiles {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kParts = kF32 ? 2 : 1;
+  // bytes of a tile's row: a chunk, or one 128-byte swizzle block where
+  // the padded head dim fits in it
+  static constexpr int kRowBytes =
+      DPS == 0 || DPS * (int)sizeof(T) > 128 ? 256 : 128;
+  static constexpr int kOwnBytes = tc::kTile * kRowBytes;
+  static constexpr int kStreamBytes = NS * kRowBytes;
+  static constexpr int kXBytes = kF32 ? DO * NS * 4 : tc::tile_bytes<DO>();
+  static constexpr int kSliceBytes = kX == 2 ? 2 * NS * (int)sizeof(float) : 0;
+  static constexpr int kBytes =
+      kParts * (2 * kOwnBytes + 2 * kStreamBytes + kX * kXBytes) +
+      kSliceBytes + tc::kAtomAlign;
+  static_assert(kF32 || NS == tc::kTile, "16-bit tiles hold 64 rows");
+};
+
+// k steps (32 bytes each) of a chunk: 8, or those of the padded head dim
+// DPS where it is narrower than a chunk (f32 up to 32).
+template <typename T, int DPS>
+__host__ __device__ constexpr int chunk_steps() {
+  return DPS && DPS * (int)sizeof(T) < 256 ? DPS * (int)sizeof(T) / 32 : 8;
+}
+
+// s (+)= a b^T over the KS k steps of chunk c, for the three (f32: TF32,
+// hi and lo descriptors) or one product a k step: a the owned tile, 64
+// rows; b the streamed one, NS rows.  Not committed.  Every chunk has its
+// KS k steps (the head dim is padded to whole chunks with zeros): a chunk
+// that ended early would leave the accumulators two paths, and ptxas
+// serialises products whose accumulators a non-wgmma instruction defines.
+template <typename T, int NS, int KS>
+__device__ __forceinline__ void chunk_scores(float (&s)[NS / 2], uint64_t ad,
+                                             uint64_t ald, uint64_t bd,
+                                             uint64_t bld, int c) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int add = c + kk;  // 0: the first product overwrites s
+    const uint32_t ao = tc::SwzRows<tc::kTile>::step(kk);
+    const uint32_t bo = tc::SwzRows<NS>::step(kk);
+    if constexpr (std::is_same<T, float>::value) {
+      const uint64_t ah = tc::desc_shift(ad, ao), bh = tc::desc_shift(bd, bo);
+      tc::mma_ss_tf32<NS>(s, ah, bh, add);
+      tc::mma_ss_tf32<NS>(s, ah, tc::desc_shift(bld, bo), 1);
+      tc::mma_ss_tf32<NS>(s, tc::desc_shift(ald, ao), bh, 1);
+    } else {
+      tc::mma_ss<T, NS>(s, tc::desc_shift(ad, ao), tc::desc_shift(bd, bo),
+                        add);
+    }
+  }
+}
+
+// A score tile x (64 x NS, an accumulator) as the A of an output product:
+// in f32 hi and lo, k steps of 8 rows, whose k columns l % 4 and l % 4 + 4
+// of step t hold this thread's columns 8 t + col and + 1 (the transposed
+// B's rows are in that order); in f16 and bf16 rounded to T, k steps of 16.
+template <typename T, int NS>
+struct OutA {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kSteps = kF32 ? NS / 8 : NS / 16;
+  uint32_t hi[kSteps][4], lo[kF32 ? kSteps : 1][4];
+
+  __device__ __forceinline__ explicit OutA(const float (&x)[NS / 2]) {
+    if constexpr (kF32) {
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t u =
+              __float_as_uint(x[4 * t + ((i & 1) << 1) + (i >> 1)]);
+          hi[t][i] = tc::tf32_hi(u);
+          lo[t][i] = tc::tf32_lo(u);
+        }
+    } else {
+      tc::pack_a<T>(x, hi);
+    }
+  }
+};
+
+// acc += x b over the NS streamed rows, x from registers (OutA), b the
+// streamed rows' piece of output columns: in f32 three TF32 products a k
+// step (xd / xld the transposed tile's hi and lo), in f16 and bf16 one
+// against the MN-major tile.  Issued, not committed; the A's registers
+// must hold until the wait.
+template <typename T, int DO, int NS>
+__device__ __forceinline__ void issue_out(float (&acc)[DO / 2],
+                                          const OutA<T, NS>& a, uint64_t xd,
+                                          uint64_t xld) {
+#pragma unroll
+  for (int t = 0; t < OutA<T, NS>::kSteps; ++t) {
+    if constexpr (OutA<T, NS>::kF32) {
+      const uint32_t at = tc::SwzRows<DO>::step(t);
+      tc::mma_rs_tf32<DO>(acc, a.hi[t], tc::desc_shift(xd, at), 1);
+      tc::mma_rs_tf32<DO>(acc, a.hi[t], tc::desc_shift(xld, at), 1);
+      tc::mma_rs_tf32<DO>(acc, a.lo[t], tc::desc_shift(xd, at), 1);
+    } else {
+      tc::mma_rs<T, DO>(acc, a.hi[t],
+                        tc::desc_shift(xd, tc::mn_step_bytes<DO>(t)), 1);
+    }
+  }
+}
+
+// The streamed rows [r0, r0 + NS) of one head, output columns [c0, c0 +
+// DO), as the B of an output product: f32 transposed, hi then lo; f16 and
+// bf16 a 64-row tile read MN-major (cp.async, in flight on return).
+template <typename T, int DO, int NS>
+__device__ __forceinline__ void load_out_piece(char* tile, int lo,
+                                               const T* __restrict__ src,
+                                               long long stride, int r0,
+                                               int n_rows, int c0, int d,
+                                               bool vec) {
+  if constexpr (std::is_same<T, float>::value)
+    tc::load_f32_transposed<DO, NS>(tile, lo, src, stride, r0, n_rows, c0, d,
+                                    vec, tc::thread_index());
+  else
+    tc::load_tile<T, DO>(tile, src + c0, stride, r0, n_rows, d - c0, vec);
+}
+
+// Descriptors of a piece tile (hi; lo, f32 only) as the B of an output
+// product.
+template <typename T, int DO>
+__device__ __forceinline__ void out_desc(const char* tile, int lo,
+                                         uint64_t& d, uint64_t& dl) {
+  if constexpr (std::is_same<T, float>::value) {
+    d = tc::SwzRows<DO>::desc(tile);
+    dl = tc::SwzRows<DO>::desc(tile + lo);
+  } else {
+    d = tc::desc_mn_major<DO>(tc::smem_u32(tile), 0);
+    dl = 0;
+  }
+}
+
+// A stage's NS streamed rows of one head in registers, f32 with the padded
+// head dim DO in one chunk (up to 64): each thread's 16-byte pieces as
+// load_f32_transposed takes them (tc::transposed_piece), so that one load
+// fills both the K-major chunk tile of the scores and the transposed tile
+// of an output product, each store free of bank conflicts.  Loaded a stage
+// ahead and stored when the stage begins: the global loads are in flight
+// while the last stage computes.
+template <int DO, int NS>
+struct StageRows {
+  static constexpr int kN = NS * DO / 4 / tc::kThreads;  // pieces a thread
+  static_assert(kN >= 1 && DO * 4 <= 256, "one chunk, whole pieces");
+  uint4 x[kN];
+
+  __device__ __forceinline__ void load(const float* __restrict__ src,
+                                       long long stride, int r0, int n_rows,
+                                       int d, bool vec) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      int u, cg;
+      tc::transposed_piece<NS>(tc::thread_index() + tc::kThreads * i, u, cg);
+      x[i] = tc::load_f32x4(src + (long long)(r0 + u) * stride, 4 * cg, d,
+                            r0 + u < n_rows, vec);
+    }
+  }
+
+  // Into the K-major SwzRows<NS> tile at `km` (lo `lo` bytes on) and,
+  // unless `tr` is null, the transposed SwzRows<DO> tile at `tr` (lo `tlo`
+  // bytes on), each as hi and lo.
+  __device__ __forceinline__ void store(char* km, int lo, char* tr,
+                                        int tlo) const {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      int u, cg;
+      tc::transposed_piece<NS>(tc::thread_index() + tc::kThreads * i, u, cg);
+      tc::store_split(km + tc::SwzRows<NS>::chunk(u, cg), lo, x[i]);
+      if (tr != nullptr) tc::store_transposed<DO>(tr, tlo, u, cg, x[i]);
+    }
+  }
+};
+
+// Zeros into rows [row0, row0 + 64) (those below n_rows) and columns [c0,
+// c0 + DO) (those below d) of one head of a contiguous (T, H, D) output,
+// from a block that sees no (query, key) pair: 16-byte stores where d is
+// whole vectors (the output's rows are then 16-byte aligned).
+template <typename T, int DO>
+__device__ __forceinline__ void store_zeros(T* __restrict__ out, int row0,
+                                            int n_rows, int h, int head,
+                                            int d, int c0) {
+  constexpr int V = 16 / (int)sizeof(T);  // elements of a 16-byte store
+  static_assert(DO % V == 0, "whole vectors a row");
+  const bool vec = d % V == 0;
+  for (int i = threadIdx.x; i < tc::kTile * DO / V; i += tc::kThreads) {
+    const int r = row0 + i / (DO / V), col = c0 + i % (DO / V) * V;
+    if (r >= n_rows || col >= d) continue;
+    T* p = out + ((long long)r * h + head) * d + col;
+    if (vec) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      for (int e = 0; e < V && col + e < d; ++e) p[e] = from_f32<T>(0.f);
+    }
+  }
+}
+
+// K3 on the tensor cores for f32 at every head dim (each product as three
+// TF32 products) and for f16 and bf16 past a padded 256: one warpgroup per
+// (64 query rows, piece of DO dq columns, head, batch element), NS keys a
+// stage; the grid's x is the query tile (under `causal` the longest first)
+// times the piece.  A block takes s and dp over the whole head dim, a
+// 256-byte chunk at a time: the chunk of q and dO (loaded once where the
+// head dim is one chunk) and of the stage's k and v; then dq += ds k
+// against k's piece of columns.
+template <typename T, int DO, int NS, int DPS>
+__global__ void __launch_bounds__(tc::kThreads, 2)
+flash_bwd_dq_tc_piece_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dq, int tq, int tkv, int h, int d,
+                             Strides st, int causal, long long q_offset,
+                             long long k_offset, float scale, int vec) {
+  using Tiles = PieceTiles<T, DO, NS, DPS, 1>;
+  constexpr bool kF32 = Tiles::kF32;
+  constexpr int kChunk = 256 / (int)sizeof(T);  // elements of a chunk
+  constexpr int KS = chunk_steps<T, DPS>();
+  // f32 with the head dim in one chunk and one piece (DO = DPS)
+  constexpr bool kAhead = kF32 && DPS > 0;
+  constexpr int OB = Tiles::kOwnBytes, SB = Tiles::kStreamBytes;
+  constexpr int XB = Tiles::kXBytes;
+  extern __shared__ __align__(1024) char smem_pc[];
+  char* qs = tc::align_atoms(smem_pc);  // each tile hi, then lo (f32)
+  char* dos = qs + Tiles::kParts * OB;
+  char* ks = dos + Tiles::kParts * OB;
+  char* vs = ks + Tiles::kParts * SB;
+  char* xs = vs + Tiles::kParts * SB;  // k's piece of the dq columns
+
+  // the head dim in chunks: one (DPS), or padded to whole chunks
+  const int n_chunks = DPS ? 1 : (d + kChunk - 1) / kChunk;
+  const int dp = DPS ? DPS : n_chunks * kChunk;
+  const int pieces = (d + DO - 1) / DO;
+  const int rank = (int)blockIdx.x / pieces;
+  const int c0 = ((int)blockIdx.x - rank * pieces) * DO;  // first column
+  const int n_qtiles = (tq + tc::kTile - 1) / tc::kTile;
+  const int q0 = (causal ? n_qtiles - 1 - rank : rank) * tc::kTile;
+  const int head = blockIdx.y;
+  const long long bat = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * (threadIdx.x >> 5) + (lane >> 2);  // and row + 8
+  const int col = 2 * (lane & 3);  // and col + 1, of each 8-column block
+
+  q += bat * st.q_sb + head * st.q_sh;
+  k += bat * st.k_sb + head * st.k_sh;
+  v += bat * st.v_sb + head * st.v_sh;
+  dout += bat * st.o_sb + head * st.o_sh;
+  lse += (bat * h + head) * tq;
+  delta += (bat * h + head) * tq;
+  dq += bat * tq * h * d;
+
+  // stages of keys that some row of the tile sees; none: zeros, no load
+  const int n = (tc::last_visible_key(min(q0 + tc::kTile, tq) - 1, tkv,
+                                      causal, q_offset, k_offset) +
+                 NS) /
+                NS;
+  if (n == 0) {
+    store_zeros<T, DO>(dq, q0, tq, h, head, d, c0);
+    return;
+  }
+
+  // this thread's two rows: lse in base 2, made +inf where it is -inf or
+  // past the end of q (exp2 of -inf gives those rows p = 0 exactly); delta;
+  // the last key each row sees
+  float lse2[2], dlt[2];
+  int last_key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + row + 8 * i;
+    const float l = r < tq ? lse[r] : -CUDART_INF_F;
+    lse2[i] = l == -CUDART_INF_F ? CUDART_INF_F : l * tc::kLog2e;
+    dlt[i] = r < tq ? delta[r] : 0.f;
+    last_key[i] = tc::last_visible_key(r, tkv, causal, q_offset, k_offset);
+  }
+  // keys past this are masked in some row of the tile
+  const int tile_last =
+      tc::last_visible_key(q0, tkv, causal, q_offset, k_offset);
+  const float scale2 = scale * tc::kLog2e;
+  const uint64_t qd = tc::SwzRows<tc::kTile>::desc(qs);
+  const uint64_t qld = tc::SwzRows<tc::kTile>::desc(qs + OB);
+  const uint64_t dod = tc::SwzRows<tc::kTile>::desc(dos);
+  const uint64_t dold = tc::SwzRows<tc::kTile>::desc(dos + OB);
+  const uint64_t kd = tc::SwzRows<NS>::desc(ks);
+  const uint64_t kld = tc::SwzRows<NS>::desc(ks + SB);
+  const uint64_t vd = tc::SwzRows<NS>::desc(vs);
+  const uint64_t vld = tc::SwzRows<NS>::desc(vs + SB);
+  uint64_t xd, xld;
+  out_desc<T, DO>(xs, XB, xd, xld);
+
+  float acc[DO / 2];
+#pragma unroll
+  for (int i = 0; i < DO / 2; ++i) acc[i] = 0.f;
+  // f32 in one chunk: the stage's k and v rows, loaded a stage ahead
+  StageRows<kAhead ? DO : 64, NS> kr, vr;
+  if constexpr (kAhead) {
+    if (n > 0) {
+      kr.load(k, st.k_st, 0, tkv, d, vec);
+      vr.load(v, st.v_st, 0, tkv, d, vec);
+    }
+  }
+
+  for (int j = 0; j < n; ++j) {
+    const int k0 = j * NS;
+    // s = q k^T and dp = dO v^T over the head dim, 8 k steps a chunk
+    float s[NS / 2], ds[NS / 2];
+    if constexpr (!kAhead) {
+      // k's piece for dq += ds k, before the chunks (loaded inside the
+      // chunk loop at its first chunk, the f32 kernel at 128 columns
+      // spills)
+      __syncthreads();  // the last stage's products are done with the tile
+      load_out_piece<T, DO, NS>(xs, XB, k, st.k_st, k0, tkv, c0, d, vec);
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      __syncthreads();  // the last products are done with the tiles
+      if (n_chunks > 1 || j == 0) {
+        tc::load_chunk<T, tc::kTile>(qs, OB, q, st.q_st, q0, tq, c, dp, d,
+                                     vec, tc::thread_index());
+        tc::load_chunk<T, tc::kTile>(dos, OB, dout, st.o_st, q0, tq, c, dp,
+                                     d, vec, tc::thread_index());
+      }
+      if constexpr (kAhead) {
+        kr.store(ks, SB, xs, XB);
+        vr.store(vs, SB, nullptr, 0);
+      } else {
+        tc::load_chunk<T, NS>(ks, SB, k, st.k_st, k0, tkv, c, dp, d, vec,
+                              tc::thread_index());
+        tc::load_chunk<T, NS>(vs, SB, v, st.v_st, k0, tkv, c, dp, d, vec,
+                              tc::thread_index());
+      }
+      if constexpr (!kF32) {
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+      }
+      tc::fence_async_shared();
+      __syncthreads();
+      if constexpr (kAhead) {
+        if (j + 1 < n) {  // in flight while this stage computes
+          kr.load(k, st.k_st, k0 + NS, tkv, d, vec);
+          vr.load(v, st.v_st, k0 + NS, tkv, d, vec);
+        }
+      }
+      tc::wgmma_fence();
+      chunk_scores<T, NS, KS>(s, qd, qld, kd, kld, c);
+      chunk_scores<T, NS, KS>(ds, dod, dold, vd, vld, c);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_acc(s);
+      tc::fence_acc(ds);
+    }
+    // p = exp(s - lse), masked; ds = p (dp - delta) / sqrt(D), into ds
+    if (k0 + NS - 1 > tile_last) {  // a tile the mask cuts
+#pragma unroll
+      for (int jj = 0; jj < NS / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = k0 + 8 * jj + col + (e & 1);
+          s[4 * jj + e] =
+              kl > last_key[e >> 1]
+                  ? 0.f
+                  : exp2f(s[4 * jj + e] * scale2 - lse2[e >> 1]);
+        }
+    } else {
+#pragma unroll
+      for (int e = 0; e < NS / 2; ++e)
+        s[e] = exp2f(s[e] * scale2 - lse2[(e >> 1) & 1]);
+    }
+#pragma unroll
+    for (int e = 0; e < NS / 2; ++e)
+      ds[e] = s[e] * (ds[e] - dlt[(e >> 1) & 1]) * scale;
+    // dq += ds k
+    const OutA<T, NS> a(ds);
+    tc::wgmma_fence();
+    issue_out<T, DO, NS>(acc, a, xd, xld);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(acc);
+  }
+
+  tc::store_acc<T, DO>(dq, acc, q0, tq, h, head, d, c0);
+}
+
+// K4 on the tensor cores for f32 at every head dim and for f16 and bf16
+// past a padded 256: one warpgroup per (64 keys, piece of DO dk and dv
+// columns, head, batch element), NS queries a stage, the stage's rows past
+// the key tile's causal start only.  s^T = k q^T and dp^T = v dO^T run over
+// the head dim a chunk at a time, as K3's scores; then dv += p^T dO and dk
+// += ds^T q against the stage's pieces of dO and q.
+template <typename T, int DO, int NS, int DPS>
+__global__ void __launch_bounds__(tc::kThreads, 2)
+flash_bwd_dkv_tc_piece_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv, int tq,
+                              int tkv, int h, int d, Strides st, int causal,
+                              long long q_offset, long long k_offset,
+                              float scale, int vec) {
+  using Tiles = PieceTiles<T, DO, NS, DPS, 2>;
+  constexpr bool kF32 = Tiles::kF32;
+  constexpr int kChunk = 256 / (int)sizeof(T);  // elements of a chunk
+  constexpr int KS = chunk_steps<T, DPS>();
+  // f32 with the head dim in one chunk and one piece (DO = DPS)
+  constexpr bool kAhead = kF32 && DPS > 0;
+  constexpr int OB = Tiles::kOwnBytes, SB = Tiles::kStreamBytes;
+  constexpr int XB = Tiles::kXBytes;
+  extern __shared__ __align__(1024) char smem_pc[];
+  char* ks = tc::align_atoms(smem_pc);  // each tile hi, then lo (f32)
+  char* vs = ks + Tiles::kParts * OB;
+  char* qs = vs + Tiles::kParts * OB;
+  char* dos = qs + Tiles::kParts * SB;
+  char* xq = dos + Tiles::kParts * SB;  // q's piece of the dk columns
+  char* xdo = xq + Tiles::kParts * XB;  // dO's piece of the dv columns
+  float* lse_s = reinterpret_cast<float*>(xdo + Tiles::kParts * XB);
+  float* delta_s = lse_s + NS;
+
+  // the head dim in chunks: one (DPS), or padded to whole chunks
+  const int n_chunks = DPS ? 1 : (d + kChunk - 1) / kChunk;
+  const int dp = DPS ? DPS : n_chunks * kChunk;
+  const int pieces = (d + DO - 1) / DO;
+  const int kt = (int)blockIdx.x / pieces;
+  const int c0 = ((int)blockIdx.x - kt * pieces) * DO;  // first column
+  const int k0 = kt * tc::kTile;
+  const int head = blockIdx.y;
+  const long long bat = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int row = 16 * (tid >> 5) + (lane >> 2);  // and row + 8
+  const int col = 2 * (lane & 3);  // and col + 1, of each 8-column block
+
+  q += bat * st.q_sb + head * st.q_sh;
+  k += bat * st.k_sb + head * st.k_sh;
+  v += bat * st.v_sb + head * st.v_sh;
+  dout += bat * st.o_sb + head * st.o_sh;
+  lse += (bat * h + head) * tq;
+  delta += (bat * h + head) * tq;
+  dk += bat * tkv * h * d;
+  dv += bat * tkv * h * d;
+
+  // causal: query rows before this key tile's first key see none of it;
+  // none at all: zeros, no load
+  int q_start = 0;
+  if (causal) {
+    const long long first = k_offset + k0 - q_offset;
+    q_start = first <= 0 ? 0
+            : first >= tq ? tq
+                          : (int)(first / NS) * NS;
+  }
+  const int n = (tq - q_start + NS - 1) / NS;
+  if (n == 0) {
+    store_zeros<T, DO>(dk, k0, tkv, h, head, d, c0);
+    store_zeros<T, DO>(dv, k0, tkv, h, head, d, c0);
+    return;
+  }
+  // the first query each of this thread's two keys is seen by (tq for keys
+  // past the end of k), and the last such over the tile
+  int first_q[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    first_q[i] = first_visible_query(k0 + row + 8 * i, tq, tkv, causal,
+                                     q_offset, k_offset);
+  const int tile_first = first_visible_query(
+      min(k0 + tc::kTile, tkv) - 1, tq, tkv, causal, q_offset, k_offset);
+  const bool keys_cut = k0 + tc::kTile > tkv;
+  const float scale2 = scale * tc::kLog2e;
+
+  const uint64_t kd = tc::SwzRows<tc::kTile>::desc(ks);
+  const uint64_t kld = tc::SwzRows<tc::kTile>::desc(ks + OB);
+  const uint64_t vd = tc::SwzRows<tc::kTile>::desc(vs);
+  const uint64_t vld = tc::SwzRows<tc::kTile>::desc(vs + OB);
+  const uint64_t qd = tc::SwzRows<NS>::desc(qs);
+  const uint64_t qld = tc::SwzRows<NS>::desc(qs + SB);
+  const uint64_t dod = tc::SwzRows<NS>::desc(dos);
+  const uint64_t dold = tc::SwzRows<NS>::desc(dos + SB);
+  uint64_t xqd, xqld, xdod, xdold;
+  out_desc<T, DO>(xq, XB, xqd, xqld);
+  out_desc<T, DO>(xdo, XB, xdod, xdold);
+
+  float dk_acc[DO / 2], dv_acc[DO / 2];
+#pragma unroll
+  for (int i = 0; i < DO / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  // lse[q0 + t] for thread t < NS, delta[q0 + t - NS] for t < 2 NS; zeros
+  // past the end of q, whose columns the mask drops
+  auto slice = [&](int q0) {
+    const int r = q0 + tid % NS;
+    return tid < 2 * NS && r < tq ? (tid < NS ? lse : delta)[r] : 0.f;
+  };
+  // f32 in one chunk: the stage's q and dO rows and slices, loaded a stage
+  // ahead
+  StageRows<kAhead ? DO : 64, NS> qr, dor;
+  float sl = 0.f;
+  if constexpr (kAhead) {
+    if (n > 0) {
+      qr.load(q, st.q_st, q_start, tq, d, vec);
+      dor.load(dout, st.o_st, q_start, tq, d, vec);
+      sl = slice(q_start);
+    }
+  }
+
+  for (int it = 0; it < n; ++it) {
+    const int q0 = q_start + it * NS;
+    // s^T = k q^T and dp^T = v dO^T over the head dim, 8 k steps a chunk
+    float s[NS / 2], ds[NS / 2];
+    if constexpr (!kAhead) {
+      // q's and dO's pieces for dk and dv, and the lse and delta slices,
+      // before the chunks (as in K3)
+      __syncthreads();  // the last stage's products are done with them
+      load_out_piece<T, DO, NS>(xq, XB, q, st.q_st, q0, tq, c0, d, vec);
+      load_out_piece<T, DO, NS>(xdo, XB, dout, st.o_st, q0, tq, c0, d, vec);
+      if (tid < 2 * NS) lse_s[tid] = slice(q0);
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      __syncthreads();  // the last products are done with the tiles
+      if (n_chunks > 1 || it == 0) {
+        tc::load_chunk<T, tc::kTile>(ks, OB, k, st.k_st, k0, tkv, c, dp, d,
+                                     vec, tc::thread_index());
+        tc::load_chunk<T, tc::kTile>(vs, OB, v, st.v_st, k0, tkv, c, dp, d,
+                                     vec, tc::thread_index());
+      }
+      if constexpr (kAhead) {
+        qr.store(qs, SB, xq, XB);
+        dor.store(dos, SB, xdo, XB);
+        if (tid < 2 * NS) lse_s[tid] = sl;
+      } else {
+        tc::load_chunk<T, NS>(qs, SB, q, st.q_st, q0, tq, c, dp, d, vec,
+                              tc::thread_index());
+        tc::load_chunk<T, NS>(dos, SB, dout, st.o_st, q0, tq, c, dp, d, vec,
+                              tc::thread_index());
+      }
+      if constexpr (!kF32) {
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+      }
+      tc::fence_async_shared();
+      __syncthreads();
+      if constexpr (kAhead) {
+        if (it + 1 < n) {  // in flight while this stage computes
+          qr.load(q, st.q_st, q0 + NS, tq, d, vec);
+          dor.load(dout, st.o_st, q0 + NS, tq, d, vec);
+          sl = slice(q0 + NS);
+        }
+      }
+      tc::wgmma_fence();
+      chunk_scores<T, NS, KS>(s, kd, kld, qd, qld, c);
+      chunk_scores<T, NS, KS>(ds, vd, vld, dod, dold, c);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_acc(s);
+      tc::fence_acc(ds);
+    }
+    // a tile the mask cuts: keys or queries past the end, or the diagonal
+    const bool cut = keys_cut || q0 + NS > tq || tile_first > q0;
+    // p^T = exp(s^T - lse), masked (rows are keys, columns queries); ds^T
+    // = p^T (dp^T - delta) / sqrt(D), into ds
+#pragma unroll
+    for (int jj = 0; jj < NS / 8; ++jj) {
+      const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * jj + col);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(delta_s + 8 * jj + col);
+      // lse in base 2, +inf where it is -inf (queries that saw no key)
+      const float l2[2] = {
+          l.x == -CUDART_INF_F ? CUDART_INF_F : l.x * tc::kLog2e,
+          l.y == -CUDART_INF_F ? CUDART_INF_F : l.y * tc::kLog2e};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[4 * jj + e] * scale2 - l2[e & 1]);
+        if (cut) {
+          const int ql = q0 + 8 * jj + col + (e & 1);
+          if (ql < first_q[e >> 1] || ql >= tq) p = 0.f;
+        }
+        s[4 * jj + e] = p;
+        ds[4 * jj + e] =
+            p * (ds[4 * jj + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+      }
+    }
+    // dv += p^T dO and dk += ds^T q.  At 128 columns dk and dv with both
+    // A's beside them pass 255 registers: dv's products finish before ds
+    // is split
+    if constexpr (DO > 64) {
+      {
+        const OutA<T, NS> pa(s);
+        tc::wgmma_fence();
+        issue_out<T, DO, NS>(dv_acc, pa, xdod, xdold);
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        tc::fence_acc(dv_acc);
+      }
+      const OutA<T, NS> da(ds);
+      tc::wgmma_fence();
+      issue_out<T, DO, NS>(dk_acc, da, xqd, xqld);
+    } else {
+      const OutA<T, NS> pa(s), da(ds);
+      tc::wgmma_fence();
+      issue_out<T, DO, NS>(dv_acc, pa, xdod, xdold);
+      issue_out<T, DO, NS>(dk_acc, da, xqd, xqld);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_acc(dv_acc);
+    tc::fence_acc(dk_acc);
+  }
+
+  tc::store_acc<T, DO>(dk, dk_acc, k0, tkv, h, head, d, c0);
+  tc::store_acc<T, DO>(dv, dv_acc, k0, tkv, h, head, d, c0);
+}
+
 // 16-byte loads need 16-byte aligned rows and a head dim of whole vectors.
 template <typename T>
 bool vector_ok(const void* q, const void* k, const void* v, const void* dout,
@@ -888,24 +1298,9 @@ int launch_kernel(void (*kernel)(Params...), int bytes, long long tiles,
   return (int)cudaGetLastError();
 }
 
-// The CUDA-core kernels: DP the padded head dim, or with kChunked the chunk
-// width, a grid axis of output chunks folded into x.
-template <typename T, int DP, bool kChunked>
-int launch_simt(const Call& c) {
-  const long long n_oc = kChunked ? (c.d + DP - 1) / DP : 1;
-  const long long tiles =
-      ((c.which ? c.tkv : c.tq) + kBlockQ - 1) / kBlockQ * n_oc;
-  if (c.which == 0)
-    return launch_kernel<T>(flash_bwd_dq_kernel<T, DP, kChunked>,
-                            dq_smem_bytes<DP>(), tiles, kThreads, c);
-  return launch_kernel<T>(flash_bwd_dkv_kernel<T, DP, kChunked>,
-                          dkv_smem_bytes<DP>(), tiles, kThreads, c);
-}
-
 // The tensor-core kernels, one 64-row tile a block.
 template <typename T, int DP>
 int launch_tc(const Call& c) {
-  static_assert(kBlockQ == tc::kTile && kBlockK == tc::kTile, "tile rows");
   if (c.which == 0)
     return launch_kernel<T>(flash_bwd_dq_tc_kernel<T, DP>,
                             dq_tc_smem_bytes<DP>(),
@@ -917,23 +1312,54 @@ int launch_tc(const Call& c) {
       dkv_groups<DP>() * tc::kThreads, c);
 }
 
-// f32 on the CUDA cores up to 128, f16 and bf16 on the tensor cores up to
-// 256; past those, every dtype in head-dim chunks on the CUDA cores.
+// Asks for the SM's shared memory to go to blocks rather than to L1, so
+// that two piece blocks of up to 113 KB share an SM.
+template <typename Kernel>
+cudaError_t prefer_shared(Kernel* kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The piece kernels: DO output columns a block, NS streamed rows a stage,
+// DPS the padded head dim if known (else the head dim padded to a whole k
+// step); a grid axis of pieces folded into x.
+template <typename T, int DO, int NS, int DPS>
+int launch_piece(const Call& c) {
+  const long long pieces = (c.d + DO - 1) / DO;
+  const long long rows = c.which ? c.tkv : c.tq;
+  const long long tiles = (rows + tc::kTile - 1) / tc::kTile * pieces;
+  if (c.which == 0) {
+    auto kernel = flash_bwd_dq_tc_piece_kernel<T, DO, NS, DPS>;
+    if (const cudaError_t err = prefer_shared(kernel)) return (int)err;
+    return launch_kernel<T>(kernel, PieceTiles<T, DO, NS, DPS, 1>::kBytes,
+                            tiles, tc::kThreads, c);
+  }
+  auto kernel = flash_bwd_dkv_tc_piece_kernel<T, DO, NS, DPS>;
+  if (const cudaError_t err = prefer_shared(kernel)) return (int)err;
+  return launch_kernel<T>(kernel, PieceTiles<T, DO, NS, DPS, 2>::kBytes,
+                          tiles, tc::kThreads, c);
+}
+
+// f16 and bf16 up to a padded 256 in the tensor-core kernels; f32 at every
+// head dim and f16 and bf16 past 256 in the piece kernels: f32 one piece of
+// the padded head dim up to 64, 32 keys (K3) or queries (K4) a stage, else
+// pieces of 128 columns; f16 and bf16 pieces of 128, 64 rows a stage.
 template <typename T>
 int dispatch_d(const Call& c) {
   if constexpr (std::is_same<T, float>::value) {
-    if (c.d <= 16) return launch_simt<T, 16, false>(c);
-    if (c.d <= 32) return launch_simt<T, 32, false>(c);
-    if (c.d <= 64) return launch_simt<T, 64, false>(c);
-    if (c.d <= 128) return launch_simt<T, 128, false>(c);
+    if (c.d <= 16) return launch_piece<T, 16, 32, 16>(c);
+    if (c.d <= 32) return launch_piece<T, 32, 32, 32>(c);
+    if (c.d <= 64) return launch_piece<T, 64, 32, 64>(c);
+    return launch_piece<T, 128, 32, 0>(c);
   } else {
     if (c.d <= 16) return launch_tc<T, 16>(c);
     if (c.d <= 32) return launch_tc<T, 32>(c);
     if (c.d <= 64) return launch_tc<T, 64>(c);
     if (c.d <= 128) return launch_tc<T, 128>(c);
     if (c.d <= 256) return launch_tc<T, 256>(c);
+    return launch_piece<T, 128, 64, 0>(c);
   }
-  return launch_simt<T, kChunk, true>(c);
 }
 
 int entry(const Call& c, int dtype) {

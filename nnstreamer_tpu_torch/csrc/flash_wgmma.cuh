@@ -2,8 +2,9 @@
 // forward (K2, flash_attention.cu) and the two backward kernels (K3 and K4,
 // flash_attention_bwd.cu).  The shared-memory tile layout, its asynchronous
 // and scalar loaders, the warpgroup matrix products (wgmma) that read it,
-// and the mask helpers all three share; and, for K2 alone, the TF32
-// products and their operand split that take f32 to the tensor cores.
+// and the mask helpers all three share; and the TF32 products, their
+// operand split and the f32 loaders (a chunk of the head dim; a piece of
+// it transposed) that take f32 to the tensor cores in all three.
 //
 // Tile layout.  A tile is 64 rows (tokens) x DP columns (the padded head
 // dim) of a 16-bit type, stored row after row in rows of W = min(2 DP, 128)
@@ -650,6 +651,133 @@ __device__ __forceinline__ uint4 load_f32x4(const float* __restrict__ p,
   for (int e = 0; e < 4; ++e)
     w[e] = col + e < d ? __float_as_uint(__ldg(p + col + e)) : 0u;
   return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The 16-byte piece x of an f32 tile, split: hi at dst, lo `lo` bytes on.
+__device__ __forceinline__ void store_split(char* dst, int lo, uint4 x) {
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+  *reinterpret_cast<uint4*>(dst + lo) =
+      make_uint4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+}
+
+// threadIdx.x, read anew where it is used.  The f32 loaders work their
+// addresses out from the thread's index; from threadIdx.x the compiler
+// hoists them out of a kernel's loop and holds them in registers across it,
+// which a kernel with wide accumulators cannot spare (the backward's piece
+// kernels spilled); from this they are recomputed at each load.
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// Rows [r0, r0 + R) of one head of a (T, H, D) tensor, the element columns
+// of 256-byte chunk c that lie below dp (zeros past d and past n_rows), into
+// the SwzRows<R> tile at `tile`.  f16 and bf16 as 16-byte cp.async copies (R
+// = 64, in flight on return; scalar where !vec); f32 through registers, split
+// into hi at `tile` and lo `lo` bytes after it, done on return.  One
+// warpgroup a block; `tid` is the thread's index in it.
+template <typename T, int R>
+__device__ __forceinline__ void load_chunk(char* tile, int lo,
+                                           const T* __restrict__ src,
+                                           long long stride, int r0,
+                                           int n_rows, int c, int dp, int d,
+                                           bool vec, int tid) {
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int kN = R * 16 / kThreads;  // 16-byte pieces a thread
+    uint4 x[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int p = tid + kThreads * i, r = p >> 4;
+      x[i] = load_f32x4(src + (long long)(r0 + r) * stride,
+                        64 * c + 4 * (p & 15), d, r0 + r < n_rows, vec);
+    }
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int p = tid + kThreads * i;
+      if (64 * c + 4 * (p & 15) >= dp) continue;  // past the k steps
+      store_split(tile + SwzRows<R>::chunk(p >> 4, p & 15), lo, x[i]);
+    }
+  } else {
+    static_assert(R == kTile, "16-bit chunks of 64 rows");
+    load_tile<T, 128>(tile, src + 128 * c, stride, r0, n_rows, d - 128 * c,
+                      vec);
+  }
+}
+template <typename T, int R>
+__device__ __forceinline__ void load_chunk(char* tile, int lo,
+                                           const T* __restrict__ src,
+                                           long long stride, int r0,
+                                           int n_rows, int c, int dp, int d,
+                                           bool vec) {
+  load_chunk<T, R>(tile, lo, src, stride, r0, n_rows, c, dp, d, vec,
+                   threadIdx.x);
+}
+
+// A transposed f32 tile of R rows (keys or queries) and N columns, in
+// 16-byte pieces of 4 columns of one row: piece p holds row u and column
+// group cg.  A warp takes 16 rows x 2 column groups, so that each of its
+// transposed word stores (store_transposed) is one word to a bank.
+template <int R>
+__device__ __forceinline__ void transposed_piece(int p, int& u, int& cg) {
+  const int w = p >> 5;
+  u = (p & 15) + 16 * (w % (R / 16));
+  cg = ((p >> 4) & 1) + 2 * (w / (R / 16));
+}
+
+// Piece x (row u, columns 4 cg .. 4 cg + 3) into the transposed SwzRows<N>
+// tile at `tile` as hi and, `lo` bytes after it, lo: column 4 cg + e is
+// the tile's row 4 cg + e, and in it row u lies at word 8 (u / 8) + (u %
+// 8) / 2 + 4 (u % 2).  That is the order in which a score accumulator's
+// thread holds its columns as the A of a TF32 product (columns 8 t + 2 (l
+// % 4) and + 1 where the A wants k columns l % 4 and + 4): the product sums
+// over these rows, so the A needs no shuffle.
+template <int N>
+__device__ __forceinline__ void store_transposed(char* tile, int lo, int u,
+                                                 int cg, uint4 x) {
+  const int kc = (u & ~7) | ((u >> 1) & 3) | ((u & 1) << 2);
+  const uint32_t w4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    char* dst = tile + SwzRows<N>::chunk(4 * cg + e, kc >> 2) + (kc & 3) * 4;
+    *reinterpret_cast<uint32_t*>(dst) = tf32_hi(w4[e]);
+    *reinterpret_cast<uint32_t*>(dst + lo) = tf32_lo(w4[e]);
+  }
+}
+
+// Rows [r0, r0 + R) of one head of an f32 (T, H, D) tensor, columns [c0,
+// c0 + N), transposed into the SwzRows<N> tile at `tile` (store_transposed,
+// lo `lo` bytes on).  Zeros past d and past n_rows; done on return.  One
+// warpgroup a block; `tid` is the thread's index in it.
+template <int N, int R>
+__device__ __forceinline__ void load_f32_transposed(
+    char* tile, int lo, const float* __restrict__ src, long long stride,
+    int r0, int n_rows, int c0, int d, bool vec, int tid) {
+  constexpr int kN = R * N / 4 / kThreads;  // 16-byte pieces a thread
+  constexpr int kBatch = kN < 8 ? kN : 8;
+  static_assert(kN >= 1 && kN % kBatch == 0, "whole batches of pieces");
+#pragma unroll
+  for (int i0 = 0; i0 < kN; i0 += kBatch) {
+    uint4 x[kBatch];
+    int u[kBatch], cg[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      transposed_piece<R>(tid + kThreads * (i0 + i), u[i], cg[i]);
+      x[i] = load_f32x4(src + (long long)(r0 + u[i]) * stride,
+                        c0 + 4 * cg[i], d, r0 + u[i] < n_rows, vec);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      store_transposed<N>(tile, lo, u[i], cg[i], x[i]);
+  }
+}
+template <int N, int R>
+__device__ __forceinline__ void load_f32_transposed(
+    char* tile, int lo, const float* __restrict__ src, long long stride,
+    int r0, int n_rows, int c0, int d, bool vec) {
+  load_f32_transposed<N, R>(tile, lo, src, stride, r0, n_rows, c0, d, vec,
+                            threadIdx.x);
 }
 
 }  // namespace tc

@@ -13,11 +13,14 @@ hand-written CUDA kernel for tensors on the card, built by :mod:`.._cuda`:
   products (each operand split into a TF32 part and the rest), within the
   f32 tolerance of the plain version, in pieces of 128 columns past 128;
 - K3 (dq) and K4 (dk, dv), the backward (``csrc/flash_attention_bwd.cu``),
-  plain version :func:`flash_attention_backward_reference`: f16 and bf16
-  on the tensor cores up to 256, f32 on the CUDA cores up to 128; past
-  those, every dtype on the CUDA cores in head-dim chunks of 64: the
-  scores summed over the chunks, a block for each chunk of output
-  columns.  Every head dim the JAX package takes is taken here too.
+  plain version :func:`flash_attention_backward_reference`: every dtype
+  at every head dim on the tensor cores, as the forward.  f16 and bf16
+  up to 256 round p and ds to the inputs' type before the products that
+  take them; past 256 a block owns a piece of 128 output columns and
+  takes s and dp over the whole head dim.  f32 takes all five products
+  as three TF32 products each, within the f32 tolerance of the plain
+  version, in pieces of 128 columns past 64.  Every head dim the JAX
+  package takes is taken here too.
 
 For ``q (Tq, H, D)`` and ``k, v (Tkv, H, D)`` — or the same with a leading
 batch axis, ``(B, T, H, D)``, which the kernels take as a grid axis, as

@@ -22,6 +22,7 @@ hooks (``plan_step``, ``lower_step``, ``lower_reason``,
 from __future__ import annotations
 
 import enum
+import itertools
 from typing import Any, Dict, List, Optional
 
 from ..analysis.sanitizer import make_rlock
@@ -212,6 +213,10 @@ class Pad:
         return allowed.intersect(self.peer.template)
 
 
+#: numbers of unnamed elements (Element.__init__)
+_AUTO_NAMES = itertools.count()
+
+
 class Element:
     """Base pipeline element.
 
@@ -240,7 +245,11 @@ class Element:
     READONLY_PROPERTIES: "tuple" = ()
 
     def __init__(self, name: Optional[str] = None, **props):
-        self.name = name or f"{self.FACTORY or self.__class__.__name__.lower()}{id(self) & 0xffff}"
+        # an unnamed element takes its factory's name and a number unique in
+        # the process (the JAX package takes id(self) & 0xffff, which two
+        # live elements can share: a launch string then fails to parse)
+        factory = self.FACTORY or self.__class__.__name__.lower()
+        self.name = name or f"{factory}{next(_AUTO_NAMES)}"
         self.sink_pads: List[Pad] = []
         self.src_pads: List[Pad] = []
         self.pipeline = None  # set by Pipeline.add

@@ -783,9 +783,16 @@ def _join(ns):
         f"appsrc name=b caps={caps('2')} ! j.sink_1 "
         "join name=j ! tensor_sink name=out")
     p.play()
+    sink = p.get("out")
     for i, name in enumerate(("a", "b", "a", "b", "b")):
         p.get(name).push_buffer(ns.TB(tensors=[np.full(2, i, np.float32)],
                                       pts=i))
+        # each appsrc streams on a thread of its own, so two buffers in
+        # flight at once reach the join in either order: feed the next
+        # only once the sink holds this one (bounded wait)
+        deadline = time.monotonic() + 10
+        while len(sink.results) <= i and time.monotonic() < deadline:
+            time.sleep(0.001)
     p.get("a").end_of_stream()
     p.get("b").end_of_stream()
     p.wait(timeout=30)

@@ -404,10 +404,14 @@ BWD_CASES = [
     ((4, 2048, 2, 256), None, True, torch.bfloat16),   # the wide LM layer
     ((2, 130, 2, 256), 77, False, torch.float16),      # D = 256, ragged
     ((100, 2, 136), None, True, torch.bfloat16),       # D = 136, padded
-    ((100, 2, 136), None, True, torch.float32),        # f32 past 128: chunks
+    ((100, 2, 136), None, True, torch.float32),        # f32 past 64: pieces
     ((2, 70, 2, 256), None, False, torch.float32),
-    ((2, 100, 2, 320), 77, True, torch.bfloat16),      # past 256: chunks
+    ((2, 100, 2, 320), 77, True, torch.bfloat16),      # past 256: pieces
     ((70, 2, 320), None, False, torch.float32),
+    ((50, 3, 6), None, True, torch.float32),           # f32, scalar loads
+    ((2, 100, 2, 72), 77, True, torch.float32),        # a chunk of 1 k step
+    ((70, 2, 300), 90, True, torch.float16),           # f16 past 256
+    ((2, 65, 2, 600), None, False, torch.bfloat16),    # 5 pieces, 5 chunks
 ]
 
 
@@ -433,6 +437,22 @@ def test_flash_backward_offsets_and_lse_cotangent(card, q_offset, k_offset):
     assert torch.all(dq[dead] == 0)
 
 
+@pytest.mark.parametrize("q_offset,k_offset", [(256, 0), (0, 256)],
+                         ids=["past", "future"])
+def test_flash_backward_ring_blocks(card, q_offset, k_offset):
+    """The sp=2 ring's f32 steps at a small length: a key block from the
+    past (every key visible, an lse cotangent) and one from the future
+    (no row sees a key: dq, dk and dv exactly 0)."""
+    q, k, v = (x[None] for x in _qkv(card, 256, 4, 64, torch.float32,
+                                     seed=9))
+    (dq, dk, dv), lse = _check_backward(q, k, v, causal=True,
+                                        q_offset=q_offset, k_offset=k_offset,
+                                        lse_cot=q_offset > 0)
+    if k_offset:
+        assert bool(torch.isinf(lse).all())
+        assert not dq.any() and not dk.any() and not dv.any()
+
+
 def test_flash_backward_strided_views(card):
     """q/k/v as views of one fused (B, T, 3, H, D) projection."""
     qkv = torch.randn(2, 197, 3, 6, 64, device=card, dtype=torch.bfloat16)
@@ -440,8 +460,8 @@ def test_flash_backward_strided_views(card):
 
 
 def test_flash_backward_refuses_wide_head_dim(card):
-    """No head dim is refused: D = 136 and 320 (f32: the D-chunked
-    route) with offsets, rows that see no key and an lse cotangent."""
+    """No head dim is refused: D = 136 and 320 (f32: pieces of 128
+    columns) with offsets, rows that see no key and an lse cotangent."""
     for d in (136, 320):
         q, k, v = _qkv(card, 100, 2, d, torch.float32, tkv=150, seed=6)
         (dq, _, _), lse = _check_backward(q, k, v, causal=True, q_offset=10,

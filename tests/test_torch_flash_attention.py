@@ -305,8 +305,9 @@ def _smoke_module():
 
 #: an ``nvcc -Xptxas -v`` report in the form the card's build writes it
 #: (argument lists shortened): K2's tensor-core kernel in bf16 at a padded
-#: width of 64 that spills, in f16 at 128 that spills, and the piece kernel
-#: in f32 at 64 and in bf16 past 256 (pieces of 256 columns), spilling too
+#: width of 64 that spills, in f16 at 128 that spills, K2's piece kernel
+#: in f32 at 64 and in bf16 past 256 (pieces of 256 columns), and K4's in
+#: f32 at 128 columns, spilling too
 FWD_PTXAS_REPORT = """\
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_forward_tc_kernelI13__nv_bfloat16Li64ELi2ELi1EEEvPKT_' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_forward_tc_kernelI13__nv_bfloat16Li64ELi2ELi1EEEvPKT_
@@ -324,6 +325,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_129flash_forward_tc_pi
 ptxas info    : Function properties for _ZN12_GLOBAL__N_129flash_forward_tc_piece_kernelI13__nv_bfloat16Li256ELi64ELi0EEEvPKT_
     64 bytes stack frame, 64 bytes spill stores, 64 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_129flash_bwd_dkv_tc_piece_kernelIfLi128ELi32ELi0EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_129flash_bwd_dkv_tc_piece_kernelIfLi128ELi32ELi0EEEvPKT_
+    480 bytes stack frame, 500 bytes spill stores, 500 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
 """
 
 
@@ -331,9 +336,11 @@ def test_no_spill_check_picks_the_tensor_core_forward(monkeypatch):
     """chip_smoke.py's build check picks K2's tensor-core specialisations
     out of the mangled names by type and width (the padded head dim, or
     the piece kernel's output columns a block), and fails the build on
-    one at a width of NO_SPILL_WIDTHS that spills: the 16-bit kernel at
-    64, the f32 piece kernel at 64 and the bf16 one past 256 (pieces of
-    256); the 128-wide one is not held to it."""
+    one at a width of NO_SPILL_WIDTHS that spills, or on a piece kernel
+    of K2, K3 or K4 that spills at any width: the 16-bit kernel at 64,
+    K2's f32 piece kernel at 64 and bf16 one past 256 (pieces of 256),
+    K4's f32 piece kernel at 128 columns; the 128-wide 16-bit K2 is not
+    held to it."""
     from nnstreamer_tpu_torch import _cuda
 
     smoke = _smoke_module()
@@ -344,18 +351,21 @@ def test_no_spill_check_picks_the_tensor_core_forward(monkeypatch):
                       ("flash_forward_tc_kernel", "__half", "128"),
                       ("flash_forward_tc_piece_kernel", "f", "64"),
                       ("flash_forward_tc_piece_kernel", "__nv_bfloat16",
-                       "256")]
+                       "256"),
+                      ("flash_bwd_dkv_tc_piece_kernel", "f", "128")]
     assert [smoke.tc_specialisation(f["function"])[1] for f in funcs] == [
-        "__nv_bfloat16", "__half", "float", "__nv_bfloat16"]
+        "__nv_bfloat16", "__half", "float", "__nv_bfloat16", "float"]
     monkeypatch.setattr(_cuda, "ptxas_report",
                         lambda: {"flash_attention": funcs})
     rows, spills = smoke.build_report()
-    assert len(rows) == 4
-    assert len(spills) == 3
+    assert len(rows) == 5
+    assert len(spills) == 4
     assert ["16 bytes" in spills[0], "512 bytes" in spills[1],
-            "128 bytes" in spills[2]] == [True] * 3
-    # the profile counts ViT frames by a name every K2 kernel carries
-    assert all(smoke.K2_MARKER in f["function"] for f in funcs)
+            "128 bytes" in spills[2], "1000 bytes" in spills[3]] == [True] * 4
+    # the profile counts ViT frames by a name every K2 kernel carries, and
+    # no K3/K4 kernel
+    assert [smoke.K2_MARKER in f["function"] for f in funcs] == [True] * 4 + [
+        False]
 
 
 def test_versions_are_named_and_need_the_card():

@@ -254,17 +254,19 @@ def _tensor_core_rounding_backward(q, k, v, dout, lse, delta, causal=False):
 @pytest.mark.parametrize("batch,t,h,causal,d",
                          [((), 2048, 2, True, 64), ((2,), 197, 6, False, 64),
                           ((), 1024, 2, True, 256),
-                          ((2,), 130, 2, False, 200)],
+                          ((2,), 130, 2, False, 200),
+                          ((2,), 256, 2, True, 320)],
                          ids=["lm-layer-heads", "vit-layer", "lm-wide-heads",
-                              "d200-padded-256"])
+                              "d200-padded-256", "d320-pieces"])
 def test_tensor_core_rounding_stays_inside_card_tolerance(batch, t, h,
                                                           causal, d):
     """Rounding p and ds to bf16 before the products, as the card's
     tensor-core kernels do, keeps dq, dk and dv inside the tolerance that
     holds them to the plain backward, at the LM layer's per-head shape
-    (T = 2048, causal, D = 64), ViT's (T = 197, 6 heads, batch 2), and at
+    (T = 2048, causal, D = 64), ViT's (T = 197, 6 heads, batch 2), at
     the padded width of 256 (the wide-head LM's D = 256, causal; D =
-    200)."""
+    200), and past it (D = 320, causal: the piece kernels, which round p
+    and ds as the 256-wide kernels do)."""
     q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16)
                   for x in _case(t, h, d, seed=15, batch=batch))
     out, lse = flash_attention_reference(q, k, v, causal=causal,
@@ -283,57 +285,74 @@ def test_tensor_core_rounding_stays_inside_card_tolerance(batch, t, h,
 def test_backward_kernels_are_registered_for_the_build(tmp_path,
                                                        monkeypatch):
     """K3/K4's source is one the build compiles, and a library's name
-    hashes the shared header too: an edit to flash_common.cuh rebuilds
-    every flash library."""
+    hashes the shared headers too: an edit to flash_common.cuh or to
+    flash_wgmma.cuh (the tile layout, loaders and products every flash
+    kernel includes) rebuilds every flash library."""
+    import os
+
     from nnstreamer_tpu_torch import _cuda
 
     assert _cuda.SOURCES["flash_attention_bwd"] == "flash_attention_bwd.cu"
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        with open(os.path.join(_cuda.CSRC, src)) as f:
+            text = f.read()
+        assert ('#include "flash_common.cuh"' in text
+                and '#include "flash_wgmma.cuh"' in text), src
     for name in ("flash_attention.cu", "flash_attention_bwd.cu",
-                 "flash_common.cuh"):
+                 "flash_common.cuh", "flash_wgmma.cuh"):
         (tmp_path / name).write_text("// " + name)
     monkeypatch.setattr(_cuda, "CSRC", str(tmp_path))
-    before = {n: _cuda._library_path(n)
-              for n in ("flash_attention", "flash_attention_bwd")}
-    (tmp_path / "flash_common.cuh").write_text("// edited")
-    for n, path in before.items():
-        assert _cuda._library_path(n) != path
+    for header in ("flash_common.cuh", "flash_wgmma.cuh"):
+        before = {n: _cuda._library_path(n)
+                  for n in ("flash_attention", "flash_attention_bwd")}
+        (tmp_path / header).write_text("// edited")
+        for n, path in before.items():
+            assert _cuda._library_path(n) != path, (header, n)
 
 
 #: an ``nvcc -Xptxas -v`` report in the form the card's build writes it
 #: (mangled names shortened): one tensor-core K4 without spills, one f32
-#: K3 that spills, a note ptxas attaches to a function by name
+#: K3 piece kernel (128 output columns) that spills, with a note ptxas
+#: attaches to a function by name, and a kernel that is not a flash one
 PTXAS_REPORT = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_bwd_dkv_tc_kernelI13__nv_bfloat16Li64EEEvPKT_' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_bwd_dkv_tc_kernelI13__nv_bfloat16Li64EEEvPKT_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 191 registers, used 1 barriers, 400 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEvPKT_' for 'sm_90a'
-ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized in the function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEvPKT_'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEvPKT_
-    288 bytes stack frame, 288 bytes spill stores, 320 bytes spill loads
-ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_128flash_bwd_dq_tc_piece_kernelIfLi128ELi32ELi0EEEvPKT_' for 'sm_90a'
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized in the function '_ZN12_GLOBAL__N_128flash_bwd_dq_tc_piece_kernelIfLi128ELi32ELi0EEEvPKT_'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_128flash_bwd_dq_tc_piece_kernelIfLi128ELi32ELi0EEEvPKT_
+    192 bytes stack frame, 204 bytes spill stores, 204 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 16384 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122normalize_frame_kernelIhEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122normalize_frame_kernelIhEEvPKT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, 400 bytes cmem[0]
 """
 
 
-def test_ptxas_report_gives_registers_spills_and_notes():
+def test_ptxas_report_gives_registers_spills_and_notes(monkeypatch):
     """The build keeps nvcc's -Xptxas -v report; the parser gives each
     kernel function's registers, shared memory, spills and notes, and
     chip_smoke.py picks the tensor-core K3/K4 specialisations (type and
-    padded width) out of the mangled names for its no-spill check."""
+    padded width, or a piece kernel's output columns) out of the mangled
+    names for its no-spill check, which holds a piece kernel at any
+    width."""
     import importlib.util
     import os
 
     from nnstreamer_tpu_torch import _cuda
 
     assert ("-Xptxas", "-v") == _cuda.NVCC_FLAGS[-2:]
-    tc, f32 = _cuda.parse_ptxas(PTXAS_REPORT)
+    tc, f32, other = _cuda.parse_ptxas(PTXAS_REPORT)
     assert (tc["registers"], tc["static_smem_bytes"], tc["spill_store_bytes"],
             tc["spill_load_bytes"], tc["notes"]) == (191, 0, 0, 0, [])
     assert (f32["registers"], f32["static_smem_bytes"], f32["stack_bytes"],
             f32["spill_store_bytes"], f32["spill_load_bytes"]) == (
-                128, 16384, 288, 288, 320)
+                255, 16384, 192, 204, 204)
     assert len(f32["notes"]) == 1 and "serialized" in f32["notes"][0]
+    assert (other["registers"], other["spill_store_bytes"]) == (24, 0)
 
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "chip_smoke.py")
@@ -343,6 +362,13 @@ def test_ptxas_report_gives_registers_spills_and_notes():
     m = smoke.TC_KERNEL.search(tc["function"])
     assert m and m.groups() == ("flash_bwd_dkv_tc_kernel", "__nv_bfloat16",
                                 "64")
-    assert smoke.TC_KERNEL.search(f32["function"]) is None
-    assert 64 in smoke.NO_SPILL_WIDTHS
+    m = smoke.TC_KERNEL.search(f32["function"])
+    assert m and m.groups() == ("flash_bwd_dq_tc_piece_kernel", "f", "128")
+    assert smoke.TC_KERNEL.search(other["function"]) is None
+    assert 64 in smoke.NO_SPILL_WIDTHS and 128 not in smoke.NO_SPILL_WIDTHS
+    monkeypatch.setattr(_cuda, "ptxas_report", lambda: {
+        "flash_attention_bwd": [tc, f32], "normalize_frame": [other]})
+    rows, spills = smoke.build_report()
+    assert len(rows) == 3
+    assert len(spills) == 1 and "408 bytes" in spills[0]
 

@@ -1,5 +1,5 @@
-"""K2's f32 route on the tensor cores, its arithmetic emulated on the CPU
-and held to the JAX package.
+"""The f32 routes of K2, K3 and K4 on the tensor cores, their arithmetic
+emulated on the CPU and held to the JAX package.
 
 On the card an f32 ``flash_attention`` runs ``flash_forward_tc_piece_kernel``
 (``nnstreamer_tpu_torch/csrc/flash_attention.cu``): every f32 operand x is
@@ -16,9 +16,18 @@ and v, made with numpy from a seed, go through the JAX package's
 and the emulation is held to it at the card's f32 tolerance:
 ``chip_smoke.py``'s ``FLASH_TOL["float32"]`` on out (|err| <= 1e-4) and
 ``LSE_ATOL`` on lse.  One TF32 product alone misses that tolerance (the
-last test), which is why the kernel takes three.  What the emulation cannot
-show is the tensor cores' own f32 accumulation, which is not IEEE
-round-to-nearest: the card's FLASH_ROWS decide that.
+last test), which is why the kernel takes three.
+
+The backward's piece kernels (``csrc/flash_attention_bwd.cu``) take all
+five of their products the same way: s = q·kᵀ and dp = dO·vᵀ, then p and
+ds split into hi and lo in registers, dq = ds·k, dk = dsᵀ·q and dv = pᵀ·dO.
+The emulated backward, on the emulated forward's out and lse, is held to
+``jax.vjp`` of the JAX package's ``flash_attention`` (interpret mode) at
+``chip_smoke.py``'s ``BWD_TOL["float32"]`` (|err| <= 1e-4 · max(max
+|grad|, 1)), the ring's past block with a nonzero lse cotangent among
+the cases; one TF32 product a product misses it.  What the emulation
+cannot show is the tensor cores' own f32 accumulation, which is not IEEE
+round-to-nearest: the card's FLASH_ROWS and BWD_ROWS decide that.
 """
 
 import importlib.util
@@ -46,6 +55,8 @@ def _smoke():
 
 SMOKE = _smoke()
 ATOL, RTOL = SMOKE.FLASH_TOL["float32"]
+
+BWD_TOL = SMOKE.BWD_TOL["float32"]
 
 #: (batch, t, h, d, causal, q_offset): the sp=2 ring's past block at a small
 #: length (every key visible), a padded 256 and a head dim past 256
@@ -175,3 +186,79 @@ def test_one_tf32_product_misses_the_f32_tolerance(case):
     products are what make the route an f32 one."""
     err, want, _ = _errors(case, products=1)
     assert not np.all(err <= ATOL + RTOL * np.abs(want)), err.max()
+
+
+def _piece_kernel_backward(q, k, v, g, out, lse, g_lse, causal, q_offset,
+                           products=3):
+    """(dq, dk, dv), all (B, T, H, D), of the backward piece kernels'
+    arithmetic on the forward's saved out and lse: delta = rowsum(dO ∘
+    out) less the lse cotangent; s and dp from TF32 products; p =
+    exp2(s·scale·log2e − lse·log2e), 0 where masked or lse = −inf; ds =
+    p·(dp − delta)·scale; p and ds split in registers, and dq = ds·k, dk
+    = dsᵀ·q, dv = pᵀ·dO from TF32 products."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    log2e = math.log2(math.e)
+    qh, kh, vh, gh, oh = (x.permute(0, 2, 1, 3) for x in (q, k, v, g, out))
+    delta = (gh * oh).sum(-1) - g_lse
+    s = _product(qh, kh.transpose(-1, -2), products)
+    dp = _product(gh, vh.transpose(-1, -2), products)
+    live = torch.isfinite(lse)[..., None].expand(s.shape)
+    if causal:
+        qpos = q_offset + torch.arange(q.shape[1])
+        live = live & (torch.arange(k.shape[1])[None, :] <= qpos[:, None])
+    lse2 = torch.where(torch.isfinite(lse), lse * log2e,
+                       torch.full_like(lse, float("inf")))
+    p = torch.where(live, torch.exp2(s * (scale * log2e) - lse2[..., None]),
+                    torch.zeros_like(s))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = _product(ds, kh, products)
+    dk = _product(ds.transpose(-1, -2), qh, products)
+    dv = _product(p.transpose(-1, -2), gh, products)
+    return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
+
+
+def _jax_grads(q, k, v, g, g_lse, causal, q_offset):
+    f = jax.vmap(lambda q, k, v: jax_flash(
+        q, k, v, causal=causal, q_offset=q_offset, interpret=True,
+        return_lse=True))
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return tuple(np.asarray(x) for x in vjp((jnp.asarray(g),
+                                             jnp.asarray(g_lse))))
+
+
+def _bwd_errors(case, products, seed=22):
+    """|emulated - JAX| / max(max |JAX|, 1) of dq, dk and dv: the measure
+    BWD_TOL bounds on the card."""
+    b, t, h, d, causal, qo = case
+    q, k, v = _inputs(b, t, h, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    g = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    # the ring's past block carries an lse cotangent (its merge weighs it)
+    g_lse = (rng.standard_normal((b, h, t)).astype(np.float32) if qo
+             else np.zeros((b, h, t), np.float32))
+    want = _jax_grads(q, k, v, g, g_lse, causal, qo)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = _piece_kernel_forward(tq, tk, tv, causal, qo)
+    got = _piece_kernel_backward(tq, tk, tv, torch.from_numpy(g), out, lse,
+                                 torch.from_numpy(g_lse), causal, qo,
+                                 products)
+    return [float(np.abs(x.numpy() - w).max() / max(np.abs(w).max(), 1.0))
+            for x, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_three_tf32_products_backward_match_jax(case):
+    """dq, dk and dv of the backward piece kernels' arithmetic within
+    BWD_TOL["float32"] of jax.vjp of the JAX package's kernel, the bound
+    chip_smoke.py holds the card's f32 K3 and K4 to."""
+    errs = _bwd_errors(case, products=3)
+    assert max(errs) <= BWD_TOL, errs
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_one_tf32_product_backward_misses_the_f32_tolerance(case):
+    """One TF32 product a product misses BWD_TOL["float32"] in some
+    gradient at every one of these shapes."""
+    errs = _bwd_errors(case, products=1)
+    assert max(errs) > BWD_TOL, errs

@@ -10,7 +10,7 @@ versions (the card holds its kernels to those: tests/test_torch_cuda.py,
 chip_smoke.py).  D = 136 (past 128), 256 (the tensor cores' widest, and
 the head width of Gemma's 2B and 7B configs) and 320 (on the card the
 forward's piece kernel, two pieces of 256 columns, and the backward's
-D-chunked route, with a partial last chunk of 64).
+piece kernels, pieces of 128 columns with a last one of 64).
 
 The wide-head LM is StreamFormer with its attention laid out as 2 heads of
 256, at a small depth and width: the JAX package's parameters are carried

@@ -89,3 +89,18 @@ def test_labels_match_jax_frame_for_frame(port_with_jax_params):
         port.stop()
     assert len(want) == FRAMES
     assert got == want
+
+
+def test_unnamed_elements_have_distinct_names():
+    """Unnamed elements of one factory never share a name, however many
+    are alive at once: a name from the low 16 bits of the element's id
+    repeats within a few thousand live elements, and a launch string with
+    two unnamed elements of one factory then fails to parse."""
+    from nnstreamer_tpu_torch.pipeline.graph import Queue
+
+    queues = [Queue() for _ in range(5000)]
+    assert len({q.name for q in queues}) == len(queues)
+    p = nnstreamer_tpu_torch.parse_launch(
+        "videotestsrc num-buffers=1 ! " + "queue ! " * 16 +
+        "tensor_sink name=out")
+    assert len({e.name for e in p.elements}) == len(p.elements) == 18
