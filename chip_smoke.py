@@ -6972,9 +6972,27 @@ def eager_steps(on: bool):
         GraphedStep._eager = was
 
 
+def span_cursor() -> int:
+    """The index the process's next program span will take."""
+    from nnstreamer_tpu_torch.obs.span import PROCESS_SPANS
+
+    return PROCESS_SPANS.snapshot_since(0)[1]
+
+
+def trainer_step_ms(since: int) -> list:
+    """Host milliseconds of each ``trainer.step`` span (batch copy to the
+    loss read that ends the step) recorded from index ``since`` on."""
+    from nnstreamer_tpu_torch.obs.span import PROCESS_SPANS
+
+    return [s.dur_ns / 1e6 for s in PROCESS_SPANS.snapshot_since(since)[0]
+            if s.name == "trainer.step"]
+
+
 def drive_trainer(launch: str, samples, defaults: bool = True):
     """Push ``samples`` through an ``appsrc ! tensor_trainer ! tensor_sink``
-    pipeline; the trainer trains at EOS.  Returns the trainer framework.
+    pipeline under a span-recording tracer; the trainer trains at EOS, each
+    step in a ``trainer.step`` span (:func:`trainer_step_ms`).  Returns
+    the trainer framework.
 
     The serving checks pin cuDNN to deterministic algorithms; a trainer's
     user gets PyTorch's defaults, so with ``defaults`` the training runs
@@ -6988,6 +7006,7 @@ def drive_trainer(launch: str, samples, defaults: bool = True):
     if defaults:
         torch.backends.cudnn.deterministic = False
     p = parse_launch(launch)
+    p.enable_tracing(spans=True)
     p.play()
     try:
         for i, tensors in enumerate(samples):
@@ -7023,13 +7042,14 @@ def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
     from nnstreamer_tpu_torch import _cuda
 
     _cuda.reset_launches()
+    cursor = span_cursor()
     t0 = time.perf_counter()
     with eager_steps(eager):
         trainer = drive_trainer(launch, samples)
     wall = time.perf_counter() - t0
     launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
     steps = len(trainer.losses)
-    step_ms = [t * 1e3 for t in trainer.step_s]
+    step_ms = trainer_step_ms(cursor)
     p50 = statistics.median(step_ms)
     batch = trainer._batches()[0][0]
     units = batch.shape[0] * (batch.shape[1] if unit == "tokens" else 1)
@@ -7379,11 +7399,12 @@ def run_mobilenet_train(path: str, samples, seed: int, card: str):
     from nnstreamer_tpu_torch import _cuda
 
     _cuda.reset_launches()
+    cursor = span_cursor()
     trainer = drive_trainer(MNV2_TRAIN_LAUNCH.format(path=path, seed=seed),
                             samples)
     launches, graphs = dict(_cuda.launches), dict(_cuda.graphs)
     steps = len(trainer.losses)
-    step_ms = [t * 1e3 for t in trainer.step_s]
+    step_ms = trainer_step_ms(cursor)
     p50 = statistics.median(step_ms)
     row = {"phase": "mobilenet_train", "mode": "graph", "steps": steps,
            "batch": MNV2_TRAIN_BATCH, "launches": launches,
@@ -8251,7 +8272,7 @@ def profile_train(name: str, launch: str, samples, out_dir: str,
     with eager_steps(eager):
         trainer = drive_trainer(launch, samples)
         batches = trainer._batches()
-        done = len(trainer.step_s)
+        cursor = span_cursor()
 
         def steps():
             for batch in batches:
@@ -8264,7 +8285,7 @@ def profile_train(name: str, launch: str, samples, out_dir: str,
                         K2_MARKER if per_step else None, per_step)
         finally:
             torch.backends.cudnn.deterministic = pinned
-    step_ms = sorted(t * 1e3 for t in trainer.step_s[done:])
+    step_ms = sorted(trainer_step_ms(cursor))
     row.update(path=name, mode=mode, turn=turn,
                step_ms_p50=statistics.median(step_ms),
                step_ms_p90=step_ms[int(0.9 * (len(step_ms) - 1))])

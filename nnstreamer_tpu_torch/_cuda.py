@@ -33,6 +33,9 @@ import subprocess
 import threading
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
+from .obs.clock import mono_ns
+from .obs.span import record
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -278,9 +281,14 @@ class GraphedStep:
             self._copied[key].record()
         return statics
 
-    def __call__(self, *batch) -> Any:
+    def __call__(self, *batch, seq: Optional[int] = None) -> Any:
+        """The step on ``batch``.  With ``seq``, the number of the step,
+        the call records its ``trainer.stage`` and ``trainer.replay``
+        spans under it (obs/span.py); a capture records its
+        ``trainer.capture`` span always."""
         import torch
 
+        t0 = mono_ns() if seq is not None else 0
         if torch.is_inference_mode_enabled():
             raise RuntimeError("a training step needs autograd: it cannot "
                                "run under torch.inference_mode()")
@@ -289,11 +297,21 @@ class GraphedStep:
         batch = [host_tensor(x) for x in batch]
         key = tuple((tuple(x.shape), x.dtype) for x in batch)
         statics = self._copy_in(key, batch)
+        if seq is not None:
+            t1 = mono_ns()
+            record("trainer.stage", t0, t1, seq)
         if not self._graphed():
-            return self.fn(*statics)
-        graph = self.graphs.get(key)
-        if graph is not None:
-            return graph.replay()
+            out = self.fn(*statics)
+        elif key in self.graphs:
+            out = self.graphs[key].replay()
+        else:
+            return self._capture(key, statics, seq)
+        if seq is not None:
+            record("trainer.replay", t1, mono_ns(), seq)
+        return out
+
+    def _capture(self, key: tuple, statics: list, seq: Optional[int]) -> Any:
+        t0 = mono_ns()
         if self._memory is None:
             self._memory = graph_memory(self.device)
         try:
@@ -302,6 +320,7 @@ class GraphedStep:
             raise RuntimeError(f"CUDA graph capture of the training step "
                                f"for {key} failed: {exc}") from exc
         self.graphs[key] = graph
+        record("trainer.capture", t0, mono_ns(), -1 if seq is None else seq)
         return graph.first
 
 
@@ -327,11 +346,14 @@ def _library_path(name: str) -> str:
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
     """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together; returns name -> library path."""
+    per source, all started together; returns name -> library path.  A
+    build that compiles records a ``kernels.build`` span whose ``seq`` is
+    the number of libraries compiled (obs/span.py)."""
     paths = {n: _library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
     if not todo:
         return paths
+    t0 = mono_ns()
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -353,6 +375,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
         # sees a half-written library
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    record("kernels.build", t0, mono_ns(), len(todo))
     return paths
 
 

@@ -23,7 +23,10 @@ the card every framework's step — forward, backward and Adam update —
 replays one CUDA graph per batch signature (:class:`~.._cuda.GraphedStep`,
 the JAX package's jitted step with donated state); each batch is copied
 into the graph's static buffers through pinned staging, and the loss read
-that ends a step is its one sync.
+that ends a step is its one sync.  The trainer records ``trainer.build``
+and each step's ``trainer.step`` span, with the step's stage, replay and
+loss read inside it (obs/span.py), while its pipeline has a
+span-recording tracer or ``torch.profiler`` runs.
 A mesh axis above 1 needs a process group of the mesh's size
 (:func:`~..parallel.multihost.initialize`), else it raises "multi-card":
 every rank runs the same pipeline on the same stream (the JAX package's
@@ -41,14 +44,16 @@ rank 0 writes; a trainer that saw no samples writes nothing.
 from __future__ import annotations
 
 import threading
-import time
 from typing import Any, Dict, List, Optional, Tuple, Type
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .._cuda import GraphedStep
 from ..device import resolve_device
+from ..obs.clock import mono_ns
+from ..obs.span import record
 from ..parallel.train_step import adam_update
 from ..pipeline.element import Element, EOSEvent
 from ..pipeline.registry import register_element
@@ -81,21 +86,39 @@ class TrainerFramework:
 class _GraphedTrainer(TrainerFramework):
     """A trainer whose step is :attr:`graphed`, a :class:`~.._cuda.
     GraphedStep` ``(*batch) -> loss`` set up by ``_build``: it keeps the
-    losses and the host seconds of each step."""
+    losses, and records each step's spans (obs/span.py) while
+    :attr:`traced` is set or ``torch.profiler`` runs."""
 
     graphed: GraphedStep
+    #: set by the element while a span-recording tracer is attached to
+    #: its pipeline
+    traced = False
 
     def _init_stats(self) -> None:
         self.losses: List[float] = []
-        #: host seconds of each step, batch copy to loss read (the sync)
-        self.step_s: List[float] = []
+
+    def _build_recorded(self, *args) -> None:
+        """``_build(*args)`` in a ``trainer.build`` span."""
+        t0 = mono_ns()
+        self._build(*args)
+        record("trainer.build", t0, mono_ns())
 
     def _run_step(self, *batch) -> None:
         """One step on a host batch: the copy into the static buffers, the
-        step (a replay on the card) and the loss read."""
-        t0 = time.perf_counter()
-        self.losses.append(float(self.graphed(*batch)))
-        self.step_s.append(time.perf_counter() - t0)
+        step (a replay on the card) and the loss read; traced or
+        profiled, in a ``trainer.step`` span numbered by the step."""
+        if not (self.traced or _autograd_profiler._is_profiler_enabled):
+            self.losses.append(float(self.graphed(*batch)))
+            return
+        seq = len(self.losses)
+        t0 = mono_ns()
+        loss = self.graphed(*batch, seq=seq)
+        t1 = mono_ns()
+        value = float(loss)
+        t2 = mono_ns()
+        record("trainer.loss_read", t1, t2, seq)
+        record("trainer.step", t0, t2, seq)
+        self.losses.append(value)
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
         """Every parameter and optimizer tensor, by name (the live
@@ -248,7 +271,8 @@ class JaxTrainer(_GraphedTrainer):
             return {"epochs": 0, "samples": 0, "final_loss": None}
         batches = self._batches()
         if self._state is None:
-            self._build(batches[0][0].shape[1], batches[0][1].shape[1])
+            self._build_recorded(batches[0][0].shape[1],
+                                 batches[0][1].shape[1])
         for _ in range(self.epochs):
             for x, y in batches:
                 self._run_step(x, y)
@@ -359,7 +383,7 @@ class _MeshStreamTrainer(_GraphedTrainer):
         if not self._samples:
             return {"epochs": 0, "samples": 0, "final_loss": None}
         if not self._built:
-            self._build()
+            self._build_recorded()
         batches = self._batches()
         for _ in range(self.epochs):
             for ins, labs in batches:
@@ -590,6 +614,10 @@ class TensorTrainer(Element):
 
     def on_event(self, pad, event):
         if isinstance(event, EOSEvent):
+            tracer = (self.pipeline.tracer
+                      if self.pipeline is not None else None)
+            self.trainer.traced = (tracer is not None
+                                   and tracer.ring is not None)
             # train + save before propagating EOS (reference blocks on
             # training_complete_cond at EOS)
             self.summary = self.trainer.finish()

@@ -10,6 +10,10 @@ tracing layer and they must not be mixed:
   monotonic timeline onto the shared wall clock and to stamp the query
   wire.
 
+:func:`profiler_ns` places a span's ``mono_ns()`` stamps on the clock
+of ``torch.profiler``'s events, so program spans and the device trace
+share one axis.
+
 :class:`OffsetEstimator` is the cross-process half: feed it
 ``(t_send_us, t_recv_us, peer_wall_us)`` request samples (the SNTP
 midpoint method applied to the query wire) and it keeps the estimate
@@ -32,6 +36,36 @@ def wall_us() -> int:
     """Unix-epoch microseconds from the local clock (cheap enough for
     per-reply stamping)."""
     return time.time_ns() // 1000
+
+
+_PROFILER_OFFSET_NS: Optional[int] = None
+
+
+def profiler_ns(mono: int) -> int:
+    """The ``mono_ns()`` stamp ``mono`` on ``torch.profiler``'s event
+    clock: Kineto's ``start_ns()`` of host and device events, which is
+    the host's wall clock in unix-epoch nanoseconds (``time.time_ns()``'s
+    base).
+
+    One offset, wall minus monotonic, is read once a process, from the
+    tightest of a few ``monotonic, wall, monotonic`` triples: it is off
+    by at most half that triple's width (well under a microsecond).  The
+    two clocks share their rate (both follow NTP's slewing), so the offset
+    holds until the wall clock is stepped (``settimeofday``, a leap
+    second), which moves every later stamp by the step.  Kineto itself
+    places its events on the wall clock through a linear fit of the CPU's
+    cycle counter, good to a few microseconds."""
+    global _PROFILER_OFFSET_NS
+    if _PROFILER_OFFSET_NS is None:
+        best = None
+        for _ in range(8):
+            m0 = time.monotonic_ns()
+            w = time.time_ns()
+            m1 = time.monotonic_ns()
+            if best is None or m1 - m0 < best[0]:
+                best = (m1 - m0, w - (m0 + m1) // 2)
+        _PROFILER_OFFSET_NS = best[1]
+    return mono + _PROFILER_OFFSET_NS
 
 
 class OffsetEstimator:

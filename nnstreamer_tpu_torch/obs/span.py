@@ -7,6 +7,30 @@ keeps the tail instead of OOMing) and export as Chrome ``trace_event``
 JSON — ``chrome://tracing`` / Perfetto render streaming threads, queue
 handoffs and filter-worker overlap directly.
 
+**Program spans** belong to no buffer: a training step's phases and the
+one-off set-up work, in the one process-wide ring :data:`PROCESS_SPANS`
+(:func:`record`).  ``seq`` is the training step's number (-1 for set-up;
+a ``kernels.build`` span's is the libraries it compiled), and a span
+contained in another of the same thread is its child:
+
+- ``trainer.step`` (``elements/trainer.py``), a step on a host batch,
+  with three children in order: ``trainer.stage`` (``_cuda.GraphedStep``:
+  the batch made a tensor, the wait for the previous staging copy, the
+  copy into pinned staging and the copy to the card enqueued),
+  ``trainer.replay`` (the graph's replay; the eager step where the step
+  runs eagerly) or ``trainer.capture`` (a signature's first call: the
+  eager warm-up step and the capture), and ``trainer.loss_read`` (the
+  ``float(loss)`` that syncs);
+- ``trainer.build``: the trainer building its model and step at the
+  first ``finish()``; ``trainer.capture`` also outside a recorded step;
+  ``kernels.build`` (``_cuda.build``): ``nvcc`` compiling kernel
+  libraries.
+
+Step spans are recorded only while a span-recording tracer is attached
+to the trainer's pipeline or ``torch.profiler`` runs; set-up spans
+always.  ``obs.clock.profiler_ns`` puts their stamps on the profiler's
+clock.
+
 The **trace context** is the compact distributed-tracing triple that
 rides the query wire header (query/protocol.py): ``trace_id`` names the
 whole distributed trace, ``span_id`` the sender-side parent span,
@@ -23,6 +47,7 @@ from __future__ import annotations
 
 import os
 import struct
+import threading
 from typing import Any, Dict, Iterable, List, NamedTuple, Optional
 
 
@@ -51,7 +76,7 @@ class Span(NamedTuple):
     tid: int           # thread ident (or remote pseudo-tid)
     start_ns: int      # mono_ns in THIS process's timeline
     dur_ns: int
-    seq: int           # buffer sequence number (-1 = unknown)
+    seq: int           # buffer sequence number or training step (-1 = unknown)
     trace_id: int
 
 
@@ -90,7 +115,8 @@ class SpanRing:
 
     Appends come from every streaming thread; a plain lock per append
     is acceptable because span recording is opt-in (``Tracer(spans=
-    True)``) — the untraced and metrics-only modes never construct one.
+    True)``; program spans of a step only while traced or profiled) —
+    the untraced and metrics-only modes append nothing a buffer.
     """
 
     def __init__(self, capacity: int = 65536) -> None:
@@ -130,25 +156,40 @@ class SpanRing:
             return out, n
 
 
+#: the process's program spans (module doc)
+PROCESS_SPANS = SpanRing()
+
+
+def record(name: str, start_ns: int, end_ns: int, seq: int = -1) -> None:
+    """Append program span ``name`` of this thread, from ``start_ns`` to
+    ``end_ns`` (``mono_ns()``), to :data:`PROCESS_SPANS`."""
+    PROCESS_SPANS.append(Span(name, threading.get_ident(), start_ns,
+                              end_ns - start_ns, seq, 0))
+
+
 def chrome_trace_events(spans: Iterable[Span], pid: int = 1,
                         process_name: str = "pipeline",
-                        offset_ns: int = 0) -> List[Dict[str, Any]]:
+                        offset_ns: int = 0,
+                        program: Iterable[Span] = ()
+                        ) -> List[Dict[str, Any]]:
     """Chrome ``trace_event`` dicts ("X" complete events + process/thread
-    metadata) for one process's spans.  ``offset_ns`` shifts remote
-    timelines onto the local one after clock-offset estimation."""
+    metadata) for one process's spans, and its ``program`` spans under
+    category ``program``.  ``offset_ns`` shifts remote timelines onto the
+    local one after clock-offset estimation."""
     events: List[Dict[str, Any]] = [{
         "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
         "args": {"name": process_name},
     }]
     tids = set()
-    for s in spans:
-        tids.add(s.tid)
-        events.append({
-            "name": s.name, "cat": "element", "ph": "X", "pid": pid,
-            "tid": s.tid, "ts": (s.start_ns + offset_ns) / 1000.0,
-            "dur": s.dur_ns / 1000.0,
-            "args": {"seq": s.seq, "trace_id": f"{s.trace_id:x}"},
-        })
+    for cat, group in (("element", spans), ("program", program)):
+        for s in group:
+            tids.add(s.tid)
+            events.append({
+                "name": s.name, "cat": cat, "ph": "X", "pid": pid,
+                "tid": s.tid, "ts": (s.start_ns + offset_ns) / 1000.0,
+                "dur": s.dur_ns / 1000.0,
+                "args": {"seq": s.seq, "trace_id": f"{s.trace_id:x}"},
+            })
     for tid in sorted(tids):
         events.append({"name": "thread_name", "ph": "M", "pid": pid,
                        "tid": tid, "args": {"name": f"thread-{tid}"}})

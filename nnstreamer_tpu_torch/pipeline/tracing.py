@@ -426,21 +426,29 @@ class Tracer:
 
     def chrome_trace(self, process_name: str = "pipeline"
                      ) -> Dict[str, Any]:
-        """Chrome ``trace_event`` document: local spans as pid 1, each
-        merged remote process as its own pid."""
-        from ..obs.span import chrome_trace_events
+        """Chrome ``trace_event`` document: local spans as pid 1, with
+        the process's program spans (obs/span.py) since this tracer was
+        made under category ``program``; each merged remote process as
+        its own pid.  ``metadata.profiler_ns_offset`` added to a ``ts``
+        in ns places it on ``torch.profiler``'s clock."""
+        from ..obs.clock import profiler_ns
+        from ..obs.span import PROCESS_SPANS, chrome_trace_events
 
         events: List[Dict[str, Any]] = []
         local = self.ring.snapshot() if self.ring is not None else []
+        program = [s for s in PROCESS_SPANS.snapshot()
+                   if s.start_ns >= self.anchor_mono_ns]
         events.extend(chrome_trace_events(local, pid=1,
-                                          process_name=process_name))
+                                          process_name=process_name,
+                                          program=program))
         for i, (proc, spans) in enumerate(sorted(self._remote.items())):
             events.extend(chrome_trace_events(spans, pid=2 + i,
                                               process_name=proc))
         # per-process groups are each sorted; re-sort the MERGED stream
         # so a multi-process export is globally time-monotonic too
         events.sort(key=lambda e: (e["ph"] != "M", e.get("ts", 0.0)))
-        meta: Dict[str, Any] = {"trace_id": f"{self.trace_id:x}"}
+        meta: Dict[str, Any] = {"trace_id": f"{self.trace_id:x}",
+                                "profiler_ns_offset": profiler_ns(0)}
         if self.ring is not None and self.ring.dropped:
             meta["dropped_spans"] = self.ring.dropped
         return {"traceEvents": events, "displayTimeUnit": "ms",

@@ -1073,3 +1073,52 @@ def test_held_segment_outputs_are_not_overwritten(card):
     assert len(outs["xla"]) == len(frames)
     for a, b in zip(outs["xla"], outs["python"]):
         np.testing.assert_array_equal(a, b)
+
+
+#: run in a fresh process: the profiler set up after a process has
+#: replayed CUDA graphs has crashed it or lost the graphs' kernels
+_SPAN_CLOCK = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from nnstreamer_tpu_torch.obs.clock import mono_ns, profiler_ns
+from nnstreamer_tpu_torch.obs.span import PROCESS_SPANS, record
+
+x = torch.randn(8192, 8192, device="cuda")
+x @ x
+torch.cuda.synchronize()
+_, cursor = PROCESS_SPANS.snapshot_since(0)
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    t0 = mono_ns()
+    x @ x
+    torch.cuda.synchronize()
+    record("test.matmul", t0, mono_ns())
+(span,) = PROCESS_SPANS.snapshot_since(cursor)[0]
+ops = [e for e in p.profiler.kineto_results.events()
+       if str(e.device_type()).endswith("CUDA")
+       and not e.is_user_annotation()]
+k = max(ops, key=lambda e: e.duration_ns())
+print(json.dumps({"start": profiler_ns(span.start_ns),
+                  "end": profiler_ns(span.start_ns) + span.dur_ns,
+                  "k_start": k.start_ns(),
+                  "k_end": k.start_ns() + k.duration_ns()}))
+"""
+
+
+def test_a_span_holds_its_kernel_on_the_profiler_clock(card):
+    """A program span around a matmul of over a millisecond and the sync
+    after it, put on the profiler's clock by ``obs.clock.profiler_ns``,
+    holds the kernel's device interval and ends within 200 us of it."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _SPAN_CLOCK], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["k_end"] - got["k_start"] >= 1_000_000
+    assert got["start"] <= got["k_start"] and got["k_end"] <= got["end"]
+    assert got["end"] - got["k_end"] <= 200_000

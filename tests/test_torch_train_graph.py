@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from nnstreamer_tpu.elements.trainer import JaxTrainer as JaxJaxTrainer
 from nnstreamer_tpu.models.registry import get_model as jax_get_model
@@ -37,6 +38,7 @@ from nnstreamer_tpu_torch._cuda import GraphedStep
 from nnstreamer_tpu_torch.elements.trainer import JaxTrainer
 from nnstreamer_tpu_torch.models.registry import get_model
 from nnstreamer_tpu_torch.models.vit import load_flax, params_from_flax
+from nnstreamer_tpu_torch.obs.span import PROCESS_SPANS
 from nnstreamer_tpu_torch.parallel import make_mesh
 from nnstreamer_tpu_torch.parallel import train_step as pt_ts
 from nnstreamer_tpu_torch.parallel.train_step import adam_update
@@ -178,14 +180,19 @@ def _mlp_pair(props):
 
 def test_mlp_trainer_step_form_matches_jax():
     """Two epochs of three batches: six steps through one static buffer
-    set; losses, parameters and first moments against the JAX trainer."""
+    set, each recording its ``trainer.step`` span under the profiler;
+    losses, parameters and first moments against the JAX trainer."""
     want, got = _mlp_pair({"batch-size": 4, "num-epochs": 2, "lr": LR})
     for t in (want, got):
         for s in _mlp_samples(12):
             t.push_data(*s)
-        t.finish()
+    want.finish()
+    _, cursor = PROCESS_SPANS.snapshot_since(0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        got.finish()
     assert len(got.losses) == len(want.losses) == 6
-    assert len(got.step_s) == 6
+    assert [s.seq for s in PROCESS_SPANS.snapshot_since(cursor)[0]
+            if s.name == "trainer.step"] == list(range(6))
     np.testing.assert_allclose(got.losses, want.losses, rtol=LOSS_RTOL)
     (jparams, jopt), (params, opt) = want._state, got._state
     assert int(opt["t"]) == int(jopt["t"]) == 6
