@@ -27,7 +27,9 @@ Phases, each of which must pass:
    traced or built); K1's floor is traced inside
    CUDA graph replays: an empty kernel (the card's per-kernel floor), K1
    on a 1-element frame, on the main path's and on a 32-frame bucket
-   (beside that bucket's event-timed call and its bytes bound);
+   (beside that bucket's event-timed call and its bytes bound); the
+   LayerNorm kernels' y, dx, dweight and dbias against autograd of the
+   plain expression at ViT's training batch and a served frame;
 3. drive each path through the port's entry points at full width, with
    every kernel launch counter set to 0 just before it and read just
    after.  The four serving paths run as CUDA graphs (the filter
@@ -54,7 +56,8 @@ Phases, each of which must pass:
      custom=model:vit ! tensor_sink``, ViT-S/16 in its training form
      (f32 parameters, bf16 compute), batches of 32 frames, 8 Adam steps:
      12 launches each of the flash forward (K2) and backward (K3, K4) a
-     step, the batch in their grid;
+     step, the batch in their grid, and 25 each of the LayerNorm forward,
+     backward and partial sum;
    - ``lm_train``: ``tensor_trainer framework=mesh`` on that LM, (4, 2048)
      tokens, 6 steps: 4 launches each of K2, K3 and K4 a step;
    - the wide-head LM (``LM_WIDE_CUSTOM``: the same model with its
@@ -1036,6 +1039,116 @@ def check_flash_backward(reps: int) -> list:
          "max_abs_err": max(worst["dk"], worst["dv"]),
          "ms": main["dkv_kernel_ms"], "bound_ms": main["dkv_bound_ms"],
          "bound_by": main["dkv_bound_by"], **common}]
+
+
+#: (case, rows, D, dtype) of the LayerNorm check: ViT-S/16's training
+#: batch (32 x 197 tokens) and a served frame (197 tokens), both bf16
+LN_ROWS = [("vit_train", 32 * 197, 384, "bfloat16"),
+           ("vit", 197, 384, "bfloat16")]
+#: y and dx: |got - want| <= atol * max|want| + rtol * |want| — the
+#: kernels add a row's sums in another order than PyTorch's reductions,
+#: and bf16 rounds y and dx once from those f32 values, so a value next to
+#: a rounding boundary lands one unit of the last place apart; dweight and
+#: dbias are f32 sums over every row, in block order there and in
+#: PyTorch's order here
+LN_TOL = {"bfloat16": (1.6e-2, 8e-3)}
+LN_PARAM_RTOL = 1e-4
+
+
+def ln_bytes(rows: int, d: int, itemsize: int) -> tuple:
+    """Least bytes of a LayerNorm forward (x in, y out, f32 weight and
+    bias in) and backward (x and dy in, dx out, f32 weight in, f32
+    dweight and dbias out); row statistics are not counted."""
+    act = rows * d * itemsize
+    return 2 * act + 2 * d * 4, 3 * act + 3 * d * 4
+
+
+def check_layer_norm(reps: int) -> list:
+    """The LayerNorm kernels against autograd of their plain version at
+    LN_ROWS: y, dx, dweight and dbias on the same inputs (f32 weight and
+    bias, as the training form holds them).  Times the forward kernel,
+    the backward with its partial sum, the plain expression (forward, and
+    autograd's backward) and ``F.layer_norm`` (bf16 weight and bias; its
+    two-pass variance is another function, timed only as the library's
+    yardstick); the least time is each call's ``ln_bytes`` at
+    HBM_BYTES_PER_S."""
+    import torch
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops import layer_norm as ln
+
+    eps = 1e-6
+    gen = torch.Generator().manual_seed(3)
+    rows, failures = [], []
+    for (name, n, d, dt) in LN_ROWS:
+        dtype = getattr(torch, dt)
+        mk = lambda *s: torch.randn(*s, generator=gen).cuda()  # noqa: E731
+        x = (mk(n, d) * 2.0 + 0.5).to(dtype)
+        dy = mk(n, d).to(dtype)
+        w, b = 1.0 + 0.2 * mk(d), 0.1 * mk(d)
+
+        def grads(fn):
+            ts = [t.clone().requires_grad_() for t in (x, w, b)]
+            y = fn(*ts, eps)
+            return (y.detach(), *torch.autograd.grad(y, ts, dy))
+
+        got, want = grads(ln.layer_norm), grads(ln.layer_norm_reference)
+        torch.cuda.synchronize()
+        errs, ok = {}, got[0].dtype == got[1].dtype == dtype
+        for (what, g, wt) in zip(("y", "dx", "dweight", "dbias"), got, want):
+            atol, rtol = (LN_TOL[dt] if what in ("y", "dx")
+                          else (LN_PARAM_RTOL, LN_PARAM_RTOL))
+            err = (g.float() - wt.float()).abs()
+            errs[what] = err.max().item()
+            scale = wt.float().abs().max().item()
+            ok &= bool((err <= atol * scale + rtol * wt.float().abs()).all())
+        if not ok:
+            failures.append(name)
+        plain_in = [t.clone().requires_grad_() for t in (x, w, b)]
+        plain_y = ln.layer_norm_reference(*plain_in, eps)
+        lx = x.clone().requires_grad_()
+        lw, lb = (t.to(dtype).requires_grad_() for t in (w, b))
+        lib_y = F.layer_norm(lx, (d,), lw, lb, eps)
+        fwd_bytes, bwd_bytes = ln_bytes(n, d, x.element_size())
+        with torch.no_grad():
+            rows.append({
+                "case": name, "shape": [n, d], "dtype": dt,
+                "max_abs_err": errs, "ok": ok,
+                "fwd_kernel_ms": time_ms(
+                    lambda: ln.layer_norm(x, w, b, eps), reps),
+                "bwd_kernel_ms": time_ms(
+                    lambda: ln._launch_backward(x, w, dy, eps), reps),
+                "fwd_plain_ms": time_ms(
+                    lambda: ln.layer_norm_reference(x, w, b, eps), reps),
+                "fwd_library_ms": time_ms(
+                    lambda: F.layer_norm(x, (d,), lw, lb, eps), reps),
+                "fwd_bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                "bwd_bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3})
+        rows[-1]["bwd_plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            plain_y, plain_in, dy, retain_graph=True), reps)
+        rows[-1]["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib_y, (lx, lw, lb), dy, retain_graph=True), reps)
+    emit({"phase": "kernel", "kernel": "layer_norm", "rows": rows})
+    if failures:
+        raise AssertionError(f"layer_norm differs from its plain version "
+                             f"beyond tolerance at {failures}")
+    main = rows[0]            # the ViT training step: the first path
+    common = {"route": "cuda",
+              "source": "nnstreamer_tpu_torch/csrc/layer_norm.cu",
+              "replaces": "none (XLA fuses flax nn.LayerNorm)",
+              "bound_by": "bytes"}
+    worst = {w: max(r["max_abs_err"][w] for r in rows)
+             for w in ("y", "dx", "dweight", "dbias")}
+    return [
+        {"name": "layer_norm_fwd", "max_abs_err": worst["y"],
+         "ms": main["fwd_kernel_ms"], "plain_ms": main["fwd_plain_ms"],
+         "bound_ms": main["fwd_bound_ms"],
+         "library_ms": main["fwd_library_ms"], **common},
+        {"name": "layer_norm_bwd",
+         "max_abs_err": max(worst["dx"], worst["dweight"], worst["dbias"]),
+         "ms": main["bwd_kernel_ms"], "plain_ms": main["bwd_plain_ms"],
+         "bound_ms": main["bwd_bound_ms"],
+         "library_ms": main["bwd_library_ms"], **common}]
 
 
 # ---------------------------------------------------------------------------
@@ -6902,6 +7015,11 @@ TRAIN_PER_STEP = {"vit_train": 12, "lm_train": 4, "lm_wide_train": 4,
                   "mlp_train": 0}
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+#: LayerNorm launches per training step, of the forward, the backward and
+#: its partial sum each: ViT's 25 norms (two a layer and the final one);
+#: the LM's norms are PyTorch ops
+TRAIN_NORMS = {"vit_train": 25}
+NORM_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "layer_norm_param_sum")
 #: one step with the kernels against the same step with plain attention:
 #: f32 (TF32 off) differs in summation order only — loss within 1e-5 rel,
 #: each gradient within 1e-4 relative L2; bf16 rounds attention's output
@@ -7032,7 +7150,8 @@ def train_steps(phase: str, samples) -> int:
 def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
               card: str, eager: bool = False) -> dict:
     """Drive a training path in one mode: ``train_steps`` steps, each
-    launching K2, K3 and K4 ``per_step`` times; step times from the
+    launching K2, K3 and K4 ``per_step`` times and the LayerNorm kernels
+    ``TRAIN_NORMS`` times; step times from the
     trainer (host clock, batch copy to the loss read that ends the step).
     In graph mode step 1 is the capture's eager warm-up and every later
     step a replay of the one graph: a launch counts as captured launches
@@ -7059,7 +7178,7 @@ def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
            "steps": steps, "launches": launches, "graphs": graphs,
            "captured_launches": list(captured.values()),
            "launches_per_step": {k: launches.get(k, 0) / max(steps, 1)
-                                 for k in TRAIN_KERNELS},
+                                 for k in TRAIN_KERNELS + NORM_KERNELS},
            "step_ms": step_ms, "step_ms_p50": p50,
            f"{unit}_per_s": units / (p50 / 1e3), "losses": trainer.losses,
            "wall_s_incl_build": wall, "card": card}
@@ -7068,18 +7187,20 @@ def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
     if steps != want_steps or not all(map(math.isfinite, trainer.losses)):
         raise AssertionError(f"{phase}: {steps} steps of {want_steps}, "
                              f"losses {trainer.losses}")
-    for k in TRAIN_KERNELS:
-        if launches.get(k, 0) != per_step * steps:
+    want = {**{k: per_step for k in TRAIN_KERNELS if per_step},
+            **{k: TRAIN_NORMS[phase] for k in NORM_KERNELS
+               if phase in TRAIN_NORMS}}
+    for k in TRAIN_KERNELS + NORM_KERNELS:
+        if launches.get(k, 0) != want.get(k, 0) * steps:
             raise AssertionError(f"{phase}: {k} launched "
                                  f"{launches.get(k, 0)} times, expected "
-                                 f"{per_step} a step")
+                                 f"{want.get(k, 0)} a step")
     if graphs != graph_counts(eager, 1, steps - 1):
         raise AssertionError(f"{phase}: graphs {graphs}, expected one "
                              f"capture (step 1) and a replay a later step")
-    if not eager and list(captured.values()) != [
-            {k: per_step for k in TRAIN_KERNELS if per_step}]:
+    if not eager and list(captured.values()) != [want]:
         raise AssertionError(f"{phase}: the capture recorded {captured}, "
-                             f"expected {per_step} launches of each kernel")
+                             f"expected {want}")
     return {"launches": launches, "step_ms_p50": p50,
             "losses": trainer.losses}
 
@@ -8394,7 +8515,8 @@ def main(argv=None) -> int:
         kernels = [k1]
         k1_floor(card, k1_event_ms)
         kernels += [check_flash_attention(args.reps),
-                   *check_flash_backward(args.reps)]
+                   *check_flash_backward(args.reps),
+                   *check_layer_norm(args.reps)]
         time_flash_versions(args.reps)
         check_k2_routes(card)
         check_k34_routes(card)

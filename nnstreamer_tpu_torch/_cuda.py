@@ -46,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> its source file under csrc/
 SOURCES = {"normalize_frame": "normalize_frame.cu",
            "flash_attention": "flash_attention.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "layer_norm": "layer_norm.cu"}
 
 #: kernel name -> launches since the last reset
 launches: "collections.Counter[str]" = collections.Counter()

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, parse_dtype, resolve_device
+from ..ops.layer_norm import layer_norm
 from ..tensor.info import TensorInfo, TensorsInfo
 from ..tensor.types import TensorType
 from .registry import Model, register_model
@@ -47,7 +48,9 @@ _LN_EPS = 1e-6
 
 class _LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: statistics in f32 with the fast variance,
-    eps 1e-6, the result cast back to the input's dtype."""
+    eps 1e-6, the result cast back to the input's dtype
+    (ops/layer_norm.py: the hand-written kernels on the card, the plain
+    expression on the CPU)."""
 
     def __init__(self, dim: int) -> None:
         super().__init__()
@@ -55,11 +58,7 @@ class _LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        mul = torch.rsqrt(var + _LN_EPS) * self.weight.float()
-        return ((xf - mu) * mul + self.bias.float()).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, _LN_EPS)
 
 
 class _Dense(nn.Linear):

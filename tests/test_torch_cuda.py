@@ -471,6 +471,149 @@ def test_flash_backward_refuses_wide_head_dim(card):
 
 
 # ---------------------------------------------------------------------------
+# LayerNorm (csrc/layer_norm.cu) against autograd of its plain version
+# ---------------------------------------------------------------------------
+
+#: y and dx tolerance by dtype, |got - want| <= atol * max|want| + rtol *
+#: |want|: the kernels add a row's sums in another order than PyTorch's
+#: reductions (f32: ~1e-6 of the largest value); bf16 and f16 round y and
+#: dx once from those f32 values, like the plain version, so a value next
+#: to a rounding boundary lands one unit of the last place apart
+LN_TOL = {torch.float32: (2e-5, 2e-5), torch.float16: (2e-3, 1e-3),
+          torch.bfloat16: (1.6e-2, 8e-3)}
+#: dweight and dbias are f32 sums over every row, in block order here and
+#: in PyTorch's order there
+LN_PARAM_RTOL = 1e-4
+
+#: (rows, D, dtype): ViT-S/16's training shape (32 x 197, 384) in each
+#: dtype, one row, one frame; D = 100 (bf16: no multiple of 8, 1-value
+#: loads, streamed; f32: one 16-byte load a lane for 25 lanes); 1,000
+#: (four 16-byte loads a lane); 2,048 and 4,096 (the streaming variant);
+#: 4,095 (streaming 1-value loads)
+LN_CASES = [
+    (6304, 384, torch.bfloat16), (6304, 384, torch.float16),
+    (6304, 384, torch.float32), (1, 384, torch.bfloat16),
+    (197, 384, torch.bfloat16), (197, 100, torch.bfloat16),
+    (197, 100, torch.float32), (33, 1000, torch.bfloat16),
+    (40, 2048, torch.bfloat16), (9, 4096, torch.float32),
+    (7, 4095, torch.bfloat16),
+]
+
+
+def _ln_inputs(card, rows, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card)
+    x = (mk(rows, d) * 2.0 + 0.5).to(dtype)
+    return x, 1.0 + 0.2 * mk(d), 0.1 * mk(d), mk(rows, d).to(dtype)
+
+
+def _ln_grads(fn, x, w, b, dy):
+    ts = [t.clone().requires_grad_() for t in (x, w, b)]
+    y = fn(*ts, 1e-6)
+    return (y.detach(), *torch.autograd.grad(y, ts, dy))
+
+
+def _assert_ln_close(got, want, dtype, what, tol=None):
+    atol, rtol = tol or LN_TOL[dtype]
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol * scale,
+                               rtol=rtol, msg=lambda m: f"{what}: {m}")
+
+
+def _check_layer_norm(x, w, b, dy, tol=None, dweight=True):
+    """The kernels' y, dx, dweight and dbias against autograd of the plain
+    version on the same card; ``dweight`` False: dweight unchecked (rows
+    whose x − mu is rounding noise)."""
+    from nnstreamer_tpu_torch.ops.layer_norm import (layer_norm,
+                                                     layer_norm_reference)
+
+    before = dict(_cuda.launches)
+    got = _ln_grads(layer_norm, x, w, b, dy)
+    torch.cuda.synchronize()
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "layer_norm_param_sum"):
+        assert _cuda.launches[name] == before.get(name, 0) + 1, name
+    want = _ln_grads(layer_norm_reference, x, w, b, dy)
+    assert got[0].dtype == got[1].dtype == x.dtype
+    assert got[2].dtype == got[3].dtype == torch.float32
+    for what, g, wt in zip(("y", "dx"), got[:2], want[:2]):
+        _assert_ln_close(g, wt, x.dtype, what, tol)
+    for what, g, wt in zip(("dweight", "dbias"), got[2:], want[2:]):
+        if dweight or what == "dbias":
+            _assert_ln_close(g, wt, x.dtype, what,
+                             (LN_PARAM_RTOL, LN_PARAM_RTOL))
+    return got
+
+
+@pytest.mark.parametrize("rows,d,dtype", LN_CASES, ids=str)
+def test_layer_norm_matches_plain(card, rows, d, dtype):
+    _check_layer_norm(*_ln_inputs(card, rows, d, dtype))
+
+
+def test_layer_norm_constant_rows(card):
+    """Rows of one f32 value each: E[x²] − E[x]² is rounding noise around
+    0, below 0 on some rows (there the variance path passes no gradient),
+    so y is the bias and dx is r·(gw − mean gw) with r ≈ 1/sqrt(eps).  The
+    noise (a few units of the last place of x², under 1e-8 at |x| <= 0.1)
+    reaches r through eps = 1e-6, so the kernel's and PyTorch's r differ
+    by up to ~1 %: dx's tolerance.  x − mu is that noise too, so dweight
+    (a sum of dy·(x − mu)·r) is only bounded."""
+    from nnstreamer_tpu_torch.ops.layer_norm import layer_norm
+
+    rows, d = 256, 384
+    x, w, b, dy = _ln_inputs(card, rows, d, torch.float32, seed=1)
+    gen = torch.Generator().manual_seed(1)
+    x = ((torch.rand(rows, 1, generator=gen) - 0.5) * 0.2).to(card)
+    x = x.expand(rows, d).contiguous()
+    mu = x.mean(-1, keepdim=True)
+    clipped = ((x * x).mean(-1, keepdim=True) - mu * mu < 0).sum().item()
+    assert clipped > 0
+    y, dx, dw, db = _check_layer_norm(x, w, b, dy, tol=(2e-2, 2e-2),
+                                      dweight=False)
+    assert torch.isfinite(dx).all()
+    # |x − mu| is a few units of the last place of x (<= 1e-8), r <= 1e3
+    assert dw.abs().max().item() <= dy.abs().sum(0).max().item() * 1e-4
+    torch.testing.assert_close(y, b.expand(rows, d), atol=1e-4, rtol=0.0)
+    torch.testing.assert_close(db, dy.sum(0), atol=1e-3, rtol=1e-4)
+    with torch.no_grad():
+        assert torch.equal(layer_norm(x, w, b), y)
+
+
+def test_layer_norm_replay_equals_eager(card):
+    """The forward and the backward captured in a CUDA graph give the
+    eager run's bits: the grid and the order of every sum depend only on
+    the shape and the card."""
+    from nnstreamer_tpu_torch.ops.layer_norm import layer_norm
+
+    x, w, b, dy = _ln_inputs(card, 6304, 384, torch.bfloat16, seed=2)
+    eager = _ln_grads(layer_norm, x, w, b, dy)
+    graph = _cuda.CapturedGraph(
+        lambda *a: _ln_grads(layer_norm, *a), [x, w, b, dy],
+        _cuda.graph_memory(card))
+    for _ in range(2):
+        got = graph.replay()
+        torch.cuda.synchronize()
+        for g, e in zip(got, eager):
+            assert torch.equal(g, e)
+    assert graph.launched == {"layer_norm_fwd": 1, "layer_norm_bwd": 1,
+                              "layer_norm_param_sum": 1}
+
+
+def test_layer_norm_refuses_what_it_does_not_take(card):
+    from nnstreamer_tpu_torch.ops.layer_norm import layer_norm
+
+    w = torch.ones(8, device=card)
+    with pytest.raises(TypeError, match="float64"):
+        layer_norm(torch.zeros(4, 8, dtype=torch.float64, device=card), w, w)
+    wide = torch.ones(5000, device=card)
+    with pytest.raises(ValueError, match="4096"):
+        layer_norm(torch.zeros(2, 5000, device=card), wide, wide)
+    with pytest.raises(ValueError, match="weight"):
+        layer_norm(torch.zeros(4, 8, device=card), torch.ones(7, device=card),
+                   w)
+
+
+# ---------------------------------------------------------------------------
 # one training step with the kernels against the same step with plain
 # attention (f32, TF32 off: they differ in summation order only)
 # ---------------------------------------------------------------------------
@@ -599,8 +742,9 @@ def test_filter_graph_replays_equal_eager(card, monkeypatch, model, custom,
 
 def test_filter_graph_launches_are_captured_times_replays(card,
                                                           monkeypatch):
-    """K2 counts 2 launches a ViT frame at depth 2: one eager run before
-    the open's capture, then 2 a replay; the capture itself counts
+    """K2 counts 2 launches a ViT frame at depth 2 and the LayerNorm
+    forward 5 (two a layer and the final norm): one eager run before the
+    open's capture, then as many a replay; the capture itself counts
     none."""
     _cuda.reset_launches()
     single = _open_filter(monkeypatch, "vit", "seed:0,depth:2,input_size:64",
@@ -609,11 +753,12 @@ def test_filter_graph_launches_are_captured_times_replays(card,
         assert _cuda.launches["flash_attention"] == 2
         assert dict(_cuda.graphs) == {"captures": 1}
         (graph,) = single.fw._execs.values()
-        assert graph.launched == {"flash_attention": 2}
+        assert graph.launched == {"flash_attention": 2, "layer_norm_fwd": 5}
         for f in _frames((64, 64, 3), np.uint8, 256, 3):
             single.fw.invoke([f])
         torch.cuda.synchronize()
         assert _cuda.launches["flash_attention"] == 2 * (1 + 3)
+        assert _cuda.launches["layer_norm_fwd"] == 5 * (1 + 3)
         assert dict(_cuda.graphs) == {"captures": 1, "replays": 3}
     finally:
         single.stop()
@@ -845,6 +990,32 @@ def test_train_graph_launches_are_captured_times_replays(card):
     assert {k: _cuda.launches[k] for k in TRAIN_KERNELS} == {
         k: 5 * layers for k in TRAIN_KERNELS}
     assert dict(_cuda.graphs) == {"captures": 1, "replays": 4}
+
+
+def test_vit_s_train_step_launches_each_layer_norm_once(card):
+    """ViT-S/16's 25 LayerNorms (two a block in 12 blocks, and the final
+    one) each launch the forward, the backward and the partial sum once a
+    training step: the warm-up step counts its own, the capture records
+    them and runs none, each replay adds them."""
+    from nnstreamer_tpu_torch.models.registry import get_model
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.vision_train import \
+        make_vision_train_step
+
+    model = get_model("vit", {"seed": "0", "input_size": "64",
+                              "num_classes": "10"}, device=card,
+                      trainable=True)
+    step, module, opt, _ = make_vision_train_step(
+        make_mesh(devices=[card]), model)
+    _cuda.reset_launches()
+    for b in _vit_batches(3):
+        assert np.isfinite(float(step(module, opt, *b)[2]))
+    kernels = ("layer_norm_fwd", "layer_norm_bwd", "layer_norm_param_sum")
+    (graph,) = getattr(step, "graphed", step).graphs.values()
+    assert {k: graph.launched[k] for k in kernels} == dict.fromkeys(
+        kernels, 25)
+    assert {k: _cuda.launches[k] for k in kernels} == dict.fromkeys(
+        kernels, 3 * 25)
 
 
 def test_train_step_captures_once_per_signature(card):
