@@ -29,7 +29,10 @@ Phases, each of which must pass:
    on a 1-element frame, on the main path's and on a 32-frame bucket
    (beside that bucket's event-timed call and its bytes bound); the
    LayerNorm kernels' y, dx, dweight and dbias against autograd of the
-   plain expression at ViT's training batch and a served frame;
+   plain expression at ViT's training batch and a served frame; the
+   biased flash kernels' out, dq, dk, dv and dbias against autograd of
+   the plain expression at SwinV2-B's four attention shapes at batch 128
+   (``BIAS_ROWS``), with and without region labels;
 3. drive each path through the port's entry points at full width, with
    every kernel launch counter set to 0 just before it and read just
    after.  The four serving paths run as CUDA graphs (the filter
@@ -68,6 +71,13 @@ Phases, each of which must pass:
      requests of 32 tokens with prompts of 7 to 300 tokens: 4 K2
      launches a prefill) and ``lm_wide_train`` (lm_train's string on it:
      4 launches each of K2, K3 and K4 a step, at (4, 2048, 2, 256));
+   - ``swin_train``: ``tensor_trainer framework=mesh-vision
+     custom=model:swin_v2,...`` on SwinV2-B at its published widths
+     (window 16, 256x256) in its training form, batches of 128 frames,
+     4 Adam steps: 24 launches each of the biased flash forward, K3, the
+     partials' sum of dbias and K4 a step (none of the bias-free K2-K4),
+     the forward and each backward kernel over 7,680 windows, and 53 each
+     of the LayerNorm forward, backward and partial sum;
    - ``mlp_train``: ``tensor_trainer framework=jax``, the MLP trainer at
      the JAX package's example size (8 features, 4 classes, batches of
      8), 16 steps;
@@ -1148,6 +1158,161 @@ def check_layer_norm(reps: int) -> list:
          "max_abs_err": max(worst["dx"], worst["dweight"], worst["dbias"]),
          "ms": main["bwd_kernel_ms"], "plain_ms": main["bwd_plain_ms"],
          "bound_ms": main["bwd_bound_ms"],
+         "library_ms": main["bwd_library_ms"], **common}]
+
+
+#: the biased flash kernels' rows: SwinV2-B's four attention shapes at
+#: batch 128, (name, windows, tokens, heads, head dim, region labels'
+#: windows a image or 0), each with and without labels
+BIAS_ROWS = [(f"swin_stage{i}{'_shift' if shift else ''}", n, t, h, 32,
+              per_image if shift else 0)
+             for i, (n, t, h, per_image) in enumerate(
+                 [(2048, 256, 4, 16), (512, 256, 8, 4), (128, 256, 16, 1),
+                  (128, 64, 32, 1)], start=1)
+             for shift in (True, False)]
+#: |got - want| over the largest |want| (at least 1) of out, dq, dk, dv and
+#: dbias against the plain expression in f32: bf16 rounds p and ds before
+#: their products and each output once (test_torch_cuda_bias.py's TOL)
+BIAS_TOL = 3e-2
+
+
+def bias_bounds(n, t, h, d, labels):
+    """Least seconds and what binds them, of the biased forward and of K3
+    and K4 together, at (n windows, t tokens, h heads, head dim d) in
+    bf16 with ``labels`` windows of region labels: the benchmark's own
+    count (``benchmark/swin.py``)."""
+    from benchmark import swin
+
+    layer = {"windows": n, "tokens": t, "heads": h, "head_dim": d,
+             "labels": labels * t}
+    fwd = swin.forward_least(layer, "bfloat16")
+    dq, dkv = (swin.backward_least(w, layer, "bfloat16")
+               for w in ("dq", "dkv"))
+    binds = {dq[1], dkv[1]}
+    return fwd, (dq[0] + dkv[0],
+                 binds.pop() if len(binds) == 1 else "bytes, operations")
+
+
+def check_flash_bias(reps: int) -> list:
+    """The biased flash kernels (csrc/flash_attention_bias.cu) at
+    BIAS_ROWS in bf16 against the plain expression, ``softmax(q kᵀ + B +
+    M) v`` in f32 and autograd's gradient of it (out, dq, dk, dv and
+    dbias).  Times the forward, the backward (K3, the partials' sum and
+    K4), the plain expression each way and ``scaled_dot_product_attention``
+    with the bias and mask as one bf16 ``attn_mask`` (its backward without
+    the bias's gradient); least times from ``bias_bounds``.  The
+    ``kernels`` line's rows: ``flash_attention_bias`` (the forward) and
+    ``flash_attention_bias_bwd`` (K3, the partials' sum and K4, launches
+    summed over their three counters)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, failures = [], []
+    for (name, n, t, h, d, per_image) in BIAS_ROWS:
+        mk = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                    device="cuda")
+        q = (F.normalize(mk(n, t, h, d), dim=-1) * 10).bfloat16()
+        k = F.normalize(mk(n, t, h, d), dim=-1).bfloat16()
+        v = mk(n, t, h, d).bfloat16()
+        dout = mk(n, t, h, d).bfloat16()
+        bias = 16 * torch.sigmoid(mk(h, t, t))
+        regions = None
+        if per_image:
+            side = int(round(t ** 0.5))
+            regions = (torch.arange(t, device="cuda") // side >= side // 2
+                       ).int()[None].repeat(per_image, 1)
+            regions[1::2] += 2 * (torch.arange(t, device="cuda") % side
+                                  >= side // 2).int()
+
+        def plain(q, k, v, b):
+            s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) + b
+            if regions is not None:
+                s = s + fa.region_mask(regions, n)[:, None]
+            return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                                v.float())
+
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        b_in = bias.clone().requires_grad_()
+        out = fa.flash_attention(*ins, scale=1.0, bias=b_in, regions=regions)
+        got = (out.detach(), *torch.autograd.grad(out, ins + [b_in], dout))
+        p_in = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        pb = bias.clone().requires_grad_()
+        p_out = plain(*p_in, pb)
+        want = (p_out.detach(), *torch.autograd.grad(p_out, p_in + [pb],
+                                                     dout.float(),
+                                                     retain_graph=True))
+        abs_errs = {w: (g.float() - x).abs().max().item()
+                    for w, g, x in zip(("out", "dq", "dk", "dv", "dbias"),
+                                       got, want)}
+        errs = {w: e / max(x.abs().max().item(), 1.0)
+                for (w, e), x in zip(abs_errs.items(), want)}
+        ok = max(errs.values()) <= BIAS_TOL
+        if not ok:
+            failures.append(name)
+        # the library's yardstick: bias and mask as one bf16 (n, h, t, t)
+        mask = bias[None].expand(n, h, t, t)
+        if regions is not None:
+            mask = mask + fa.region_mask(regions, n)[:, None]
+        mask = mask.bfloat16().contiguous()
+        l_in = [x.transpose(1, 2).detach().requires_grad_()
+                for x in (q, k, v)]
+        l_out = F.scaled_dot_product_attention(*l_in, attn_mask=mask,
+                                               scale=1.0)
+        l_dout = dout.transpose(1, 2)
+        saved = fa.flash_attention(*ins, scale=1.0, bias=b_in,
+                                   regions=regions, return_lse=True)
+        o, lse = (x.detach() for x in saved)
+        delta = (dout.float() * o.float()).sum(-1).transpose(-1, -2)
+        (fwd_s, fwd_by), (bwd_s, bwd_by) = bias_bounds(n, t, h, d,
+                                                       per_image)
+        with torch.no_grad():
+            row = {
+                "case": name, "shape": [n, t, h, d], "labels": per_image,
+                "max_abs_err": abs_errs, "max_rel_err": errs, "ok": ok,
+                "fwd_kernel_ms": time_ms(lambda: fa._launch_biased_forward(
+                    q, k, v, bias, regions, 1.0), reps),
+                "bwd_kernel_ms": time_ms(lambda: fa._launch_biased_backward(
+                    q, k, v, dout, lse, delta, bias, regions, 1.0), reps),
+                "fwd_plain_ms": time_ms(lambda: plain(q, k, v, bias), reps),
+                "fwd_library_ms": time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        *l_in, attn_mask=mask, scale=1.0), reps),
+                "fwd_bound_ms": fwd_s * 1e3, "fwd_bound_by": fwd_by,
+                "bwd_bound_ms": bwd_s * 1e3, "bwd_bound_by": bwd_by}
+        row["bwd_plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            p_out, p_in + [pb], dout.float(), retain_graph=True), reps)
+        row["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
+            l_out, l_in, l_dout, retain_graph=True), reps)
+        rows.append(row)
+        del mask, l_out, p_out, want
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "kernel": "flash_attention_bias",
+          "rows": rows})
+    if failures:
+        raise AssertionError(f"the biased flash kernels differ from the "
+                             f"plain expression beyond {BIAS_TOL} at "
+                             f"{failures}")
+    main = rows[0]                 # stage 1, shifted
+    common = {"route": "tensor_cores",
+              "source": "nnstreamer_tpu_torch/csrc/flash_attention_bias.cu",
+              "replaces": "none (SwinV2 is the port's own model)"}
+    worst = {w: max(r["max_abs_err"][w] for r in rows)
+             for w in ("out", "dq", "dk", "dv", "dbias")}
+    return [
+        {"name": "flash_attention_bias", "max_abs_err": worst["out"],
+         "ms": main["fwd_kernel_ms"], "plain_ms": main["fwd_plain_ms"],
+         "bound_ms": main["fwd_bound_ms"], "bound_by": main["fwd_bound_by"],
+         "library_ms": main["fwd_library_ms"], **common},
+        {"name": "flash_attention_bias_bwd",
+         "counters": ("flash_attention_bias_bwd_dq",
+                      "flash_attention_bias_dbias_sum",
+                      "flash_attention_bias_bwd_dkv"),
+         "max_abs_err": max(worst[w] for w in ("dq", "dk", "dv", "dbias")),
+         "ms": main["bwd_kernel_ms"], "plain_ms": main["bwd_plain_ms"],
+         "bound_ms": main["bwd_bound_ms"], "bound_by": main["bwd_bound_by"],
          "library_ms": main["bwd_library_ms"], **common}]
 
 
@@ -6990,6 +7155,17 @@ VIT_TRAIN_LAUNCH = (
     "types=uint8.int32,framerate=0/1 ! "
     "tensor_trainer name=tr framework=mesh-vision "
     "custom=model:vit,seed:{seed},dp:1 ! tensor_sink name=out")
+#: swin-train: SwinV2-B at window 16 and 256x256 (the benchmark's
+#: swinv2-b-w16-256) in its training form, batches of 128 frames (its cell's)
+SWIN_SIZE, SWIN_CLASSES, SWIN_TRAIN_BATCH = 256, 1000, 128
+SWIN_CUSTOM = ("model:swin_v2,dim:128,depths:2-2-18-2,heads:4-8-16-32,"
+               "window:16,patch:4,input_size:256,num_classes:1000")
+SWIN_TRAIN_LAUNCH = (
+    "appsrc name=src caps=other/tensors,format=static,num_tensors=2,"
+    f"dimensions=3:{SWIN_SIZE}:{SWIN_SIZE}:{SWIN_TRAIN_BATCH}."
+    f"{SWIN_TRAIN_BATCH},types=uint8.int32,framerate=0/1 ! "
+    "tensor_trainer name=tr framework=mesh-vision "
+    f"custom={SWIN_CUSTOM},seed:{{seed}},dp:1 ! tensor_sink name=out")
 #: lm-train: the LM filter's StreamFormer, bf16 compute, (4, 2048) tokens
 #: with labels = tokens rolled by -1
 LM_TRAIN_BATCH = 4
@@ -7010,15 +7186,25 @@ MLP_TRAIN_LAUNCH = (
     f"num-labels=1 batch-size={MLP_BATCH} num-epochs={MLP_EPOCHS} "
     "lr=0.01 ! tensor_sink name=out")
 #: flash launches per training step: ViT's 12 layers, the LM's 4 (and the
-#: wide-head LM's), the MLP's none
+#: wide-head LM's), SwinV2-B's 24, the MLP's none
 TRAIN_PER_STEP = {"vit_train": 12, "lm_train": 4, "lm_wide_train": 4,
-                  "mlp_train": 0}
+                  "swin_train": 24, "mlp_train": 0}
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+#: the biased flash kernels (SwinV2's attention), the partials' sum of the
+#: bias's gradient among them
+BIAS_TRAIN_KERNELS = ("flash_attention_bias", "flash_attention_bias_bwd_dq",
+                      "flash_attention_bias_dbias_sum",
+                      "flash_attention_bias_bwd_dkv")
+#: the flash kernels a path launches TRAIN_PER_STEP times a step, where
+#: they are not TRAIN_KERNELS, and the part of its forward's name
+TRAIN_FLASH = {"swin_train": BIAS_TRAIN_KERNELS}
+TRAIN_MARKER = {"swin_train": "flash_biased_fwd"}
 #: LayerNorm launches per training step, of the forward, the backward and
 #: its partial sum each: ViT's 25 norms (two a layer and the final one);
-#: the LM's norms are PyTorch ops
-TRAIN_NORMS = {"vit_train": 25}
+#: SwinV2-B's 53 (the patch embedding's, two a block, one a merging, the
+#: final one); the LM's norms are PyTorch ops
+TRAIN_NORMS = {"vit_train": 25, "swin_train": 53}
 NORM_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "layer_norm_param_sum")
 #: one step with the kernels against the same step with plain attention:
 #: f32 (TF32 off) differs in summation order only — loss within 1e-5 rel,
@@ -7041,6 +7227,30 @@ def vit_train_samples(steps: int, seed: int):
                           dtype=np.uint8),
              rng.integers(0, VIT_CLASSES, VIT_TRAIN_BATCH).astype(np.int32))
             for _ in range(steps)]
+
+
+def swin_train_samples(steps: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, (SWIN_TRAIN_BATCH, SWIN_SIZE, SWIN_SIZE,
+                                   3), dtype=np.uint8),
+             rng.integers(0, SWIN_CLASSES, SWIN_TRAIN_BATCH).astype(np.int32))
+            for _ in range(steps)]
+
+
+def swin_windows_per_step() -> int:
+    """Windows SwinV2-B's biased forwards cover a step at
+    SWIN_TRAIN_BATCH (each backward kernel covers as many): the
+    benchmark's count of its layers."""
+    import json
+
+    from benchmark import swin
+
+    with open(os.path.join(HERE, "benchmark", "configs",
+                           "swinv2-b-w16-256.json")) as f:
+        cfg = json.load(f)
+    return sum(x["windows"] for x in swin.layers(cfg, SWIN_TRAIN_BATCH))
 
 
 def lm_train_samples(steps: int, seed: int):
@@ -7088,6 +7298,18 @@ def eager_steps(on: bool):
         yield
     finally:
         GraphedStep._eager = was
+
+
+def free_card() -> None:
+    """Give the card back what a trainer dropped just now held: its
+    pipeline holds it in reference cycles, and its step graph's memory
+    pool goes with the graph (SwinV2-B's is ~25 GB)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def span_cursor() -> int:
@@ -7150,8 +7372,9 @@ def train_steps(phase: str, samples) -> int:
 def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
               card: str, eager: bool = False) -> dict:
     """Drive a training path in one mode: ``train_steps`` steps, each
-    launching K2, K3 and K4 ``per_step`` times and the LayerNorm kernels
-    ``TRAIN_NORMS`` times; step times from the
+    launching K2, K3 and K4 (SwinV2: the biased kernels, over
+    ``swin_windows_per_step`` windows) ``per_step`` times and the LayerNorm
+    kernels ``TRAIN_NORMS`` times; step times from the
     trainer (host clock, batch copy to the loss read that ends the step).
     In graph mode step 1 is the capture's eager warm-up and every later
     step a replay of the one graph: a launch counts as captured launches
@@ -7160,6 +7383,7 @@ def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
 
     from nnstreamer_tpu_torch import _cuda
 
+    counted = TRAIN_KERNELS + BIAS_TRAIN_KERNELS + NORM_KERNELS
     _cuda.reset_launches()
     cursor = span_cursor()
     t0 = time.perf_counter()
@@ -7178,7 +7402,8 @@ def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
            "steps": steps, "launches": launches, "graphs": graphs,
            "captured_launches": list(captured.values()),
            "launches_per_step": {k: launches.get(k, 0) / max(steps, 1)
-                                 for k in TRAIN_KERNELS + NORM_KERNELS},
+                                 for k in counted},
+           "rows": dict(_cuda.rows),
            "step_ms": step_ms, "step_ms_p50": p50,
            f"{unit}_per_s": units / (p50 / 1e3), "losses": trainer.losses,
            "wall_s_incl_build": wall, "card": card}
@@ -7187,10 +7412,11 @@ def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
     if steps != want_steps or not all(map(math.isfinite, trainer.losses)):
         raise AssertionError(f"{phase}: {steps} steps of {want_steps}, "
                              f"losses {trainer.losses}")
-    want = {**{k: per_step for k in TRAIN_KERNELS if per_step},
+    want = {**{k: per_step for k in TRAIN_FLASH.get(phase, TRAIN_KERNELS)
+               if per_step},
             **{k: TRAIN_NORMS[phase] for k in NORM_KERNELS
                if phase in TRAIN_NORMS}}
-    for k in TRAIN_KERNELS + NORM_KERNELS:
+    for k in counted:
         if launches.get(k, 0) != want.get(k, 0) * steps:
             raise AssertionError(f"{phase}: {k} launched "
                                  f"{launches.get(k, 0)} times, expected "
@@ -7198,11 +7424,20 @@ def run_train(phase: str, launch: str, samples, unit: str, per_step: int,
     if graphs != graph_counts(eager, 1, steps - 1):
         raise AssertionError(f"{phase}: graphs {graphs}, expected one "
                              f"capture (step 1) and a replay a later step")
+    if phase == "swin_train":
+        windows = swin_windows_per_step() * steps
+        got = {k: row["rows"].get(k, 0) for k in BIAS_TRAIN_KERNELS
+               if "sum" not in k}
+        if set(got.values()) != {windows}:
+            raise AssertionError(f"{phase}: the biased kernels covered "
+                                 f"{got} windows, expected {windows}")
     if not eager and list(captured.values()) != [want]:
         raise AssertionError(f"{phase}: the capture recorded {captured}, "
                              f"expected {want}")
-    return {"launches": launches, "step_ms_p50": p50,
-            "losses": trainer.losses}
+    losses = trainer.losses
+    del trainer
+    free_card()
+    return {"launches": launches, "step_ms_p50": p50, "losses": losses}
 
 
 def check_mlp_learns(losses, epochs: int) -> None:
@@ -7338,7 +7573,7 @@ def check_train_graph_vs_eager(phase: str, launch: str, samples) -> None:
                           {n: x.detach().clone()
                            for n, x in trainer.state_tensors().items()})
             del trainer
-            torch.cuda.empty_cache()
+            free_card()
     want = train_steps(phase, samples)
     counts = {mode: len(run[0]) for mode, run in runs.items()}
     if set(counts.values()) != {want}:
@@ -8197,6 +8432,9 @@ def train_runs(args) -> dict:
         "lm_train": (lm_train_launch(args.seed),
                      lm_train_samples(args.lm_train_steps, args.seed),
                      "tokens"),
+        "swin_train": (SWIN_TRAIN_LAUNCH.format(seed=args.seed),
+                       swin_train_samples(args.swin_train_steps, args.seed),
+                       "images"),
         "lm_wide_train": (lm_train_launch(args.seed, LM_WIDE_CUSTOM),
                           lm_train_samples(args.lm_train_steps, args.seed),
                           "tokens"),
@@ -8403,7 +8641,8 @@ def profile_train(name: str, launch: str, samples, out_dir: str,
         try:
             row = trace(f"{name}_{mode}{turn}", out_dir, steps,
                         lambda t0, t1: len(batches),
-                        K2_MARKER if per_step else None, per_step)
+                        TRAIN_MARKER.get(name, K2_MARKER) if per_step
+                        else None, per_step)
         finally:
             torch.backends.cudnn.deterministic = pinned
     step_ms = sorted(trainer_step_ms(cursor))
@@ -8434,6 +8673,9 @@ def main(argv=None) -> int:
                     help="timed decode steps of the LLM engine")
     ap.add_argument("--vit-train-steps", type=int, default=8)
     ap.add_argument("--lm-train-steps", type=int, default=6)
+    ap.add_argument("--swin-train-steps", type=int, default=4,
+                    help="steps of the SwinV2-B trainer (batches of "
+                         f"{SWIN_TRAIN_BATCH})")
     ap.add_argument("--mnv2-train-steps", type=int, default=8,
                     help="steps of the MobileNetV2 trainer (batches of "
                          f"{MNV2_TRAIN_BATCH})")
@@ -8516,7 +8758,8 @@ def main(argv=None) -> int:
         k1_floor(card, k1_event_ms)
         kernels += [check_flash_attention(args.reps),
                    *check_flash_backward(args.reps),
-                   *check_layer_norm(args.reps)]
+                   *check_layer_norm(args.reps),
+                   *check_flash_bias(args.reps)]
         time_flash_versions(args.reps)
         check_k2_routes(card)
         check_k34_routes(card)
@@ -8573,8 +8816,10 @@ def main(argv=None) -> int:
         tss = run_train_save_serve(args, card)
         dist = run_train_dist(args, card)
         for k in kernels:
-            # launches summed over every path's own run (graph mode)
-            k["launches"] = sum(path["launches"].get(k["name"], 0)
+            # launches summed over every path's own run (graph mode) and
+            # over the row's counters (its own name where it gives none)
+            k["launches"] = sum(path["launches"].get(c, 0)
+                                for c in k.get("counters", (k["name"],))
                                 for path in (main_path, vit, lm, serve,
                                              stream, query, fleet,
                                              *obs.values(),

@@ -8,12 +8,15 @@ flags, and loaded with ``ctypes``: pointers and the stream pass as
 import every module on hosts without ``nvcc``.
 
 ``launches`` counts kernel launches by kernel name: each wrapper adds one
-where it launches its kernel and nowhere else.  A CUDA graph
-(:class:`CapturedGraph`) calls no wrapper when it replays, so its capture
-records the launches the wrappers counted while it was captured (they
-launched nothing: capture only records) and each replay adds them again;
-``graphs`` counts the captures and replays.  :class:`GraphedStep` runs a
-training step as one such graph per batch signature.
+where it launches its kernel and nowhere else; the biased attention
+wrappers also add the batch rows (windows) a launch covers to ``rows``.
+A CUDA graph (:class:`CapturedGraph`) calls no wrapper when it replays, so
+its capture records the launches and rows the wrappers counted while it
+was captured (they launched nothing: capture only records) and each
+replay adds them again; ``graphs`` counts the captures and replays.
+:class:`GraphedStep` runs a training step as one such graph per batch
+signature, and publishes each graph's launches and rows a step in the
+metrics registry (obs/metrics.py) when it captures it.
 
 ``nvcc`` runs with ``-Xptxas -v``: its report (registers, shared memory and
 spill bytes of every kernel function) is kept beside each library as
@@ -47,10 +50,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {"normalize_frame": "normalize_frame.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
-           "layer_norm": "layer_norm.cu"}
+           "layer_norm": "layer_norm.cu",
+           "flash_attention_bias": "flash_attention_bias.cu"}
 
 #: kernel name -> launches since the last reset
 launches: "collections.Counter[str]" = collections.Counter()
+#: kernel name -> batch rows (attention's windows) its launches covered
+#: since the last reset, for the kernels whose wrappers count them
+rows: "collections.Counter[str]" = collections.Counter()
 #: "captures" and "replays" of CUDA graphs since the last reset
 graphs: "collections.Counter[str]" = collections.Counter()
 
@@ -60,6 +67,7 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     launches.clear()
+    rows.clear()
     graphs.clear()
 
 
@@ -134,7 +142,7 @@ class CapturedGraph:
         with torch.cuda.stream(stream):
             self.first = fn(*inputs)
         current.wait_stream(stream)
-        before = launches.copy()
+        before, rows_before = launches.copy(), rows.copy()
         self.graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
@@ -151,14 +159,18 @@ class CapturedGraph:
                 gc.enable()
             # the wrappers counted the kernels they recorded; none ran
             self.launched = launches - before
+            self.covered = rows - rows_before
             launches.clear()
             launches.update(before)
+            rows.clear()
+            rows.update(rows_before)
         self.inputs = list(inputs)
         graphs["captures"] += 1
 
     def replay(self) -> Any:
         self.graph.replay()
         launches.update(self.launched)
+        rows.update(self.covered)
         graphs["replays"] += 1
         return self.outputs
 
@@ -321,8 +333,22 @@ class GraphedStep:
             raise RuntimeError(f"CUDA graph capture of the training step "
                                f"for {key} failed: {exc}") from exc
         self.graphs[key] = graph
+        publish_step(graph)
         record("trainer.capture", t0, mono_ns(), -1 if seq is None else seq)
         return graph.first
+
+
+def publish_step(graph: CapturedGraph) -> None:
+    """A training step's graph in the metrics registry: for each kernel
+    it launches, ``nns_train_step_launches`` (launches a step) and, where
+    its wrapper counts them, ``nns_train_step_rows`` (the batch rows,
+    attention's windows, those launches cover a step)."""
+    from .obs.metrics import REGISTRY
+
+    for name, n in graph.launched.items():
+        REGISTRY.gauge("nns_train_step_launches", kernel=name).set(n)
+    for name, n in graph.covered.items():
+        REGISTRY.gauge("nns_train_step_rows", kernel=name).set(n)
 
 
 def _nvcc() -> str:

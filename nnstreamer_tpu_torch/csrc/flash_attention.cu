@@ -186,122 +186,6 @@ constexpr int tc_smem_bytes() {
          tc::kAtomAlign;
 }
 
-// s = q k^T for NT tiles of 64 keys (k tile t TB bytes after the tile of
-// K-major descriptor kd; q the tile of descriptor qd), issued and
-// committed, not waited for.
-template <typename T, int DP, int NT>
-__device__ __forceinline__ void issue_scores(float (&s)[NT][32], uint64_t qd,
-                                             uint64_t kd) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      tc::mma_ss<T, 64>(
-          s[t], tc::desc_shift(qd, tc::k_step_bytes<DP>(kk)),
-          tc::desc_shift(kd,
-                         t * tc::tile_bytes<DP>() + tc::k_step_bytes<DP>(kk)),
-          kk);
-  tc::wgmma_commit();
-}
-
-// o += p v over NT tiles of 64 keys, p from registers, v tile t (t TB
-// bytes after the tile of MN-major descriptor vd); issued and committed,
-// not waited for.
-template <typename T, int DP, int NT>
-__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2],
-                                         const uint32_t (&pa)[NT][4][4],
-                                         uint64_t vd) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      tc::mma_rs<T, DP>(
-          acc, pa[t][kk],
-          tc::desc_shift(vd,
-                         t * tc::tile_bytes<DP>() + tc::mn_step_bytes<DP>(kk)),
-          1);
-  tc::wgmma_commit();
-}
-
-// 2^x on the special-function unit; subnormal results flush to 0.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The online softmax of NT score tiles of 2 NS keys in this thread's two
-// rows (s[t][4 j + e] is row e / 2, key k0 + 2 NS t + 8 j + col + e % 2):
-// masks keys past each row's last visible key where `cut`; updates the
-// running max m2 (base 2, scaled) and the thread's part of the row sum;
-// leaves p in s (f32) and the factor by which each row's o must be rescaled
-// in corr.
-template <int NT, int NS>
-__device__ __forceinline__ void online_softmax(float (&s)[NT][NS],
-                                               float (&m2)[2],
-                                               float (&lsum)[2],
-                                               float (&corr)[2], bool cut,
-                                               int k0, int col,
-                                               const int (&last_key)[2],
-                                               float scale2) {
-  if (cut) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int j = 0; j < NS / 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + 2 * NS * t + 8 * j + col + (e & 1) > last_key[e >> 1])
-            s[t][4 * j + e] = -CUDART_INF_F;
-  }
-  // each row's values as a tree of 4 partial maxima (then sums)
-  float part[2][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) part[i >> 2][i & 3] = -CUDART_INF_F;
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int e = 0; e < NS; ++e) {
-      float& p = part[(e >> 1) & 1][((e >> 2) & 1) * 2 + (e & 1)];
-      p = fmaxf(p, s[t][e]);
-    }
-  float tmax[2], neg[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    tmax[i] = fmaxf(fmaxf(part[i][0], part[i][1]),
-                    fmaxf(part[i][2], part[i][3]));
-    // the row's four threads are neighbouring lanes
-    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-    const float m_new = fmaxf(m2[i], tmax[i] * scale2);
-    // a row that has seen no visible key keeps m = -inf: p and corr are 0
-    const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
-    corr[i] = exp2_ftz(m2[i] - m_use);
-    m2[i] = m_new;
-    neg[i] = -m_use;
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) part[i >> 2][i & 3] = 0.f;
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int e = 0; e < NS; ++e) {
-      s[t][e] = exp2_ftz(fmaf(s[t][e], scale2, neg[(e >> 1) & 1]));
-      part[(e >> 1) & 1][((e >> 2) & 1) * 2 + (e & 1)] += s[t][e];
-    }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    lsum[i] = lsum[i] * corr[i] +
-              ((part[i][0] + part[i][1]) + (part[i][2] + part[i][3]));
-}
-
-template <int N>
-__device__ __forceinline__ void rescale(float (&acc)[N],
-                                        const float (&f)[2]) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) acc[e] *= f[(e >> 1) & 1];
-}
-
 // K2 on the tensor cores: one block per (64 WG query rows, head, batch
 // element), warpgroup w owning rows 64 w .. 64 w + 63 of the block's, and
 // 64 NT keys a stage.  The grid is one axis, query tile outermost, so that
@@ -419,18 +303,18 @@ flash_forward_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tc::cp_async_commit();
     if (j >= n_mine) continue;  // keys in this warpgroup's future
     tc::wgmma_fence();
-    issue_scores<T, DP, NT>(s, qd, k_desc(j));
+    tc::issue_scores<T, DP, NT>(s, qd, k_desc(j));
     tc::wgmma_wait<0>();
 #pragma unroll
     for (int t = 0; t < NT; ++t) tc::fence_acc(s[t]);
     const int k0 = j * kKeys;
-    online_softmax(s, m2, lsum, corr, k0 + kKeys - 1 > tile_last, k0, col,
-                   last_key, scale2);
+    tc::online_softmax(s, m2, lsum, corr, k0 + kKeys - 1 > tile_last, k0,
+                       col, last_key, scale2);
 #pragma unroll
     for (int t = 0; t < NT; ++t) tc::pack_a<T>(s[t], pa[t]);
-    rescale(acc, corr);
+    tc::rescale(acc, corr);
     tc::wgmma_fence();
-    issue_pv<T, DP, NT>(acc, pa, v_desc(j));
+    tc::issue_pv<T, DP, NT>(acc, pa, v_desc(j));
     tc::wgmma_wait<0>();
     tc::fence_acc(acc);
   }
@@ -448,7 +332,7 @@ flash_forward_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if ((lane & 3) == 0 && r < tq)
       lse[r] = l > 0.f ? (m2[i] + log2f(l)) * tc::kLn2 : -CUDART_INF_F;
   }
-  rescale(acc, inv);
+  tc::rescale(acc, inv);
   tc::store_acc<T, DP>(out, acc, q0, tq, h, head, d);
 }
 
@@ -624,8 +508,8 @@ flash_forward_tc_piece_kernel(const T* __restrict__ q,
       tc::wgmma_wait<0>();
       tc::fence_acc(s[0]);
     }
-    online_softmax(s, m2, lsum, corr, k0 + KN - 1 > tile_last, k0, col,
-                   last_key, scale2);
+    tc::online_softmax(s, m2, lsum, corr, k0 + KN - 1 > tile_last, k0, col,
+                       last_key, scale2);
     // o += p v, p from registers
     if constexpr (kF32) {
       // A's k columns l % 4 and l % 4 + 4 of step t hold this thread's keys
@@ -640,7 +524,7 @@ flash_forward_tc_piece_kernel(const T* __restrict__ q,
           ph[t][i] = tc::tf32_hi(x);
           pl[t][i] = tc::tf32_lo(x);
         }
-      rescale(acc, corr);
+      tc::rescale(acc, corr);
       tc::wgmma_fence();
 #pragma unroll
       for (int t = 0; t < KN / 8; ++t) {
@@ -653,9 +537,9 @@ flash_forward_tc_piece_kernel(const T* __restrict__ q,
     } else {
       uint32_t pa[1][4][4];
       tc::pack_a<T>(s[0], pa[0]);
-      rescale(acc, corr);
+      tc::rescale(acc, corr);
       tc::wgmma_fence();
-      issue_pv<T, DO, 1>(acc, pa, vd);
+      tc::issue_pv<T, DO, 1>(acc, pa, vd);
     }
     tc::wgmma_wait<0>();
     tc::fence_acc(acc);
@@ -673,7 +557,7 @@ flash_forward_tc_piece_kernel(const T* __restrict__ q,
     if (piece == 0 && (lane & 3) == 0 && r < tq)
       lse[r] = l > 0.f ? (m2[i] + log2f(l)) * tc::kLn2 : -CUDART_INF_F;
   }
-  rescale(acc, inv);
+  tc::rescale(acc, inv);
   tc::store_acc<T, DO>(out, acc, q0, tq, h, head, d, c0);
 }
 

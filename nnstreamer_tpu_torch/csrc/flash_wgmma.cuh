@@ -1,10 +1,12 @@
 // Tensor-core pieces of the flash-attention kernels on Hopper (sm_90a): the
-// forward (K2, flash_attention.cu) and the two backward kernels (K3 and K4,
-// flash_attention_bwd.cu).  The shared-memory tile layout, its asynchronous
-// and scalar loaders, the warpgroup matrix products (wgmma) that read it,
-// and the mask helpers all three share; and the TF32 products, their
-// operand split and the f32 loaders (a chunk of the head dim; a piece of
-// it transposed) that take f32 to the tensor cores in all three.
+// forward (K2, flash_attention.cu), the two backward kernels (K3 and K4,
+// flash_attention_bwd.cu) and their variants with an additive bias
+// (flash_attention_bias.cu).  The shared-memory tile layout, its
+// asynchronous and scalar loaders, the warpgroup matrix products (wgmma)
+// that read it, and the mask helpers all share; the forward's streaming
+// softmax, which both forwards share; and the TF32 products, their operand
+// split and the f32 loaders (a chunk of the head dim; a piece of it
+// transposed) that take f32 to the tensor cores in K2, K3 and K4.
 //
 // Tile layout.  A tile is 64 rows (tokens) x DP columns (the padded head
 // dim) of a 16-bit type, stored row after row in rows of W = min(2 DP, 128)
@@ -778,6 +780,127 @@ __device__ __forceinline__ void load_f32_transposed(
     int r0, int n_rows, int c0, int d, bool vec) {
   load_f32_transposed<N, R>(tile, lo, src, stride, r0, n_rows, c0, d, vec,
                             threadIdx.x);
+}
+
+// ---------------------------------------------------------------------------
+// the forward's streaming softmax (flash_attention.cu and its biased
+// variant, flash_attention_bias.cu)
+// ---------------------------------------------------------------------------
+
+// s = q k^T for NT tiles of 64 keys (k tile t TB bytes after the tile of
+// K-major descriptor kd; q the tile of descriptor qd), issued and
+// committed, not waited for.
+template <typename T, int DP, int NT>
+__device__ __forceinline__ void issue_scores(float (&s)[NT][32], uint64_t qd,
+                                             uint64_t kd) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      tc::mma_ss<T, 64>(
+          s[t], tc::desc_shift(qd, tc::k_step_bytes<DP>(kk)),
+          tc::desc_shift(kd,
+                         t * tc::tile_bytes<DP>() + tc::k_step_bytes<DP>(kk)),
+          kk);
+  tc::wgmma_commit();
+}
+
+// o += p v over NT tiles of 64 keys, p from registers, v tile t (t TB
+// bytes after the tile of MN-major descriptor vd); issued and committed,
+// not waited for.
+template <typename T, int DP, int NT>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2],
+                                         const uint32_t (&pa)[NT][4][4],
+                                         uint64_t vd) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::mma_rs<T, DP>(
+          acc, pa[t][kk],
+          tc::desc_shift(vd,
+                         t * tc::tile_bytes<DP>() + tc::mn_step_bytes<DP>(kk)),
+          1);
+  tc::wgmma_commit();
+}
+
+// 2^x on the special-function unit; subnormal results flush to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of NT score tiles of 2 NS keys in this thread's two
+// rows (s[t][4 j + e] is row e / 2, key k0 + 2 NS t + 8 j + col + e % 2):
+// masks keys past each row's last visible key where `cut`; updates the
+// running max m2 (base 2, scaled) and the thread's part of the row sum;
+// leaves p in s (f32) and the factor by which each row's o must be rescaled
+// in corr.
+template <int NT, int NS>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][NS],
+                                               float (&m2)[2],
+                                               float (&lsum)[2],
+                                               float (&corr)[2], bool cut,
+                                               int k0, int col,
+                                               const int (&last_key)[2],
+                                               float scale2) {
+  if (cut) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 2 * NS * t + 8 * j + col + (e & 1) > last_key[e >> 1])
+            s[t][4 * j + e] = -CUDART_INF_F;
+  }
+  // each row's values as a tree of 4 partial maxima (then sums)
+  float part[2][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) part[i >> 2][i & 3] = -CUDART_INF_F;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      float& p = part[(e >> 1) & 1][((e >> 2) & 1) * 2 + (e & 1)];
+      p = fmaxf(p, s[t][e]);
+    }
+  float tmax[2], neg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    tmax[i] = fmaxf(fmaxf(part[i][0], part[i][1]),
+                    fmaxf(part[i][2], part[i][3]));
+    // the row's four threads are neighbouring lanes
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+    const float m_new = fmaxf(m2[i], tmax[i] * scale2);
+    // a row that has seen no visible key keeps m = -inf: p and corr are 0
+    const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+    corr[i] = exp2_ftz(m2[i] - m_use);
+    m2[i] = m_new;
+    neg[i] = -m_use;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) part[i >> 2][i & 3] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      s[t][e] = exp2_ftz(fmaf(s[t][e], scale2, neg[(e >> 1) & 1]));
+      part[(e >> 1) & 1][((e >> 2) & 1) * 2 + (e & 1)] += s[t][e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    lsum[i] = lsum[i] * corr[i] +
+              ((part[i][0] + part[i][1]) + (part[i][2] + part[i][3]));
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N],
+                                        const float (&f)[2]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] *= f[(e >> 1) & 1];
 }
 
 }  // namespace tc

@@ -12,8 +12,8 @@ Frameworks, by the JAX package's names:
   keeps ``framework=xla``): Adam on batches of float samples;
 - ``mesh``: the StreamFormer LM, one :func:`~..parallel.make_train_step`
   step per (tokens, labels) frame;
-- ``mesh-vision``: a registry vision model (ViT, MobileNetV2) in its
-  training form,
+- ``mesh-vision``: a registry vision model (ViT, MobileNetV2, SwinV2) in
+  its training form,
   one :func:`~..parallel.vision_train.make_vision_train_step` step per
   (frames, labels) frame.
 
@@ -471,12 +471,16 @@ class MeshVisionTrainer(_MeshStreamTrainer):
     :func:`~..parallel.vision_train.make_vision_train_step`.  With
     ``model:vit`` each attention layer runs the flash kernels forward and
     backward with the batch in their grid; with ``model:mobilenet_v2``
-    and ``use_pallas:1`` the frames are normalized by K1.
+    and ``use_pallas:1`` the frames are normalized by K1; with
+    ``model:swin_v2`` each window attention layer runs the biased flash
+    kernels, forward and backward, with every window in their grid.
 
     props (via ``custom=``): ``model`` (registry name, default vit),
     ``dp`` (default: the process group's size, 1 without one), ``lr``,
     ``device``, plus the model's custom props (``dim/depth/heads/patch/
-    input_size/num_classes/seed/dtype/attn/width/use_pallas``).
+    input_size/num_classes/seed/dtype/attn/width/use_pallas``, and
+    SwinV2's ``depths`` and ``window``; its ``depths`` and ``heads`` are
+    dash lists, a number a stage).
     Samples: tensor 0 = frames (B, H, W, 3) uint8, tensor 1 = labels (B,)
     int32.
     """
@@ -484,7 +488,8 @@ class MeshVisionTrainer(_MeshStreamTrainer):
     NAME = "mesh-vision"
 
     _MODEL_KEYS = ("seed", "num_classes", "input_size", "patch", "dim",
-                   "depth", "heads", "dtype", "attn", "width", "use_pallas")
+                   "depth", "heads", "dtype", "attn", "width", "use_pallas",
+                   "depths", "window")
 
     def _build(self) -> None:
         from ..models.registry import get_model
@@ -504,6 +509,11 @@ class MeshVisionTrainer(_MeshStreamTrainer):
 
             loaders = {"vit": vit.load_flax,
                        "mobilenet_v2": mobilenet_v2.load_flax}
+            if self._model.name not in loaders:
+                raise ValueError(
+                    f"{self.NAME}: load_params takes the JAX package's "
+                    f"parameters of {sorted(loaders)}; model "
+                    f"{self._model.name!r} has no such loader")
             loaders[self._model.name](self._model.module, self._carry)
         step, self._params, self._opt, _ = make_vision_train_step(
             self._mesh, self._model, lr=float(p.get("lr", 1e-3)))

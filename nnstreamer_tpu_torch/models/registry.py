@@ -178,7 +178,7 @@ def _rebuild(tree: Any, flat: Dict[str, torch.Tensor], prefix: str = ""):
 
 def _ensure_loaded() -> None:
     from . import (deeplab_v3, mlp, mobilenet_v2, posenet,  # noqa: F401
-                   ssd, streamformer_lm, vit)
+                   ssd, streamformer_lm, swin_v2, vit)
 
 
 def get_model(name: str, custom_props: Optional[Dict[str, str]] = None,

@@ -48,27 +48,30 @@ _LN_EPS = 1e-6
 
 class _LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: statistics in f32 with the fast variance,
-    eps 1e-6, the result cast back to the input's dtype
+    eps 1e-6 unless given, the result cast back to the input's dtype
     (ops/layer_norm.py: the hand-written kernels on the card, the plain
     expression on the CPU)."""
 
-    def __init__(self, dim: int) -> None:
+    def __init__(self, dim: int, eps: float = _LN_EPS) -> None:
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, _LN_EPS)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class _Dense(nn.Linear):
-    """flax ``Dense(dtype=...)``: the kernel and bias are cast to the
-    compute dtype (the input's) at each call, so f32 parameters train
-    through a bf16 product and the gradient flows back through the cast.
-    The serving module's weights are already in that dtype: no cast."""
+    """flax ``Dense(dtype=...)``: the kernel and bias (where it has one)
+    are cast to the compute dtype (the input's) at each call, so f32
+    parameters train through a bf16 product and the gradient flows back
+    through the cast.  The serving module's weights are already in that
+    dtype: no cast."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 class _Conv(nn.Conv2d):

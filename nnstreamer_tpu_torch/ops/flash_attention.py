@@ -32,6 +32,18 @@ batch axis, ``(B, T, H, D)``, which the kernels take as a grid axis, as
   in f32;
 - a row that sees no key gives ``out`` 0 and ``lse`` −inf (not NaN).
 
+With ``bias`` (a float32 ``(H, Tq, Tkv)`` added to every batch row's
+scores, SwinV2's learned position bias) and optionally ``regions`` (int32
+``(G, T)`` region labels: batch row ``b``'s pair ``(i, j)`` takes
+:data:`REGION_MASK` where ``regions[b mod G]`` differs at ``i`` and ``j``,
+SwinV2's mask of a cyclically shifted window), the scores are ``scale
+q·kᵀ + bias (+ mask)``, and the backward also returns the bias's gradient,
+``dbias = Σ_b p·(dp − delta)``.  On the card these run in kernels of their
+own (``csrc/flash_attention_bias.cu``, its library built at the first
+biased call; f16 and bf16 at head dims up to 128 and up to
+:data:`MAX_BIASED_TOKENS` queries and keys, any other raises), so a call
+without a bias builds and launches what it did.
+
 A call that needs a gradient goes through :class:`_FlashFn`, the
 ``jax.custom_vjp`` of the JAX package: the forward saves ``(q, k, v, out,
 lse)``; the backward recomputes each probability tile from ``lse`` with
@@ -62,6 +74,15 @@ _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 #: the kernels' largest batch (their grid's z extent)
 MAX_BATCH = 65535
+#: the score a biased call gives a pair of tokens from different regions
+#: (SwinV2's shifted-window mask)
+REGION_MASK = -100.0
+#: the integer types region labels may come in (the kernels read int32)
+_LABEL_DTYPES = (torch.int32, torch.int64, torch.int16, torch.int8,
+                 torch.uint8)
+#: the biased kernels' widest query and key axes, and head dim
+MAX_BIASED_TOKENS = 256
+MAX_BIASED_HEAD_DIM = 128
 
 
 def flash_is_default(x: torch.Tensor) -> bool:
@@ -119,12 +140,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"{v.dtype}")
 
 
+def _scale(scale: Optional[float], d: int) -> float:
+    """The scores' scale: ``scale``, or ``1 / sqrt(D)`` where it is None."""
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def region_mask(regions: torch.Tensor, batch: int) -> torch.Tensor:
+    """The additive mask of region labels ``(G, T)`` for ``batch`` rows,
+    ``(batch, T, T)`` f32: :data:`REGION_MASK` where row ``b``'s labels
+    (``regions[b mod G]``) differ at the query and the key, else 0."""
+    lab = regions[torch.arange(batch, device=regions.device)
+                  % regions.shape[0]]
+    return (lab[:, :, None] != lab[:, None, :]).float() * REGION_MASK
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int,
-            k_offset: int):
-    """f32 scaled scores ``([B,] H, Tq, Tkv)`` and the mask of the
-    visible (query, key) pairs (None when every pair is visible)."""
+            k_offset: int, scale: Optional[float] = None,
+            bias: Optional[torch.Tensor] = None,
+            regions: Optional[torch.Tensor] = None):
+    """f32 scaled scores ``([B,] H, Tq, Tkv)`` with the bias and region
+    mask added, and the mask of the visible (query, key) pairs (None when
+    every pair is visible)."""
     s = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float()) \
-        * (1.0 / math.sqrt(q.shape[-1]))
+        * _scale(scale, q.shape[-1])
+    if bias is not None:
+        s = s + bias.float()
+    if regions is not None:
+        mask = region_mask(regions, q.shape[0] if q.dim() == 4 else 1)
+        s = s + (mask[:, None] if q.dim() == 4 else mask)
     if not causal:
         return s, None
     qpos = q_offset + torch.arange(q.shape[-3], device=q.device)
@@ -135,12 +178,16 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int,
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = False,
                               q_offset: int = 0, k_offset: int = 0,
-                              return_lse: bool = False):
-    """Plain version of K2: the whole score matrix at once, with the
-    kernel's row semantics — ``out = Σ exp(s − m)·v / max(l, 1e-20)`` and
-    ``lse = m + log l``, so a row with no visible key gives 0 and −inf
-    where a plain softmax would give NaN."""
-    s, visible = _scores(q, k, causal, q_offset, k_offset)
+                              return_lse: bool = False,
+                              scale: Optional[float] = None,
+                              bias: Optional[torch.Tensor] = None,
+                              regions: Optional[torch.Tensor] = None):
+    """Plain version of K2 and of its biased variant: the whole score
+    matrix at once, with the kernel's row semantics — ``out = Σ exp(s −
+    m)·v / max(l, 1e-20)`` and ``lse = m + log l``, so a row with no
+    visible key gives 0 and −inf where a plain softmax would give NaN."""
+    s, visible = _scores(q, k, causal, q_offset, k_offset, scale, bias,
+                         regions)
     if visible is not None:
         s = s.masked_fill(~visible, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
@@ -159,15 +206,21 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_backward_reference(q, k, v, dout, lse, delta,
                                        causal: bool = False,
-                                       q_offset: int = 0, k_offset: int = 0):
-    """Plain version of K3 and K4 together: ``(dq, dk, dv)`` in the
-    inputs' dtypes from the saved ``lse`` and ``delta ([B,] H, Tq)``.
+                                       q_offset: int = 0, k_offset: int = 0,
+                                       scale: Optional[float] = None,
+                                       bias: Optional[torch.Tensor] = None,
+                                       regions: Optional[torch.Tensor] = None):
+    """Plain version of K3 and K4 together (and of their biased variants):
+    ``(dq, dk, dv)`` in the inputs' dtypes from the saved ``lse`` and
+    ``delta ([B,] H, Tq)``, and with ``bias`` also ``dbias (H, Tq, Tkv)``
+    in f32.
 
     ``p = exp(s − lse)`` with ``_recompute_p``'s semantics — masked pairs
-    and rows with ``lse = −inf`` give exactly 0 — then ``ds = p·(dO·vᵀ −
-    delta)/sqrt(D)``, ``dq = ds·k``, ``dk = dsᵀ·q`` and ``dv = pᵀ·dO``, all
-    in f32."""
-    s, visible = _scores(q, k, causal, q_offset, k_offset)
+    and rows with ``lse = −inf`` give exactly 0 — then ``g = p·(dO·vᵀ −
+    delta)``, ``ds = g·scale`` (``1/sqrt(D)`` by default), ``dq = ds·k``,
+    ``dk = dsᵀ·q``, ``dv = pᵀ·dO`` and ``dbias = Σ_b g``, all in f32."""
+    s, visible = _scores(q, k, causal, q_offset, k_offset, scale, bias,
+                         regions)
     live = torch.isfinite(lse)[..., None]
     if visible is not None:
         live = live & visible
@@ -175,11 +228,15 @@ def flash_attention_backward_reference(q, k, v, dout, lse, delta,
                     torch.zeros_like(s))
     dof = dout.float()
     dp = torch.einsum("...qhd,...khd->...hqk", dof, v.float())
-    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+    g = p * (dp - delta[..., None])
+    ds = g * _scale(scale, q.shape[-1])
     dq = torch.einsum("...hqk,...khd->...qhd", ds, k.float())
     dk = torch.einsum("...hqk,...qhd->...khd", ds, q.float())
     dv = torch.einsum("...hqk,...qhd->...khd", p, dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if bias is None:
+        return grads
+    return grads + (g.sum(0) if q.dim() == 4 else g,)
 
 
 # ---------------------------------------------------------------------------
@@ -226,9 +283,9 @@ FORWARD_VERSIONS = {1: "two warpgroups a block, 64 keys a stage",
                        "head dim past 128)"}
 
 
-def _kernel_forward(q, k, v, causal, q_offset, k_offset):
+def _kernel_forward(q, k, v, causal, q_offset, k_offset, scale=None):
     """K2: (out, lse) on the current stream (no sync)."""
-    return _launch_forward(q, k, v, causal, q_offset, k_offset, 0)
+    return _launch_forward(q, k, v, causal, q_offset, k_offset, 0, scale)
 
 
 def flash_attention_version(q, k, v, version: int, causal: bool = False,
@@ -242,7 +299,7 @@ def flash_attention_version(q, k, v, version: int, causal: bool = False,
 
 
 def _launch_forward(q, k, v, causal: bool, q_offset: int, k_offset: int,
-                    version: int):
+                    version: int, scale: Optional[float] = None):
     _require_card("flash_attention", q, k, v)
     q4, k4, v4 = _batched(q), _batched(k), _batched(v)
     b, tq, h, d = q4.shape
@@ -263,7 +320,7 @@ def _launch_forward(q, k, v, causal: bool, q_offset: int, k_offset: int,
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), b, tq, tkv, h, d, *_strides(q4),
                   *_strides(k4), *_strides(v4), int(bool(causal)),
-                  int(q_offset), int(k_offset), 1.0 / math.sqrt(d),
+                  int(q_offset), int(k_offset), _scale(scale, d),
                   _DTYPES[q.dtype], stream, *([version] if version else []))
     _cuda.check(lib, code, "flash_attention")
     _cuda.launches["flash_attention"] += 1
@@ -276,7 +333,7 @@ _BWD_TAIL = [_I] * 5 + [_LL] * 12 + [_I, _LL, _LL, ctypes.c_float, _I, _P]
 
 
 def _bwd_launch(which: str, q, k, v, dout, lse, delta, causal, q_offset,
-                k_offset):
+                k_offset, scale=None):
     """One backward kernel on the current stream (no sync): ``which`` is
     ``"dq"`` (K3, returns dq) or ``"dkv"`` (K4, returns (dk, dv))."""
     _require_card("flash_attention backward", q, k, v, dout)
@@ -301,7 +358,7 @@ def _bwd_launch(which: str, q, k, v, dout, lse, delta, causal, q_offset,
                   *(g.data_ptr() for g in grads), b, tq, tkv, h, d,
                   *_strides(q4), *_strides(k4), *_strides(v4),
                   *_strides(o4), int(bool(causal)), int(q_offset),
-                  int(k_offset), 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+                  int(k_offset), _scale(scale, d), _DTYPES[q.dtype],
                   stream)
     _cuda.check(lib, code, f"flash_attention backward ({which})")
     _cuda.launches[f"flash_attention_bwd_{which}"] += 1
@@ -309,33 +366,193 @@ def _bwd_launch(which: str, q, k, v, dout, lse, delta, causal, q_offset,
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
-                           q_offset=0, k_offset=0) -> torch.Tensor:
+                           q_offset=0, k_offset=0, scale=None) -> torch.Tensor:
     """K3 alone: dq from the saved ``lse`` and ``delta`` (CUDA tensors)."""
     return _bwd_launch("dq", q, k, v, dout, lse, delta, causal, q_offset,
-                       k_offset)
+                       k_offset, scale)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
-                            q_offset=0, k_offset=0):
+                            q_offset=0, k_offset=0, scale=None):
     """K4 alone: (dk, dv) from the saved ``lse`` and ``delta`` (CUDA
     tensors)."""
     return _bwd_launch("dkv", q, k, v, dout, lse, delta, causal, q_offset,
-                       k_offset)
+                       k_offset, scale)
 
 
-def _forward(q, k, v, causal, q_offset, k_offset):
+# ---------------------------------------------------------------------------
+# the biased kernels (csrc/flash_attention_bias.cu)
+# ---------------------------------------------------------------------------
+
+#: argument types after a biased entry point's own pointers: bias,
+#: regions, groups, b, tq, tkv, h, d, the 12 strides, scale, dtype, stream
+_BIASED_TAIL = [_P, _P, _I] + [_I] * 5 + [_LL] * 12 + [ctypes.c_float, _I,
+                                                       _P]
+
+
+def _check_biased(q, k, bias, regions) -> None:
+    """The operands of a biased call: ``bias`` ``(H, Tq, Tkv)``,
+    ``regions`` an integer ``(G, T)`` with ``Tq == Tkv == T``, both on
+    q's device; and on the card what the kernels take."""
+    h, tq, tkv = q.shape[-2], q.shape[-3], k.shape[-3]
+    if tuple(bias.shape) != (h, tq, tkv) or bias.device != q.device:
+        raise ValueError(f"flash_attention: bias must be ({h}, {tq}, {tkv}) "
+                         f"on {q.device}, got {tuple(bias.shape)} on "
+                         f"{bias.device}")
+    if regions is not None:
+        if (regions.dim() != 2 or regions.shape[1] != tq or tq != tkv
+                or regions.shape[0] < 1 or regions.device != q.device
+                or regions.dtype not in _LABEL_DTYPES):
+            raise ValueError(f"flash_attention: regions must be integer (G, "
+                             f"{tq}) labels on {q.device} with Tq == Tkv, "
+                             f"got {tuple(regions.shape)} {regions.dtype} "
+                             f"for Tkv {tkv}")
+    if not q.is_cuda:
+        return
+    if q.dtype not in (torch.float16, torch.bfloat16):
+        raise TypeError(f"flash_attention: the biased kernels take float16 "
+                        f"and bfloat16, got {q.dtype}")
+    if (q.shape[-1] > MAX_BIASED_HEAD_DIM or tq > MAX_BIASED_TOKENS
+            or tkv > MAX_BIASED_TOKENS):
+        raise ValueError(f"flash_attention: the biased kernels take head "
+                         f"dims up to {MAX_BIASED_HEAD_DIM} and up to "
+                         f"{MAX_BIASED_TOKENS} queries and keys, got "
+                         f"{q.shape[-1]}, {tq} and {tkv}")
+
+
+def _biased_args(q4, k4, v4, o4, bias, regions, scale, dtype, stream):
+    """The tail of a biased entry point's arguments (:data:`_BIASED_TAIL`)
+    for the (B, T, H, D) views."""
+    b, tq, h, d = q4.shape
+    return [bias.data_ptr(), None if regions is None else regions.data_ptr(),
+            1 if regions is None else regions.shape[0], b, tq, k4.shape[1],
+            h, d, *_strides(q4), *_strides(k4), *_strides(v4),
+            *_strides(o4), _scale(scale, d), _DTYPES[dtype], stream]
+
+
+def _biased_operands(bias, regions):
+    """bias as contiguous f32 and regions as contiguous int32, each 16-byte
+    aligned (the kernels read them in pairs)."""
+    bias = bias.float().contiguous()
+    if regions is not None:
+        regions = regions.to(torch.int32).contiguous()
+    return tuple(None if x is None else x.clone() if x.data_ptr() % 16 else x
+                 for x in (bias, regions))
+
+
+def _launch_biased_forward(q, k, v, bias, regions, scale):
+    """The biased K2: (out, lse) on the current stream (no sync)."""
+    _require_card("flash_attention", q, k, v)
+    bias, regions = _biased_operands(bias, regions)
+    q4, k4, v4 = _batched(q), _batched(k), _batched(v)
+    b, tq, h, _ = q4.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:-3] + (h, tq), dtype=torch.float32,
+                      device=q.device)
+    lib, fn = _fn("flash_attention_bias", "nns_flash_biased_fwd",
+                  [_P] * 5 + [_I] + _BIASED_TAIL)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), windows_per_block(b, tq, h, q.device),
+                  *_biased_args(q4, k4, v4, q4, bias, regions, scale,
+                                q.dtype, stream))
+    _cuda.check(lib, code, "flash_attention (biased)")
+    _cuda.launches["flash_attention_bias"] += 1
+    _cuda.rows["flash_attention_bias"] += b
+    return out, lse
+
+
+def windows_per_block(b: int, t: int, h: int, device) -> int:
+    """Batch rows (windows) a block of a biased kernel takes one after
+    another (its rows of the bias read once; K3 sums their part of dbias):
+    as many as leave about four blocks an SM for ``t`` rows of ``h``
+    heads (fewer groups, fewer reads of the bias and partials to sum)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-t // 64) * h
+    groups = min(b, max(1, -(-4 * sms // tiles)))
+    return -(-b // groups)
+
+
+def _launch_biased_backward(q, k, v, dout, lse, delta, bias, regions,
+                            scale):
+    """The biased K3 (dq and the groups' partials of dbias), the partials'
+    sum and K4 on the current stream (no sync): (dq, dk, dv, dbias)."""
+    _require_card("flash_attention backward", q, k, v, dout)
+    bias, regions = _biased_operands(bias, regions)
+    q4, k4, v4, o4 = _batched(q), _batched(k), _batched(v), _batched(dout)
+    b, tq, h, _ = q4.shape
+    tkv = k4.shape[1]
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    per_block = windows_per_block(b, tq, h, q.device)
+    groups = -(-b // per_block)
+    partial = torch.empty((groups, h, tq, tkv), dtype=torch.float32,
+                          device=q.device)
+    dbias = torch.empty((h, tq, tkv), dtype=torch.float32, device=q.device)
+    lib, fn_dq = _fn("flash_attention_bias", "nns_flash_biased_bwd_dq",
+                     [_P] * 8 + [_I] + _BIASED_TAIL)
+    _, fn_dkv = _fn("flash_attention_bias", "nns_flash_biased_bwd_dkv",
+                    [_P] * 8 + [_I] + _BIASED_TAIL)
+    _, fn_sum = _fn("flash_attention_bias", "nns_flash_biased_dbias_sum",
+                    [_P, _P, _I, _LL, _P])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        tail = _biased_args(q4, k4, v4, o4, bias, regions, scale, q.dtype,
+                            stream)
+        _cuda.check(lib, fn_dq(*ptrs, dq.data_ptr(), partial.data_ptr(),
+                               per_block, *tail),
+                    "flash_attention backward (biased dq)")
+        _cuda.check(lib, fn_sum(partial.data_ptr(), dbias.data_ptr(), groups,
+                                dbias.numel(), stream),
+                    "flash_attention backward (dbias sum)")
+        _cuda.check(lib, fn_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                                windows_per_block(b, tkv, h, q.device),
+                                *tail),
+                    "flash_attention backward (biased dkv)")
+    for name in ("flash_attention_bias_bwd_dq",
+                 "flash_attention_bias_bwd_dkv"):
+        _cuda.launches[name] += 1
+        _cuda.rows[name] += b
+    _cuda.launches["flash_attention_bias_dbias_sum"] += 1
+    return dq, dk, dv, dbias
+
+
+def _forward(q, k, v, causal, q_offset, k_offset, scale=None):
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, q_offset, k_offset,
-                                         return_lse=True)
-    return _kernel_forward(q, k, v, causal, q_offset, k_offset)
+                                         return_lse=True, scale=scale)
+    return _kernel_forward(q, k, v, causal, q_offset, k_offset, scale)
 
 
-def _backward(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
+def _backward(q, k, v, dout, lse, delta, causal, q_offset, k_offset,
+              scale=None):
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, dout, lse, delta,
-                                                  causal, q_offset, k_offset)
-    args = (q, k, v, dout, lse, delta, causal, q_offset, k_offset)
+                                                  causal, q_offset, k_offset,
+                                                  scale)
+    args = (q, k, v, dout, lse, delta, causal, q_offset, k_offset, scale)
     return (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
+
+
+def _delta(dout, out, dlse):
+    """``(dout, delta)``: dO made whole where it is None and contiguous in
+    the head dim, and ``delta = rowsum(dO ∘ out)`` in f32 less the lse
+    cotangent, ``([B,] H, Tq)``."""
+    if dout is None:
+        dout = torch.zeros_like(out)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    # D_i = dO_i · O_i from the returned (rounded) out, in f32
+    delta = (dout.float() * out.float()).sum(-1).transpose(-1, -2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return dout, delta
 
 
 class _FlashFn(torch.autograd.Function):
@@ -344,32 +561,59 @@ class _FlashFn(torch.autograd.Function):
     when ``lse`` went unused) into ``delta``, as ``_flash_lse_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset, k_offset):
-        out, lse = _forward(q, k, v, causal, q_offset, k_offset)
+    def forward(ctx, q, k, v, causal, q_offset, k_offset, scale):
+        out, lse = _forward(q, k, v, causal, q_offset, k_offset, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, q_offset, k_offset)
+        ctx.args = (causal, q_offset, k_offset, scale)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout is None:
-            dout = torch.zeros_like(out)
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
-        # D_i = dO_i · O_i from the returned (rounded) out, in f32
-        delta = (dout.float() * out.float()).sum(-1).transpose(-1, -2)
-        if dlse is not None:
-            delta = delta - dlse.float()
+        dout, delta = _delta(dout, out, dlse)
         dq, dk, dv = _backward(q, k, v, dout, lse, delta, *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
+
+
+class _FlashBiasFn(torch.autograd.Function):
+    """:class:`_FlashFn` with a bias and region labels: the backward also
+    returns the bias's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, regions, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_reference(
+                q, k, v, return_lse=True, scale=scale, bias=bias,
+                regions=regions)
+        else:
+            out, lse = _launch_biased_forward(q, k, v, bias, regions, scale)
+        ctx.save_for_backward(q, k, v, out, lse, bias, regions)
+        ctx.scale = scale
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse, bias, regions = ctx.saved_tensors
+        dout, delta = _delta(dout, out, dlse)
+        if q.device.type == "cpu":
+            grads = flash_attention_backward_reference(
+                q, k, v, dout, lse, delta, scale=ctx.scale, bias=bias,
+                regions=regions)
+        else:
+            grads = _launch_biased_backward(q, k, v, dout, lse, delta, bias,
+                                            regions, ctx.scale)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, block_q: Optional[int] = None,
                     block_k: Optional[int] = None, q_offset: int = 0,
-                    k_offset: int = 0, return_lse: bool = False):
+                    k_offset: int = 0, return_lse: bool = False,
+                    scale: Optional[float] = None,
+                    bias: Optional[torch.Tensor] = None,
+                    regions: Optional[torch.Tensor] = None):
     """Exact attention over ``q ([B,] Tq, H, D)``, ``k, v ([B,] Tkv, H,
     D)``.
 
@@ -383,13 +627,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kept for signature parity with the JAX package and never change the
     result: the kernels' tiles are their own.  ``return_lse`` also returns
     the per-row logsumexp ``([B,] H, Tq)`` f32; both outputs are
-    differentiable.  Float32, float16 and bfloat16, at any head dim."""
+    differentiable.  Float32, float16 and bfloat16, at any head dim.
+    ``scale`` multiplies the scores (default ``1 / sqrt(D)``).
+
+    ``bias`` (``(H, Tq, Tkv)``, added to every batch row's scores in f32;
+    differentiable) and ``regions`` (integer ``(G, T)`` labels, the mask
+    :func:`region_mask` makes of them) take the biased kernels (module
+    doc); they do not combine with ``causal`` or offsets."""
     del block_q, block_k
     _check(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if bias is not None:
+        if causal or q_offset or k_offset:
+            raise ValueError("flash_attention: a bias takes no causal mask "
+                             "or offsets")
+        _check_biased(q, k, bias, regions)
+        out, lse = _FlashBiasFn.apply(q, k, v, bias, regions, scale)
+    elif regions is not None:
+        raise ValueError("flash_attention: regions need a bias")
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                      or v.requires_grad):
         out, lse = _FlashFn.apply(q, k, v, bool(causal), int(q_offset),
-                                  int(k_offset))
+                                  int(k_offset), scale)
     else:
-        out, lse = _forward(q, k, v, causal, q_offset, k_offset)
+        out, lse = _forward(q, k, v, causal, q_offset, k_offset, scale)
     return (out, lse) if return_lse else out

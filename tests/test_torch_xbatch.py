@@ -569,6 +569,8 @@ SMALL = {
     "ssd_mobilenet_v2": {"input_size": "33"},
     "deeplab_v3": {"input_size": "33"},
     "posenet": {"input_size": "33"},
+    "swin_v2": {"input_size": "32", "dim": "32", "depths": "2-2",
+                "heads": "2-4", "window": "4", "num_classes": "10"},
 }
 
 
